@@ -1,0 +1,65 @@
+"""Gaussian random field realization.
+
+Counterpart of :mod:`nbody.ic.gaussian`: unit real white noise, FFT'd, so
+the Hermitian symmetry of delta(k) is structural, scaled by
+sqrt(P(k) N^3 / V).  The noise comes from an explicit ``torch.Generator``
+or is handed in (a test feeds the JAX package's own noise, since JAX's
+threefry and torch's Philox give different numbers for one seed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from nbody_torch.mesh.grids import kmag
+
+
+@dataclasses.dataclass(frozen=True)
+class GRFSpec:
+    """Specification of a Gaussian random field realization."""
+
+    nmesh: int
+    box: float
+    convention: str = "grid"   # or "fac" (reference parity)
+
+
+def white_noise_k(nmesh: int, generator: torch.Generator | None = None, *,
+                  noise=None, device=None, dtype=torch.float32):
+    """rfftn of unit real white noise: Hermitian, <|w_k|^2> = N^3.
+
+    The noise is drawn in float64 on the generator's device and cast, so
+    one seed gives the same field (to the dtype's rounding) for every
+    ``device`` and ``dtype``; or it is ``noise``, a real (nmesh,)*3
+    array."""
+    if noise is None:
+        gen_device = generator.device if generator is not None else "cpu"
+        w = torch.randn((nmesh,) * 3, generator=generator, device=gen_device,
+                        dtype=torch.float64).to(device=device, dtype=dtype)
+    else:
+        w = torch.as_tensor(np.array(noise), device=device, dtype=dtype)
+        if w.shape != (nmesh,) * 3:
+            raise ValueError(f"noise shape {tuple(w.shape)} != {(nmesh,) * 3}")
+    return torch.fft.rfftn(w)
+
+
+def gaussian_delta_k(spec: GRFSpec, power: Callable, amplitude: float = 1.0,
+                     generator: torch.Generator | None = None, *, noise=None,
+                     device=None, dtype=torch.float32):
+    """delta(k) on the rfft grid for the isotropic spectrum ``power(k)``
+    (host numpy callable, k in 1/length -> P in length^3), in the 'grid'
+    measurement convention (or 'fac').  ``amplitude`` multiplies P(k)."""
+    nmesh, box = spec.nmesh, spec.box
+    wk = white_noise_k(nmesh, generator, noise=noise, device=device,
+                       dtype=dtype)
+    km = kmag(nmesh, box, rfft=True, dtype=torch.float64).numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):  # k = 0, zeroed below
+        amp2 = amplitude * np.asarray(power(km)) * (nmesh**3 / box**3)
+    if spec.convention == "fac":
+        amp2 = amp2 * (2.0 * np.pi)
+    amp = np.sqrt(np.maximum(amp2, 0.0))
+    amp[0, 0, 0] = 0.0  # zero the DC mode (mean overdensity 0)
+    return wk * torch.as_tensor(amp, device=wk.device, dtype=dtype)

@@ -1,0 +1,76 @@
+"""Make the JAX-side reference data that the torch port is held to on the
+GPU, where JAX is not installed.
+
+Writes, under ``tests/data/torch_port/``:
+
+* ``white_noise_n16_seed0.npy``: the real white noise (16, 16, 16)
+  float32 that ``nbody.driver.simulate.realize_ics`` draws for
+  ``SimulationConfig(n_side=16)`` and seed 0;
+* ``powerspec_a=1.00_n16_seed0``: the JAX package's CONCEPT-format P(k)
+  at a = 1 of that run (142 fixed steps, P3M dense tier), float32 on the
+  CPU.
+
+It also checks that the port's ICs from the saved noise equal the JAX
+package's ICs.  Run from the repository root on a CPU machine with JAX:
+
+    python scripts/torch_port_reference.py
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import sys
+import tempfile
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ.setdefault("NBODY_NO_COMPILE_CACHE", "1")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from nbody.driver.config import OutputConfig, SimulationConfig  # noqa: E402
+from nbody.driver.simulate import realize_ics, run_simulation  # noqa: E402
+
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "tests", "data", "torch_port")
+SEED = 0
+CONFIG = SimulationConfig(n_side=16, output=OutputConfig(snapshot=False))
+
+
+def main() -> None:
+    jax.config.update("jax_platforms", "cpu")
+    os.makedirs(OUT, exist_ok=True)
+    # the draw inside lpt_ic -> gaussian_delta_k -> white_noise_k
+    noise = np.asarray(jax.random.normal(
+        jax.random.key(SEED), (CONFIG.n_side,) * 3, jnp.float32))
+    np.save(os.path.join(OUT, "white_noise_n16_seed0.npy"), noise)
+
+    import torch
+
+    from nbody_torch.driver import SimulationConfig as TorchConfig
+    from nbody_torch.driver.simulate import realize_ics as torch_ics
+
+    ref = realize_ics(CONFIG, SEED)
+    port = torch_ics(TorchConfig.from_dict(CONFIG.to_dict()), SEED,
+                     device="cpu", dtype=torch.float32, noise=noise)
+    d = np.asarray(ref.pos) - port.pos.numpy()
+    d -= CONFIG.box * np.round(d / CONFIG.box)
+    dv = np.abs(np.asarray(ref.vel) - port.vel.numpy()).max()
+    print(f"ICs from the saved noise: max |dpos| {np.abs(d).max():.3e} Mpc, "
+          f"max |dvel| / max |vel| {dv / np.abs(np.asarray(ref.vel)).max():.3e}")
+    if np.abs(d).max() > 1e-3 or dv > 1e-4 * np.abs(np.asarray(ref.vel)).max():
+        raise SystemExit("port ICs differ from the JAX ICs")
+
+    with tempfile.TemporaryDirectory() as work:
+        res = run_simulation(CONFIG, SEED, work)
+        name = os.path.basename(res.powerspecs[-1])
+        shutil.copy(res.powerspecs[-1],
+                    os.path.join(OUT, f"{name}_n16_seed0"))
+        print(f"JAX run: {res.wall_s:.1f} s, wrote {name}_n16_seed0")
+
+
+if __name__ == "__main__":
+    main()
