@@ -1,4 +1,4 @@
-"""Quickest proof that the torch port runs its main path on one GPU.
+"""Quickest proof that the torch port runs its main paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -11,22 +11,43 @@ script exits non-zero:
    version in float64, on the card, at the default run's shape
    (N = 32,768, box 500 Mpc, mesh 64), for all four split x softening
    variants, with both times;
-4. the wrapper's argument checks raise on the card;
-5. the default ``SimulationConfig()`` run (32^3 particles, P3M, 142 steps)
-   through ``nbody_torch.driver.simulate.run_simulation`` on "cuda", with
-   K1's launch count, wall time and steps/s (no snapshot: it needs h5py);
+4. the wrappers' argument checks raise on the card (K1-K4);
+5. the default ``SimulationConfig()`` run (32^3 particles, P3M dense tier,
+   142 steps) through ``nbody_torch.driver.simulate.run_simulation`` on
+   the card, with K1's launch count, wall time and steps/s (no snapshot:
+   it needs h5py);
 6. the 16^3 run from the JAX package's committed white noise, whose P(k)
-   at a = 1 must match the JAX package's committed P(k).
+   at a = 1 must match the JAX package's committed P(k);
+7. K2 (supercell deposit) and K3 (fused PM readback + column pair sum,
+   plain, interlaced and split_out) against their plain versions on the
+   supercell tier's plane of the 64^3 production run, and K4 (column pair
+   sum) on its columns tier's plane: on the ICs at the geometry each run
+   starts from (the driver's own pre-warm and heal rules), and again on
+   the final state of each run of phase 9 at its healed geometry;
+8. the supercell, columns and dense tiers of ``p3m_acc`` agree at the
+   64^3 ICs;
+9. the 64^3 production run (``cfg64``: 64^3 particles, box 500 Mpc, mesh
+   128, 142 steps, spline softening; the supercell tier) through
+   ``run_simulation`` with no device argument, with its pre-warms, heals,
+   K2/K3 launch counts, wall time and steps/s; then the same run on the
+   columns tier (``shortrange='columns'``), which launches K4;
+10. the 16^3 supercell run from the committed white noise against the
+    JAX package's committed supercell P(k).
 
-The line before the last is a JSON object of the kernels on the path;
-the last line is ``{"ok": true, "device": {...}}``.  Run outputs go to
-``output/chip_smoke/`` (git-ignored).
+The line before the last but one is a JSON object of the four kernels
+(launches from the run of each kernel's path, errors and times from phases
+3 and 7, and each kernel's bound: the larger of its bytes over the card's
+memory rate and its operations over its float32 rate); then the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+Run outputs go to ``output/chip_smoke/`` (git-ignored).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -43,15 +64,43 @@ PORT_DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 # targets.  float32 positions, r^2 and rsqrtf (2 ulp) with ~100 pairs
 # inside r_cut per target give a few 1e-7..1e-6; 1e-4 leaves room for
 # the pairs' partial cancellation while catching a wrong pair set or
-# weight (a single missing neighbour is an O(1e-2) error).
+# weight (a single missing neighbour is an O(1e-2) error).  K3 and K4
+# sum the same pairs from a float32 plane and K3 adds a float32 CIC read
+# of the force grids, so the same reasoning and bound hold.
 K1_REL_L2_TOL = 1e-4
-# 16^3 run from the JAX noise: float32 on the card against the JAX
+FORCE_REL_L2_TOL = 1e-4
+# K2 against its float32 plain version (the same coordinates, rounded op
+# by op): only the order of the float32 sums differs, the kernel's adds
+# being atomic; relative to the largest node mass
+NODE_MASS_TOL = 1e-5
+# the three tiers at the 64^3 ICs: max |difference| / max |acc|, the JAX
+# package's tier-vs-tier tolerance (tests/test_supercell.py)
+TIER_TOL = 2e-5
+# 16^3 runs from the JAX noise: float32 on the card against the JAX
 # package's float32 CPU run over 142 steps, bin by bin for
 # k <= k_Nyquist/2 of the PM mesh.  The two agree to a few 1e-6 (on a
 # CPU and on the card); 1e-3 leaves that two orders of magnitude for
 # summation order (atomic CIC deposits, cuFFT) while a wrong force,
 # step or measurement moves P(k) by far more.
 PK_REL_TOL = 1e-3
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): float32 outside the tensor cores and device memory.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# float32 operations per source visit, as the kernels are written (an FMA
+# counts 2): K1 3 differences + 3 minimum images (multiply, round, FMA)
+# + r^2 (5) + the cutoff test (2); the column kernels the same without
+# the minimum image; and the weight of a visit inside r_cut (rsqrt, the
+# split and softening polynomials, the mass and three FMAs).
+FLOPS_VISIT_K1 = 22
+FLOPS_VISIT_COLUMNS = 10
+FLOPS_INSIDE = 40
+# K2: the coordinates (3 x multiply, 2 subtractions), floors and
+# fractions, and 8 corner weights and adds
+FLOPS_DEPOSIT = 50
+# K3's PM read per target: 8 corners x (weight + 3 FMAs)
+FLOPS_PM_READ = 8 * 8
 
 
 def phase(msg: str) -> None:
@@ -71,19 +120,436 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, what sets it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_l2(got, ref) -> float:
+    return float((got.double() - ref).norm() / ref.norm())
+
+
+def max_abs(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max())
+
+
+def count_inside_dense(pos, box: float, r_cut: float) -> int:
+    """Minimum-image pairs (self pairs included) with r^2 < r_cut^2: the
+    visits on which K1 evaluates the weight."""
+    n = pos.shape[0]
+    step = max(1, (1 << 26) // n)
+    inside = 0
+    for i0 in range(0, n, step):
+        d = pos[None, :, :] - pos[i0:i0 + step, None, :]
+        d -= box * torch.round(d / box)
+        inside += int(((d * d).sum(-1).clamp_min(1e-30) < r_cut**2).sum())
+    return inside
+
+
+def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
+    """K1-K4's wrappers refuse what their kernels do not take."""
+    from nbody_torch.forces.p3m import p3m_short_acc
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        plane_geometry,
+        run_column_plane,
+    )
+    from nbody_torch.forces.pm_supercell import (
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_params,
+    )
+
+    bad = {
+        "K1 float64": lambda: p3m_short_acc(pos.double(), mass.double(), box,
+                                            eps, r_s, r_cut, G),
+        "K1 non-contiguous": lambda: p3m_short_acc(pos.T.contiguous().T, mass,
+                                                   box, eps, r_s, r_cut, G),
+        "K1 shape": lambda: p3m_short_acc(pos[:, :2].contiguous(), mass, box,
+                                          eps, r_s, r_cut, G),
+    }
+    nmesh = 64
+    _, rc, ncell, ck, w = supercell_params(box, nmesh, pos.shape[0])
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, rc, ck, w)
+    plane, ws, nch, _, _, _, counts = build_column_plane(
+        pos, mass, box, rc, ncell, CK, W, chunk=chunk)
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=eps, r_s=r_s, r_cut=rc, split="spline",
+              softening="spline")
+    grids = torch.zeros((3, nmesh, nmesh, nmesh), device=pos.device)
+    dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz)
+    bad.update({
+        "K4 float64 plane": lambda: run_column_plane(plane.double(), ws, nch,
+                                                     **kw),
+        "K4 int64 ws": lambda: run_column_plane(plane, ws.long(), nch, **kw),
+        "K4 plane shape": lambda: run_column_plane(plane[:4].contiguous(), ws,
+                                                   nch, **kw),
+        "K3 grids shape": lambda: run_fused_column_plane(
+            plane, ws, nch, grids[:2].contiguous(), S=nmesh // ncell,
+            scale=nmesh / box, **kw),
+        "K3 float64 grids": lambda: run_fused_column_plane(
+            plane, ws, nch, grids.double(), S=nmesh // ncell,
+            scale=nmesh / box, **kw),
+        "K2 short counts": lambda: supercell_deposit_from_plane(
+            plane, counts[:-1].contiguous(), **dkw),
+    })
+    for what, fn in bad.items():
+        try:
+            fn()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError(f"a wrapper accepted: {what}")
+    return list(bad)
+
+
+def driver_knobs(state, config, cfg_run, prewarm: bool):
+    """The knobs the driver gives the column kernels at ``state``:
+    ``cfg_run``'s (after the driver's own pre-warm when ``prewarm``, as
+    at the start of a stretch of steps), healed by the driver's own rule
+    until the plane drops nothing.  Returns (config, run.log lines)."""
+    from nbody_torch.driver.simulate import (
+        HEAL_ATTEMPTS,
+        column_knobs,
+        heal_capacity,
+        prewarm_capacity,
+    )
+    from nbody_torch.forces.p3m import p3m_short_params
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        encode_overflow,
+        plane_geometry,
+    )
+
+    box = config.box
+    r_cut = p3m_short_params(box, config.mesh_size, config.n_particles)[1]
+    lines = []
+    if prewarm:
+        cfg_run, lines = prewarm_capacity(config, cfg_run, state.pos)
+    for _ in range(HEAL_ATTEMPTS):
+        ncell, ck, w = column_knobs(config, cfg_run)
+        CK, _, _, W, _, chunk = plane_geometry(box, r_cut, ck, w)
+        _, _, _, ovb, ovw, _, _ = build_column_plane(
+            state.pos, state.mass, box, r_cut, ncell, CK, W, chunk=chunk)
+        ov = int(encode_overflow(ovb, ovw))
+        if ov == 0:
+            return cfg_run, lines
+        cfg_run, line = heal_capacity(config, cfg_run, ov)
+        lines.append(line)
+    raise AssertionError(f"the plane still overflows after {HEAL_ATTEMPTS} "
+                         f"heals: {lines}")
+
+
+def driver_plane(state, config, cfg_run, prewarm: bool):
+    """The column plane of ``state`` at :func:`driver_knobs`' geometry:
+    (knobs line, plane, ws, nch, counts, the kernels' geometry
+    keywords)."""
+    from nbody_torch.driver.simulate import column_knobs
+    from nbody_torch.forces.p3m import p3m_short_params
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        plane_geometry,
+    )
+
+    box = config.box
+    r_cut = p3m_short_params(box, config.mesh_size, config.n_particles)[1]
+    cfg_run, lines = driver_knobs(state, config, cfg_run, prewarm)
+    ncell, ck, w = column_knobs(config, cfg_run)
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
+    plane, ws, nch, _, _, _, counts = build_column_plane(
+        state.pos, state.mass, box, r_cut, ncell, CK, W, chunk=chunk)
+    knobs = (f"column grid {ncell}^2, capacity {CK}, window {W}, stride "
+             f"{stride}, chunk {chunk}" + "".join(f"; {x}" for x in lines))
+    return knobs, plane, ws, nch, counts, dict(
+        ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz, chunk=chunk)
+
+
+def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
+                r_cut: float, **_) -> tuple[int, int]:
+    """The work the column pair sum needs, counted on the plane: (the
+    source visits, the pairs inside r_cut).  A visit is a massive slot of
+    a real target's 9 neighbour columns within +-r_cut of it in z; a pair
+    inside r_cut also has r^2 < r_cut^2 (self pairs included, as K1's
+    count has them).  The kernels also visit the rest of each chunk's
+    windows, and targets in the padding and ghost slots of a column's
+    last chunk; that is not counted."""
+    P = ncell + 2
+    x = plane[:4].reshape(4, P * P, stride)
+    ic = torch.arange(ncell * ncell, device=plane.device)
+    cx, cy = ic // ncell, ic % ncell
+    cmax = int(counts.max())
+    t = x[:, (cx + 1) * P + (cy + 1), gz:gz + cmax]
+    real = (torch.arange(cmax, device=plane.device)[None, :]
+            < counts.to(torch.int64)[:, None])
+    rc2 = float(r_cut) ** 2
+    group = max(1, (1 << 26) // (cmax * stride))
+    visits = inside = 0
+    for o2 in range(9):
+        src = x[:, (cx + o2 // 3) * P + (cy + o2 % 3)]
+        for c0 in range(0, ic.numel(), group):
+            tt, ss = t[:, c0:c0 + group], src[:, c0:c0 + group]
+            pair = real[c0:c0 + group, :, None] & (ss[3] > 0)[:, None, :]
+            dz = ss[2][:, None, :] - tt[2][:, :, None]
+            near = pair & (dz.abs() <= r_cut)
+            visits += int(near.sum())
+            dx = ss[0][:, None, :] - tt[0][:, :, None]
+            dy = ss[1][:, None, :] - tt[1][:, :, None]
+            r2 = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-30)
+            inside += int((near & (r2 < rc2)).sum())
+    return visits, inside
+
+
+def _pair_kw(cfg, geo: dict) -> dict:
+    """The column kernels' keywords for ``cfg`` on a plane of ``geo``."""
+    from nbody_torch.forces.p3m import p3m_short_params
+
+    r_s, r_cut, _, _ = p3m_short_params(cfg.box, cfg.mesh_size,
+                                        cfg.n_particles)
+    return dict(eps=cfg.eps, r_s=r_s, r_cut=r_cut, split=cfg.force_split,
+                softening=cfg.softening_kernel, **geo)
+
+
+def supercell_kernels_check(state, config, cfg_run, tag: str,
+                            prewarm: bool) -> dict:
+    """K2 and K3 (3 variants) against their plain versions on the plane of
+    ``state`` at the supercell tier's driver geometry; returns each
+    kernel's numbers for the JSON line."""
+    from nbody_torch.forces.pm import pm_module
+    from nbody_torch.forces.pm_supercell import (
+        deposit_node_masses_plain,
+        fold_node_masses,
+        fused_column_plane_plain,
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+    from nbody_torch.mesh.cic import cic_deposit
+
+    box, nmesh = config.box, config.mesh_size
+    knobs, plane, ws, nch, counts, geo = driver_plane(state, config,
+                                                      cfg_run, prewarm)
+    phase(f"[7] {tag}: {knobs}")
+    kw = _pair_kw(config, geo)
+    ncell, stride, gz = geo["ncell"], geo["stride"], geo["gz"]
+    S, ZP = supercell_geometry(nmesh, ncell)
+    pos, mass = state.pos, state.mass
+    scale = nmesh / box
+    out = {}
+
+    # -- K2: deposit at both shifts against the float32 plain version ---
+    dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz)
+    pkw = dict(ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz, scale=scale)
+
+    def k2_plain(p, shift=0.0):
+        nodes = deposit_node_masses_plain(p, counts, shift=shift, **pkw)
+        return fold_node_masses(nodes, ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
+
+    for shift in (0.0, 0.5):
+        got = supercell_deposit_from_plane(plane, counts, shift=shift, **dkw)
+        torch.cuda.synchronize()
+        ref32 = k2_plain(plane, shift)
+        ref64 = k2_plain(plane.double(), shift)
+        err = max_abs(got, ref32) / float(ref32.abs().max())
+        err64 = max_abs(got, ref64) / float(ref64.abs().max())
+        phase(f"[7] {tag} K2 shift {shift}: max |node - plain f32| / max "
+              f"{err:.3e} (tol {NODE_MASS_TOL:g}), vs float64 {err64:.3e}; "
+              f"mass {float(got.sum()):.6e} of {float(mass.sum()):.6e}")
+        if not err <= NODE_MASS_TOL:
+            raise AssertionError(f"K2 disagrees with its plain version: {err}")
+        if shift == 0.0:
+            rho, k2_err = got, max_abs(got, ref32)
+    n_real = int(counts.sum())
+    k2_ms = cuda_time_ms(
+        lambda: supercell_deposit_from_plane(plane, counts, **dkw), 50)
+    k2_plain_ms = cuda_time_ms(lambda: k2_plain(plane), 3)
+    lib_ms = cuda_time_ms(lambda: cic_deposit(pos, box, nmesh, weights=mass),
+                          50)
+    b_ms, b_by = bound(n_real * 16 + counts.numel() * 4 + nmesh**3 * 4,
+                       n_real * FLOPS_DEPOSIT)
+    out["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    phase(f"[7] {tag} K2: kernel {k2_ms:.4f} ms, plain f32 {k2_plain_ms:.3f}"
+          f" ms, cic_deposit (index_add_) {lib_ms:.4f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}); {n_real} particles")
+
+    # -- the real force grids, then K3 ------------------------------------
+    mass_sum = torch.sum(mass)
+    amp = 4.0 * math.pi * mass_sum / box**3
+    split = config.force_split
+    filt = dict(longrange_split=kw["r_s"] if split == "gaussian" else 0.0,
+                spline_split=kw["r_cut"] if split == "spline" else 0.0)
+    pm3, pm6 = (pm_module(box, nmesh, config.deconvolve_p, il,
+                          filt["longrange_split"], filt["spline_split"],
+                          config.pm_gradient, 0.0, pos.device, torch.float32)
+                for il in (False, True))
+    grids3 = pm3.force_grids_from_rho(rho, amp, mass_sum).contiguous()
+    rho1 = supercell_deposit_from_plane(plane, counts, shift=0.5, **dkw)
+    grids6 = pm6.force_grids_from_rho(rho, amp, mass_sum,
+                                      rho1=rho1).contiguous()
+    p64 = plane.double()
+    visits, inside = needed_work(plane, counts, **kw)
+    for il, so in ((False, False), (True, False), (False, True)):
+        g = grids6 if il else grids3
+        fkw = dict(S=S, scale=scale, split_out=so, interlaced=il, **kw)
+        got = run_fused_column_plane(plane, ws, nch, g, **fkw)
+        torch.cuda.synchronize()
+        ref = fused_column_plane_plain(p64, ws, nch, g.double(), **fkw)
+        rel = rel_l2(got, ref)
+        phase(f"[7] {tag} K3 interlaced={il} split_out={so}: rel L2 "
+              f"{rel:.3e} (tol {FORCE_REL_L2_TOL:g}), max abs "
+              f"{max_abs(got, ref):.3e}")
+        if not rel <= FORCE_REL_L2_TOL:
+            raise AssertionError(f"K3 disagrees with its plain version: {rel}")
+        if not il and not so:
+            k3_err = max_abs(got, ref)
+    fkw = dict(S=S, scale=scale, **kw)
+    k3_ms = cuda_time_ms(
+        lambda: run_fused_column_plane(plane, ws, nch, grids3, **fkw), 20)
+    k3_plain_ms = cuda_time_ms(
+        lambda: fused_column_plane_plain(plane, ws, nch, grids3, **fkw), 2)
+    b_ms, b_by = bound(2 * plane.numel() * 4 + (ws.numel() + nch.numel()) * 4
+                       + grids3.numel() * 4,
+                       visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE
+                       + n_real * FLOPS_PM_READ)
+    out["K3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    kernel_visits = int(nch.sum()) * geo["chunk"] * 9 * geo["W"]
+    phase(f"[7] {tag} K3: kernel {k3_ms:.4f} ms, plain f32 {k3_plain_ms:.3f}"
+          f" ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e} visits within "
+          f"r_cut in z (the kernel makes {kernel_visits:.4e}), {inside:.4e} "
+          f"inside r_cut")
+    return out
+
+
+def columns_kernel_check(state, config, cfg_run, tag: str,
+                         prewarm: bool) -> dict:
+    """K4 against its plain version on the plane of ``state`` at the
+    columns tier's driver geometry; returns its numbers for the JSON
+    line."""
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        run_column_plane,
+    )
+
+    knobs, plane, ws, nch, counts, geo = driver_plane(state, config,
+                                                      cfg_run, prewarm)
+    phase(f"[7] {tag}: {knobs}")
+    kw = _pair_kw(config, geo)
+    p64 = plane.double()
+    got = run_column_plane(plane, ws, nch, **kw)
+    torch.cuda.synchronize()
+    ref = column_plane_plain(p64, ws, nch, **kw)
+    rel = rel_l2(got, ref)
+    k4_err = max_abs(got, ref)
+    phase(f"[7] {tag} K4: rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), max "
+          f"abs {k4_err:.3e}")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K4 disagrees with its plain version: {rel}")
+    k4_ms = cuda_time_ms(lambda: run_column_plane(plane, ws, nch, **kw), 20)
+    k4_plain_ms = cuda_time_ms(lambda: column_plane_plain(plane, ws, nch,
+                                                          **kw), 2)
+    visits, inside = needed_work(plane, counts, **kw)
+    b_ms, b_by = bound(2 * plane.numel() * 4 + (ws.numel() + nch.numel()) * 4,
+                       visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
+    kernel_visits = int(nch.sum()) * geo["chunk"] * 9 * geo["W"]
+    phase(f"[7] {tag} K4: kernel {k4_ms:.4f} ms, plain f32 {k4_plain_ms:.3f}"
+          f" ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e} visits within "
+          f"r_cut in z (the kernel makes {kernel_visits:.4e}), {inside:.4e} "
+          f"inside r_cut")
+    return {"K4": dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+
+
+def _wrappers() -> dict:
+    from nbody_torch.forces.p3m import p3m_short_acc
+    from nbody_torch.forces.p3m_columns import run_column_plane
+    from nbody_torch.forces.pm_supercell import (
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+    )
+
+    return {"K1": p3m_short_acc, "K2": supercell_deposit_from_plane,
+            "K3": run_fused_column_plane, "K4": run_column_plane}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {key: fn.launches for key, fn in _wrappers().items()}
+
+
+def run_log(work: str) -> list[str]:
+    with open(os.path.join(work, "run.log")) as f:
+        return [line.rstrip() for line in f]
+
+
+def check_run_outputs(res, cfg, tag: str) -> None:
+    st = res.state
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (st.pos, st.vel, st.mass))
+    if not finite or st.pos.shape != (cfg.n_particles, 3):
+        raise AssertionError(f"{tag}: final state is not finite (N, 3)")
+    if abs(float(st.time) - cfg.a_end) > 1e-6:
+        raise AssertionError(f"{tag}: run ended at a = {float(st.time)}")
+    if len(res.powerspecs) != 1 or not os.path.exists(res.powerspecs[0]):
+        raise AssertionError(f"{tag}: no powerspec file written")
+    pk = np.loadtxt(res.powerspecs[0])
+    if pk.ndim != 2 or pk.shape[1] != 5 or not np.all(np.isfinite(pk)) \
+            or not np.all(pk[:, 2] > 0):
+        raise AssertionError(f"{tag}: powerspec file is not finite positive")
+
+
+def pk_vs_reference(res, cfg, ref_name: str, tag: str) -> None:
+    got_pk = np.loadtxt(res.powerspecs[0])
+    ref_pk = np.loadtxt(os.path.join(PORT_DATA, ref_name))
+    k_half = 0.5 * np.pi * cfg.mesh_size / cfg.box
+    m = ref_pk[:, 0] <= k_half
+    # same bins: equal mode counts, and bin-mean k equal to float32
+    # summation order
+    if got_pk.shape != ref_pk.shape or not np.array_equal(
+            got_pk[:, 1], ref_pk[:, 1]) or not np.allclose(
+            got_pk[:, 0], ref_pk[:, 0], rtol=1e-5):
+        raise AssertionError(f"{tag}: P(k) bins differ from the JAX run's")
+    rel_pk = np.abs(got_pk[m, 2] / ref_pk[m, 2] - 1.0)
+    phase(f"{tag}: P(k) vs JAX at {int(m.sum())} bins k <= {k_half:.4f}/Mpc:"
+          f" max rel {rel_pk.max():.3e} (tol {PK_REL_TOL:g}); run "
+          f"{res.wall_s:.3f} s")
+    if not rel_pk.max() <= PK_REL_TOL:
+        raise AssertionError(f"{tag}: P(k) differs from JAX: {rel_pk.max()}")
+
+
+def rerun_evals(lines: list[str]) -> int:
+    """Force evaluations the driver repeated after capacity heals."""
+    for line in lines:
+        m = re.match(r"Capacity heals repeated (\d+) force evaluations", line)
+        if m:
+            return int(m.group(1))
+    return 0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from nbody_torch import _kernels
     from nbody_torch.core import units
     from nbody_torch.driver import OutputConfig, SimulationConfig
-    from nbody_torch.driver.simulate import realize_ics, run_simulation
+    from nbody_torch.driver.simulate import (
+        _resolved_shortrange,
+        column_knobs,
+        realize_ics,
+        run_simulation,
+    )
     from nbody_torch.forces.p3m import (
+        p3m_acc,
         p3m_short_acc,
         p3m_short_params,
         p3m_short_plain,
     )
-
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,7 +575,7 @@ def main() -> None:
     gen = torch.Generator().manual_seed(1)
     pos = (torch.rand((n, 3), generator=gen, dtype=torch.float64)
            * box).to(dev, torch.float32)
-    mass = realize_ics(cfg, 0, device=dev).mass
+    mass = realize_ics(cfg, 0).mass
     main_variant = (cfg.force_split, cfg.softening_kernel)
     k1 = {}
     for split in ("gaussian", "spline"):
@@ -118,100 +584,178 @@ def main() -> None:
             got = p3m_short_acc(pos, mass, *args)
             torch.cuda.synchronize()
             ref = p3m_short_plain(pos.double(), mass.double(), *args)
-            rel = float((got.double() - ref).norm() / ref.norm())
-            max_abs = float((got.double() - ref).abs().max())
+            rel = rel_l2(got, ref)
+            err = max_abs(got, ref)
             ms = cuda_time_ms(lambda: p3m_short_acc(pos, mass, *args), 50)
             plain_ms = cuda_time_ms(
                 lambda: p3m_short_plain(pos, mass, *args), 3)
             phase(f"[3] K1 {split}/{soft}: rel L2 {rel:.3e} (tol "
-                  f"{K1_REL_L2_TOL:g}), max abs {max_abs:.3e}; kernel "
+                  f"{K1_REL_L2_TOL:g}), max abs {err:.3e}; kernel "
                   f"{ms:.4f} ms, plain float32 {plain_ms:.3f} ms")
             if not rel <= K1_REL_L2_TOL:
                 raise AssertionError(f"K1 {split}/{soft} disagrees: {rel}")
-            k1[(split, soft)] = (max_abs, ms, plain_ms)
+            k1[(split, soft)] = (err, ms, plain_ms)
+    npad = -(-n // 128) * 128
+    inside = count_inside_dense(pos, box, r_cut)
+    k1_bound = bound(4 * npad * 4 + n * 12,
+                     n * npad * FLOPS_VISIT_K1 + inside * FLOPS_INSIDE)
+    phase(f"[3] K1 bound {k1_bound[0]:.4f} ms ({k1_bound[1]}): "
+          f"{n * npad:.4e} visits, {inside:.4e} inside r_cut")
 
-    # -- 4. the wrapper refuses what the kernel does not take -------------
-    bad = {
-        "float64": (pos.double(), mass.double()),
-        "non-contiguous": (pos.T.contiguous().T, mass),
-        "shape": (pos[:, :2].contiguous(), mass),
-    }
-    for what, (p_bad, m_bad) in bad.items():
-        try:
-            p3m_short_acc(p_bad, m_bad, box, cfg.eps, r_s, r_cut, G)
-        except (TypeError, ValueError):
-            continue
-        raise AssertionError(f"p3m_short_acc accepted a {what} input")
-    phase(f"[4] wrapper checks raise for: {', '.join(bad)}")
+    # -- 4. the wrappers refuse what the kernels do not take --------------
+    checked = check_wrappers_raise(pos, mass, box, cfg.eps, r_s, r_cut, G)
+    phase(f"[4] wrapper checks raise for: {', '.join(checked)}")
 
     # -- 5. the default run through the entry point -----------------------
     run_cfg = cfg.replace(output=OutputConfig(snapshot=False))
     work = os.path.join(OUT, "default")
     shutil.rmtree(work, ignore_errors=True)
-    p3m_short_acc.launches = 0
-    res = run_simulation(run_cfg, 0, work, device="cuda")
-    launches = p3m_short_acc.launches
-    st = res.state
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (st.pos, st.vel, st.mass))
+    reset_launches()
+    res = run_simulation(run_cfg, 0, work)
+    counts = read_launches()
+    k1_launches = counts["K1"]
     phase(f"[5] default run: N={run_cfg.n_particles} mesh "
           f"{run_cfg.mesh_size} {run_cfg.n_steps} steps in {res.wall_s:.3f} s"
-          f" ({run_cfg.n_steps / res.wall_s:.2f} steps/s); K1 launches "
-          f"{launches}; a = {float(st.time):.4f}")
-    with open(os.path.join(work, "run.log")) as f:
-        for line in f:
-            phase("    run.log: " + line.rstrip())
-    if not finite or st.pos.shape != (run_cfg.n_particles, 3):
-        raise AssertionError("final state is not finite (N, 3)")
-    if abs(float(st.time) - run_cfg.a_end) > 1e-6:
-        raise AssertionError(f"run ended at a = {float(st.time)}")
-    if launches != run_cfg.n_steps + 1:
-        raise AssertionError(
-            f"K1 launched {launches} times, expected {run_cfg.n_steps + 1}")
-    if len(res.powerspecs) != 1 or not os.path.exists(res.powerspecs[0]):
-        raise AssertionError("no powerspec file written")
-    pk = np.loadtxt(res.powerspecs[0])
-    if pk.ndim != 2 or pk.shape[1] != 5 or not np.all(np.isfinite(pk)) \
-            or not np.all(pk[:, 2] > 0):
-        raise AssertionError("powerspec file is not finite positive P(k)")
+          f" ({run_cfg.n_steps / res.wall_s:.2f} steps/s); launches "
+          f"{counts}; a = {float(res.state.time):.4f}")
+    for line in run_log(work):
+        phase("    run.log: " + line)
+    check_run_outputs(res, run_cfg, "[5]")
+    want = {"K1": run_cfg.n_steps + 1, "K2": 0, "K3": 0, "K4": 0}
+    if counts != want:
+        raise AssertionError(f"[5] launches {counts}, expected {want}")
 
     # -- 6. parity with the JAX package through committed data ------------
-    par_cfg = SimulationConfig(n_side=16, output=OutputConfig(snapshot=False))
     noise = np.load(os.path.join(PORT_DATA, "white_noise_n16_seed0.npy"))
-    ref_pk = np.loadtxt(os.path.join(PORT_DATA,
-                                     "powerspec_a=1.00_n16_seed0"))
+    par_cfg = SimulationConfig(n_side=16, output=OutputConfig(snapshot=False))
     work16 = os.path.join(OUT, "n16")
     shutil.rmtree(work16, ignore_errors=True)
-    state16 = realize_ics(par_cfg, 0, device="cuda", noise=noise)
-    res16 = run_simulation(par_cfg, 0, work16, device="cuda",
-                           initial_state=state16)
-    got_pk = np.loadtxt(res16.powerspecs[0])
-    k_half = 0.5 * np.pi * par_cfg.mesh_size / par_cfg.box
-    m = ref_pk[:, 0] <= k_half
-    # same bins: equal mode counts, and bin-mean k equal to float32
-    # summation order
-    if got_pk.shape != ref_pk.shape or not np.array_equal(
-            got_pk[:, 1], ref_pk[:, 1]) or not np.allclose(
-            got_pk[:, 0], ref_pk[:, 0], rtol=1e-5):
-        raise AssertionError("16^3 P(k) bins differ from the JAX run's")
-    rel_pk = np.abs(got_pk[m, 2] / ref_pk[m, 2] - 1.0)
-    phase(f"[6] 16^3 from the JAX noise: P(k) vs JAX at {int(m.sum())} bins "
-          f"k <= {k_half:.4f}/Mpc: max rel {rel_pk.max():.3e} (tol "
-          f"{PK_REL_TOL:g}); run {res16.wall_s:.3f} s")
-    if not rel_pk.max() <= PK_REL_TOL:
-        raise AssertionError(f"16^3 P(k) differs from JAX: {rel_pk.max()}")
+    res16 = run_simulation(par_cfg, 0, work16,
+                           initial_state=realize_ics(par_cfg, 0, noise=noise))
+    pk_vs_reference(res16, par_cfg, "powerspec_a=1.00_n16_seed0",
+                    "[6] 16^3 from the JAX noise")
 
-    max_abs, ms, plain_ms = k1[main_variant]
-    print(json.dumps({"kernels": [{
-        "name": "p3m_short_acc",
-        "route": "cuda",
+    # -- 7. K2-K4 against their plain versions at cfg64's shapes ----------
+    # each tier's plane at the geometry its run starts from: the driver's
+    # pre-warm on the ICs, healed by its rule until nothing overflows
+    cfg64 = SimulationConfig(n_side=64, box=500.0, pm_grid=128, n_steps=142,
+                             softening_kernel="spline",
+                             output=OutputConfig(snapshot=False))
+    col64 = cfg64.replace(shortrange="columns")
+    ics64 = realize_ics(cfg64, 0)
+    kernels = supercell_kernels_check(ics64, cfg64, cfg64,
+                                      "64^3 ICs, supercell tier", True)
+    kernels.update(columns_kernel_check(ics64, col64, col64,
+                                        "64^3 ICs, columns tier", True))
+
+    # -- 8. the three tiers agree at the 64^3 ICs -------------------------
+    akw = dict(G=G, eps=cfg64.eps, split=cfg64.force_split,
+               softening=cfg64.softening_kernel, with_overflow=True)
+    accs = {}
+    for tier, tcfg in (("supercell", cfg64), ("columns", col64),
+                       ("allpairs", None)):
+        knobs = {}
+        if tcfg is not None:
+            # the capacity and window the driver's pre-warm and heal reach
+            healed, _ = driver_knobs(ics64, tcfg, tcfg, True)
+            _, ck_t, w_t = column_knobs(tcfg, healed)
+            knobs = dict(capacity=ck_t, window=w_t)
+        t_tier = time.perf_counter()
+        acc, ov = p3m_acc(ics64.pos, ics64.mass, cfg64.box, cfg64.mesh_size,
+                          shortrange=tier, **knobs, **akw)
+        torch.cuda.synchronize()
+        if int(ov):
+            raise AssertionError(f"[8] {tier} tier overflows at the ICs: "
+                                 f"{int(ov)}")
+        accs[tier] = acc.double()
+        phase(f"[8] {tier} {knobs}: {time.perf_counter() - t_tier:.3f} s")
+    scale = float(accs["allpairs"].norm(dim=1).max())
+    for tier in ("supercell", "columns"):
+        err = float((accs[tier] - accs["allpairs"]).norm(dim=1).max()) / scale
+        phase(f"[8] {tier} vs allpairs at the 64^3 ICs: max |diff| / max "
+              f"|acc| {err:.3e} (tol {TIER_TOL:g})")
+        if not err <= TIER_TOL:
+            raise AssertionError(f"[8] {tier} disagrees with allpairs: {err}")
+    del accs
+
+    # -- 9. the 64^3 production run, and its columns-tier twin ------------
+    launch_counts = {}
+    results = {}
+    for run64 in (cfg64, col64):
+        work64 = os.path.join(OUT, f"cfg64_{run64.shortrange}")
+        shutil.rmtree(work64, ignore_errors=True)
+        reset_launches()
+        res64 = run_simulation(run64, 0, work64)
+        counts = read_launches()
+        lines = run_log(work64)
+        resolved = _resolved_shortrange(run64)
+        healed = res64.config_run
+        phase(f"[9] 64^3 run ({resolved} tier): N={run64.n_particles} mesh "
+              f"{run64.mesh_size} {run64.n_steps} steps in {res64.wall_s:.3f}"
+              f" s ({run64.n_steps / res64.wall_s:.2f} steps/s); launches "
+              f"{counts}; column_capacity {healed.column_capacity}, "
+              f"column_window {healed.column_window}; a = "
+              f"{float(res64.state.time):.4f}")
+        for line in lines:
+            if ("pre-warming" in line or "re-running" in line
+                    or "Capacity heals" in line or "Initial" in line
+                    or line.startswith("Time step")):
+                phase("    run.log: " + line)
+        check_run_outputs(res64, run64, f"[9] {resolved}")
+        evals = run64.n_steps + 1 + rerun_evals(lines)
+        fused = "K3" if resolved == "supercell" else "K4"
+        want = {"K1": 0, "K2": evals if resolved == "supercell" else 0,
+                "K3": evals if resolved == "supercell" else 0,
+                "K4": evals if resolved == "columns" else 0}
+        if counts != want:
+            raise AssertionError(f"[9] {resolved}: launches {counts}, "
+                                 f"expected {want}")
+        if run64 is cfg64 and resolved != "supercell":
+            raise AssertionError(f"cfg64 resolved to {resolved}")
+        launch_counts[resolved] = counts
+        results[resolved] = res64
+        phase(f"[9] {resolved}: {fused} launched {counts[fused]} = "
+              f"{run64.n_steps} steps + 1 + {evals - run64.n_steps - 1} "
+              f"re-run evaluations")
+    # the last force evaluation of each run was at its final state, with
+    # the healed config
+    sc, col = results["supercell"], results["columns"]
+    supercell_kernels_check(sc.state, cfg64, sc.config_run,
+                            "final state of the supercell run", False)
+    columns_kernel_check(col.state, col64, col.config_run,
+                         "final state of the columns run", False)
+    del results, sc, col
+
+    # -- 10. the 16^3 supercell run against the committed JAX P(k) --------
+    sc16 = SimulationConfig(n_side=16, shortrange="supercell",
+                            output=OutputConfig(snapshot=False))
+    work16s = os.path.join(OUT, "n16_supercell")
+    shutil.rmtree(work16s, ignore_errors=True)
+    res16s = run_simulation(sc16, 0, work16s,
+                            initial_state=realize_ics(sc16, 0, noise=noise))
+    pk_vs_reference(res16s, sc16, "powerspec_a=1.00_n16_supercell_seed0",
+                    "[10] 16^3 supercell from the JAX noise")
+
+    k1_err, k1_ms, k1_plain_ms = k1[main_variant]
+    rows = [{
+        "name": "p3m_short_acc", "route": "cuda",
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
-        "replaces": "nbody/forces/p3m.py:194",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "replaces": "nbody/forces/p3m.py:194", "launches": k1_launches,
+        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+    }]
+    for key, name, source, replaces, path in (
+            ("K2", "supercell_deposit_from_plane", "pm_supercell.cu",
+             "nbody/forces/pm_supercell.py:117", "supercell"),
+            ("K3", "run_fused_column_plane", "pm_supercell.cu",
+             "nbody/forces/pm_supercell.py:353", "supercell"),
+            ("K4", "run_column_plane", "p3m_columns.cu",
+             "nbody/forces/p3m_columns.py:480", "columns")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"nbody_torch/forces/csrc/{source}",
+                     "replaces": replaces,
+                     "launches": launch_counts[path][key], **kernels[key]})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

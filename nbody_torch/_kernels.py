@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
 Every ``*.cu`` file under ``nbody_torch/forces/csrc/`` is compiled with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The build happens at first use, into
+``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together)
+and linked into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The build happens at first use, into
 ``nbody_torch/_build/`` (git ignores it), and is keyed on a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  A failed build raises with nvcc's output; nothing falls back to a
@@ -24,7 +25,7 @@ SOURCE_DIR = _PKG / "forces" / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lib = None
@@ -61,20 +62,48 @@ def library_path() -> Path:
 
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out.strip())
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out.strip()}")
+    tmp = so.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
-    build_info.update(path=str(so), seconds=seconds, log=log, built=True)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
+                      log="\n".join(logs), built=True)
+
+
+# argument types of the C entry points: p = pointer (and the stream),
+# i = int, d = double; every entry point returns a CUDA error code
+_ENTRY_POINTS = {
+    "p3m_short_acc_f32": "piidddddiipp",
+    "p3m_columns_f32": "pppiiiiiidddiipp",
+    "pm_supercell_deposit_f32": "ppiiiiiiddpp",
+    "pm_supercell_fused_f32": "ppppiiiiidiiiiidddiipp",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 
 
 def load_library() -> ctypes.CDLL:
@@ -90,12 +119,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.p3m_short_tile.argtypes = []
     lib.p3m_short_tile.restype = ctypes.c_int
-    lib.p3m_short_acc_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
-        ctypes.c_double, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.p3m_short_acc_f32.restype = ctypes.c_int
+    for name, sig in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib

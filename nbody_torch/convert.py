@@ -1,8 +1,11 @@
 """Carrying a particle state between the JAX package and the port.
 
 The JAX package's state crosses as numpy (``np.asarray`` of its arrays);
-a config crosses as its JSON (``SimulationConfig.to_dict`` /
-``from_dict`` in both packages).
+a config crosses as its JSON: the port's ``SimulationConfig.from_dict``
+takes the JAX package's ``SimulationConfig.to_dict()`` (or its
+config.json) whole, the capacity knobs the driver heals
+(``column_capacity``, ``column_window``, ``cell_capacity``, ...)
+included, and raises ``TypeError`` on a field it does not know.
 """
 
 from __future__ import annotations

@@ -2,12 +2,14 @@
 
 Counterpart of :func:`nbody.driver.simulate.run_simulation` for the
 single-device, fixed-step slice: LPT ICs, the comoving KDK with the PM or
-dense-tier P3M force, the Layzer-Irvine energy samples, and P(k) and
-snapshot outputs at the output times, in the same run.log, powerspec and
-snapshot formats.  Options outside the slice raise ``NotImplementedError``
-(``solver='pp'``, ``subcycles > 1``, ``rungs >= 2``,
-``time_stepping='adaptive'``, more than one device, and the P3M tiers
-other than 'allpairs').
+P3M force (dense, supercell or columns short-range tier), the column
+tiers' capacity pre-warm and self-heal, the Layzer-Irvine energy samples,
+and P(k) and snapshot outputs at the output times, in the same run.log,
+powerspec and snapshot formats.  The entry points run on the card unless
+the caller passes ``device="cpu"``.  Options outside the slice raise
+``NotImplementedError`` (``solver='pp'``, ``subcycles > 1``,
+``rungs >= 2``, ``time_stepping='adaptive'``, more than one device, and
+``shortrange='cells'``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,14 @@ from nbody_torch.diagnostics.layzer_irvine import (
     peculiar_energies,
 )
 from nbody_torch.driver.config import SimulationConfig
-from nbody_torch.forces.p3m import p3m_acc, p3m_short_params, resolve_shortrange
+from nbody_torch.forces.p3m import (
+    auto_column_capacity,
+    p3m_acc,
+    p3m_short_params,
+    resolve_shortrange,
+    supercell_ncell,
+)
+from nbody_torch.forces.p3m_columns import column_window
 from nbody_torch.forces.pm import make_pm_cosmo_force
 from nbody_torch.ic.gaussian import GRFSpec, gaussian_delta_k
 from nbody_torch.ic.zeldovich import lpt_ic
@@ -94,14 +103,46 @@ def check_supported(config: SimulationConfig, device=None) -> None:
             f"devices={config.devices} (slab domain decomposition) is not "
             f"ported yet"
         )
-    if config.solver == "p3m":
-        r_cut = p3m_short_params(config.box, config.mesh_size,
-                                 config.n_particles)[1]
-        resolve_shortrange(config.shortrange, config.n_particles, config.box,
-                           r_cut)
+    if config.solver == "p3m" and _resolved_shortrange(config) == "cells":
+        raise NotImplementedError(
+            "shortrange='cells' (the cell-plane tier, K6) is not ported yet")
 
 
-def realize_ics(config: SimulationConfig, seed: int, *, device,
+def _resolved_shortrange(config: SimulationConfig) -> str:
+    """The short-range tier p3m_acc uses for this config: the rule of
+    :func:`resolve_shortrange` with the config's own or healed column
+    capacity, except that an unported 'cells' comes back as 'cells' (for
+    :func:`check_supported` to refuse).  The capacity bookkeeping keys on
+    it.  'supercell' shares the columns tier's capacity knobs and overflow
+    word on its own (possibly coarser) chaining grid."""
+    r_cut = p3m_short_params(config.box, config.mesh_size,
+                             config.n_particles)[1]
+    if config.shortrange == "cells":
+        return "allpairs" if config.box / r_cut < 3.0 else "cells"
+    return resolve_shortrange(config.shortrange, config.n_particles,
+                              config.box, r_cut, config.mesh_size,
+                              config.column_capacity or None)
+
+
+def _tier_ncell(config: SimulationConfig, tier: str) -> int:
+    """Chaining-grid side of the resolved tier (the unit of the occupancy
+    pre-warm and the capacity heal)."""
+    r_cut = p3m_short_params(config.box, config.mesh_size,
+                             config.n_particles)[1]
+    if tier == "supercell":
+        return supercell_ncell(config.box, config.mesh_size, r_cut)
+    return max(3, int(config.box / r_cut))
+
+
+def _tier_capacity(config: SimulationConfig):
+    """(field_name, value-or-None) of the capacity knob of the config's
+    resolved short-range tier."""
+    if _resolved_shortrange(config) in ("columns", "supercell"):
+        return "column_capacity", (config.column_capacity or None)
+    return "cell_capacity", (config.cell_capacity or None)
+
+
+def realize_ics(config: SimulationConfig, seed: int, *, device="cuda",
                 dtype=None, noise=None) -> ParticleState:
     """LPT initial conditions at a_begin for the config's cosmology.
 
@@ -119,12 +160,13 @@ def realize_ics(config: SimulationConfig, seed: int, *, device,
     )
 
 
-def build_cosmo_force(config: SimulationConfig, *, device, dtype=None,
-                      checked: bool = False) -> Callable:
+def build_cosmo_force(config: SimulationConfig, *, device="cuda",
+                      dtype=None, checked: bool = False) -> Callable:
     """acc_fn(pos, mass, a) -> canonical-momentum force for the config's
     solver ('pm' or 'p3m'), the Newtonian periodic force in comoving
-    coordinates scaled by 1/a.  ``checked=True`` returns
-    (g, overflow) for the checked integrator (always 0 here)."""
+    coordinates scaled by 1/a.  ``checked=True`` returns (g, overflow) for
+    the checked integrator: overflow is 0 iff no force was dropped (the
+    column tiers' field-encoded word, a 0-d tensor on the device)."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     box, eps, G = config.box, config.eps, units.COSMO.G
@@ -140,12 +182,15 @@ def build_cosmo_force(config: SimulationConfig, *, device, dtype=None,
             return pm_fn
         return lambda pos, mass, a: (pm_fn(pos, mass, a), 0)
 
+    _, tier_cap = _tier_capacity(config)
+
     def p3m_fn(pos, mass, a):
         acc, ov = p3m_acc(
             pos, mass, box, nmesh, G=G, eps=eps,
             deconvolve_p=config.deconvolve_p, interlace=config.interlace,
             split=config.force_split, shortrange=config.shortrange,
-            softening=config.softening_kernel, with_overflow=True,
+            softening=config.softening_kernel, capacity=tier_cap,
+            window=config.column_window or None, with_overflow=True,
             grad_order=config.pm_gradient,
         )
         return (acc / a, ov) if checked else acc / a
@@ -267,11 +312,137 @@ class SimulationResult:
     snapshots: list
     powerspecs: list
     wall_s: float
-    # the config the run finished with (the dense tier heals nothing, so
-    # it is the config itself)
+    # the config the run finished with: the capacity knobs include every
+    # pre-warm and self-heal the driver applied (== config when nothing
+    # healed); the next run of the same geometry in this process starts
+    # from them (_CAPACITY_MEMORY)
     config_run: SimulationConfig | None = None
     # per-sample Layzer-Irvine (a, T, W) when output.energy_log is on
     energy_samples: list | None = None
+
+
+# In-process capacity carry-forward: runs of the same geometry cluster
+# alike, so the capacities one run learned through pre-warms and heals
+# start the next one (each heal costs a segment re-run).  Only fields the
+# caller left at 0 (auto) take part: explicit capacities are respected.
+# The port heals the column tiers' knobs only.
+_CAPACITY_FIELDS = ("column_capacity", "column_window")
+_CAPACITY_MEMORY: dict[tuple, dict[str, int]] = {}
+
+
+def _capacity_signature(config: SimulationConfig) -> tuple:
+    """Geometry + schedule fields that set a run's clustering statistics
+    (and so its capacity demand)."""
+    return (
+        config.solver, config.box, config.n_side, config.mesh_size,
+        _resolved_shortrange(config), config.force_split,
+        config.rungs, config.subcycles, config.a_end, config.devices,
+    )
+
+
+def _apply_capacity_memory(config: SimulationConfig) -> SimulationConfig:
+    mem = _CAPACITY_MEMORY.get(_capacity_signature(config))
+    if not mem:
+        return config
+    learned = {f: v for f, v in mem.items() if v and not getattr(config, f)}
+    return config.replace(**learned) if learned else config
+
+
+def _record_capacity_memory(config: SimulationConfig,
+                            cfg_run: SimulationConfig) -> None:
+    mem = _CAPACITY_MEMORY.setdefault(_capacity_signature(config), {})
+    for f in _CAPACITY_FIELDS:
+        v = getattr(cfg_run, f)
+        # only driver-learned values (auto in the caller's config); they
+        # only ever grow above the auto default
+        if v and not getattr(config, f):
+            mem[f] = max(mem.get(f, 0), v)
+
+
+#: attempts of one segment before the capacity heal gives up
+HEAL_ATTEMPTS = 5
+
+
+def column_knobs(config: SimulationConfig,
+                 cfg_run: SimulationConfig) -> tuple[int, int, int]:
+    """(ncell, capacity, window) of the column plane that the run of
+    ``config`` builds with the knobs of ``cfg_run`` (its healed config):
+    the explicit or healed values, else the auto sizing on the resolved
+    tier's chaining grid."""
+    tier = _resolved_shortrange(config)
+    r_cut = p3m_short_params(config.box, config.mesh_size,
+                             config.n_particles)[1]
+    ncell = _tier_ncell(config, tier)
+    ck = cfg_run.column_capacity or auto_column_capacity(config.n_particles,
+                                                         ncell)
+    w = cfg_run.column_window or column_window(config.box, r_cut, ck)
+    return ncell, ck, w
+
+
+def prewarm_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
+                     pos) -> tuple[SimulationConfig, list[str]]:
+    """Before a stretch of steps, grow the column capacity and z-window of
+    ``cfg_run`` to fit the positions' densest column and densest 3-cell
+    z-run (with headroom for the stretch's clustering), which costs one
+    pass over the positions instead of an overflow and a re-run.
+    Returns (the grown config, its run.log lines)."""
+    r_cut = p3m_short_params(config.box, config.mesh_size,
+                             config.n_particles)[1]
+    if (config.solver != "p3m"
+            or _resolved_shortrange(config) not in ("columns", "supercell")
+            or int(config.box / r_cut) < 3):
+        return cfg_run, []
+    nct, ck, cur_w = column_knobs(config, cfg_run)
+    pos = torch.remainder(pos, config.box)
+    c = torch.clamp((pos * (nct / config.box)).to(torch.int64), 0, nct - 1)
+    cid = c[:, 0] * nct + c[:, 1]
+    occ = int(torch.bincount(cid, minlength=nct**2).max())
+    # a chunk's sources lie within +- r_cut in z of the 9 neighbour
+    # columns: at most the densest 3-cell z-run (cell z-height
+    # box/nct >= r_cut)
+    cnt3 = torch.bincount(cid * nct + c[:, 2], minlength=nct**3).reshape(
+        nct, nct, nct)
+    run3 = cnt3 + torch.roll(cnt3, 1, dims=2) + torch.roll(cnt3, -1, dims=2)
+    zrun = int(run3.max())
+    lines = []
+    # the 256-slot chunk scaled 1.15x for the density ratio between
+    # columns + the measured z-run + alignment
+    needed_w = -(-int(295 + 1.25 * zrun + 260) // 128) * 128
+    if needed_w > cur_w:
+        lines.append(f"pre-warming column z-window to {needed_w} "
+                     f"(densest 3-cell z-run {zrun})")
+        cfg_run = cfg_run.replace(column_window=needed_w)
+    # the next 128-slot quantum above the densest column + 10%
+    needed = -(-int(occ * 1.10 + 4) // 128) * 128
+    if needed > ck:
+        lines.append(f"pre-warming P3M column capacity to {needed} "
+                     f"(densest bucket {occ})")
+        cfg_run = cfg_run.replace(column_capacity=needed)
+    return cfg_run, lines
+
+
+def heal_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
+                  ov: int) -> tuple[SimulationConfig, str]:
+    """Grow the knob of ``cfg_run`` that the overflow word ``ov`` names:
+    window misses widen ``column_window`` 1.5x, bucket/ghost spills
+    double ``column_capacity`` (and widen an explicit window with it).
+    Returns (the healed config, its run.log line)."""
+    _, ck, cur_w = column_knobs(config, cfg_run)
+    if (ov >> 16) == 0:
+        # window misses only: widen the window (p3m_acc clamps it to the
+        # column stride, so over-widening only scans whole columns)
+        new_w = -(-int(1.5 * cur_w) // 128) * 128
+        return cfg_run.replace(column_window=new_w), (
+            f"column z-window misses inside scan ({ov & 0xffff} slots) — "
+            f"widening z-window to {new_w}, re-running segment")
+    line = (f"P3M bucket overflow inside scan ({ov >> 16} particles) — "
+            f"doubling column capacity to {2 * ck}, re-running segment")
+    cfg_run = cfg_run.replace(column_capacity=2 * ck)
+    if cfg_run.column_window:
+        # keep an explicit window in step with the larger buckets
+        cfg_run = cfg_run.replace(column_window=-(
+            -int(1.5 * cfg_run.column_window) // 128) * 128)
+    return cfg_run, line
 
 
 def run_simulation(
@@ -279,7 +450,7 @@ def run_simulation(
     seed: int = 0,
     workdir: str | None = None,
     *,
-    device,
+    device="cuda",
     dtype=None,
     initial_state: ParticleState | None = None,
     checkpoint_every_steps: int | None = None,
@@ -296,12 +467,20 @@ def run_simulation(
 
     ``checkpoint_every_steps`` writes an atomic autosave checkpoint every
     k steps; ``resume=True`` continues from the workdir's autosave if
-    there is one."""
+    there is one.
+
+    The column tiers pre-warm their capacity and z-window from the state
+    before each stretch of steps, and a stretch whose overflow word is
+    not 0 re-runs from its start after a heal: window misses widen
+    ``column_window`` 1.5x, bucket/ghost spills double ``column_capacity``
+    (at most ``HEAL_ATTEMPTS`` attempts).  ``result.config_run`` is the
+    healed config."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     t0 = time.perf_counter()
     cosmo = config.cosmology()
-    acc_fn = build_cosmo_force(config, device=device, dtype=dtype,
+    cfg_run = _apply_capacity_memory(config)
+    acc_fn = build_cosmo_force(cfg_run, device=device, dtype=dtype,
                                checked=True)
 
     a_grid = log_a_steps(config.a_begin, config.a_end, config.n_steps)
@@ -343,6 +522,35 @@ def run_simulation(
     def sync() -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    col_like = config.solver == "p3m" and _resolved_shortrange(config) in (
+        "columns", "supercell")
+    rerun_evals = 0
+
+    def segment_with_heal(st, g, a_seg):
+        """One stretch of steps from ``st`` (``g`` its force or None),
+        re-run from its start after each heal until nothing overflows."""
+        nonlocal rerun_evals, cfg_run, acc_fn
+        grown, lines = prewarm_capacity(config, cfg_run, st.pos)
+        for line in lines:
+            log(line)
+        for _ in range(HEAL_ATTEMPTS):
+            if grown is not cfg_run:
+                cfg_run = grown
+                acc_fn = build_cosmo_force(cfg_run, device=device,
+                                           dtype=dtype, checked=True)
+            new, g_new, overflow = kdk_steps(st, cosmo, a_seg, acc_fn,
+                                             config.box, g=g)
+            if overflow == 0:
+                return new, g_new
+            if not col_like:
+                raise RuntimeError(
+                    f"short-range force dropped for {overflow} particles")
+            rerun_evals += len(a_seg) - 1 + (g is None)
+            grown, line = heal_capacity(config, cfg_run, overflow)
+            log(line)
+        raise RuntimeError(
+            "P3M cell capacity retries exhausted — state too clustered")
 
     ic_wall = 0.0
     if state is None and initial_state is not None:
@@ -399,12 +607,7 @@ def run_simulation(
     prev = last_ckpt = start_idx
     for idx in bounds:
         t_seg = time.perf_counter()
-        state, g, overflow = kdk_steps(state, cosmo, a_grid[prev: idx + 1],
-                                       acc_fn, config.box, g=g)
-        if overflow:
-            raise RuntimeError(
-                f"short-range force dropped for {overflow} particles"
-            )
+        state, g = segment_with_heal(state, g, a_grid[prev: idx + 1])
         sync()
         sample_energy(state)
         log(
@@ -421,7 +624,10 @@ def run_simulation(
             last_ckpt = idx
         prev = idx
     log_energy()
+    if rerun_evals:
+        log(f"Capacity heals repeated {rerun_evals} force evaluations")
     sync()
+    _record_capacity_memory(config, cfg_run)
     return SimulationResult(
         state=state,
         config=config,
@@ -429,6 +635,6 @@ def run_simulation(
         snapshots=snapshots,
         powerspecs=powerspecs,
         wall_s=time.perf_counter() - t0,
-        config_run=config,
+        config_run=cfg_run,
         energy_samples=energy_samples or None,
     )

@@ -1,0 +1,100 @@
+// The column pair sum shared by K3 (pm_supercell.cu) and K4
+// (p3m_columns.cu): the plane layout, the block-to-targets map and the
+// loop over a target chunk's 9 neighbour z-windows.
+//
+// Plane: (8, P2 * stride) float32 row-major, rows x, y, z, m (rows 4-7
+// unused on input), P2 = (ncell + 2)^2 padded columns of `stride` slots;
+// padded column (px, py) starts at slot (px * P + py) * stride, P =
+// ncell + 2.  Interior column ic = cx * ncell + cy is padded column
+// (cx + 1, cy + 1).  Its chunk k holds the target slots
+// [gz + k * chunk, gz + (k + 1) * chunk) and interacts with window
+// [ws, ws + W) of each neighbour (cx + o2 / 3, cy + o2 % 3), o2 = 0..8,
+// ws = ws_tab[(ic * 9 + o2) * maxch + k].  Ghost columns and ghost slots
+// carry +-box in their coordinates, so there is no minimum image.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "short_weight.cuh"
+
+namespace nbody_kernels {
+
+// Targets per block == sources per shared-memory tile.  A chunk of 256
+// targets is two blocks, so a uniform 64^3-particle state gives ~2,500
+// blocks of 4 warps for 132 SMs.
+constexpr int kColThreads = 128;
+
+struct ColumnGeom {
+  int ncell;   // interior columns per side
+  int stride;  // slots per padded column
+  int W;       // window width (slots), <= stride, multiple of 128
+  int maxch;   // chunk slots per column in the window table
+  int gz;      // z-ghost slots at each column end
+  int chunk;   // targets per chunk (a multiple of kColThreads)
+  size_t row;  // elements per plane row: P2 * stride
+};
+
+// Where this block's targets are: interior column `ic`, chunk `k` and the
+// first target slot; false when the chunk is empty (the whole block
+// returns before any barrier).
+__device__ __forceinline__ bool column_block(const ColumnGeom& g,
+                                             const int* __restrict__ nch,
+                                             int& ic, int& k, size_t& first) {
+  ic = blockIdx.x;
+  const int subs = g.chunk / kColThreads;
+  k = blockIdx.y / subs;
+  if (k >= nch[ic]) return false;
+  const int P = g.ncell + 2;
+  const int tcol = (ic / g.ncell + 1) * P + (ic % g.ncell + 1);
+  first = static_cast<size_t>(tcol) * g.stride + g.gz +
+          static_cast<size_t>(k) * g.chunk +
+          static_cast<size_t>(blockIdx.y % subs) * kColThreads;
+  return true;
+}
+
+// Adds to (ax, ay, az) the short-range sum of target (xi, yi, zi) over
+// the 9 windows of chunk k of column ic.  Every thread of the block calls
+// it (barriers inside); `tile` is kColThreads float4 of shared memory.
+template <int SPLIT, int SOFT>
+__device__ __forceinline__ void column_pair_sum(
+    const float* __restrict__ plane, const int* __restrict__ ws,
+    const ColumnGeom& g, int ic, int k, float xi, float yi, float zi,
+    const Params& p, float4* tile, float& ax, float& ay, float& az) {
+  const int P = g.ncell + 2;
+  const int cx = ic / g.ncell;
+  const int cy = ic % g.ncell;
+  for (int o2 = 0; o2 < 9; ++o2) {
+    const int jcol = (cx + o2 / 3) * P + (cy + o2 % 3);
+    const int start =
+        ws[(static_cast<size_t>(ic) * 9 + o2) * g.maxch + k];
+    const size_t base = static_cast<size_t>(jcol) * g.stride + start;
+    for (int j0 = 0; j0 < g.W; j0 += kColThreads) {
+      const int nt = min(kColThreads, g.W - j0);
+      if (static_cast<int>(threadIdx.x) < nt) {
+        const size_t j = base + j0 + threadIdx.x;
+        tile[threadIdx.x] = make_float4(plane[j], plane[g.row + j],
+                                        plane[2 * g.row + j],
+                                        plane[3 * g.row + j]);
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int t = 0; t < nt; ++t) {
+        const float4 s = tile[t];
+        const float dx = s.x - xi;
+        const float dy = s.y - yi;
+        const float dz = s.z - zi;
+        const float r2 = dx * dx + dy * dy + dz * dz;
+        if (fmaxf(r2, 1e-30f) < p.r_cut2) {
+          const float w = s.w * short_weight<SPLIT, SOFT>(r2, p);
+          ax += w * dx;
+          ay += w * dy;
+          az += w * dz;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace nbody_kernels

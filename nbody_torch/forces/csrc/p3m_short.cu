@@ -7,8 +7,8 @@
 //   acc_i = G * sum_j m_j * w(r_ij^2) * d_ij,
 //   d_ij  = minimum image of x_j - x_i  (d - box * rint(d / box)),
 // with w the cutoff-masked weight _weight_fn(split, softening) of
-// nbody/forces/p3m.py: spline or Gaussian (Ewald erfc) force split times
-// Plummer or cubic-spline softened Newton.  The four variants are template
+// nbody/forces/p3m.py (short_weight.cuh): spline or Gaussian (Ewald erfc)
+// force split times Plummer or cubic-spline softened Newton.  The four variants are template
 // instantiations chosen by two integer arguments.  There is no self-pair
 // mask: at d = 0 the weighted displacement is exactly 0, as in the TPU
 // kernel.  The Gaussian split uses the same Abramowitz-Stegun erfc
@@ -34,78 +34,14 @@
 
 #include <cuda_runtime.h>
 
+#include "short_weight.cuh"
+
 namespace {
 
+using nbody_kernels::Params;
+using nbody_kernels::short_weight;
+
 constexpr int kBlock = 128;  // targets per block == sources per tile
-constexpr float kInvSqrtPi = 0.56418958354775628695f;
-
-struct Params {
-  float box;        // periodic box side
-  float inv_box;    // 1 / box
-  float eps2;       // Plummer-equivalent softening length squared
-  float r_cut2;     // cutoff radius squared
-  float inv_rcut2;  // 1 / r_cut^2 (spline split)
-  float inv_rcut3;  // 1 / r_cut^3 (spline split)
-  float inv_2rs;    // 1 / (2 r_s) (Gaussian split)
-  float inv_rs;     // 1 / r_s (Gaussian split)
-  float h;          // cubic-spline softening support 2.8 eps (0: none)
-  float inv_h;      // 1 / h
-  float h3_inv;     // 1 / h^3
-};
-
-// erfc(x) for x >= 0, Abramowitz & Stegun 7.1.26 (nbody _erfc_pos).
-__device__ __forceinline__ float erfc_pos(float x, float expmx2) {
-  const float t = 1.0f / (1.0f + 0.3275911f * x);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return poly * expmx2;
-}
-
-// Softened Newton weight F / (G m r); r2 excludes eps^2.
-template <int SOFT>
-__device__ __forceinline__ float soft_newton(float r2, const Params& p);
-
-template <>  // Plummer: 1 / (r^2 + eps^2)^(3/2)   (nbody _soft_newton)
-__device__ __forceinline__ float soft_newton<0>(float r2, const Params& p) {
-  const float inv_r = rsqrtf(fmaxf(r2 + p.eps2, 1e-30f));
-  return inv_r * inv_r * inv_r;
-}
-
-template <>  // cubic spline, exact Newton beyond h   (nbody _soft_newton_spline)
-__device__ __forceinline__ float soft_newton<1>(float r2, const Params& p) {
-  const float r2c = fmaxf(r2, 1e-30f);
-  const float inv_r = rsqrtf(r2c);
-  const float newton = inv_r * inv_r * inv_r;
-  if (p.h == 0.0f) return newton;
-  const float u = r2c * inv_r * p.inv_h;  // r / h
-  const float fac_lo = p.h3_inv * (32.0f / 3.0f + u * u * (32.0f * u - 38.4f));
-  const float fac_hi =
-      p.h3_inv * (64.0f / 3.0f + u * (-48.0f + u * (38.4f - (32.0f / 3.0f) * u))) -
-      (1.0f / 15.0f) * newton;
-  return u < 0.5f ? fac_lo : (u < 1.0f ? fac_hi : newton);
-}
-
-// Short-range weight inside the cutoff (the caller applies the mask).
-// SPLIT 0: Gaussian split (nbody _short_weight);
-// SPLIT 1: polynomial spline split (nbody _spline_short_weight).
-template <int SPLIT, int SOFT>
-__device__ __forceinline__ float short_weight(float r2, const Params& p) {
-  const float r2f = fmaxf(r2, 1e-30f);
-  if constexpr (SPLIT == 0) {
-    const float inv_r = rsqrtf(r2f);
-    const float r = r2f * inv_r;
-    const float x = r * p.inv_2rs;
-    const float expmx2 = expf(-x * x);
-    const float corr = erfc_pos(x, expmx2) + (r * p.inv_rs) * kInvSqrtPi * expmx2;
-    return corr * soft_newton<SOFT>(r2, p);
-  } else {
-    const float u2 = r2f * p.inv_rcut2;
-    const float g = (-70.0f + u2 * (84.0f - u2 * 30.0f)) * (1.0f / 16.0f);
-    return soft_newton<SOFT>(r2, p) + g * p.inv_rcut3;
-  }
-}
 
 // packed: (4, npad) row-major [x; y; z; m], positions wrapped into [0, box),
 // padding columns have m = 0.  npad is a multiple of kBlock.
@@ -182,19 +118,7 @@ int p3m_short_acc_f32(const float* packed, int n, int npad, double box,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  Params p;
-  const double h = eps > 0.0 ? 2.8 * eps : 0.0;
-  p.box = static_cast<float>(box);
-  p.inv_box = static_cast<float>(1.0 / box);
-  p.eps2 = static_cast<float>(eps * eps);
-  p.r_cut2 = static_cast<float>(r_cut * r_cut);
-  p.inv_rcut2 = static_cast<float>(1.0 / (r_cut * r_cut));
-  p.inv_rcut3 = static_cast<float>(1.0 / (r_cut * r_cut * r_cut));
-  p.inv_2rs = static_cast<float>(1.0 / (2.0 * r_s));
-  p.inv_rs = static_cast<float>(1.0 / r_s);
-  p.h = static_cast<float>(h);
-  p.inv_h = h > 0.0 ? static_cast<float>(1.0 / h) : 0.0f;
-  p.h3_inv = h > 0.0 ? static_cast<float>(1.0 / (h * h * h)) : 0.0f;
+  const Params p = nbody_kernels::make_params(box, eps, r_s, r_cut);
   const float g = static_cast<float>(G);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split == 0) {

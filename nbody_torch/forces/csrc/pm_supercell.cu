@@ -1,0 +1,284 @@
+// K2 and K3: the supercell tier's PM deposit and its PM readback fused
+// with the column pair sum, float32, for sm_90a.
+//
+// K2 replaces the Pallas kernel `_deposit_kernel` that
+// nbody/forces/pm_supercell.py:_deposit_node_masses launches; K3 replaces
+// `_column_pm_kernel` that pm_supercell.py:run_fused_column_plane
+// launches.  The plane layout is that of column_pairs.cuh.
+//
+// K2 computes the CIC mass grid (nmesh^3, periodic) of the plane's real
+// slots (the first counts[c] interior slots of each column; z-ghosts and
+// ghost columns excluded), with coordinates in mesh cells minus `shift`.
+// The TPU kernel built each column's haloed 16 x 16 x ZP node grid with
+// two matrix products (its MXU has no scatter) and left the overlap-add
+// of the halos to XLA.  That output block is 256 KB at ZP = 256, more
+// than a block's 227 KB of shared memory, and the card has fast atomics:
+// so here one thread per real slot adds its 8 corner masses straight into
+// the periodic mesh with atomicAdd, which also does the halo fold.  The
+// order of the adds changes from run to run, so the mesh agrees with the
+// plain version to float32 summation order.  What bounds it: bytes, 16 B
+// read per particle and the 4 B per node of the mesh (8.4 MB at 128^3);
+// the adds of neighbouring slots (z-sorted within a column) spread over a
+// few mesh cells, so contention stays low on uniform states.
+//
+// K3 computes K4's output (p3m_columns.cu) with the PM force added first:
+// each target reads its 8 CIC corners of the force grids (3, nmesh^3)
+// with periodic indices from its coordinates in cells relative to its
+// column's tile origin, as the TPU kernel's triangle weights did; with
+// `interlaced` it also reads grids 3-5 at -0.5 cell and averages the two.
+// The result starts the target's sum (rows 0-2), or goes to rows 3-5 with
+// `split_out` while rows 0-2 hold the short-range sum alone.  The TPU's
+// 256-row x ZP triangle contraction over a per-column node subgrid was
+// MXU mechanics; on the card the 24 (48 interlaced) corner reads per
+// target come from the force grids in L2 and need no subgrid gather.
+// What bounds it: the pair sum, as K4.
+
+#include <cuda_runtime.h>
+
+#include "column_pairs.cuh"
+
+namespace {
+
+using nbody_kernels::ColumnGeom;
+using nbody_kernels::kColThreads;
+using nbody_kernels::Params;
+
+constexpr int kDepositThreads = 256;
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+__global__ void __launch_bounds__(kDepositThreads)
+deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
+               int ncell, int S, int nmesh, int stride, int gz, size_t row,
+               float scale, float shift, float* __restrict__ rho) {
+  const int ic = blockIdx.x;
+  const int r = blockIdx.y * kDepositThreads + threadIdx.x;
+  if (r >= counts[ic]) return;
+  const int cx = ic / ncell;
+  const int cy = ic % ncell;
+  const int P = ncell + 2;
+  const size_t i =
+      static_cast<size_t>((cx + 1) * P + (cy + 1)) * stride + gz + r;
+  // coordinates in cells relative to the tile origin, as the TPU kernel,
+  // rounded op by op as the plain version (no multiply-add contraction)
+  const float x = __fsub_rn(__fsub_rn(__fmul_rn(plane[i], scale),
+                                      static_cast<float>(cx * S)), shift);
+  const float y = __fsub_rn(__fsub_rn(__fmul_rn(plane[row + i], scale),
+                                      static_cast<float>(cy * S)), shift);
+  const float z = __fsub_rn(__fmul_rn(plane[2 * row + i], scale), shift);
+  const float m = plane[3 * row + i];
+  const float fx0 = floorf(x), fy0 = floorf(y), fz0 = floorf(z);
+  const float fx = x - fx0, fy = y - fy0, fz = z - fz0;
+  const int ix = static_cast<int>(fx0) + cx * S;
+  const int iy = static_cast<int>(fy0) + cy * S;
+  const int iz = static_cast<int>(fz0);
+  const float wx[2] = {1.0f - fx, fx};
+  const float wy[2] = {1.0f - fy, fy};
+  const float wz[2] = {1.0f - fz, fz};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const size_t gx = static_cast<size_t>(wrap(ix + a, nmesh)) * nmesh;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const size_t gxy = (gx + wrap(iy + b, nmesh)) * nmesh;
+      const float wxy = wx[a] * wy[b] * m;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        atomicAdd(rho + gxy + wrap(iz + c, nmesh), wxy * wz[c]);
+      }
+    }
+  }
+}
+
+// Trilinear read of three periodic (nmesh^3) grids spaced n3 apart at
+// (x, y, z) in cells, x and y relative to the tile origin (x0, y0).
+__device__ __forceinline__ float3 cic_read3(const float* __restrict__ grids,
+                                            size_t n3, int nmesh, float x,
+                                            float y, float z, int x0, int y0) {
+  const float fx0 = floorf(x), fy0 = floorf(y), fz0 = floorf(z);
+  const float fx = x - fx0, fy = y - fy0, fz = z - fz0;
+  const int ix = static_cast<int>(fx0) + x0;
+  const int iy = static_cast<int>(fy0) + y0;
+  const int iz = static_cast<int>(fz0);
+  const float wx[2] = {1.0f - fx, fx};
+  const float wy[2] = {1.0f - fy, fy};
+  const float wz[2] = {1.0f - fz, fz};
+  float3 f = make_float3(0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const size_t gx = static_cast<size_t>(wrap(ix + a, nmesh)) * nmesh;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const size_t gxy = (gx + wrap(iy + b, nmesh)) * nmesh;
+      const float wxy = wx[a] * wy[b];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const size_t j = gxy + wrap(iz + c, nmesh);
+        const float w = wxy * wz[c];
+        f.x += w * grids[j];
+        f.y += w * grids[n3 + j];
+        f.z += w * grids[2 * n3 + j];
+      }
+    }
+  }
+  return f;
+}
+
+template <int SPLIT, int SOFT, bool INTERLACED, bool SPLIT_OUT>
+__global__ void __launch_bounds__(kColThreads)
+fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
+             const int* __restrict__ nch, const float* __restrict__ grids,
+             int nmesh, int S, float scale, ColumnGeom g, Params p,
+             float* __restrict__ out) {
+  __shared__ float4 tile[kColThreads];
+  int ic, k;
+  size_t first;
+  if (!nbody_kernels::column_block(g, nch, ic, k, first)) return;
+  const size_t i = first + threadIdx.x;
+  const float xi = plane[i];
+  const float yi = plane[g.row + i];
+  const float zi = plane[2 * g.row + i];
+
+  // PM force at the target (the TPU kernel's first-neighbour visit)
+  const int x0 = (ic / g.ncell) * S;
+  const int y0 = (ic % g.ncell) * S;
+  const float xr = __fsub_rn(__fmul_rn(xi, scale), static_cast<float>(x0));
+  const float yr = __fsub_rn(__fmul_rn(yi, scale), static_cast<float>(y0));
+  const float zr = __fmul_rn(zi, scale);
+  const size_t n3 = static_cast<size_t>(nmesh) * nmesh * nmesh;
+  float3 pm = cic_read3(grids, n3, nmesh, xr, yr, zr, x0, y0);
+  if (INTERLACED) {
+    // the shift subtracts, as in the gather's convention
+    const float3 f1 = cic_read3(grids + 3 * n3, n3, nmesh, xr - 0.5f,
+                                yr - 0.5f, zr - 0.5f, x0, y0);
+    pm.x = 0.5f * (pm.x + f1.x);
+    pm.y = 0.5f * (pm.y + f1.y);
+    pm.z = 0.5f * (pm.z + f1.z);
+  }
+
+  float ax = SPLIT_OUT ? 0.0f : pm.x;
+  float ay = SPLIT_OUT ? 0.0f : pm.y;
+  float az = SPLIT_OUT ? 0.0f : pm.z;
+  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, xi, yi, zi,
+                                              p, tile, ax, ay, az);
+  out[i] = ax;
+  out[g.row + i] = ay;
+  out[2 * g.row + i] = az;
+  if (SPLIT_OUT) {
+    out[3 * g.row + i] = pm.x;
+    out[4 * g.row + i] = pm.y;
+    out[5 * g.row + i] = pm.z;
+  }
+}
+
+template <int SPLIT, int SOFT, bool INTERLACED, bool SPLIT_OUT>
+void launch_fused(const float* plane, const int* ws, const int* nch,
+                  const float* grids, int nmesh, int S, float scale,
+                  const ColumnGeom& g, const Params& p, float* out,
+                  cudaStream_t stream) {
+  const dim3 grid(g.ncell * g.ncell, g.maxch * (g.chunk / kColThreads));
+  fused_kernel<SPLIT, SOFT, INTERLACED, SPLIT_OUT>
+      <<<grid, kColThreads, 0, stream>>>(plane, ws, nch, grids, nmesh, S,
+                                         scale, g, p, out);
+}
+
+template <int SPLIT, int SOFT>
+void dispatch_fused(bool interlaced, bool split_out, const float* plane,
+                    const int* ws, const int* nch, const float* grids,
+                    int nmesh, int S, float scale, const ColumnGeom& g,
+                    const Params& p, float* out, cudaStream_t s) {
+  if (interlaced) {
+    if (split_out)
+      launch_fused<SPLIT, SOFT, true, true>(plane, ws, nch, grids, nmesh, S,
+                                            scale, g, p, out, s);
+    else
+      launch_fused<SPLIT, SOFT, true, false>(plane, ws, nch, grids, nmesh, S,
+                                             scale, g, p, out, s);
+  } else {
+    if (split_out)
+      launch_fused<SPLIT, SOFT, false, true>(plane, ws, nch, grids, nmesh, S,
+                                             scale, g, p, out, s);
+    else
+      launch_fused<SPLIT, SOFT, false, false>(plane, ws, nch, grids, nmesh, S,
+                                              scale, g, p, out, s);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2.  plane (8, (ncell + 2)^2 * stride) float32; counts (ncell^2,) int32
+// (real slots per column, <= CK); rho (nmesh^3,) float32, zeroed by the
+// caller, receives the masses.  Returns cudaGetLastError() after the
+// launch (0 on success); 1 (cudaErrorInvalidValue) for arguments the
+// kernel does not take.
+int pm_supercell_deposit_f32(const float* plane, const int* counts, int ncell,
+                             int S, int nmesh, int stride, int gz, int CK,
+                             double scale, double shift, float* rho,
+                             void* stream) {
+  if (ncell < 1 || S < 1 || nmesh != ncell * S || stride < 1 || gz < 0 ||
+      CK < 1 || gz + CK > stride) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t row = static_cast<size_t>(ncell + 2) * (ncell + 2) * stride;
+  const dim3 grid(ncell * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
+  deposit_kernel<<<grid, kDepositThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      plane, counts, ncell, S, nmesh, stride, gz, row,
+      static_cast<float>(scale), static_cast<float>(shift), rho);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3.  plane, ws, nch and out as p3m_columns_f32; grids (3, nmesh^3)
+// float32, or (6, nmesh^3) with `interlaced` (rows 3-5 read at -0.5
+// cell).  `split_out` writes the PM force to rows 3-5 and the short-range
+// sum alone to rows 0-2.
+int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
+                           const float* grids, int nmesh, int interlaced,
+                           int split_out, int ncell, int S, double scale,
+                           int stride, int W, int maxch, int gz, int chunk,
+                           double eps, double r_s, double r_cut, int split,
+                           int softening, float* out, void* stream) {
+  if (ncell < 1 || S < 1 || nmesh != ncell * S || stride < 1 || W < 1 ||
+      W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
+      chunk % kColThreads != 0 || gz + maxch * chunk > stride ||
+      split < 0 || split > 1 || softening < 0 || softening > 1 ||
+      maxch * (chunk / kColThreads) > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ColumnGeom g;
+  g.ncell = ncell;
+  g.stride = stride;
+  g.W = W;
+  g.maxch = maxch;
+  g.gz = gz;
+  g.chunk = chunk;
+  g.row = static_cast<size_t>(ncell + 2) * (ncell + 2) * stride;
+  // the column tiers bake the box into the ghost coordinates
+  const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
+  const float sc = static_cast<float>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool il = interlaced != 0, so = split_out != 0;
+  if (split == 0) {
+    if (softening == 0)
+      dispatch_fused<0, 0>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
+                           out, s);
+    else
+      dispatch_fused<0, 1>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
+                           out, s);
+  } else {
+    if (softening == 0)
+      dispatch_fused<1, 0>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
+                           out, s);
+    else
+      dispatch_fused<1, 1>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
+                           out, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,12 +1,14 @@
 """P3M gravity: PM far field + short-range particle-particle correction.
 
-Counterpart of :mod:`nbody.forces.p3m` for the dense ("allpairs")
-short-range tier, the tier the JAX package resolves for N <= 65,536.  The
-short-range pair sum is K1, a CUDA kernel (``forces/csrc/p3m_short.cu``)
-on a CUDA tensor, and its plain PyTorch version on a CPU tensor.  The
-cell, column and supercell tiers are not ported yet: asking for them
-raises ``NotImplementedError`` naming the tier, and never runs the dense
-kernel in their place.
+Counterpart of :mod:`nbody.forces.p3m`.  :func:`p3m_acc` resolves the
+short-range tier by the JAX package's rule (:func:`resolve_shortrange`):
+the dense "allpairs" tier for N <= 65,536, whose pair sum is K1 (a CUDA
+kernel, ``forces/csrc/p3m_short.cu``, on a CUDA tensor, its plain PyTorch
+version on a CPU tensor); above that the supercell tier
+(:mod:`nbody_torch.forces.pm_supercell`, K2 + K3) where the mesh tiles a
+chaining grid, and the columns tier (:mod:`nbody_torch.forces.
+p3m_columns`, K4) where it does not.  The cell tier ('cells', K6) is not
+ported yet: asking for it raises ``NotImplementedError``.
 
 The weight functions below are the physics and keep the JAX package's
 algebra and constants exactly.
@@ -27,7 +29,8 @@ _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
 #: supercell/columns tiers (p3m.py:334)
 ALLPAIRS_MAX_N = 65536
 
-_UNPORTED_TIERS = ("cells", "columns", "supercell")
+_CHAINED_TIERS = ("cells", "columns", "supercell")
+_TIERS = ("auto", "allpairs", *_CHAINED_TIERS)
 
 
 def _erfc_pos(x, expmx2):
@@ -232,27 +235,57 @@ def p3m_short_params(box: float, nmesh: int, n: int):
     return r_s, r_cut, ncell, cell_capacity(n, ncell)
 
 
-def resolve_shortrange(shortrange: str, n: int, box: float,
-                       r_cut: float) -> str:
-    """The tier the JAX package's rule picks, restricted to what is
-    ported: 'allpairs', or ``NotImplementedError`` naming the tier."""
-    if shortrange not in ("auto", "allpairs", *_UNPORTED_TIERS):
+def supercell_ncell(box: float, nmesh: int, r_cut: float) -> int | None:
+    """Chaining-grid side for the supercell tier: the largest divisor of
+    nmesh with column side box/ncell >= r_cut, nmesh/ncell <= 13 (the
+    haloed CIC node grid of a column packs into 16 x 16 rows) and
+    ncell >= 3 (xy ghost ring); None when the mesh admits no such tiling
+    (the columns tier carries the force then)."""
+    for c in range(int(box / float(r_cut)), 2, -1):
+        if nmesh % c == 0 and nmesh // c <= 13:
+            return c
+    return None
+
+
+def auto_column_capacity(n: int, ncell: int) -> int:
+    """Column capacity for n particles over ncell^2 columns: the mean
+    column + 6 sigma Poisson tail + 8, rounded up to 128."""
+    mean_col = n / ncell**2
+    return -(-int(mean_col + 6.0 * mean_col**0.5 + 8) // 128) * 128
+
+
+def resolve_shortrange(shortrange: str, n: int, box: float, r_cut: float,
+                       nmesh: int, capacity: int | None = None) -> str:
+    """The tier :func:`p3m_acc` runs for ``part='both'``, by the JAX
+    package's rule: 'auto' picks supercell (the mesh tiles a chaining
+    grid) or columns above ALLPAIRS_MAX_N particles and allpairs below; a
+    box under 3 r_cut runs allpairs for every tier; supercell falls back
+    to columns when no grid tiles the mesh or the capacity's stride is
+    over budget.  'cells' (K6) raises ``NotImplementedError``."""
+    if shortrange not in _TIERS:
         raise ValueError(f"unknown shortrange tier {shortrange!r}")
-    chained = shortrange in _UNPORTED_TIERS or (
-        shortrange == "auto" and n > ALLPAIRS_MAX_N
-    )
-    # a box too small for a 3^3 chaining grid runs the dense tier in the
-    # JAX package too, which is exact there
-    if chained and box / float(r_cut) >= 3.0:
-        what = (
-            f"shortrange={shortrange!r}" if shortrange != "auto" else
-            f"shortrange='auto' with N={n} > {ALLPAIRS_MAX_N} (the "
-            f"supercell/columns tier)"
-        )
+    if shortrange == "auto":
+        if n > ALLPAIRS_MAX_N:
+            shortrange = ("supercell" if supercell_ncell(box, nmesh, r_cut)
+                          else "columns")
+        else:
+            shortrange = "allpairs"
+    if shortrange in _CHAINED_TIERS and box / float(r_cut) < 3.0:
+        # a box too small for a 3^3 chaining grid: the dense tier is
+        # exact there
+        return "allpairs"
+    if shortrange == "supercell":
+        from nbody_torch.forces.pm_supercell import supercell_stride_ok
+
+        sc = supercell_ncell(box, nmesh, r_cut)
+        if sc is None or not supercell_stride_ok(
+                box, r_cut, capacity if capacity is not None
+                else auto_column_capacity(n, sc)):
+            shortrange = "columns"
+    if shortrange == "cells":
         raise NotImplementedError(
-            f"{what} is not ported yet; only the dense 'allpairs' tier is"
-        )
-    return "allpairs"
+            "shortrange='cells' (the cell-plane tier, K6) is not ported yet")
+    return shortrange
 
 
 def p3m_acc(
@@ -269,17 +302,24 @@ def p3m_acc(
     shortrange: str = "auto",
     split: str = "gaussian",
     softening: str = "plummer",
+    capacity: int | None = None,
+    window: int | None = None,
     with_overflow: bool = False,
     part: str = "both",
     grad_order: str = "fd4",
 ):
     """Full P3M acceleration: filtered PM far field + short-range pair
-    correction (the dense tier).
+    correction.
 
     ``part``: 'both' | 'long' (mesh only) | 'short' (pairs only) | 'split'
-    (returns (acc_long, acc_short, overflow)).  Defaults r_s = 1.25 cells,
-    r_cut = 4.5 r_s.  ``with_overflow=True`` returns (acc, overflow); the
-    dense tier never drops a pair, so overflow is 0."""
+    (returns (acc_long, acc_short, overflow) from one evaluation).
+    Defaults r_s = 1.25 cells, r_cut = 4.5 r_s.  ``shortrange`` picks the
+    tier (:func:`resolve_shortrange`): 'allpairs' (K1), 'columns' (K4),
+    'supercell' (K2 + K3; its 'short' part runs K4 on the same chaining
+    geometry) or 'auto'.  ``capacity``/``window`` set the column tiers'
+    bucket capacity and z-window (None: auto).  ``with_overflow=True``
+    returns (acc, overflow): 0 iff no force was dropped (the column tiers'
+    field-encoded word, a 0-d tensor; the dense tier returns 0)."""
     if part not in ("both", "long", "short", "split"):
         raise ValueError(f"unknown part {part!r}")
     cell = box / nmesh
@@ -299,11 +339,61 @@ def p3m_acc(
 
     if part == "long":
         return _pm_long()
-    resolve_shortrange(shortrange, pos.shape[0], box, r_cut)
-    acc_short = p3m_short_acc(pos, mass, box, float(eps), float(r_s),
-                              float(r_cut), G=G, split=split,
-                              softening=softening)
-    overflow = 0
+    n = pos.shape[0]
+    tier = resolve_shortrange(shortrange, n, box, float(r_cut), nmesh,
+                              capacity)
+    ckw = dict(G=G, split=split, softening=softening)
+    if tier == "supercell":
+        from nbody_torch.forces.p3m_columns import (
+            column_window,
+            p3m_short_columns,
+        )
+        from nbody_torch.forces.pm_supercell import p3m_supercell_acc
+
+        sc_ncell = supercell_ncell(box, nmesh, float(r_cut))
+        ck = capacity if capacity is not None else auto_column_capacity(
+            n, sc_ncell)
+        w = window if window else column_window(box, float(r_cut), ck)
+        if part in ("both", "split"):
+            out = p3m_supercell_acc(
+                pos, mass, box, nmesh, G=G, eps=float(eps), r_s=float(r_s),
+                r_cut=float(r_cut), deconvolve_p=deconvolve_p, split=split,
+                softening=softening, ncell=sc_ncell, col_capacity=ck,
+                window=w, grad_order=grad_order,
+                part_split=(part == "split"), interlace=interlace,
+            )
+            if part == "split":
+                return out
+            return out if with_overflow else out[0]
+        # the short part on the same chaining geometry, so the capacity
+        # knobs mean the same across parts
+        acc_short, overflow = p3m_short_columns(
+            pos, mass, box, float(eps), float(r_s), float(r_cut),
+            ncell=sc_ncell, col_capacity=ck, window=w, **ckw)
+    elif tier == "columns":
+        from nbody_torch.forces.p3m_columns import (
+            column_params,
+            column_window,
+            columns_stride_ok,
+            p3m_short_columns,
+        )
+
+        _, _, ncell_c, auto_ck, _ = column_params(box, nmesh, n)
+        ck = capacity if capacity is not None else auto_ck
+        if not columns_stride_ok(box, float(r_cut), ck):
+            raise ValueError(
+                f"column capacity {ck} exceeds the column kernels' stride "
+                f"budget - the state is too clustered for this mesh; "
+                f"increase mesh_size (shrinks r_cut)"
+            )
+        w = window if window else column_window(box, float(r_cut), ck)
+        acc_short, overflow = p3m_short_columns(
+            pos, mass, box, float(eps), float(r_s), float(r_cut),
+            ncell=ncell_c, col_capacity=ck, window=w, **ckw)
+    else:
+        acc_short = p3m_short_acc(pos, mass, box, float(eps), float(r_s),
+                                  float(r_cut), **ckw)
+        overflow = 0
     if part == "split":
         return _pm_long(), acc_short, overflow
     acc = acc_short if part == "short" else _pm_long() + acc_short

@@ -1,0 +1,451 @@
+"""Column-packed short-range P3M tier: z-sorted (x, y) cell columns with
+per-chunk z-windows.
+
+Counterpart of :mod:`nbody.forces.p3m_columns` (the fresh-plane path).
+Particles are sorted once into z-ordered (x, y) chaining columns of side
+>= r_cut; each column is one contiguous bucket of capacity CK with a
+ghost band of ``gz`` slots at each z end (the wrap partners, +-box baked
+into z) and one ring of ghost columns around the grid (+-box baked into
+x and y), so the pair sum needs no minimum image.  Each 256-slot chunk of
+targets interacts only with the z-window of its 9 neighbour columns that
+its z-range +- r_cut can reach; the window starts come from the plane
+build.  Bucket, ghost and window overflow are counted and returned in one
+field-encoded word, so the driver's self-heal can grow the right knob.
+
+The plane build is PyTorch.  The pair sum is K4, a CUDA kernel
+(``forces/csrc/p3m_columns.cu``) on a CUDA tensor, and its plain PyTorch
+version :func:`column_plane_plain` on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_torch.forces.p3m import _SOFTENINGS, _SPLITS, _weight_fn
+
+_ZBITS = 21
+
+
+def _ceil128(x: int) -> int:
+    return -(-int(x) // 128) * 128
+
+
+def ghost_slots(col_capacity: int, rc_slots: float | None = None) -> int:
+    """z-ghost capacity per column end: 2.2x the z-extent of r_cut in
+    slots at capacity density, 128-aligned (CK/4 without ``rc_slots``).
+    Demand beyond it is counted as overflow and heals via the capacity."""
+    if rc_slots is not None:
+        return max(128, -(-int(2.2 * rc_slots) // 128) * 128)
+    return max(128, (col_capacity // 4 // 128) * 128)
+
+
+def column_window(box: float, r_cut: float, col_capacity: int) -> int:
+    """Auto z-window for a column capacity: a 256-slot chunk's z-span + 2
+    r_cut of margin in slots at capacity density + 127 slots of start
+    alignment, clamped to the column stride.  Window misses are counted
+    as overflow, so this sets only the work/robustness trade."""
+    rc_slots = (r_cut / box) * col_capacity
+    span = 256.0 + 2.2 * rc_slots + 127.0
+    window = max(384, -(-int(span) // 128) * 128)
+    return min(window, col_capacity + 2 * ghost_slots(col_capacity, rc_slots))
+
+
+def column_params(box: float, nmesh: int, n: int):
+    """(r_s, r_cut, ncell, col_capacity, window) defaults for the column
+    tier: the mean column + 6 sigma Poisson tail, 128-aligned."""
+    from nbody_torch.forces.p3m import auto_column_capacity, p3m_short_params
+
+    r_s, r_cut, ncell, _ = p3m_short_params(box, nmesh, n)
+    col_capacity = auto_column_capacity(n, ncell)
+    return r_s, r_cut, ncell, col_capacity, column_window(
+        box, r_cut, col_capacity
+    )
+
+
+def _col_z_order(col, z, box: float):
+    """Stable argsort by (column id, z): one int64 key (col << 21) | zq,
+    the order of the JAX package's int32 two-pass sort."""
+    zq = torch.clamp(
+        (z * ((1 << _ZBITS) / box)).to(torch.int32), 0, (1 << _ZBITS) - 1
+    )
+    key = (col.to(torch.int64) << _ZBITS) | zq.to(torch.int64)
+    return torch.argsort(key, stable=True)
+
+
+def _slot_sources(starts, counts, CK: int, gz: int, stride: int):
+    """Per-slot source index into the sorted particle rows plus the band
+    masks.  Slot layout per column (ascending z): [0, gz) front ghosts
+    (the last reals, z - box), [gz, gz + cnt) reals, [gz + cnt,
+    gz + cnt + gz) back ghosts (the first reals, z + box), then padding."""
+    cnt = torch.clamp_max(counts, CK)[:, None]
+    r = (torch.arange(stride, device=starts.device) - gz)[None, :]
+    is_front = r < 0
+    is_interior = (r >= 0) & (r < cnt)
+    g_b = r - cnt
+    is_back = (r >= cnt) & (g_b < gz)
+    st = starts[:, None]
+    src = torch.where(is_front, st + cnt + r,
+                      torch.where(is_back, st + g_b, st + r))
+    src_ok = (src >= st) & (src < st + cnt)
+    return src, src_ok, is_front, is_interior, is_back
+
+
+def _rows_to_buf(rows, src_ok, is_front, is_interior, is_back,
+                 box: float, r_cut: float, zmargin: float):
+    """(ncol, stride, 4) buffer from the gathered rows: ghost validity on
+    the rows' z, +-box z shifts applied, invalid slots parked at sentinels
+    that keep each column ascending in z.  Returns (buf, z_raw)."""
+    z_pad = box + 3.0 * r_cut
+    z_raw = rows[..., 2]
+    valid = (
+        is_interior
+        | (is_front & src_ok & (z_raw >= box - zmargin))
+        | (is_back & src_ok & (z_raw <= zmargin))
+    )
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    shift = torch.where(is_front, zero - box, torch.where(is_back, zero + box,
+                                                          zero))
+    default_z = torch.where(is_front, zero - 2.0 * box, zero + z_pad)
+    xy = torch.where(valid[..., None], rows[..., 0:2], zero - 8.0 * r_cut)
+    zf = torch.where(valid, z_raw + shift, default_z)
+    mf = torch.where(valid, rows[..., 3], zero)
+    return torch.cat([xy, zf[..., None], mf[..., None]], dim=-1), z_raw
+
+
+def _plane_from_buf(buf, box: float, ncell: int, stride: int):
+    """The xy ghost ring (+-box baked into x and y of the massive slots)
+    and the (8, P2 * stride) SoA plane: rows x, y, z, m, then four zero
+    rows."""
+    P = ncell + 2
+    P2 = P * P
+    grid4 = buf.reshape(ncell, ncell, stride, 4)
+    wrap = (torch.arange(P, device=buf.device) - 1) % ncell
+    padded = grid4[wrap][:, wrap].clone()
+    zero = torch.zeros((), dtype=buf.dtype, device=buf.device)
+    for ax in range(2):
+        for edge, delta in ((0, -box), (P - 1, box)):
+            sl = (slice(None),) * ax + (edge,)
+            lo = padded[sl]
+            lo[..., ax] += torch.where(lo[..., 3] > 0, zero + delta, zero)
+    soa = padded.reshape(P2 * stride, 4).T
+    return torch.cat([soa, torch.zeros_like(soa)], dim=0).contiguous()
+
+
+def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
+                       col_capacity: int, window: int, chunk: int = 256):
+    """Sort particles into z-ordered (x, y)-column buckets and assemble
+    the ghost-padded float32 SoA plane plus the per-chunk window tables.
+
+    Returns (plane (8, P2 * stride) float32, ws (ncol * 9 * maxch,) int32,
+    nch (ncol,) int32, overflow_bucket, overflow_window, gidx (n,) int64,
+    counts (ncol,) int32 = min(raw, CK)): P2 = (ncell + 2)^2 padded
+    columns of stride = CK + 2 gz slots; ``ws`` holds each (column,
+    neighbour, chunk)'s 128-aligned window start; ``gidx`` maps each
+    particle to its padded slot (P2 * stride if its bucket was full).
+    The two overflow counts are 0-d int64 tensors on the device."""
+    n = pos.shape[0]
+    dev = pos.device
+    f32 = torch.float32
+    CK = _ceil128(col_capacity)
+    gz = ghost_slots(CK, (float(r_cut) / box) * CK)
+    stride = CK + 2 * gz
+    W = _ceil128(window)
+    maxch = CK // chunk
+    ncol = ncell * ncell
+    P = ncell + 2
+    P2 = P * P
+    zmargin = 1.0001 * r_cut
+
+    posw = torch.remainder(pos, box).to(f32)
+    massf = mass.to(f32)
+    cx = torch.clamp((posw[:, 0] * (ncell / box)).to(torch.int32), 0,
+                     ncell - 1).to(torch.int64)
+    cy = torch.clamp((posw[:, 1] * (ncell / box)).to(torch.int32), 0,
+                     ncell - 1).to(torch.int64)
+    col = cx * ncell + cy
+    order = _col_z_order(col, posw[:, 2], box)
+    pos_s = posw[order]
+    mass_s = massf[order]
+    col_s = col[order]
+
+    cols = torch.arange(ncol, device=dev)
+    starts = torch.searchsorted(col_s, cols, right=False)
+    ends = torch.searchsorted(col_s, cols, right=True)
+    counts = ends - starts
+    rank = torch.arange(n, device=dev) - starts[col_s]
+    ok = rank < CK
+    overflow_b = torch.sum(~ok)
+
+    # interior + z-ghost assembly: one gather from the sorted rows
+    src, src_ok, is_front, is_interior, is_back = _slot_sources(
+        starts, counts, CK, gz, stride)
+    src_c = torch.clamp(src, 0, max(n - 1, 0))
+    rows = torch.cat([pos_s, mass_s[:, None]], dim=1)[src_c]
+    buf, z_raw = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back,
+                              box, r_cut, zmargin)
+
+    # ghost demand: stored reals in the wrap margins beyond gz would miss
+    # their wrap partners; counted on the bucket field (heal = capacity)
+    nb = torch.sum(is_interior & (z_raw <= zmargin), dim=1)
+    nf = torch.sum(is_interior & (z_raw >= box - zmargin), dim=1)
+    ov_g = (torch.sum(torch.clamp_min(nb - gz, 0))
+            + torch.sum(torch.clamp_min(nf - gz, 0)))
+
+    # window tables.  Each column's z is ascending up to the 2^-21 box
+    # quantum of the sort key, so the counts of slots below a threshold
+    # are taken on a fully sorted copy: the same counts as a comparison
+    # over every slot, in O(stride) memory per column.
+    zsorted = torch.sort(buf[:, :, 2], dim=1).values
+    ch = torch.arange(maxch, device=dev)
+    cnt_ck = torch.clamp_max(counts, CK)
+    nch = -(-cnt_ck // chunk)
+    idx0 = starts[:, None] + ch[None, :] * chunk
+    last = starts[:, None] + cnt_ck[:, None] - 1
+    hi_n = max(n - 1, 0)
+    zmin = pos_s[torch.clamp(idx0, 0, hi_n), 2]
+    zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0, hi_n),
+                 2]
+    chunk_ok = ch[None, :] < nch[:, None]
+    qlo = (zmin - r_cut).contiguous()
+    qhi = (zmax + r_cut).contiguous()
+
+    ic_x = cols // ncell
+    ic_y = cols % ncell
+    ws_list = []
+    ov_w = torch.zeros((), dtype=torch.int64, device=dev)
+    for o2 in range(9):
+        dxo, dyo = o2 // 3 - 1, o2 % 3 - 1
+        nc = ((ic_x + dxo) % ncell) * ncell + (ic_y + dyo) % ncell
+        zj = zsorted[nc]
+        lo_exact = torch.searchsorted(zj, qlo, right=False)
+        start = torch.clamp((lo_exact // 128) * 128, 0, stride - W)
+        hi_exact = torch.searchsorted(zj, qhi, right=False)
+        ov_w = ov_w + torch.sum(torch.where(
+            chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0))
+        ws_list.append(start)
+    ws = torch.stack(ws_list, dim=1).reshape(ncol * 9 * maxch)
+    overflow_b = overflow_b + ov_g
+
+    plane = _plane_from_buf(buf, box, ncell, stride)
+
+    pc = (cx + 1) * P + (cy + 1)
+    gidx_s = torch.where(ok, pc[order] * stride + gz + rank,
+                         torch.full_like(rank, P2 * stride))
+    gidx = torch.empty(n, dtype=torch.int64, device=dev)
+    gidx[order] = gidx_s
+    return (plane, ws.to(torch.int32), nch.to(torch.int32), overflow_b,
+            ov_w, gidx, cnt_ck.to(torch.int32))
+
+
+# Largest column stride (slots) the JAX package's column kernels afford in
+# the TPU's scoped VMEM.  The CUDA kernels stream the window through
+# shared memory and have no such limit, but the port keeps the value so
+# that both packages resolve the same tier for a config (p3m_acc).
+_STRIDE_MAX = 49152
+
+
+def columns_stride_ok(box: float, r_cut: float, col_capacity: int) -> bool:
+    """True when the column stride at this capacity is within
+    `_STRIDE_MAX`."""
+    CK = _ceil128(col_capacity)
+    gz = ghost_slots(CK, (float(r_cut) / box) * CK)
+    return CK + 2 * gz <= _STRIDE_MAX
+
+
+def encode_overflow(ov_b, ov_w):
+    """One overflow word: bucket/ghost spills * 65536 + window misses
+    (each field saturated), zero iff no force was dropped."""
+    return (torch.clamp_max(ov_b, 32767) * 65536
+            + torch.clamp_max(ov_w, 65535))
+
+
+def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
+                   device=None):
+    """(column id, chunk index, first padded slot) of every occupied chunk
+    of the interior columns, as int64 tensors: the targets of K3/K4."""
+    ncol = ncell * ncell
+    P = ncell + 2
+    nch = nch.to(torch.int64)
+    ic = torch.repeat_interleave(torch.arange(ncol, device=device), nch)
+    first = torch.cumsum(nch, 0) - nch
+    k = torch.arange(ic.numel(), device=device) - first[ic]
+    pcol = (ic // ncell + 1) * P + (ic % ncell + 1)
+    return ic, k, pcol * stride + gz + k * chunk
+
+
+def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
+                     maxch: int, gz: int, chunk: int, eps: float, r_s: float,
+                     r_cut: float, split: str, softening: str,
+                     max_pairs: int = 1 << 24):
+    """The short-range sums of every occupied chunk's targets over its 9
+    neighbour windows, in the plane's dtype: (targets (B, chunk) slot
+    indices, sums (3, B, chunk)).
+
+    Targets go in tiles of 32 slots and each window in tiles of 64; a
+    tile pair whose z ranges lie more than r_cut apart holds no pair
+    inside r_cut and is skipped (the sentinel slots' far-off z makes most
+    of a sparse column's window such tiles).  The weight is evaluated
+    only for the visits inside r_cut (it is 0 beyond).  Chunked over the
+    B occupied chunks so that no more than ``max_pairs`` visits are
+    materialized at once."""
+    wfn = _weight_fn(split, softening)
+    dev = plane.device
+    P = ncell + 2
+    tt_n, ts_n = 32, 64  # chunk and W are multiples of 128
+    ic, k, first = interior_slots(ncell, stride, gz, chunk, nch, dev)
+    tgt = first[:, None] + torch.arange(chunk, device=dev)[None, :]
+    jw = torch.arange(W, device=dev)
+    nb = ic.numel()
+    sums = torch.zeros((3, nb * chunk), dtype=plane.dtype, device=dev)
+    step = max(1, max_pairs // (chunk * W))
+    ws64 = ws.to(torch.int64).reshape(-1, 9, maxch)
+    eps2 = float(eps) ** 2
+    rc2 = float(r_cut) ** 2
+    reach = float(r_cut) * (1.0 + 1e-5)  # above float32 rounding of |dz|
+    for b0 in range(0, nb, step):
+        bi, bk = ic[b0:b0 + step], k[b0:b0 + step]
+        tiles = tgt[b0:b0 + step].reshape(bi.numel(), -1, tt_n)
+        rows = (b0 * chunk + torch.arange(tiles.numel(), device=dev)
+                ).reshape(tiles.shape)
+        zt = plane[2][tiles]
+        t_lo, t_hi = zt.amin(-1) - reach, zt.amax(-1) + reach
+        for o2 in range(9):
+            jcol = (bi // ncell + o2 // 3) * P + (bi % ncell + o2 % 3)
+            src = ((jcol * stride + ws64[bi, o2, bk])[:, None] + jw[None, :]
+                   ).reshape(bi.numel(), -1, ts_n)
+            zs = plane[2][src]
+            near = ((zs.amin(-1)[:, None, :] < t_hi[:, :, None])
+                    & (zs.amax(-1)[:, None, :] > t_lo[:, :, None]))
+            pb, pt, ps = torch.nonzero(near, as_tuple=True)
+            ti, sj = tiles[pb, pt], src[pb, ps]  # (tile pairs, 32 / 64)
+            d = plane[0:3, sj][:, :, None, :] - plane[0:3, ti][:, :, :, None]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            hit = torch.clamp_min(r2, 1e-30) < rc2
+            p, a, c = torch.nonzero(hit, as_tuple=True)
+            w = plane[3][sj[p, c]] * wfn(r2[p, a, c], eps2, r_s, r_cut)
+            sums.index_add_(1, rows[pb[p], pt[p], a], w * d[:, p, a, c])
+    return tgt, sums.reshape(3, nb, chunk)
+
+
+def column_plane_plain(plane, ws, nch, *, ncell: int, stride: int, W: int,
+                       maxch: int, gz: int, chunk: int, eps: float,
+                       r_s: float, r_cut: float, split: str, softening: str):
+    """Plain PyTorch version of K4: the (8, P2 * stride) output plane with
+    rows 0-2 the short-range sums at the occupied chunks' slots of the
+    interior columns and zeros everywhere else."""
+    tgt, sums = column_pair_sums(
+        plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+        chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+        softening=softening)
+    out = torch.zeros_like(plane)
+    out[0:3, tgt.reshape(-1)] = sums.reshape(3, -1)
+    return out
+
+
+def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
+                     ncell: int, stride: int):
+    """Raise on what the column kernels do not take: a float32 contiguous
+    (8, P2 * stride) plane and int32 contiguous tables on its device."""
+    P2 = (ncell + 2) ** 2
+    if plane.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, "
+                        f"got {plane.dtype}")
+    if tuple(plane.shape) != (8, P2 * stride) or not plane.is_contiguous():
+        raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
+                         f"contiguous (8, {P2 * stride})")
+    ncol = ncell * ncell
+    sizes = {"ws": ncol * 9 * maxch, "nch": ncol, "counts": ncol}
+    for key, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
+        if t.device != plane.device or not t.is_contiguous() \
+                or t.numel() != sizes[key]:
+            raise ValueError(f"{name}: {key} must be a contiguous int32 "
+                             f"({sizes[key]},) tensor on {plane.device}")
+
+
+def run_column_plane(plane, ws, nch, *, ncell: int, stride: int, W: int,
+                     maxch: int, gz: int, chunk: int, eps: float, r_s: float,
+                     r_cut: float, split: str, softening: str):
+    """K4: the short-range column pair sum over a plane from
+    :func:`build_column_plane` -> the (8, P2 * stride) output plane (see
+    :func:`column_plane_plain`).  A CUDA plane launches the kernel or
+    raises; a CPU plane takes the plain version.  ``run_column_plane.
+    launches`` counts kernel launches."""
+    if split not in _SPLITS or softening not in _SOFTENINGS:
+        raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+              softening=softening)
+    if plane.device.type == "cpu":
+        return column_plane_plain(plane, ws, nch, **kw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"run_column_plane: no kernel for {plane.device}")
+    check_plane_args("run_column_plane", plane, {"ws": ws, "nch": nch},
+                     maxch=maxch, ncell=ncell, stride=stride)
+    from nbody_torch._kernels import load_library
+
+    lib = load_library()
+    out = torch.zeros_like(plane)
+    with torch.cuda.device(plane.device):
+        err = lib.p3m_columns_f32(
+            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(), ncell, stride,
+            W, maxch, gz, chunk, float(eps), float(r_s), float(r_cut),
+            _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"run_column_plane: CUDA launch failed (error "
+                           f"{err})")
+    run_column_plane.launches += 1
+    return out
+
+
+run_column_plane.launches = 0
+
+
+def plane_geometry(box: float, r_cut: float, col_capacity: int,
+                   window: int, chunk: int = 256):
+    """(CK, gz, stride, W, maxch, chunk) of a column plane: the chunk
+    drops to 128 when it does not divide CK; W is clamped to the stride."""
+    CK = _ceil128(col_capacity)
+    gz = ghost_slots(CK, (float(r_cut) / box) * CK)
+    if CK % chunk:
+        chunk = 128
+    stride = CK + 2 * gz
+    W = min(_ceil128(window), stride)
+    return CK, gz, stride, W, CK // chunk, chunk
+
+
+def read_back(out, gidx, rows: int):
+    """Per-particle values of the first ``rows`` plane rows at each
+    particle's slot (zeros for an overflowed particle): (n, rows)."""
+    flat = out[:rows].T
+    pad = torch.zeros((1, rows), dtype=out.dtype, device=out.device)
+    return torch.cat([flat, pad], dim=0)[gidx]
+
+
+def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
+                      r_cut: float, G: float = 1.0, *, ncell: int,
+                      col_capacity: int, window: int,
+                      split: str = "gaussian", softening: str = "plummer",
+                      chunk: int = 256):
+    """Short-range P3M force via the column-packed pair sum (K4).
+
+    Returns (acc (N, 3) in ``pos``'s dtype, overflow 0-d tensor): overflow
+    is 0 iff no force was dropped, else bucket/ghost spills * 65536 +
+    z-window misses, so the driver's self-heal can tell col_capacity (high
+    field) from column_window (low field)."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    plane, ws, nch, ov_b, ov_w, gidx, _ = build_column_plane(
+        pos, mass, box, float(r_cut), ncell, CK, W, chunk=chunk)
+    out = run_column_plane(
+        plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+        chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+        softening=softening)
+    acc = read_back(out, gidx, 3)
+    return G * acc.to(pos.dtype), encode_overflow(ov_b, ov_w)

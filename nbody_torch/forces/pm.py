@@ -173,10 +173,34 @@ class PMForce(nn.Module):
                 "grad", torch.stack(torch.broadcast_tensors(
                     *gradient_kernel(nmesh, box, "spectral", **kw))).to(dtype))
         if interlace:
+            ctype = (torch.complex64 if dtype == torch.float32
+                     else torch.complex128)
             self.register_buffer(
-                "phase_read", interlace_phase(nmesh, box, 1.0, **kw).to(
-                    torch.complex64 if dtype == torch.float32
-                    else torch.complex128))
+                "phase_read", interlace_phase(nmesh, box, 1.0, **kw).to(ctype))
+
+    def force_grids_from_rho(self, rho, amp, mass_sum, rho1=None):
+        """The mesh half of the solve with the deposit factored out: (3,
+        N, N, N) force grids from a deposited mass grid ``rho`` (the
+        supercell tier deposits with its own kernel).  With ``rho1``, the
+        deposit at the half-cell shift, the two are alias-cancelled in k
+        and both readback grid sets come back stacked (6, N, N, N): rows
+        0-2 unshifted, rows 3-5 for the half-cell-shifted gather.  ``amp``
+        multiplies the overdensity Poisson source; ``mass_sum`` is the
+        total mass that ``rho`` holds at its mean."""
+        if rho1 is not None and not self.interlace:
+            raise ValueError("a second deposit needs an interlaced PMForce")
+        if self.grid_shift != 0.0:
+            raise ValueError("force_grids_from_rho: grid_shift must be 0")
+        rho_k = torch.fft.rfftn(rho)
+        if rho1 is not None:
+            # e^{-i k.d/2} aligns the shifted deposit
+            rho_k = 0.5 * (rho_k
+                           + torch.fft.rfftn(rho1) * self.phase_read.conj())
+        phi_k = rho_k * (self.green * (amp * self.nmesh**3 / mass_sum))
+        grids = self._force_grids(phi_k)
+        if rho1 is None:
+            return grids
+        return torch.cat([grids, self._force_grids(phi_k * self.phase_read)])
 
     def _force_grids(self, phi_k):
         shape = (self.nmesh,) * 3

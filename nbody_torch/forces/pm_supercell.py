@@ -1,0 +1,385 @@
+"""Supercell P3M tier: one particle sort into z-ordered (x, y) columns
+feeds the PM deposit, and the PM readback is fused into the short-range
+column pair sum.
+
+Counterpart of :mod:`nbody.forces.pm_supercell` (the fresh-plane path).
+When the PM mesh tiles the chaining columns (S = nmesh / ncell mesh cells
+per column side), a force evaluation is: the column plane of
+:func:`nbody_torch.forces.p3m_columns.build_column_plane`; K2, the CIC
+deposit of the plane's real slots onto the mesh; the FFT Poisson solve
+(:meth:`nbody_torch.forces.pm.PMForce.force_grids_from_rho`); K3, which
+starts each target's output at the PM force read back from the force
+grids and adds the short-range sum over its 9 neighbour windows; and one
+per-particle read of the output plane.
+
+Both kernels are CUDA (``forces/csrc/pm_supercell.cu``) on CUDA tensors,
+and their plain PyTorch versions on CPU tensors:
+:func:`deposit_node_masses_plain` (the JAX package's per-column haloed
+node masses, then :func:`fold_node_masses`) and
+:func:`fused_column_plane_plain`.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+
+from nbody_torch.forces.p3m import _SOFTENINGS, _SPLITS
+from nbody_torch.forces.p3m_columns import (
+    build_column_plane,
+    check_plane_args,
+    column_pair_sums,
+    column_window,
+    columns_stride_ok,
+    encode_overflow,
+    interior_slots,
+    plane_geometry,
+    read_back,
+)
+from nbody_torch.forces.pm import pm_module
+
+
+def supercell_geometry(nmesh: int, ncell: int):
+    """(S, ZP) for the supercell tier, or None if unsupported: S = mesh
+    cells per column side (an integer <= 13, so the haloed (S + 3)^2 node
+    grid of a column packs into 16 x 16 rows), ZP = the 128-aligned z-node
+    width (nmesh + 4 nodes: -1 .. nmesh + 2)."""
+    if nmesh % ncell:
+        return None
+    S = nmesh // ncell
+    if S > 13:
+        return None
+    ZP = -(-(nmesh + 4) // 128) * 128
+    return S, ZP
+
+
+def deposit_node_masses_plain(plane, counts, *, ncell: int, S: int, ZP: int,
+                              stride: int, gz: int, scale: float,
+                              shift: float = 0.0, max_elems: int = 1 << 24):
+    """CIC node masses of each interior column's real slots on its haloed
+    16 x 16 x ZP node grid, in the plane's dtype: (ncol * 256, ZP), row
+    a * 16 + b = node (a - 1, b - 1) of the column's tile, lane l = z node
+    l - 1.  Every weight is the CIC triangle max(0, 1 - |u - node|) of the
+    coordinates in mesh cells minus ``shift``, as in the JAX package's
+    kernel; columns are processed in groups of at most ``max_elems``
+    weights."""
+    dev, dt = plane.device, plane.dtype
+    ncol = ncell * ncell
+    P = ncell + 2
+    CK = stride - 2 * gz
+    lane = torch.arange(256, device=dev)
+    node_a = (lane // 16).to(dt) - 1.0
+    node_b = (lane % 16).to(dt) - 1.0
+    node_z = torch.arange(ZP, device=dev).to(dt) - 1.0
+    r = torch.arange(CK, device=dev)
+    out = torch.empty((ncol, 256, ZP), dtype=dt, device=dev)
+    step = max(1, max_elems // (CK * max(256, ZP)))
+    for c0 in range(0, ncol, step):
+        c = torch.arange(c0, min(ncol, c0 + step), device=dev)
+        pcol = (c // ncell + 1) * P + (c % ncell + 1)
+        slots = (pcol * stride + gz)[:, None] + r[None, :]
+        x0 = ((c // ncell) * S).to(dt)[:, None]
+        y0 = ((c % ncell) * S).to(dt)[:, None]
+        x = plane[0][slots] * scale - x0 - shift
+        y = plane[1][slots] * scale - y0 - shift
+        z = plane[2][slots] * scale - shift
+        live = r[None, :] < counts[c].to(torch.int64)[:, None]
+        wm = torch.where(live, plane[3][slots], torch.zeros((), dtype=dt,
+                                                              device=dev))
+        wxy = (torch.clamp_min(1.0 - torch.abs(x[..., None] - node_a), 0.0)
+               * torch.clamp_min(1.0 - torch.abs(y[..., None] - node_b), 0.0)
+               * wm[..., None])
+        wz = torch.clamp_min(1.0 - torch.abs(z[..., None] - node_z), 0.0)
+        out[c0:c0 + c.numel()] = torch.bmm(wxy.transpose(1, 2), wz)
+    return out.reshape(ncol * 256, ZP)
+
+
+def _fold_rows(O, t_axis: int, r_axis: int, S: int):
+    """Overlap-add one axis's 16 node rows (node = row - 1) onto the S core
+    nodes of each tile: node g of tile t is node g mod S of tile
+    t + g // S (periodic in the tiles)."""
+    core = O.narrow(r_axis, 1, S).clone()
+    for r in [0] + list(range(S + 1, min(S + 4, 16))):
+        q, loc = divmod(r - 1, S)
+        core.narrow(r_axis, loc, 1).add_(
+            torch.roll(O.narrow(r_axis, r, 1), q, dims=t_axis))
+    return core
+
+
+def fold_node_masses(nodes, *, ncell: int, S: int, ZP: int, nmesh: int):
+    """The (nmesh,)^3 mass grid from the per-column haloed node masses of
+    :func:`deposit_node_masses_plain`: halo rows onto the neighbouring
+    tiles, z nodes -1 / nmesh .. nmesh + 2 onto their periodic images."""
+    O = nodes.reshape(ncell, ncell, 16, 16, ZP)
+    A = _fold_rows(O, t_axis=0, r_axis=2, S=S)
+    B = _fold_rows(A, t_axis=1, r_axis=3, S=S)
+    grid = B.permute(0, 2, 1, 3, 4).reshape(nmesh, nmesh, ZP)
+    ext = grid[..., : nmesh + 4]
+    res = ext[..., 1: nmesh + 1].clone()
+    res[..., nmesh - 1] += ext[..., 0]
+    res[..., 0] += ext[..., nmesh + 1]
+    res[..., 1] += ext[..., nmesh + 2]
+    res[..., 2] += ext[..., nmesh + 3]
+    return res
+
+
+def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
+                                 ncell: int, stride: int, gz: int,
+                                 chunk: int = 256, shift: float = 0.0):
+    """K2: CIC deposit of a column plane's real slots (the first
+    ``counts[c]`` interior slots of each column; ghosts excluded) onto the
+    (nmesh,)^3 mesh, coordinates in cells minus ``shift``: the contract of
+    :func:`nbody_torch.mesh.cic.cic_deposit` over the deposited particles.
+
+    A CUDA plane launches the kernel (which adds each particle's 8 corner
+    masses straight into the periodic mesh) or raises; a CPU plane takes
+    :func:`deposit_node_masses_plain` + :func:`fold_node_masses`.
+    ``supercell_deposit_from_plane.launches`` counts kernel launches."""
+    geom = supercell_geometry(nmesh, ncell)
+    if geom is None:
+        raise ValueError(
+            f"supercell deposit needs nmesh % ncell == 0 and nmesh/ncell <= "
+            f"13 (got nmesh={nmesh}, ncell={ncell})")
+    S, ZP = geom
+    scale = float(nmesh / box)
+    if plane.device.type == "cpu":
+        nodes = deposit_node_masses_plain(
+            plane, counts, ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz,
+            scale=scale, shift=float(shift))
+        return fold_node_masses(nodes, ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
+    if plane.device.type != "cuda":
+        raise ValueError(f"supercell_deposit_from_plane: no kernel for "
+                         f"{plane.device}")
+    CK = stride - 2 * gz
+    check_plane_args("supercell_deposit_from_plane", plane,
+                     {"counts": counts}, maxch=CK // chunk, ncell=ncell,
+                     stride=stride)
+    from nbody_torch._kernels import load_library
+
+    lib = load_library()
+    rho = torch.zeros((nmesh, nmesh, nmesh), dtype=torch.float32,
+                      device=plane.device)
+    with torch.cuda.device(plane.device):
+        err = lib.pm_supercell_deposit_f32(
+            plane.data_ptr(), counts.data_ptr(), ncell, S, nmesh, stride, gz,
+            CK, scale, float(shift), rho.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"supercell_deposit_from_plane: CUDA launch "
+                           f"failed (error {err})")
+    supercell_deposit_from_plane.launches += 1
+    return rho
+
+
+supercell_deposit_from_plane.launches = 0
+
+
+def _cic_read(grids, x, y, z, x0, y0):
+    """Trilinear read of (C, N, N, N) periodic grids at coordinates in
+    cells, x and y relative to the tile origin (x0, y0): (C,) + x.shape."""
+    nmesh = grids.shape[1]
+    flat = grids.reshape(grids.shape[0], -1)
+    s = [x, y, z]
+    base = [torch.floor(u) for u in s]
+    f = [u - b for u, b in zip(s, base)]
+    idx = [base[0].to(torch.int64) + x0, base[1].to(torch.int64) + y0,
+           base[2].to(torch.int64)]
+    out = 0.0
+    for d in itertools.product((0, 1), repeat=3):
+        w = 1.0
+        for ax in range(3):
+            w = w * (f[ax] if d[ax] else 1.0 - f[ax])
+        lin = ((idx[0] + d[0]) % nmesh * nmesh
+               + (idx[1] + d[1]) % nmesh) * nmesh + (idx[2] + d[2]) % nmesh
+        out = out + w * flat[:, lin]
+    return out
+
+
+def column_pm_readback(plane, nch, grids, *, ncell: int, stride: int,
+                       gz: int, chunk: int, S: int, scale: float,
+                       interlaced: bool = False):
+    """The PM force at every occupied chunk's target slot, in the plane's
+    dtype: (targets (B, chunk), force (3, B, chunk)); with ``interlaced``
+    the mean of the unshifted read of grids 0-2 and the read of grids 3-5
+    at -0.5 cell."""
+    dev = plane.device
+    ic, _, first = interior_slots(ncell, stride, gz, chunk, nch, dev)
+    tgt = first[:, None] + torch.arange(chunk, device=dev)[None, :]
+    ix0 = (ic // ncell * S)[:, None]
+    iy0 = (ic % ncell * S)[:, None]
+    x = plane[0][tgt] * scale - ix0.to(plane.dtype)
+    y = plane[1][tgt] * scale - iy0.to(plane.dtype)
+    z = plane[2][tgt] * scale
+    g = grids.to(plane.dtype)
+    f = _cic_read(g[0:3], x, y, z, ix0, iy0)
+    if interlaced:
+        f1 = _cic_read(g[3:6], x - 0.5, y - 0.5, z - 0.5, ix0, iy0)
+        f = 0.5 * (f + f1)
+    return tgt, f
+
+
+def fused_column_plane_plain(plane, ws, nch, grids, *, ncell: int,
+                             stride: int, W: int, maxch: int, gz: int,
+                             chunk: int, eps: float, r_s: float, r_cut: float,
+                             split: str, softening: str, S: int, scale: float,
+                             split_out: bool = False,
+                             interlaced: bool = False):
+    """Plain PyTorch version of K3: the (8, P2 * stride) output plane whose
+    rows 0-2 hold PM + short-range force at the occupied chunks' slots of
+    the interior columns (``split_out``: short range in rows 0-2, PM in
+    rows 3-5), zeros elsewhere."""
+    tgt, pm = column_pm_readback(plane, nch, grids, ncell=ncell,
+                                 stride=stride, gz=gz, chunk=chunk, S=S,
+                                 scale=scale, interlaced=interlaced)
+    _, short = column_pair_sums(
+        plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+        chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+        softening=softening)
+    out = torch.zeros_like(plane)
+    flat = tgt.reshape(-1)
+    if split_out:
+        out[0:3, flat] = short.reshape(3, -1)
+        out[3:6, flat] = pm.reshape(3, -1)
+    else:
+        out[0:3, flat] = (pm + short).reshape(3, -1)
+    return out
+
+
+def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
+                           W: int, maxch: int, gz: int, chunk: int,
+                           eps: float, r_s: float, r_cut: float, split: str,
+                           softening: str, S: int, scale: float,
+                           split_out: bool = False,
+                           interlaced: bool = False):
+    """K3: the PM readback from the (3 or 6, N, N, N) force ``grids``
+    fused with the short-range column pair sum -> the (8, P2 * stride)
+    output plane of :func:`fused_column_plane_plain`.  A CUDA plane
+    launches the kernel or raises; a CPU plane takes the plain version.
+    ``run_fused_column_plane.launches`` counts kernel launches."""
+    if split not in _SPLITS or softening not in _SOFTENINGS:
+        raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+              softening=softening, S=S, scale=scale, split_out=split_out,
+              interlaced=interlaced)
+    if plane.device.type == "cpu":
+        return fused_column_plane_plain(plane, ws, nch, grids, **kw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"run_fused_column_plane: no kernel for "
+                         f"{plane.device}")
+    check_plane_args("run_fused_column_plane", plane, {"ws": ws, "nch": nch},
+                     maxch=maxch, ncell=ncell, stride=stride)
+    nmesh = grids.shape[-1]
+    nc = 6 if interlaced else 3
+    if (grids.dtype != torch.float32 or grids.device != plane.device
+            or tuple(grids.shape) != (nc, nmesh, nmesh, nmesh)
+            or not grids.is_contiguous()):
+        raise ValueError(f"run_fused_column_plane: grids must be contiguous "
+                         f"float32 ({nc}, N, N, N) on {plane.device}, got "
+                         f"{grids.dtype} {tuple(grids.shape)}")
+    from nbody_torch._kernels import load_library
+
+    lib = load_library()
+    out = torch.zeros_like(plane)
+    with torch.cuda.device(plane.device):
+        err = lib.pm_supercell_fused_f32(
+            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(),
+            grids.data_ptr(), nmesh, int(interlaced), int(split_out), ncell,
+            S, float(scale), stride, W, maxch, gz, chunk, float(eps),
+            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"run_fused_column_plane: CUDA launch failed "
+                           f"(error {err})")
+    run_fused_column_plane.launches += 1
+    return out
+
+
+run_fused_column_plane.launches = 0
+
+
+def supercell_params(box: float, nmesh: int, n: int):
+    """(r_s, r_cut, ncell, col_capacity, window) for the supercell tier,
+    or None when no chaining grid both tiles the mesh and respects r_cut
+    (ncell = :func:`nbody_torch.forces.p3m.supercell_ncell`)."""
+    from nbody_torch.forces.p3m import (
+        auto_column_capacity,
+        p3m_short_params,
+        supercell_ncell,
+    )
+
+    r_s, r_cut, _, _ = p3m_short_params(box, nmesh, n)
+    ncell = supercell_ncell(box, nmesh, r_cut)
+    if ncell is None:
+        return None
+    col_capacity = auto_column_capacity(n, ncell)
+    return r_s, r_cut, ncell, col_capacity, column_window(
+        box, r_cut, col_capacity)
+
+
+def supercell_stride_ok(box: float, r_cut: float, col_capacity: int) -> bool:
+    """True when the column stride at this capacity is within the stride
+    budget (past it the columns tier carries the force).  The JAX
+    package's fused kernel has its own budget (TPU scoped VMEM), equal to
+    the column kernels' ``p3m_columns._STRIDE_MAX``; the CUDA kernels have
+    no such limit, but the port keeps the rule so that both packages
+    resolve the same tier for a config."""
+    return columns_stride_ok(box, r_cut, col_capacity)
+
+
+def p3m_supercell_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
+                      eps: float = 0.0, r_s: float = 0.0, r_cut: float = 0.0,
+                      deconvolve_p: int = 2, split: str = "spline",
+                      softening: str = "plummer", *, ncell: int,
+                      col_capacity: int, window: int, grad_order: str = "fd4",
+                      chunk: int = 256, part_split: bool = False,
+                      interlace: bool = False):
+    """Full P3M force (PM far field + short-range correction) from one
+    particle sort: K2 deposit, FFT Poisson, K3 readback + pair sum.
+
+    Returns (acc (N, 3), overflow) with the columns tier's field-encoded
+    overflow word (a 0-d tensor); an overflowed particle loses its whole
+    force, which the driver's capacity heal repairs.  ``interlace=True``
+    deposits a second time at the half-cell shift, alias-cancels in k and
+    averages the two readbacks.  ``part_split=True`` returns (acc_long,
+    acc_short, overflow) from the same evaluation."""
+    geom = supercell_geometry(nmesh, ncell)
+    if geom is None:
+        raise ValueError(f"nmesh={nmesh} does not tile ncell={ncell}")
+    S, _ = geom
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    plane, ws, nch, ov_b, ov_w, gidx, counts = build_column_plane(
+        pos, mass, box, float(r_cut), ncell, CK, W, chunk=chunk)
+    dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
+               chunk=chunk)
+    rho = supercell_deposit_from_plane(plane, counts, **dkw)
+    rho1 = (supercell_deposit_from_plane(plane, counts, shift=0.5, **dkw)
+            if interlace else None)
+    # G is applied once at the end (the short-range sum is unscaled), so
+    # the Poisson source carries 4 pi rho_mean only
+    mass_sum = torch.sum(mass).to(torch.float32)
+    amp = 4.0 * math.pi * mass_sum / box**3
+    pm = pm_module(float(box), int(nmesh), int(deconvolve_p), bool(interlace),
+                   float(r_s) if split == "gaussian" else 0.0,
+                   float(r_cut) if split == "spline" else 0.0, grad_order,
+                   0.0, plane.device, torch.float32)
+    grids = pm.force_grids_from_rho(rho, amp, mass_sum, rho1=rho1)
+    out = run_fused_column_plane(
+        plane, ws, nch, grids.contiguous(), ncell=ncell, stride=stride, W=W,
+        maxch=maxch, gz=gz, chunk=chunk, eps=float(eps), r_s=float(r_s),
+        r_cut=float(r_cut), split=split, softening=softening, S=S,
+        scale=float(nmesh / box), split_out=part_split,
+        interlaced=interlace)
+    ov = encode_overflow(ov_b, ov_w)
+    if part_split:
+        both = read_back(out, gidx, 6).to(pos.dtype)
+        return G * both[:, 3:6], G * both[:, 0:3], ov
+    return G * read_back(out, gidx, 3).to(pos.dtype), ov

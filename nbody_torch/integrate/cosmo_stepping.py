@@ -54,6 +54,17 @@ def log_a_steps(a_begin: float, a_end: float, n_steps: int) -> np.ndarray:
     return np.geomspace(a_begin, a_end, n_steps + 1)
 
 
+def _max_overflow(acc, ov):
+    """Running max of the overflow words: a device tensor stays on the
+    device (no sync per step); a plain 0 from a tier that drops nothing
+    leaves it as it is."""
+    if isinstance(ov, torch.Tensor):
+        return ov if acc is None else torch.maximum(acc, ov)
+    if ov:
+        raise ValueError(f"a host overflow word must be 0, got {ov}")
+    return acc
+
+
 def kdk_steps(state: ParticleState, cosmo: Cosmology, a_grid, acc_fn,
               box: float, g=None):
     """KDK over ``a_grid`` for a checked ``acc_fn(pos, mass, a) ->
@@ -62,23 +73,25 @@ def kdk_steps(state: ParticleState, cosmo: Cosmology, a_grid, acc_fn,
     ``g``: the force at ``state`` if the caller already has it (the last
     force of the previous call, at the same positions and a), so a run
     cut into several calls evaluates the force once per step plus once at
-    the start.  Returns (state, g, overflow), overflow reduced with max."""
+    the start.  Returns (state, g, overflow): the overflow words are
+    reduced with max on the device and read on the host once, at the end."""
     a_grid = np.asarray(a_grid, dtype=np.float64)
     K1, Dr, K2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
     pos, vel, mass = state.pos, state.vel, state.mass
-    overflow = 0
+    overflow = None
     if g is None:
         g, ov = acc_fn(pos, mass, float(state.time))
-        overflow = max(overflow, int(ov))
+        overflow = _max_overflow(overflow, ov)
     for a1, k1, dr, k2 in zip(a_grid[1:], K1, Dr, K2):
         p_half = vel + g * float(k1)
         pos = torch.remainder(pos + p_half * float(dr), box)
         g, ov = acc_fn(pos, mass, float(a1))
-        overflow = max(overflow, int(ov))
+        overflow = _max_overflow(overflow, ov)
         vel = p_half + g * float(k2)
     time = torch.as_tensor(float(a_grid[-1]), device=pos.device,
                            dtype=pos.dtype)
-    return state.replace(pos=pos, vel=vel, time=time), g, overflow
+    return (state.replace(pos=pos, vel=vel, time=time), g,
+            0 if overflow is None else int(overflow))
 
 
 def run_cosmological_checked(state: ParticleState, cosmo: Cosmology, a_grid,

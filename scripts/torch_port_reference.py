@@ -8,7 +8,10 @@ Writes, under ``tests/data/torch_port/``:
   ``SimulationConfig(n_side=16)`` and seed 0;
 * ``powerspec_a=1.00_n16_seed0``: the JAX package's CONCEPT-format P(k)
   at a = 1 of that run (142 fixed steps, P3M dense tier), float32 on the
-  CPU.
+  CPU;
+* ``powerspec_a=1.00_n16_supercell_seed0``: the same run with
+  ``shortrange='supercell'`` (chaining grid 4, S = 8), the Pallas kernels
+  in interpret mode.
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
@@ -38,6 +41,8 @@ OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "data", "torch_port")
 SEED = 0
 CONFIG = SimulationConfig(n_side=16, output=OutputConfig(snapshot=False))
+#: the committed runs: file-name tag -> config, all from the same noise
+RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell")}
 
 
 def main() -> None:
@@ -64,12 +69,13 @@ def main() -> None:
     if np.abs(d).max() > 1e-3 or dv > 1e-4 * np.abs(np.asarray(ref.vel)).max():
         raise SystemExit("port ICs differ from the JAX ICs")
 
-    with tempfile.TemporaryDirectory() as work:
-        res = run_simulation(CONFIG, SEED, work)
-        name = os.path.basename(res.powerspecs[-1])
-        shutil.copy(res.powerspecs[-1],
-                    os.path.join(OUT, f"{name}_n16_seed0"))
-        print(f"JAX run: {res.wall_s:.1f} s, wrote {name}_n16_seed0")
+    for tag, cfg in RUNS.items():
+        with tempfile.TemporaryDirectory() as work:
+            res = run_simulation(cfg, SEED, work)
+            name = f"{os.path.basename(res.powerspecs[-1])}_n16{tag}_seed0"
+            shutil.copy(res.powerspecs[-1], os.path.join(OUT, name))
+            print(f"JAX run ({cfg.shortrange}): {res.wall_s:.1f} s, wrote "
+                  f"{name}")
 
 
 if __name__ == "__main__":

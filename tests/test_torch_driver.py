@@ -111,8 +111,8 @@ def test_config_json_round_trips_across_packages(tmp_path):
     (dict(time_stepping="adaptive"), "adaptive"),
     (dict(devices=2), "devices"),
     (dict(solver="p3m", box=500.0, pm_grid=64, shortrange="cells"), "cells"),
-    (dict(solver="p3m", box=500.0, pm_grid=64, shortrange="supercell"),
-     "supercell"),
+    (dict(solver="p3m", box=500.0, pm_grid=64, shortrange="supercell",
+          subcycles=2), "subcycles"),
 ])
 def test_unported_paths_raise(change, match, tmp_path):
     cfg = _tconfig(TINY).replace(**change)

@@ -166,6 +166,35 @@ def test_pm_acc_spline_interlaced_two_pass():
     _close(got, want)
 
 
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("split", [dict(spline_split=15.0),
+                                   dict(longrange_split=2.0)])
+def test_force_grids_from_rho(interlace, split):
+    """PMForce.force_grids_from_rho against the JAX package's from-rho
+    builders: pm_force_grids_from_rho, and pm_force_grids_from_rho_pair
+    with the half-cell-shifted deposit."""
+    import math
+
+    pos, mass = _particles(seed=10)
+    jp, jm = jnp.asarray(pos), jnp.asarray(mass)
+    amp = 4.0 * math.pi * 1.7 * mass.sum() / 50.0**3
+    rho = [jcic.cic_deposit(jp, 50.0, 16, weights=jm, shift=s)
+           for s in ((0.0, 0.5) if interlace else (0.0,))]
+    jkw = dict(source_amp=amp, **split)
+    if interlace:
+        want = jpm.pm_force_grids_from_rho_pair(*rho, jnp.sum(jm), 50.0, 16,
+                                                **jkw)
+    else:
+        want = jpm.pm_force_grids_from_rho(rho[0], jnp.sum(jm), 50.0, 16,
+                                           **jkw)
+    pm = tpm.PMForce(50.0, 16, interlace=interlace, dtype=torch.float64,
+                     **split)
+    rho_t = [torch.tensor(np.asarray(r)) for r in rho]
+    got = pm.force_grids_from_rho(rho_t[0], amp, float(mass.sum()),
+                                  rho1=rho_t[1] if interlace else None)
+    _close(got, want)
+
+
 def test_pm_module_buffers_live_on_its_device():
     pm = tpm.PMForce(50.0, 16, interlace=True, grad_order="spectral",
                      spline_split=10.0, dtype=torch.float64)

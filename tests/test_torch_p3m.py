@@ -110,25 +110,33 @@ def test_p3m_short_params():
         assert tp3m.p3m_short_params(box, nmesh, n) == jp3m.p3m_short_params(box, nmesh, n)
 
 
-@pytest.mark.parametrize("tier", ["cells", "columns", "supercell"])
-def test_unported_tiers_raise(tier):
-    """An unported tier names itself and never runs the dense kernel."""
+@pytest.mark.parametrize("part", ["both", "short", "split"])
+def test_unported_tiers_raise(part):
+    """The unported cell tier (K6) names itself for every part and never
+    runs another tier in its place."""
     pos, mass = _particles(64, 500.0)
-    with pytest.raises(NotImplementedError, match=tier):
+    with pytest.raises(NotImplementedError, match="cells"):
         tp3m.p3m_acc(torch.tensor(pos), torch.tensor(mass), 500.0, 64,
-                     shortrange=tier)
+                     shortrange="cells", part=part)
 
 
 def test_auto_beyond_allpairs_raises_and_small_box_falls_back():
-    big = torch.zeros((tp3m.ALLPAIRS_MAX_N + 1, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="auto"):
-        tp3m.p3m_acc(big, torch.ones(big.shape[0], dtype=torch.float64),
-                     500.0, 64)
-    # box / r_cut < 3: the JAX package runs the dense tier for every tier
-    assert tp3m.resolve_shortrange("cells", 64, 40.0, 15.0) == "allpairs"
-    assert tp3m.resolve_shortrange("auto", 10**6, 40.0, 15.0) == "allpairs"
+    """'auto' above ALLPAIRS_MAX_N resolves as the JAX package does:
+    supercell where the mesh tiles a chaining grid, columns where it does
+    not; a box under 3 r_cut runs the dense tier for every tier."""
+    big = tp3m.ALLPAIRS_MAX_N + 1
+    r_cut = 4.5 * 1.25 * 500.0 / 64
+    assert tp3m.resolve_shortrange("auto", big, 500.0, r_cut, 64) == \
+        "supercell"
+    assert tp3m.resolve_shortrange("auto", big, 500.0, r_cut, 67) == \
+        "columns"
+    assert tp3m.resolve_shortrange("auto", big - 1, 500.0, r_cut, 64) == \
+        "allpairs"
+    assert tp3m.resolve_shortrange("cells", 64, 40.0, 15.0, 16) == "allpairs"
+    assert tp3m.resolve_shortrange("auto", 10**6, 40.0, 15.0, 16) == \
+        "allpairs"
     with pytest.raises(ValueError):
-        tp3m.resolve_shortrange("tree", 64, 500.0, 40.0)
+        tp3m.resolve_shortrange("tree", 64, 500.0, 40.0, 64)
 
 
 def test_k1_wrapper_has_no_path_for_other_devices():
