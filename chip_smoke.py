@@ -24,22 +24,40 @@ script exits non-zero:
    sum) on its columns tier's plane: on the ICs at the geometry each run
    starts from (the driver's own pre-warm and heal rules), and again on
    the final state of each run of phase 9 at its healed geometry;
-8. the supercell, columns and dense tiers of ``p3m_acc`` agree at the
-   64^3 ICs;
+8. the supercell, columns, cells and dense tiers of ``p3m_acc`` agree at
+   the 64^3 ICs;
 9. the 64^3 production run (``cfg64``: 64^3 particles, box 500 Mpc, mesh
    128, 142 steps, spline softening; the supercell tier) through
    ``run_simulation`` with no device argument, with its pre-warms, heals,
    K2/K3 launch counts, wall time and steps/s; then the same run on the
    columns tier (``shortrange='columns'``), which launches K4;
 10. the 16^3 supercell run from the committed white noise against the
-    JAX package's committed supercell P(k).
+    JAX package's committed supercell P(k);
+11. K6 (the cell-pair sum, one-plane and two-plane) against its plain
+    version on the 32^3 ICs, a late 32^3 state and the 64^3 ICs, the
+    targets of the two-plane form the particles above rung 0 at the rung
+    runs' final states; K5 (the masked column pair sum) on the cfg64 plan
+    frozen at the ICs, at the ICs and at drift skin/2, and with every
+    chunk listed against K4; K2 and K3 on the frozen plane at skin/2
+    against their plain versions and a fresh evaluation, and a planted
+    wrong wrap of K2's that the same check must catch;
+12. the default 32^3 config with ``rungs=3`` (K1 at the boundary ticks,
+    K6 at the interior ticks) and
+13. cfg64 with ``rungs=3`` (frozen column plans: K2 + K3 at the boundary
+    ticks, K5 at the interior ticks), each through ``run_simulation``
+    with launch counts equal to those counted from run.log;
+14. the 16^3 rung runs (dense and supercell, a = 0.3 to 1 in 6 steps)
+    from the committed white noise against the JAX package's P(k) and
+    per-step rung populations.
 
-The line before the last but one is a JSON object of the four kernels
-(launches from the run of each kernel's path, errors and times from phases
-3 and 7, and each kernel's bound: the larger of its bytes over the card's
-memory rate and its operations over its float32 rate); then the card's
-name and power limit; the last line is ``{"ok": true, "device": {...}}``.
-Run outputs go to ``output/chip_smoke/`` (git-ignored).
+Phases 12 and 13 run before 11, which takes its active sets from their
+final states.  The line before the last but one is a JSON object of the
+six kernels (launches from the run of each kernel's path, errors and
+times from phases 3, 7 and 11, and each kernel's bound: the larger of the
+bytes the function needs over the card's memory rate and its operations
+over its float32 rate); then the card's name and power limit; the last line is ``{"ok":
+true, "device": {...}}``.  Run outputs go to ``output/chip_smoke/``
+(git-ignored).
 """
 
 from __future__ import annotations
@@ -73,6 +91,15 @@ FORCE_REL_L2_TOL = 1e-4
 # by op): only the order of the float32 sums differs, the kernel's adds
 # being atomic; relative to the largest node mass
 NODE_MASS_TOL = 1e-5
+# K2 on a frozen plane against K2 on a fresh plane of the same
+# positions: the frozen plane holds a particle that drifted across the
+# box edge at its unwrapped coordinate (near 0) and the fresh one at its
+# wrapped coordinate (near the box side, where one float32 ulp is 3e-5
+# Mpc, 8e-6 mesh cells at 128^3 in 500 Mpc), so their CIC weights differ
+# by up to ~1e-5; relative to the largest node mass.  A wrong wrap moves
+# whole particle masses: phase 11 plants one (a particle's corners left
+# off the mesh) and requires it to read above this limit.
+FROZEN_NODE_TOL = 1e-4
 # the three tiers at the 64^3 ICs: max |difference| / max |acc|, the JAX
 # package's tier-vs-tier tolerance (tests/test_supercell.py)
 TIER_TOL = 2e-5
@@ -101,6 +128,12 @@ FLOPS_INSIDE = 40
 FLOPS_DEPOSIT = 50
 # K3's PM read per target: 8 corners x (weight + 3 FMAs)
 FLOPS_PM_READ = 8 * 8
+# rung populations of the 16^3 runs against the JAX package's, at every
+# step and rung: a fraction of N.  float32 on the card against float32 on
+# the JAX package's CPU; a particle near a rung boundary may land on the
+# other side of it (20 of the 4,096 particles), a wrong rung rule moves
+# hundreds
+POP_TOL = 0.005
 
 
 def phase(msg: str) -> None:
@@ -149,12 +182,17 @@ def count_inside_dense(pos, box: float, r_cut: float) -> int:
 
 
 def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
-    """K1-K4's wrappers refuse what their kernels do not take."""
-    from nbody_torch.forces.p3m import p3m_short_acc
+    """K1-K6's wrappers refuse what their kernels do not take."""
+    from nbody_torch.forces.p3m import (
+        build_padded_plane,
+        p3m_short_acc,
+        run_cell_plane,
+    )
     from nbody_torch.forces.p3m_columns import (
         build_column_plane,
         plane_geometry,
         run_column_plane,
+        run_column_plane_masked,
     )
     from nbody_torch.forces.pm_supercell import (
         run_fused_column_plane,
@@ -194,6 +232,22 @@ def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
             scale=nmesh / box, **kw),
         "K2 short counts": lambda: supercell_deposit_from_plane(
             plane, counts[:-1].contiguous(), **dkw),
+        "K5 int64 chunk table": lambda: run_column_plane_masked(
+            plane, ws, nch, torch.zeros(nch.numel() * maxch,
+                                        dtype=torch.int64,
+                                        device=pos.device), **kw),
+    })
+    cplane, _, K, _, ccounts = build_padded_plane(pos, mass, box, r_cut,
+                                                  int(box / r_cut), 128)
+    ckw = dict(nx=int(box / r_cut), ncell=int(box / r_cut), K=K,
+               eps2=eps**2, r_s=r_s, r_cut=r_cut)
+    bad.update({
+        "K6 float64 plane": lambda: run_cell_plane(cplane.double(), ccounts,
+                                                   **ckw),
+        "K6 int64 counts": lambda: run_cell_plane(cplane, ccounts.long(),
+                                                  **ckw),
+        "K6 plane_j without K_j": lambda: run_cell_plane(
+            cplane, ccounts, plane_j=cplane, **ckw),
     })
     for what, fn in bad.items():
         try:
@@ -266,14 +320,17 @@ def driver_plane(state, config, cfg_run, prewarm: bool):
 
 
 def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
-                r_cut: float, **_) -> tuple[int, int]:
+                r_cut: float, targets=None, **_):
     """The work the column pair sum needs, counted on the plane: (the
-    source visits, the pairs inside r_cut).  A visit is a massive slot of
-    a real target's 9 neighbour columns within +-r_cut of it in z; a pair
-    inside r_cut also has r^2 < r_cut^2 (self pairs included, as K1's
-    count has them).  The kernels also visit the rest of each chunk's
-    windows, and targets in the padding and ghost slots of a column's
-    last chunk; that is not counted."""
+    source visits, the pairs inside r_cut, the (P^2, stride) bool of the
+    plane slots those visits read, the number of targets).  A visit is a
+    massive slot of a real target's 9 neighbour columns within +-r_cut of
+    it in z; a pair inside r_cut also has r^2 < r_cut^2 (self pairs
+    included, as K1's count has them).  ``targets`` (ncol, stride) bool
+    restricts the targets (K5: the active particles only).  The kernels
+    also visit the rest of each chunk's windows, and targets in the
+    padding and ghost slots of a column's last chunk (and K5 the inactive
+    targets of an active chunk); that is not counted."""
     P = ncell + 2
     x = plane[:4].reshape(4, P * P, stride)
     ic = torch.arange(ncell * ncell, device=plane.device)
@@ -282,22 +339,36 @@ def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
     t = x[:, (cx + 1) * P + (cy + 1), gz:gz + cmax]
     real = (torch.arange(cmax, device=plane.device)[None, :]
             < counts.to(torch.int64)[:, None])
+    if targets is not None:
+        real = real & targets[:, gz:gz + cmax]
     rc2 = float(r_cut) ** 2
     group = max(1, (1 << 26) // (cmax * stride))
     visits = inside = 0
+    read = torch.zeros((P * P, stride), dtype=torch.bool, device=plane.device)
     for o2 in range(9):
-        src = x[:, (cx + o2 // 3) * P + (cy + o2 % 3)]
+        scol = (cx + o2 // 3) * P + (cy + o2 % 3)
+        src = x[:, scol]
         for c0 in range(0, ic.numel(), group):
             tt, ss = t[:, c0:c0 + group], src[:, c0:c0 + group]
             pair = real[c0:c0 + group, :, None] & (ss[3] > 0)[:, None, :]
             dz = ss[2][:, None, :] - tt[2][:, :, None]
             near = pair & (dz.abs() <= r_cut)
             visits += int(near.sum())
+            read[scol[c0:c0 + group]] |= near.any(1)
             dx = ss[0][:, None, :] - tt[0][:, :, None]
             dy = ss[1][:, None, :] - tt[1][:, :, None]
             r2 = torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-30)
             inside += int((near & (r2 < rc2)).sum())
-    return visits, inside
+    return visits, inside, read, int(real.sum())
+
+
+def needed_bytes(n_sources: int, n_targets: int,
+                 target_plane: bool = False) -> int:
+    """The bytes a pair sum must move: x, y, z and m of each source it
+    reads, the x, y, z of each target from a plane of its own
+    (``target_plane``: K6's two-plane form) and the three force components
+    it writes per target, float32."""
+    return 16 * n_sources + 12 * n_targets * (2 if target_plane else 1)
 
 
 def _pair_kw(cfg, geo: dict) -> dict:
@@ -388,7 +459,7 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
     grids6 = pm6.force_grids_from_rho(rho, amp, mass_sum,
                                       rho1=rho1).contiguous()
     p64 = plane.double()
-    visits, inside = needed_work(plane, counts, **kw)
+    visits, inside, _, n_t = needed_work(plane, counts, **kw)
     for il, so in ((False, False), (True, False), (False, True)):
         g = grids6 if il else grids3
         fkw = dict(S=S, scale=scale, split_out=so, interlaced=il, **kw)
@@ -408,8 +479,8 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
         lambda: run_fused_column_plane(plane, ws, nch, grids3, **fkw), 20)
     k3_plain_ms = cuda_time_ms(
         lambda: fused_column_plane_plain(plane, ws, nch, grids3, **fkw), 2)
-    b_ms, b_by = bound(2 * plane.numel() * 4 + (ws.numel() + nch.numel()) * 4
-                       + grids3.numel() * 4,
+    # every stored particle is a target and reads itself: n_t sources
+    b_ms, b_by = bound(needed_bytes(n_t, n_t) + grids3.numel() * 4,
                        visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE
                        + n_real * FLOPS_PM_READ)
     out["K3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
@@ -449,8 +520,8 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
     k4_ms = cuda_time_ms(lambda: run_column_plane(plane, ws, nch, **kw), 20)
     k4_plain_ms = cuda_time_ms(lambda: column_plane_plain(plane, ws, nch,
                                                           **kw), 2)
-    visits, inside = needed_work(plane, counts, **kw)
-    b_ms, b_by = bound(2 * plane.numel() * 4 + (ws.numel() + nch.numel()) * 4,
+    visits, inside, _, n_t = needed_work(plane, counts, **kw)
+    b_ms, b_by = bound(needed_bytes(n_t, n_t),
                        visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
     kernel_visits = int(nch.sum()) * geo["chunk"] * 9 * geo["W"]
     phase(f"[7] {tag} K4: kernel {k4_ms:.4f} ms, plain f32 {k4_plain_ms:.3f}"
@@ -461,16 +532,394 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
 
+def needed_work_cells(plane, counts, K: int, plane_j, counts_j, K_j: int, *,
+                      ncell: int, r_cut: float, **_):
+    """The work the cell pair sum needs, counted on the planes as
+    :func:`needed_work` counts it: (the stored sources of a stored
+    target's 27 neighbour cells within +-r_cut of it in z, the pairs among
+    them inside r_cut, the distinct particles those visits read (a ghost
+    slot is its periodic image's particle), the number of targets).  The
+    kernel also visits the sources of the neighbour cells farther than
+    r_cut in z; that is not counted."""
+    from nbody_torch.forces.p3m import _real_cells
+
+    dev = plane.device
+    M = ncell + 2
+    counts, counts_j = counts.to(torch.int64), counts_j.to(torch.int64)
+    cells = _real_cells(ncell, ncell, dev)
+    ci = counts[cells]
+    tcell = torch.repeat_interleave(cells, ci)
+    first = torch.repeat_interleave(torch.cumsum(ci, 0) - ci, ci)
+    tslot = tcell * K + torch.arange(tcell.numel(), device=dev) - first
+    xt = plane[0:3, tslot]
+    kmax = int(counts_j.max())
+    jr = torch.arange(kmax, device=dev)
+    rc2 = float(r_cut) ** 2
+    step = max(1, (1 << 24) // max(kmax, 1))
+    visits = inside = 0
+    # each padded cell's periodic image among the real cells
+    fold = (torch.arange(M, device=dev) - 1) % ncell + 1
+    image = ((fold[:, None, None] * M + fold[None, :, None]) * M
+             + fold[None, None, :]).reshape(-1)
+    read = torch.zeros(M**3 * kmax, dtype=torch.bool, device=dev)
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            for oz in (-1, 0, 1):
+                off = (ox * M + oy) * M + oz
+                for t0 in range(0, tslot.numel(), step):
+                    sc = tcell[t0:t0 + step] + off
+                    live = jr[None, :] < counts_j[sc][:, None]
+                    src = torch.where(live, sc[:, None] * K_j + jr[None, :], 0)
+                    d = plane_j[0:3, src] - xt[:, t0:t0 + step, None]
+                    near = live & (d[2].abs() <= r_cut)
+                    visits += int(near.sum())
+                    read[(image[sc][:, None] * kmax + jr[None, :])[near]] = True
+                    r2 = torch.clamp_min((d * d).sum(0), 1e-30)
+                    inside += int((near & (r2 < rc2)).sum())
+    return visits, inside, int(read.sum()), tslot.numel()
+
+
+def rung_mask(state, cfg):
+    """The particles above rung 0 at ``state``: the rung rule of ``cfg``
+    (its rungs, etas and last step of its grid) on the state's velocities
+    and both halves of its force."""
+    from nbody_torch.driver.simulate import build_cosmo_force_both
+    from nbody_torch.integrate.cosmo_stepping import (
+        _assign_rungs,
+        _rung_demand,
+        log_a_steps,
+    )
+
+    a0, a1 = log_a_steps(cfg.a_begin, cfg.a_end, cfg.n_steps)[-2:]
+    gs, gl, _ = build_cosmo_force_both(cfg)(state.pos, state.mass, a0, a0)
+    cosmo = cfg.cosmology()
+
+    def t(x):
+        return torch.tensor(float(x), device=state.pos.device)
+
+    dla = _rung_demand(state.vel, gl, gs, t(a0), t(cfg.box / cfg.mesh_size),
+                       t(cfg.step_eta_disp),
+                       t(2.0 * cfg.step_eta_acc * cfg.eps),
+                       float(cosmo.H0), float(cosmo.Omega_m),
+                       float(cosmo.Omega_L))
+    rung = _assign_rungs(dla, torch.log(t(a1)) - torch.log(t(a0)), cfg.rungs)
+    return rung >= 1
+
+
+def cell_kernel_check(state, act, config, tag: str) -> dict:
+    """K6 in its one-plane and two-plane forms against the float64 plain
+    version on the cell planes of ``state`` (the driver's pre-warmed cell
+    capacity; the target plane holds the ``act`` particles at the
+    pre-warmed target capacity); returns the two-plane form's numbers for
+    the JSON line."""
+    from nbody_torch.driver.simulate import _cell_knobs, prewarm_capacity
+    from nbody_torch.forces.p3m import (
+        build_padded_plane,
+        cell_ids,
+        cell_plane_plain,
+        run_cell_plane,
+    )
+
+    cells_cfg = config.replace(shortrange="cells")
+    ncell = _cell_knobs(cells_cfg, cells_cfg)[2]
+    occ = int(torch.bincount(cell_ids(state.pos[act], config.box, ncell),
+                             minlength=ncell**3).max())
+    grown = prewarm_capacity(cells_cfg, cells_cfg, state.pos,
+                             rung_occ=occ)[0]
+    r_s, r_cut, ncell, cap = _cell_knobs(cells_cfg, grown)
+    tcap = grown.rung_capacity or 128
+    pos, mass = state.pos, state.mass
+    plane, ov, K, _, counts = build_padded_plane(pos, mass, config.box,
+                                                 r_cut, ncell, cap)
+    plane_i, ov_i, K_i, _, counts_i = build_padded_plane(
+        pos, mass, config.box, r_cut, ncell, tcap, valid=act)
+    if int(ov) or int(ov_i):
+        raise AssertionError(f"[11] {tag}: cell planes spill ({int(ov)}, "
+                             f"{int(ov_i)})")
+    kw = dict(nx=ncell, ncell=ncell, eps2=config.eps**2, r_s=r_s,
+              r_cut=r_cut, split=config.force_split,
+              softening=config.softening_kernel)
+    phase(f"[11] {tag}: cell grid {ncell}^3, K {K} (capacity {cap}), "
+          f"target plane K {K_i} ({int(act.sum())} active particles)")
+    out = {}
+    for form, args, jkw in (
+            ("one-plane", (plane, counts), dict(K=K)),
+            ("two-plane", (plane_i, counts_i),
+             dict(K=K_i, plane_j=plane, K_j=K, counts_j=counts))):
+        got = run_cell_plane(*args, **jkw, **kw)
+        torch.cuda.synchronize()
+        jkw64 = dict(jkw, plane_j=plane.double()) if "plane_j" in jkw else jkw
+        ref = cell_plane_plain(args[0].double(), args[1], **jkw64, **kw)
+        rel = rel_l2(got, ref)
+        err = max_abs(got, ref)
+        if not rel <= FORCE_REL_L2_TOL:
+            raise AssertionError(f"K6 {form} disagrees with its plain "
+                                 f"version: {rel}")
+        ms = cuda_time_ms(lambda: run_cell_plane(*args, **jkw, **kw), 20)
+        plain_ms = cuda_time_ms(
+            lambda: cell_plane_plain(*args, **jkw, **kw), 2)
+        pj, cj, kj = (plane, counts, K) if "plane_j" in jkw else (
+            args[0], args[1], jkw["K"])
+        visits, inside, n_src, n_t = needed_work_cells(
+            args[0], args[1], jkw["K"], pj, cj, kj, ncell=ncell, r_cut=r_cut)
+        b_ms, b_by = bound(needed_bytes(n_src, n_t, "plane_j" in jkw),
+                           visits * FLOPS_VISIT_COLUMNS
+                           + inside * FLOPS_INSIDE)
+        phase(f"[11] {tag} K6 {form}: rel L2 {rel:.3e} (tol "
+              f"{FORCE_REL_L2_TOL:g}), max abs {err:.3e}; kernel {ms:.4f} "
+              f"ms, plain f32 {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {visits:.4e} visits within r_cut in z, "
+              f"{inside:.4e} inside r_cut, {n_src} sources read, {n_t} "
+              f"targets")
+        out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+    return out
+
+
+def _frozen_setup(state, cfg_run, frac: float, seed: int = 7):
+    """A plan frozen at ``state`` at the driver's frozen geometry for
+    ``cfg_run`` and the positions drifted by frac * skin/2 in random
+    directions: (plan, moved, geometry keywords, skin)."""
+    from nbody_torch.driver.simulate import _frozen_geometry
+    from nbody_torch.forces.p3m_columns import (
+        freeze_column_plan,
+        plane_geometry,
+    )
+
+    _, r_s, r_cut, ncell, ck, w, skin = _frozen_geometry(cfg_run)
+    box = cfg_run.box
+    plan = freeze_column_plan(state.pos, state.mass, box, r_cut, ncell, ck,
+                              w, skin=skin)
+    if int(plan.ov):
+        raise AssertionError(f"the frozen plan overflows: {int(plan.ov)}")
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(state.pos.shape, generator=g, dtype=torch.float64)
+    u = (u / u.norm(dim=1, keepdim=True)).to(state.pos)
+    moved = state.pos + frac * 0.5 * skin * u
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
+    geo = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+               chunk=chunk)
+    return plan, moved, geo, dict(r_s=r_s, r_cut=r_cut, ck=ck, w=w,
+                                  CK=CK, skin=skin)
+
+
+def masked_column_check(state, act, config, cfg_run, tag: str,
+                        frac: float) -> dict:
+    """K5 against its float64 plain version on the plan frozen at
+    ``state`` (the driver's frozen geometry), at positions drifted by frac
+    * skin/2, for the chunks that hold an ``act`` particle; and K5 with
+    every chunk listed against K4 on the same plane (equal bit for bit).
+    Returns K5's numbers for the JSON line."""
+    from nbody_torch.forces.p3m_columns import (
+        active_chunk_table,
+        column_plane_plain,
+        frozen_plane,
+        run_column_plane,
+        run_column_plane_masked,
+    )
+
+    plan, moved, geo, g = _frozen_setup(state, cfg_run, frac)
+    box = config.box
+    plane, interior = frozen_plane(moved, state.mass, plan, box, g["r_cut"],
+                                   geo["ncell"], g["CK"], geo["gz"],
+                                   geo["stride"])
+    nch_act, cht = active_chunk_table(act, plan, interior, CK=g["CK"],
+                                      ncell=geo["ncell"], gz=geo["gz"],
+                                      maxch=geo["maxch"], chunk=geo["chunk"])
+    kw = _pair_kw(config, geo)
+    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw)
+    torch.cuda.synchronize()
+    ref = column_plane_plain(plane.double(), plan.ws, nch_act, cht=cht, **kw)
+    rel, err = rel_l2(got, ref), max_abs(got, ref)
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K5 disagrees with its plain version: {rel}")
+    ncol, maxch = geo["ncell"] ** 2, geo["maxch"]
+    every = torch.arange(maxch, device=plane.device,
+                         dtype=torch.int32).repeat(ncol)
+    if not torch.equal(run_column_plane_masked(plane, plan.ws, plan.nch,
+                                               every, **kw),
+                       run_column_plane(plane, plan.ws, plan.nch, **kw)):
+        raise AssertionError("K5 with every chunk listed differs from K4")
+    ms = cuda_time_ms(
+        lambda: run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw),
+        20)
+    plain_ms = cuda_time_ms(lambda: column_plane_plain(
+        plane, plan.ws, nch_act, cht=cht, **kw), 2)
+    counts = torch.clamp_max(plan.counts, g["CK"]).to(torch.int32)
+    targets = act[plan.src_g] & interior
+    visits, inside, read, n_t = needed_work(plane, counts, targets=targets,
+                                            **kw)
+    # the particles behind the slots read: a ghost column is its periodic
+    # image's, whose slot map (z ghosts included) is the plan's
+    P = geo["ncell"] + 2
+    fold = (torch.arange(P, device=plane.device) - 1) % geo["ncell"]
+    image = (fold[:, None] * geo["ncell"] + fold[None, :]).reshape(-1)
+    seen = torch.zeros(state.pos.shape[0], dtype=torch.bool,
+                       device=plane.device)
+    seen[plan.src_g[image][read]] = True
+    n_src = int(seen.sum())
+    b_ms, b_by = bound(needed_bytes(n_src, n_t),
+                       visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
+    kernel_visits = int(nch_act.sum()) * geo["chunk"] * 9 * geo["W"]
+    phase(f"[11] {tag}: drift {frac:g} x skin/2 (skin {g['skin']:.3f} Mpc),"
+          f" {int(act.sum())} active particles in {int(nch_act.sum())} of "
+          f"{int(plan.nch.sum())} chunks; K5 rel L2 {rel:.3e} (tol "
+          f"{FORCE_REL_L2_TOL:g}), max abs {err:.3e}; every chunk listed "
+          f"== K4; kernel {ms:.4f} ms, plain f32 {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); {visits:.4e} visits of active targets "
+          f"within r_cut in z (the kernel makes {kernel_visits:.4e}), "
+          f"{inside:.4e} inside r_cut, {n_src} sources read, {n_t} targets")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
+    """K2 and K3 on the plane of a plan frozen at ``state`` at positions
+    drifted by 0.999 skin/2 (which leave the box and the frozen columns):
+    each against its plain version, the frozen deposit against the
+    deposit of a fresh plane at the same positions (and a planted wrong
+    wrap against the same, which must fail that limit), and the frozen
+    evaluation (both halves, plain and interlaced) against a fresh one."""
+    from nbody_torch.forces.pm import pm_module
+    from nbody_torch.forces.pm_supercell import (
+        deposit_node_masses_plain,
+        fold_node_masses,
+        fused_column_plane_plain,
+        p3m_supercell_acc,
+        p3m_supercell_frozen,
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        frozen_plane,
+    )
+
+    plan, moved, geo, g = _frozen_setup(state, cfg_run, 0.999)
+    box, nmesh, mass = config.box, config.mesh_size, state.mass
+    ncell, stride, gz = geo["ncell"], geo["stride"], geo["gz"]
+    S, ZP = supercell_geometry(nmesh, ncell)
+    plane, _ = frozen_plane(moved, mass, plan, box, g["r_cut"], ncell,
+                            g["CK"], gz, stride)
+    counts = torch.clamp_max(plan.counts, g["CK"]).to(torch.int32)
+    fresh = build_column_plane(moved, mass, box, g["r_cut"], ncell, g["CK"],
+                               geo["W"], chunk=geo["chunk"])
+    if int(fresh[3]) or int(fresh[4]):
+        raise AssertionError(f"[11] {tag}: the fresh plane overflows")
+    # particles whose plane coordinates (freeze position + minimum-image
+    # drift) lie outside the box
+    d = torch.remainder(moved, box) - plan.pos0
+    unwrapped = plan.pos0 + d - box * torch.round(d / box)
+    outside = int(((unwrapped < 0) | (unwrapped >= box)).any(1).sum())
+    dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz)
+    pkw = dict(ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz,
+               scale=nmesh / box)
+    for shift in (0.0, 0.5):
+        rho = supercell_deposit_from_plane(plane, counts, shift=shift, **dkw)
+        torch.cuda.synchronize()
+        rho_f = supercell_deposit_from_plane(fresh[0], fresh[6], shift=shift,
+                                             **dkw)
+        top = float(rho_f.abs().max())
+        err_f = max_abs(rho, rho_f) / top
+        msg = (f"[11] {tag} K2 shift {shift}: max |node - the fresh plane's "
+               f"deposit| / max {err_f:.3e}")
+        err = 0.0
+        if shift == 0.0:
+            # the plain version's node grid reaches one node below the
+            # column: exact up to one cell of drift unshifted, half a cell
+            # at the half-cell shift (the driver's interlaced clamp)
+            ref = fold_node_masses(deposit_node_masses_plain(
+                plane, counts, shift=shift, **pkw), ncell=ncell, S=S, ZP=ZP,
+                nmesh=nmesh)
+            err = max_abs(rho, ref) / top
+            msg += f", vs plain f32 {err:.3e}"
+        phase(f"{msg} (tol {FROZEN_NODE_TOL:g} and {NODE_MASS_TOL:g}); "
+              f"{outside} particles' plane coordinates outside [0, box)")
+        if not (err <= NODE_MASS_TOL and err_f <= FROZEN_NODE_TOL):
+            raise AssertionError(f"K2 on the frozen plane: {err}, {err_f}")
+    # planted wrong wraps: the frozen plane with the masses of particles
+    # whose plane coordinates lie past the box's upper edge zeroed, as a
+    # deposit that left their corners off the mesh reads; the particle
+    # farthest out alone, and all of them.  Both must read above
+    # FROZEN_NODE_TOL.
+    past = (unwrapped - box).amax(1)
+    n_past = int((past >= 0).sum())
+    if n_past == 0:
+        raise AssertionError(f"[11] {tag}: no plane coordinate past the box")
+    far = torch.argsort(past, descending=True)
+    rho_f = supercell_deposit_from_plane(fresh[0], fresh[6], **dkw)
+    planted = []
+    for sel in (far[:1], far[:n_past]):
+        bad = plane.clone()
+        bad[3, plan.gidx[sel]] = 0.0
+        got = supercell_deposit_from_plane(bad, counts, **dkw)
+        planted.append(max_abs(got, rho_f) / float(rho_f.abs().max()))
+    phase(f"[11] {tag} K2 planted wrong wrap: max |node - the fresh plane's "
+          f"deposit| / max {planted[0]:.3e} for the particle farthest past "
+          f"the upper edge ({float(past[far[0]]):.3f} Mpc), {planted[1]:.3e}"
+          f" for all {n_past} past it (tol {FROZEN_NODE_TOL:g})")
+    if not min(planted) > FROZEN_NODE_TOL:
+        raise AssertionError(f"a planted wrong wrap reads within the "
+                             f"tolerance: {planted}")
+    kw = _pair_kw(config, geo)
+    mass_sum = torch.sum(mass)
+    amp = 4.0 * math.pi * mass_sum / box**3
+    split = config.force_split
+    for il in (False, True):
+        pm = pm_module(box, nmesh, config.deconvolve_p, il,
+                       kw["r_s"] if split == "gaussian" else 0.0,
+                       kw["r_cut"] if split == "spline" else 0.0,
+                       config.pm_gradient, 0.0, mass.device, torch.float32)
+        rho = supercell_deposit_from_plane(plane, counts, **dkw)
+        rho1 = (supercell_deposit_from_plane(plane, counts, shift=0.5, **dkw)
+                if il else None)
+        grids = pm.force_grids_from_rho(rho, amp, mass_sum,
+                                        rho1=rho1).contiguous()
+        fkw = dict(S=S, scale=nmesh / box, split_out=True, interlaced=il,
+                   **kw)
+        got = run_fused_column_plane(plane, plan.ws, plan.nch, grids, **fkw)
+        torch.cuda.synchronize()
+        ref = fused_column_plane_plain(plane.double(), plan.ws, plan.nch,
+                                       grids.double(), **fkw)
+        rel = rel_l2(got, ref)
+        ekw = dict(G=1.0, eps=config.eps, r_s=kw["r_s"], r_cut=kw["r_cut"],
+                   deconvolve_p=config.deconvolve_p, split=split,
+                   softening=config.softening_kernel, ncell=ncell,
+                   col_capacity=g["ck"], window=g["w"],
+                   grad_order=config.pm_gradient, part_split=True,
+                   interlace=il)
+        fz = p3m_supercell_frozen(moved, mass, plan, box, nmesh, **ekw)
+        fr = p3m_supercell_acc(moved, mass, box, nmesh, **ekw)
+        tot_fz, tot_fr = fz[0] + fz[1], fr[0] + fr[1]
+        rel_fr = rel_l2(tot_fz, tot_fr.double())
+        phase(f"[11] {tag} K3 interlaced={il} split_out: rel L2 {rel:.3e} vs"
+              f" plain; frozen vs fresh evaluation at the same positions: "
+              f"rel L2 {rel_fr:.3e} (tol {FORCE_REL_L2_TOL:g})")
+        if not (rel <= FORCE_REL_L2_TOL and rel_fr <= FORCE_REL_L2_TOL
+                and int(fz[2]) == 0 and int(fr[2]) == 0):
+            raise AssertionError(f"K3 on the frozen plane: {rel}, {rel_fr}")
+
+
 def _wrappers() -> dict:
-    from nbody_torch.forces.p3m import p3m_short_acc
-    from nbody_torch.forces.p3m_columns import run_column_plane
+    from nbody_torch.forces.p3m import p3m_short_acc, run_cell_plane
+    from nbody_torch.forces.p3m_columns import (
+        run_column_plane,
+        run_column_plane_masked,
+    )
     from nbody_torch.forces.pm_supercell import (
         run_fused_column_plane,
         supercell_deposit_from_plane,
     )
 
     return {"K1": p3m_short_acc, "K2": supercell_deposit_from_plane,
-            "K3": run_fused_column_plane, "K4": run_column_plane}
+            "K3": run_fused_column_plane, "K4": run_column_plane,
+            "K5": run_column_plane_masked, "K6": run_cell_plane}
+
+
+def zero_launches(**counts) -> dict:
+    """A launch-count dict with every kernel at 0 but ``counts``."""
+    return {key: counts.get(key, 0) for key in _wrappers()}
 
 
 def reset_launches() -> None:
@@ -523,13 +972,64 @@ def pk_vs_reference(res, cfg, ref_name: str, tag: str) -> None:
         raise AssertionError(f"{tag}: P(k) differs from JAX: {rel_pk.max()}")
 
 
-def rerun_evals(lines: list[str]) -> int:
-    """Force evaluations the driver repeated after capacity heals."""
+def rerun_evals(lines: list[str], what: str = "force") -> int:
+    """Force evaluations (``what='masked interior'``: the rung tier's
+    interior evaluations) the driver repeated after capacity heals."""
     for line in lines:
-        m = re.match(r"Capacity heals repeated (\d+) force evaluations", line)
+        m = re.match(rf"Capacity heals repeated (\d+) {what} evaluations",
+                     line)
         if m:
             return int(m.group(1))
     return 0
+
+
+def rung_populations(lines: list[str]) -> list[list[int]]:
+    """The counts of run.log's "Rung population" lines, one list a step."""
+    return [[int(x) for x in line.split("matter:")[1].split(",")]
+            for line in lines if "Rung population" in line]
+
+
+def rung_run(cfg, tag: str, work: str, **kw):
+    """``run_simulation(cfg)`` with rungs, with every launch count reset
+    before and read after.  Returns (result, launches, run.log lines, the
+    boundary and the masked interior evaluations the run must have made,
+    counted from run.log: a boundary evaluation at the start of each
+    stretch of steps and at each step, an interior one at each sub-tick
+    j whose deepest populated rung is >= rung_active_min(j), and those
+    repeated after heals)."""
+    from nbody_torch.driver.simulate import run_simulation
+    from nbody_torch.integrate.cosmo_stepping import rung_active_min
+
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    res = run_simulation(cfg, 0, work, **kw)
+    launches = read_launches()
+    lines = run_log(work)
+    pops = rung_populations(lines)
+    stretches = sum(1 for line in lines
+                    if re.match(r"Time step\s+\d+\s+a = \S+\s+\(\d+ steps",
+                                line))
+    if len(pops) != cfg.n_steps or any(sum(p) != cfg.n_particles
+                                       for p in pops):
+        raise AssertionError(f"{tag}: rung populations {pops}")
+    boundary = cfg.n_steps + stretches + rerun_evals(lines)
+    interior = rerun_evals(lines, "masked interior") + sum(
+        1 for p in pops for j in range(1, 2 ** (cfg.rungs - 1))
+        if len(p) - 1 >= rung_active_min(j, cfg.rungs))
+    check_run_outputs(res, cfg, tag)
+    return res, launches, lines, boundary, interior
+
+
+def rung_lines(tag: str, lines: list[str]) -> None:
+    """Print a rung run's first and last population lines and its heal,
+    staleness and summary lines."""
+    pops = [line for line in lines if "Rung population" in line]
+    for line in [pops[0], pops[-1]] + [
+            line for line in lines
+            if "pre-warming" in line or "re-running" in line
+            or "drift note" in line or "Rung stepping" in line
+            or "Capacity heals" in line]:
+        phase(f"    {tag} run.log: {line}")
 
 
 def main() -> None:
@@ -540,7 +1040,9 @@ def main() -> None:
     from nbody_torch.driver import OutputConfig, SimulationConfig
     from nbody_torch.driver.simulate import (
         _resolved_shortrange,
+        build_cosmo_force_frozen_both,
         column_knobs,
+        prewarm_capacity,
         realize_ics,
         run_simulation,
     )
@@ -621,7 +1123,7 @@ def main() -> None:
     for line in run_log(work):
         phase("    run.log: " + line)
     check_run_outputs(res, run_cfg, "[5]")
-    want = {"K1": run_cfg.n_steps + 1, "K2": 0, "K3": 0, "K4": 0}
+    want = zero_launches(K1=run_cfg.n_steps + 1)
     if counts != want:
         raise AssertionError(f"[5] launches {counts}, expected {want}")
 
@@ -652,10 +1154,15 @@ def main() -> None:
     akw = dict(G=G, eps=cfg64.eps, split=cfg64.force_split,
                softening=cfg64.softening_kernel, with_overflow=True)
     accs = {}
+    cells64 = cfg64.replace(shortrange="cells")
     for tier, tcfg in (("supercell", cfg64), ("columns", col64),
-                       ("allpairs", None)):
+                       ("cells", cells64), ("allpairs", None)):
         knobs = {}
-        if tcfg is not None:
+        if tier == "cells":
+            # the cell capacity the driver's pre-warm gives
+            grown, _ = prewarm_capacity(cells64, cells64, ics64.pos)
+            knobs = dict(capacity=grown.cell_capacity)
+        elif tcfg is not None:
             # the capacity and window the driver's pre-warm and heal reach
             healed, _ = driver_knobs(ics64, tcfg, tcfg, True)
             _, ck_t, w_t = column_knobs(tcfg, healed)
@@ -670,7 +1177,7 @@ def main() -> None:
         accs[tier] = acc.double()
         phase(f"[8] {tier} {knobs}: {time.perf_counter() - t_tier:.3f} s")
     scale = float(accs["allpairs"].norm(dim=1).max())
-    for tier in ("supercell", "columns"):
+    for tier in ("supercell", "columns", "cells"):
         err = float((accs[tier] - accs["allpairs"]).norm(dim=1).max()) / scale
         phase(f"[8] {tier} vs allpairs at the 64^3 ICs: max |diff| / max "
               f"|acc| {err:.3e} (tol {TIER_TOL:g})")
@@ -704,9 +1211,9 @@ def main() -> None:
         check_run_outputs(res64, run64, f"[9] {resolved}")
         evals = run64.n_steps + 1 + rerun_evals(lines)
         fused = "K3" if resolved == "supercell" else "K4"
-        want = {"K1": 0, "K2": evals if resolved == "supercell" else 0,
-                "K3": evals if resolved == "supercell" else 0,
-                "K4": evals if resolved == "columns" else 0}
+        want = zero_launches(K2=evals if resolved == "supercell" else 0,
+                             K3=evals if resolved == "supercell" else 0,
+                             K4=evals if resolved == "columns" else 0)
         if counts != want:
             raise AssertionError(f"[9] {resolved}: launches {counts}, "
                                  f"expected {want}")
@@ -736,6 +1243,86 @@ def main() -> None:
     pk_vs_reference(res16s, sc16, "powerspec_a=1.00_n16_supercell_seed0",
                     "[10] 16^3 supercell from the JAX noise")
 
+    # -- 12. the default 32^3 config with rungs=3 (K1 + K6) ---------------
+    r32 = run_cfg.replace(rungs=3)
+    res32, counts, lines, boundary, interior = rung_run(
+        r32, "[12]", os.path.join(OUT, "default_rungs3"))
+    phase(f"[12] default 32^3 run, rungs=3: {r32.n_steps} steps in "
+          f"{res32.wall_s:.3f} s ({r32.n_steps / res32.wall_s:.2f} steps/s);"
+          f" launches {counts}; cell_capacity "
+          f"{res32.config_run.cell_capacity}, rung_capacity "
+          f"{res32.config_run.rung_capacity}")
+    rung_lines("[12]", lines)
+    want = zero_launches(K1=boundary, K6=interior)
+    if counts != want:
+        raise AssertionError(f"[12] launches {counts}, expected {want}")
+    k6_launches = counts["K6"]
+
+    # -- 13. cfg64 with rungs=3: frozen plans, K2 + K3 and K5 ------------
+    r64 = cfg64.replace(rungs=3)
+    res64r, counts, lines, boundary, interior = rung_run(
+        r64, "[13]", os.path.join(OUT, "cfg64_rungs3"))
+    frozen = build_cosmo_force_frozen_both(res64r.config_run)
+    if frozen is None or len(frozen) != 6:
+        raise AssertionError("[13] cfg64 rungs=3 does not ride the frozen "
+                             "masked column path")
+    phase(f"[13] 64^3 run, rungs=3 (supercell tier, frozen plans): "
+          f"{r64.n_steps} steps in {res64r.wall_s:.3f} s "
+          f"({r64.n_steps / res64r.wall_s:.2f} steps/s); launches {counts};"
+          f" column_capacity {res64r.config_run.column_capacity}, "
+          f"column_window {res64r.config_run.column_window}, stale_max "
+          f"{res64r.stale_max}; a = {float(res64r.state.time):.4f}")
+    rung_lines("[13]", lines)
+    want = zero_launches(K2=boundary, K3=boundary, K5=interior)
+    if counts != want:
+        raise AssertionError(f"[13] launches {counts}, expected {want}")
+    k5_launches = counts["K5"]
+
+    # -- 11. K5, K6 and the frozen-plane K2/K3 at full-size shapes --------
+    # active sets from the rung rule at the late states of [5] and [13]
+    act32 = rung_mask(res.state, r32)
+    act64 = rung_mask(res64r.state, res64r.config_run)
+    ics32 = realize_ics(cfg, 0)
+    cell_kernel_check(ics32, act32, r32, "32^3 ICs")
+    k6 = cell_kernel_check(res.state, act32, r32, "32^3 late state")
+    cell_kernel_check(ics64, act64, r64, "64^3 ICs")
+    k5 = masked_column_check(ics64, act64, r64, res64r.config_run,
+                             "64^3 ICs, K5", 0.0)
+    masked_column_check(ics64, act64, r64, res64r.config_run,
+                        "64^3 ICs drifted, K5", 0.999)
+    frozen_supercell_check(ics64, r64, res64r.config_run,
+                           "64^3 ICs drifted to skin/2")
+    kernels.update(K5=k5, K6=k6)
+
+    # -- 14. the 16^3 rung runs against the committed JAX runs -------------
+    for tag, shortrange in (("", "auto"), ("_supercell", "supercell")):
+        r16 = SimulationConfig(n_side=16, rungs=3, a_begin=0.3, n_steps=6,
+                               shortrange=shortrange,
+                               output=OutputConfig(snapshot=False))
+        res16r, counts, lines, boundary, interior = rung_run(
+            r16, f"[14]{tag}", os.path.join(OUT, f"n16{tag}_rungs3"),
+            initial_state=realize_ics(r16, 0, noise=noise))
+        want = (zero_launches(K2=boundary, K3=boundary, K5=interior)
+                if shortrange == "supercell"
+                else zero_launches(K1=boundary, K6=interior))
+        if counts != want:
+            raise AssertionError(f"[14]{tag}: launches {counts}, expected "
+                                 f"{want}")
+        pk_vs_reference(res16r, r16, f"powerspec_a=1.00_n16{tag}_rungs3_seed0",
+                        f"[14] 16^3{tag} rungs=3 from the JAX noise")
+        ref = np.loadtxt(os.path.join(PORT_DATA, f"rung_population_n16{tag}"
+                                                 f"_rungs3_seed0.txt"),
+                         dtype=np.int64)
+        got = np.array([p + [0] * (3 - len(p))
+                        for p in rung_populations(lines)])
+        worst = int(np.abs(got - ref[:, 1:]).max())
+        phase(f"[14] 16^3{tag} rung populations vs JAX at {len(got)} steps: "
+              f"largest difference {worst} particles (tol "
+              f"{POP_TOL * r16.n_particles:g}); last {got[-1].tolist()} vs "
+              f"{ref[-1, 1:].tolist()}; launches {counts}")
+        if not worst <= POP_TOL * r16.n_particles:
+            raise AssertionError(f"[14]{tag}: populations differ by {worst}")
+
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
@@ -744,13 +1331,18 @@ def main() -> None:
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
     }]
+    launch_counts["rungs"] = zero_launches(K5=k5_launches, K6=k6_launches)
     for key, name, source, replaces, path in (
             ("K2", "supercell_deposit_from_plane", "pm_supercell.cu",
              "nbody/forces/pm_supercell.py:117", "supercell"),
             ("K3", "run_fused_column_plane", "pm_supercell.cu",
              "nbody/forces/pm_supercell.py:353", "supercell"),
             ("K4", "run_column_plane", "p3m_columns.cu",
-             "nbody/forces/p3m_columns.py:480", "columns")):
+             "nbody/forces/p3m_columns.py:480", "columns"),
+            ("K5", "run_column_plane_masked", "p3m_columns.cu",
+             "nbody/forces/p3m_columns.py:849", "rungs"),
+            ("K6", "run_cell_plane", "p3m_cells.cu",
+             "nbody/forces/p3m.py:760", "rungs")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"nbody_torch/forces/csrc/{source}",
                      "replaces": replaces,

@@ -100,6 +100,8 @@ def _build(so: Path) -> None:
 _ENTRY_POINTS = {
     "p3m_short_acc_f32": "piidddddiipp",
     "p3m_columns_f32": "pppiiiiiidddiipp",
+    "p3m_columns_masked_f32": "ppppiiiiiidddiipp",
+    "p3m_cells_f32": "ppppiiiidddiipp",
     "pm_supercell_deposit_f32": "ppiiiiiiddpp",
     "pm_supercell_fused_f32": "ppppiiiiidiiiiidddiipp",
 }

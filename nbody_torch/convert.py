@@ -1,4 +1,5 @@
-"""Carrying a particle state between the JAX package and the port.
+"""Carrying a particle state or a frozen column plan between the JAX
+package and the port.
 
 The JAX package's state crosses as numpy (``np.asarray`` of its arrays);
 a config crosses as its JSON: the port's ``SimulationConfig.from_dict``
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from nbody_torch.core.types import ParticleState
+from nbody_torch.forces.p3m_columns import ColumnPlan
 
 
 def state_from_numpy(pos, vel, mass, time, *, device,
@@ -32,3 +34,22 @@ def state_to_numpy(state: ParticleState):
         t.detach().cpu().numpy()
         for t in (state.pos, state.vel, state.mass, state.time)
     )
+
+
+#: the port's dtype of each ColumnPlan field (the JAX package holds the
+#: indices in int32)
+_PLAN_DTYPES = dict(pos0=torch.float32, src_g=torch.int64,
+                    starts=torch.int64, counts=torch.int64, ws=torch.int32,
+                    nch=torch.int32, gidx=torch.int64, ov=torch.int64)
+
+
+def plan_from_numpy(*fields, device) -> ColumnPlan:
+    """A port :class:`ColumnPlan` from the numpy arrays of a JAX
+    ``ColumnPlan``'s fields, in their order (``[np.asarray(f) for f in
+    plan]``)."""
+    if len(fields) != len(ColumnPlan._fields):
+        raise ValueError(f"a ColumnPlan has {len(ColumnPlan._fields)} "
+                         f"fields, got {len(fields)}")
+    return ColumnPlan(*(
+        torch.as_tensor(np.array(f), dtype=_PLAN_DTYPES[name], device=device)
+        for name, f in zip(ColumnPlan._fields, fields)))

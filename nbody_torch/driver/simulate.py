@@ -2,14 +2,16 @@
 
 Counterpart of :func:`nbody.driver.simulate.run_simulation` for the
 single-device, fixed-step slice: LPT ICs, the comoving KDK with the PM or
-P3M force (dense, supercell or columns short-range tier), the column
-tiers' capacity pre-warm and self-heal, the Layzer-Irvine energy samples,
-and P(k) and snapshot outputs at the output times, in the same run.log,
-powerspec and snapshot formats.  The entry points run on the card unless
-the caller passes ``device="cpu"``.  Options outside the slice raise
-``NotImplementedError`` (``solver='pp'``, ``subcycles > 1``,
-``rungs >= 2``, ``time_stepping='adaptive'``, more than one device, and
-``shortrange='cells'``).
+P3M force (dense, cells, supercell or columns short-range tier), or the
+per-particle rung KDK (``rungs >= 2``: dense or cell-plane boundary ticks
+with two-plane cell interior ticks, or frozen column plans on the
+supercell tier), the capacity pre-warm and self-heal, the Layzer-Irvine
+energy samples, and P(k) and snapshot outputs at the output times, in
+the same run.log, powerspec and snapshot formats.  The entry points run
+on the card unless the caller passes ``device="cpu"``.  Options outside
+the slice raise ``NotImplementedError`` (``solver='pp'``, ``subcycles >
+1`` without rungs, ``rung_active_capacity > 0``,
+``time_stepping='adaptive'`` and more than one device).
 """
 
 from __future__ import annotations
@@ -34,15 +36,30 @@ from nbody_torch.driver.config import SimulationConfig
 from nbody_torch.forces.p3m import (
     auto_column_capacity,
     p3m_acc,
+    p3m_short_cells_pallas_masked,
     p3m_short_params,
     resolve_shortrange,
     supercell_ncell,
 )
-from nbody_torch.forces.p3m_columns import column_window
+from nbody_torch.forces.p3m_columns import (
+    column_window,
+    freeze_column_plan,
+    p3m_short_columns_frozen_masked,
+    plan_drift,
+    plan_drift_ok,
+)
 from nbody_torch.forces.pm import make_pm_cosmo_force
+from nbody_torch.forces.pm_supercell import (
+    p3m_supercell_acc,
+    p3m_supercell_frozen,
+)
 from nbody_torch.ic.gaussian import GRFSpec, gaussian_delta_k
 from nbody_torch.ic.zeldovich import lpt_ic
-from nbody_torch.integrate.cosmo_stepping import kdk_steps, log_a_steps
+from nbody_torch.integrate.cosmo_stepping import (
+    kdk_steps,
+    log_a_steps,
+    run_cosmological_rungs,
+)
 from nbody_torch.io.checkpoint import (
     CHECKPOINT_NAME,
     load_checkpoint,
@@ -55,6 +72,7 @@ from nbody_torch.mesh.cic import (
     bspline_deposit_interlaced_k,
     density_to_delta,
 )
+from nbody_torch.mesh.cells import cell_ids
 from nbody_torch.mesh.spectrum import concept_bin_edges, power_spectrum
 
 #: steps between the run.log progress lines and Layzer-Irvine samples:
@@ -82,13 +100,20 @@ def _device_dtype(device, dtype) -> tuple[torch.device, torch.dtype]:
 
 
 def check_supported(config: SimulationConfig, device=None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet,
+    and ``ValueError`` for rungs without the P3M solver (as the JAX
+    package does)."""
     if config.solver == "pp":
         raise NotImplementedError("solver='pp' (Ewald PP, K7) is not ported yet")
-    if config.subcycles > 1:
-        raise NotImplementedError("subcycles > 1 (subcycled KDK) is not ported yet")
-    if config.rungs >= 2:
-        raise NotImplementedError("rungs >= 2 (rung stepping) is not ported yet")
+    if config.rungs >= 2 and config.solver != "p3m":
+        raise ValueError("rungs requires the p3m solver")
+    if config.subcycles > 1 and config.rungs < 2:
+        raise NotImplementedError(
+            "subcycles > 1 without rungs (subcycled KDK) is not ported yet")
+    if config.rungs >= 2 and config.rung_active_capacity > 0:
+        raise NotImplementedError(
+            "rungs with rung_active_capacity > 0 (the compact active-row "
+            "kicks) are not ported yet")
     if config.time_stepping != "fixed":
         raise NotImplementedError(
             f"time_stepping={config.time_stepping!r} is not ported yet"
@@ -103,22 +128,16 @@ def check_supported(config: SimulationConfig, device=None) -> None:
             f"devices={config.devices} (slab domain decomposition) is not "
             f"ported yet"
         )
-    if config.solver == "p3m" and _resolved_shortrange(config) == "cells":
-        raise NotImplementedError(
-            "shortrange='cells' (the cell-plane tier, K6) is not ported yet")
 
 
 def _resolved_shortrange(config: SimulationConfig) -> str:
     """The short-range tier p3m_acc uses for this config: the rule of
     :func:`resolve_shortrange` with the config's own or healed column
-    capacity, except that an unported 'cells' comes back as 'cells' (for
-    :func:`check_supported` to refuse).  The capacity bookkeeping keys on
-    it.  'supercell' shares the columns tier's capacity knobs and overflow
-    word on its own (possibly coarser) chaining grid."""
+    capacity.  The capacity bookkeeping keys on it.  'supercell' shares
+    the columns tier's capacity knobs and overflow word on its own
+    (possibly coarser) chaining grid."""
     r_cut = p3m_short_params(config.box, config.mesh_size,
                              config.n_particles)[1]
-    if config.shortrange == "cells":
-        return "allpairs" if config.box / r_cut < 3.0 else "cells"
     return resolve_shortrange(config.shortrange, config.n_particles,
                               config.box, r_cut, config.mesh_size,
                               config.column_capacity or None)
@@ -169,8 +188,7 @@ def build_cosmo_force(config: SimulationConfig, *, device="cuda",
     column tiers' field-encoded word, a 0-d tensor on the device)."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
-    box, eps, G = config.box, config.eps, units.COSMO.G
-    nmesh = config.mesh_size
+    box, nmesh = config.box, config.mesh_size
     if config.solver == "pm":
         pm_fn = make_pm_cosmo_force(
             config.cosmology(), box, nmesh,
@@ -182,20 +200,194 @@ def build_cosmo_force(config: SimulationConfig, *, device="cuda",
             return pm_fn
         return lambda pos, mass, a: (pm_fn(pos, mass, a), 0)
 
-    _, tier_cap = _tier_capacity(config)
+    kw = _p3m_kw(config)
 
     def p3m_fn(pos, mass, a):
-        acc, ov = p3m_acc(
-            pos, mass, box, nmesh, G=G, eps=eps,
-            deconvolve_p=config.deconvolve_p, interlace=config.interlace,
-            split=config.force_split, shortrange=config.shortrange,
-            softening=config.softening_kernel, capacity=tier_cap,
-            window=config.column_window or None, with_overflow=True,
-            grad_order=config.pm_gradient,
-        )
+        acc, ov = p3m_acc(pos, mass, box, nmesh, with_overflow=True, **kw)
         return (acc / a, ov) if checked else acc / a
 
     return p3m_fn
+
+
+def _p3m_kw(config: SimulationConfig) -> dict:
+    """p3m_acc's keywords for the config (its healed capacity knobs)."""
+    _, tier_cap = _tier_capacity(config)
+    return dict(G=units.COSMO.G, eps=config.eps,
+                deconvolve_p=config.deconvolve_p, interlace=config.interlace,
+                split=config.force_split, shortrange=config.shortrange,
+                softening=config.softening_kernel, capacity=tier_cap,
+                window=config.column_window or None,
+                grad_order=config.pm_gradient)
+
+
+def build_cosmo_force_both(config: SimulationConfig):
+    """both_fn(pos, mass, a_s, a_l) -> (gs, gl, overflow): both halves of
+    the force at the same positions from one ``p3m_acc(part='split')``
+    evaluation (one plane build and deposit on the supercell tier), each
+    scaled by its own 1/a."""
+    if config.solver != "p3m":
+        raise ValueError("the fused split force applies to p3m only")
+    box, nmesh, kw = config.box, config.mesh_size, _p3m_kw(config)
+
+    def both_fn(pos, mass, a_s, a_l):
+        gl, gs, ov = p3m_acc(pos, mass, box, nmesh, part="split", **kw)
+        return gs / a_s, gl / a_l, ov
+
+    return both_fn
+
+
+def _frozen_geometry(config: SimulationConfig):
+    """(tier, r_s, r_cut, ncell, ck, w, skin) of the config's frozen
+    column-plan geometry, or None when the resolved tier has no column
+    geometry or the skin is off.  The auto skin is 5% of r_cut, clamped
+    to the frozen-xy slack; with rungs it grows to cover one global
+    step's deepest-rung interior drift (2 x 3/4 x 2^(R-1) x eta_disp
+    cells with a 1.1 safety), within the same slack; on the supercell
+    tier it stays below 1.8 mesh cells (skin/2 < one cell)."""
+    if config.solver != "p3m":
+        return None
+    tier = _resolved_shortrange(config)
+    if tier not in ("columns", "supercell"):
+        return None
+    box, nmesh = config.box, config.mesh_size
+    r_s, r_cut, _, _ = p3m_short_params(box, nmesh, config.n_particles)
+    ncell = _tier_ncell(config, tier)
+    ck = config.column_capacity or auto_column_capacity(config.n_particles,
+                                                        ncell)
+    w = config.column_window or column_window(box, float(r_cut), ck)
+    skin = config.column_skin
+    if skin < 0.0:
+        skin = min(0.05 * r_cut, 0.49 * (box / ncell - r_cut))
+        if int(config.rungs) >= 2:
+            skin_r = (1.65 * float(config.step_eta_disp)
+                      * (2 ** (int(config.rungs) - 1)) * (box / nmesh))
+            skin = max(skin, min(skin_r, 0.49 * (box / ncell - r_cut)))
+    if tier == "supercell":
+        skin = min(skin, 1.8 * box / nmesh)
+    if skin <= 0.0:
+        return None
+    if not config.column_window:
+        # the skin-widened thresholds must fit inside the window
+        ckq = -(-ck // 128) * 128
+        rc_slots = (r_cut / box) * ckq
+        span = 256.0 + 2.2 * rc_slots + 127.0 + 2.0 * skin * ckq / box
+        w = max(w, -(-int(span) // 128) * 128)
+    return tier, float(r_s), float(r_cut), ncell, ck, w, float(skin)
+
+
+def _grow_skin(config: SimulationConfig):
+    """The next column_skin of the staleness heal (1.5x, clamped to the
+    frozen geometry's maxima), or None at the geometric ceiling."""
+    geom = _frozen_geometry(config)
+    if geom is None:
+        return None
+    tier, _, r_cut, ncell, _, _, skin = geom
+    box, nmesh = config.box, config.mesh_size
+    smax = 0.49 * (box / ncell - r_cut)
+    if tier == "supercell":
+        smax = min(smax, 1.8 * box / nmesh)
+    if config.interlace:
+        smax = min(smax, 0.9 * box / nmesh)
+    if skin >= 0.999 * smax:
+        return None
+    return min(1.5 * skin, smax)
+
+
+def build_cosmo_force_frozen_both(config: SimulationConfig):
+    """The frozen-plan forms of the rung tier on the supercell tier, or
+    None on any other tier: (freeze_fn, both_frozen_fn, drift_ok_fn,
+    masked_frozen_fn, stale_fn, fresh_plan_fn), or the first three alone
+    when the skin cannot cover one step's deepest-rung drift (interior
+    ticks then ride the two-plane cell kernel).
+
+    The boundary tick evaluates both halves on the carried plan
+    (``p3m_supercell_frozen``, K2 + K3) while ``drift_ok_fn`` (half the
+    skin, so that the plan handed to the next step's interior ticks keeps
+    half its budget) holds, else freshly with a new plan
+    (``p3m_supercell_acc(with_plan=True)``); interior ticks run K5 on the
+    plan unconditionally, and ``stale_fn`` counts the particles beyond
+    skin/2."""
+    geom = _frozen_geometry(config)
+    if geom is None or geom[0] != "supercell":
+        return None
+    _, r_s, r_cut, ncell, ck, w, skin = geom
+    box, nmesh = config.box, config.mesh_size
+    if config.interlace:
+        # the shifted pass reaches node -2 once drift exceeds half a cell
+        skin = min(skin, 0.9 * box / nmesh)
+    G, eps = units.COSMO.G, float(config.eps)
+    fkw = dict(G=G, eps=eps, r_s=r_s, r_cut=r_cut,
+               deconvolve_p=config.deconvolve_p, split=config.force_split,
+               softening=config.softening_kernel, ncell=ncell,
+               col_capacity=ck, window=w, grad_order=config.pm_gradient,
+               part_split=True, interlace=config.interlace)
+
+    def freeze_fn(pos, mass):
+        return freeze_column_plan(pos, mass, box, r_cut, ncell, ck, w,
+                                  skin=skin)
+
+    def both_frozen_fn(pos, mass, a_s, a_l, plan):
+        gl, gs, ov = p3m_supercell_frozen(pos, mass, plan, box, nmesh, **fkw)
+        return gs / a_s, gl / a_l, ov
+
+    def drift_ok_fn(pos, plan):
+        return plan_drift_ok(pos, plan, box, 0.5 * skin)
+
+    def masked_frozen_fn(pos, mass, act, a, plan):
+        acc, ov = p3m_short_columns_frozen_masked(
+            pos, mass, act, plan, box, eps, r_s, r_cut, G=G, ncell=ncell,
+            col_capacity=ck, window=w, split=config.force_split,
+            softening=config.softening_kernel)
+        return acc / a, ov
+
+    def stale_fn(pos, plan):
+        return torch.sum(plan_drift(pos, plan, box) > (0.5 * skin) ** 2)
+
+    def fresh_plan_fn(pos, mass, a_s, a_l):
+        gl, gs, ov, plan = p3m_supercell_acc(pos, mass, box, nmesh,
+                                             skin=skin, with_plan=True,
+                                             **fkw)
+        return gs / a_s, gl / a_l, ov, plan
+
+    if int(config.rungs) >= 2:
+        # the interior ticks ride the plan only when the full skin covers
+        # one step's deepest-rung drift bound
+        needed = (0.75 * (2 ** (int(config.rungs) - 1))
+                  * float(config.step_eta_disp) * (box / nmesh) * 1.05)
+        if skin < needed:
+            return (freeze_fn, both_frozen_fn, drift_ok_fn)
+    return (freeze_fn, both_frozen_fn, drift_ok_fn, masked_frozen_fn,
+            stale_fn, fresh_plan_fn)
+
+
+def _cell_knobs(config: SimulationConfig, cfg_run: SimulationConfig):
+    """(r_s, r_cut, ncell, capacity) of the cell plane of ``config`` with
+    the cell capacity of ``cfg_run`` (explicit or healed, else auto)."""
+    r_s, r_cut, ncell, auto_cap = p3m_short_params(
+        config.box, config.mesh_size, config.n_particles)
+    return r_s, r_cut, ncell, cfg_run.cell_capacity or auto_cap
+
+
+def build_cosmo_force_rungs(config: SimulationConfig):
+    """masked_fn(pos, mass, act, a) -> (g, ov_source, ov_target,
+    occupancy_target) for the rung integrator's interior ticks off frozen
+    plans: the two-plane cell kernel (K6) on the active targets, on the
+    cell geometry whatever the boundary tier (auto target capacity: one
+    128-slot lane)."""
+    if config.solver != "p3m":
+        raise ValueError("rung stepping applies to the p3m solver only")
+    box, G, eps = config.box, units.COSMO.G, config.eps
+    r_s, r_cut, ncell, capacity = _cell_knobs(config, config)
+    target_capacity = config.rung_capacity or 128
+
+    def masked_fn(pos, mass, act, a):
+        g, ov_s, ov_t, occ_t = p3m_short_cells_pallas_masked(
+            pos, mass, act, box, eps, r_s, r_cut, G=G, ncell=ncell,
+            capacity=capacity, target_capacity=target_capacity,
+            split=config.force_split, softening=config.softening_kernel)
+        return g / a, ov_s, ov_t, occ_t
+
+    return masked_fn
 
 
 def _sigma8_from_pk(k: np.ndarray, P: np.ndarray, h: float) -> float:
@@ -319,14 +511,18 @@ class SimulationResult:
     config_run: SimulationConfig | None = None
     # per-sample Layzer-Irvine (a, T, W) when output.energy_log is on
     energy_samples: list | None = None
+    # rung runs on frozen plans: the largest count of particles in one
+    # segment that drifted beyond skin/2 of their plan and were accepted
+    # with only a run.log note (at most max(16, N // 65536))
+    stale_max: int = 0
 
 
 # In-process capacity carry-forward: runs of the same geometry cluster
 # alike, so the capacities one run learned through pre-warms and heals
 # start the next one (each heal costs a segment re-run).  Only fields the
 # caller left at 0 (auto) take part: explicit capacities are respected.
-# The port heals the column tiers' knobs only.
-_CAPACITY_FIELDS = ("column_capacity", "column_window")
+_CAPACITY_FIELDS = ("cell_capacity", "column_capacity", "column_window",
+                    "rung_capacity")
 _CAPACITY_MEMORY: dict[tuple, dict[str, int]] = {}
 
 
@@ -380,53 +576,95 @@ def column_knobs(config: SimulationConfig,
 
 
 def prewarm_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
-                     pos) -> tuple[SimulationConfig, list[str]]:
-    """Before a stretch of steps, grow the column capacity and z-window of
-    ``cfg_run`` to fit the positions' densest column and densest 3-cell
-    z-run (with headroom for the stretch's clustering), which costs one
-    pass over the positions instead of an overflow and a re-run.
-    Returns (the grown config, its run.log lines)."""
+                     pos, rung_occ: int = 0
+                     ) -> tuple[SimulationConfig, list[str]]:
+    """Before a stretch of steps, grow the knobs of ``cfg_run`` to fit the
+    positions (with headroom for the stretch's clustering), which costs
+    one pass over the positions instead of an overflow and a re-run: the
+    column tiers' z-window and capacity from the densest 3-cell z-run and
+    column; the cell capacity from the densest cell where a cell plane is
+    built (the cells tier, and the rung tier's masked source plane); the
+    rung target capacity from ``rung_occ``, the densest active cell the
+    last stretch saw.  Returns (the grown config, its run.log lines).
+    The dense tier without rungs builds no plane and grows nothing."""
     r_cut = p3m_short_params(config.box, config.mesh_size,
                              config.n_particles)[1]
-    if (config.solver != "p3m"
-            or _resolved_shortrange(config) not in ("columns", "supercell")
-            or int(config.box / r_cut) < 3):
+    if config.solver != "p3m" or int(config.box / r_cut) < 3:
         return cfg_run, []
-    nct, ck, cur_w = column_knobs(config, cfg_run)
-    pos = torch.remainder(pos, config.box)
-    c = torch.clamp((pos * (nct / config.box)).to(torch.int64), 0, nct - 1)
-    cid = c[:, 0] * nct + c[:, 1]
-    occ = int(torch.bincount(cid, minlength=nct**2).max())
-    # a chunk's sources lie within +- r_cut in z of the 9 neighbour
-    # columns: at most the densest 3-cell z-run (cell z-height
-    # box/nct >= r_cut)
-    cnt3 = torch.bincount(cid * nct + c[:, 2], minlength=nct**3).reshape(
-        nct, nct, nct)
-    run3 = cnt3 + torch.roll(cnt3, 1, dims=2) + torch.roll(cnt3, -1, dims=2)
-    zrun = int(run3.max())
+    tier = _resolved_shortrange(config)
+    col_like = tier in ("columns", "supercell")
+    rungs = config.rungs >= 2
+    if not (col_like or rungs or tier == "cells"):
+        return cfg_run, []
     lines = []
-    # the 256-slot chunk scaled 1.15x for the density ratio between
-    # columns + the measured z-run + alignment
-    needed_w = -(-int(295 + 1.25 * zrun + 260) // 128) * 128
-    if needed_w > cur_w:
-        lines.append(f"pre-warming column z-window to {needed_w} "
-                     f"(densest 3-cell z-run {zrun})")
-        cfg_run = cfg_run.replace(column_window=needed_w)
-    # the next 128-slot quantum above the densest column + 10%
+    pos = torch.remainder(pos, config.box)
+    ncell = int(config.box / r_cut)
+    if col_like:
+        nct, ck, cur_w = column_knobs(config, cfg_run)
+        c = torch.clamp((pos * (nct / config.box)).to(torch.int64), 0,
+                        nct - 1)
+        cid = c[:, 0] * nct + c[:, 1]
+        occ = int(torch.bincount(cid, minlength=nct**2).max())
+        # a chunk's sources lie within +- r_cut in z of the 9 neighbour
+        # columns: at most the densest 3-cell z-run (cell z-height
+        # box/nct >= r_cut)
+        cnt3 = torch.bincount(cid * nct + c[:, 2], minlength=nct**3).reshape(
+            nct, nct, nct)
+        run3 = cnt3 + torch.roll(cnt3, 1, dims=2) + torch.roll(cnt3, -1,
+                                                                dims=2)
+        zrun = int(run3.max())
+        # the 256-slot chunk scaled 1.15x for the density ratio between
+        # columns + the measured z-run + alignment
+        needed_w = -(-int(295 + 1.25 * zrun + 260) // 128) * 128
+        if needed_w > cur_w:
+            lines.append(f"pre-warming column z-window to {needed_w} "
+                         f"(densest 3-cell z-run {zrun})")
+            cfg_run = cfg_run.replace(column_window=needed_w)
+        field, cur = "column_capacity", ck
+    else:
+        occ = int(torch.bincount(cell_ids(pos, config.box, ncell),
+                                 minlength=ncell**3).max())
+        field, cur = "cell_capacity", _cell_knobs(config, cfg_run)[3]
+    if rungs and col_like:
+        # the masked cell kernel's source plane rides the cell geometry
+        # whatever the boundary tier
+        occ3 = int(torch.bincount(cell_ids(pos, config.box, ncell),
+                                  minlength=ncell**3).max())
+        needed3 = -(-int(occ3 * 1.10 + 4) // 128) * 128
+        if needed3 > _cell_knobs(config, cfg_run)[3]:
+            lines.append(f"pre-warming P3M cell capacity to {needed3} "
+                         f"(densest cell {occ3}; masked-kernel source "
+                         f"plane)")
+            cfg_run = cfg_run.replace(cell_capacity=needed3)
+    # the next 128-slot quantum above the densest bucket + 10%
     needed = -(-int(occ * 1.10 + 4) // 128) * 128
-    if needed > ck:
-        lines.append(f"pre-warming P3M column capacity to {needed} "
-                     f"(densest bucket {occ})")
-        cfg_run = cfg_run.replace(column_capacity=needed)
+    if needed > cur:
+        lines.append(f"pre-warming P3M {field.replace('_', ' ')} to "
+                     f"{needed} (densest bucket {occ})")
+        cfg_run = cfg_run.replace(**{field: needed})
+    if rungs and rung_occ:
+        # 35% headroom for the populations' growth within the stretch
+        needed_t = -(-int(rung_occ * 1.35 + 4) // 128) * 128
+        if needed_t > (cfg_run.rung_capacity or 128):
+            lines.append(f"pre-warming rung target capacity to {needed_t} "
+                         f"(densest active bucket {rung_occ})")
+            cfg_run = cfg_run.replace(rung_capacity=needed_t)
     return cfg_run, lines
 
 
 def heal_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
                   ov: int) -> tuple[SimulationConfig, str]:
-    """Grow the knob of ``cfg_run`` that the overflow word ``ov`` names:
-    window misses widen ``column_window`` 1.5x, bucket/ghost spills
-    double ``column_capacity`` (and widen an explicit window with it).
-    Returns (the healed config, its run.log line)."""
+    """Grow the knob of ``cfg_run`` that the overflow word ``ov`` of the
+    config's short-range tier names.  On the column tiers window misses
+    widen ``column_window`` 1.5x, bucket/ghost spills double
+    ``column_capacity`` (and widen an explicit window with it); elsewhere
+    ``ov`` counts the particles a cell plane dropped and doubles
+    ``cell_capacity``.  Returns (the healed config, its run.log line)."""
+    if _resolved_shortrange(config) not in ("columns", "supercell"):
+        new_cap = 2 * _cell_knobs(config, cfg_run)[3]
+        return cfg_run.replace(cell_capacity=new_cap), (
+            f"P3M bucket overflow inside scan ({ov} particles) — doubling "
+            f"cell capacity to {new_cap}, re-running segment")
     _, ck, cur_w = column_knobs(config, cfg_run)
     if (ov >> 16) == 0:
         # window misses only: widen the window (p3m_acc clamps it to the
@@ -445,6 +683,44 @@ def heal_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
     return cfg_run, line
 
 
+def heal_rung_channels(config: SimulationConfig, cfg_run: SimulationConfig,
+                       ov: int, ovt: int, ovm: int
+                       ) -> tuple[SimulationConfig, list[str]]:
+    """Grow the knobs of ``cfg_run`` that a rung stretch's overflow
+    channels name, in the JAX driver's order: the target plane's spills
+    (``ovt``) double ``rung_capacity``, the masked source plane's
+    (``ovm``) ``cell_capacity``, and the boundary word ``ov`` heals the
+    tier's own knob (:func:`heal_capacity`; off the column tiers the
+    boundary and the masked source plane share the cell capacity, which
+    then doubles once).  Returns (the healed config, its run.log lines)."""
+    if _resolved_shortrange(config) not in ("columns", "supercell"):
+        ov, ovm = max(ov, ovm), 0
+    lines = []
+    if ovt:
+        new_rcap = 2 * (cfg_run.rung_capacity or 128)
+        lines.append(f"rung target-plane overflow ({ovt} particles) — "
+                     f"doubling rung capacity to {new_rcap}, re-running "
+                     f"segment")
+        cfg_run = cfg_run.replace(rung_capacity=new_rcap)
+    if ovm:
+        new_ccap = 2 * _cell_knobs(config, cfg_run)[3]
+        lines.append(f"masked-kernel source-plane overflow ({ovm} "
+                     f"particles) — doubling cell capacity to {new_ccap}, "
+                     f"re-running segment")
+        cfg_run = cfg_run.replace(cell_capacity=new_ccap)
+    if ov:
+        cfg_run, line = heal_capacity(config, cfg_run, ov)
+        lines.append(line)
+    return cfg_run, lines
+
+
+def stale_tolerance(config: SimulationConfig) -> int:
+    """Particles beyond skin/2 in one stretch that the rung tier accepts
+    with only a run.log note (rung-clamped outliers); more grow the
+    skin."""
+    return max(16, config.n_particles // 65536)
+
+
 def run_simulation(
     config: SimulationConfig,
     seed: int = 0,
@@ -461,27 +737,43 @@ def run_simulation(
     Output times (``config.output.snapshot_times``) are snapped onto the
     step grid; P(k) files and snapshots are written there under
     ``workdir`` (default ``config.output.dir``), with a CONCEPT-style
-    run.log.  ``initial_state`` replaces the realized ICs.  The force is
-    evaluated once per step plus once at the start (the last force of one
-    stretch of steps is the first of the next).
+    run.log.  ``initial_state`` replaces the realized ICs.  Without rungs
+    the force is evaluated once per step plus once at the start (the last
+    force of one stretch of steps is the first of the next).  With
+    ``rungs >= 2`` each stretch of steps (``SAMPLE_EVERY_STEPS //
+    2^(rungs - 1)`` of them, at least 4, as the JAX driver cuts them)
+    starts with its own evaluation, and run.log gets a "Rung population"
+    line per step.
 
     ``checkpoint_every_steps`` writes an atomic autosave checkpoint every
     k steps; ``resume=True`` continues from the workdir's autosave if
     there is one.
 
-    The column tiers pre-warm their capacity and z-window from the state
-    before each stretch of steps, and a stretch whose overflow word is
-    not 0 re-runs from its start after a heal: window misses widen
-    ``column_window`` 1.5x, bucket/ghost spills double ``column_capacity``
-    (at most ``HEAL_ATTEMPTS`` attempts).  ``result.config_run`` is the
-    healed config."""
+    The tiers that build a plane pre-warm their knobs from the state
+    before each stretch of steps (:func:`prewarm_capacity`), and a
+    stretch that dropped force re-runs from its start after a heal
+    (:func:`heal_capacity`, :func:`heal_rung_channels`; at most
+    ``HEAL_ATTEMPTS`` attempts).  On frozen plans, particles that drifted
+    beyond skin/2 grow ``column_skin`` and re-run the stretch, unless they
+    are at most :func:`stale_tolerance`: then run.log notes them and
+    ``result.stale_max`` keeps the largest such count.
+    ``result.config_run`` is the healed config."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     t0 = time.perf_counter()
     cosmo = config.cosmology()
     cfg_run = _apply_capacity_memory(config)
-    acc_fn = build_cosmo_force(cfg_run, device=device, dtype=dtype,
-                               checked=True)
+    rungs = int(config.rungs) if config.rungs >= 2 else 0
+
+    def build_forces(cfg):
+        """The force closures of the run at the knobs of ``cfg``."""
+        if not rungs:
+            return build_cosmo_force(cfg, device=device, dtype=dtype,
+                                     checked=True)
+        return (build_cosmo_force_rungs(cfg), build_cosmo_force_both(cfg),
+                build_cosmo_force_frozen_both(cfg))
+
+    forces = build_forces(cfg_run)
 
     a_grid = log_a_steps(config.a_begin, config.a_end, config.n_steps)
     out_idx = sorted(
@@ -504,8 +796,11 @@ def run_simulation(
     if resume and ckpt_path and os.path.exists(ckpt_path):
         state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
         start_idx = int(extra["grid_index"])
+    # the JAX driver's stretches: 32 steps, or 32 global steps of the
+    # rung tier's sub-ticks (at least 4)
+    seg_steps = max(4, SAMPLE_EVERY_STEPS // 2 ** max(rungs - 1, 0))
     bounds = set(out_idx) | {last} | set(
-        range(start_idx + SAMPLE_EVERY_STEPS, last, SAMPLE_EVERY_STEPS))
+        range(start_idx + seg_steps, last, seg_steps))
     if checkpoint_every_steps:
         bounds |= set(range(checkpoint_every_steps, last,
                             checkpoint_every_steps))
@@ -523,34 +818,89 @@ def run_simulation(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    col_like = config.solver == "p3m" and _resolved_shortrange(config) in (
-        "columns", "supercell")
-    rerun_evals = 0
+    rerun_evals = rerun_masked = 0
+    rung_occ_seen = stale_max = 0
+    totals = dict(boundary_evals=0, interior_evals=0, refreezes=0)
 
-    def segment_with_heal(st, g, a_seg):
-        """One stretch of steps from ``st`` (``g`` its force or None),
-        re-run from its start after each heal until nothing overflows."""
-        nonlocal rerun_evals, cfg_run, acc_fn
-        grown, lines = prewarm_capacity(config, cfg_run, st.pos)
+    def fixed_attempt(acc_fn, st, g, a_seg):
+        """One try of a stretch of fixed steps from ``st`` (``g`` its
+        force or None): ((state, g), None), or (None, the healed config)."""
+        nonlocal rerun_evals
+        new, g_new, overflow = kdk_steps(st, cosmo, a_seg, acc_fn,
+                                         config.box, g=g)
+        if overflow == 0:
+            return (new, g_new), None
+        rerun_evals += len(a_seg) - 1 + (g is None)
+        grown, line = heal_capacity(config, cfg_run, overflow)
+        log(line)
+        return None, grown
+
+    def rung_attempt(fns, st, a_seg):
+        """One try of a stretch of rung steps from ``st``: ((state,
+        per-step rung histograms), None), or (None, the healed config)."""
+        nonlocal rerun_evals, rerun_masked, rung_occ_seen, stale_max
+        masked_fn, both_fn, frozen_fns = fns
+        stats = {}
+        new, ov, ovm, ovt, occt, ovst, hists = run_cosmological_rungs(
+            st, cosmo, a_seg, both_fn, masked_fn, config.box, rungs,
+            config.box / config.mesh_size, eta_disp=config.step_eta_disp,
+            eta_acc=config.step_eta_acc, eps=config.eps,
+            frozen_both_fns=frozen_fns, stats=stats)
+        if ovst and ovst <= stale_tolerance(config):
+            log(f"frozen-plan drift note: {ovst} rung-clamped particles "
+                f"exceeded the skin/2 budget this segment (window "
+                f"coverage not guaranteed for them; matches CONCEPT's "
+                f"rung-clamp accuracy)")
+            stale_max = max(stale_max, ovst)
+            ovst = 0
+        if ovst:
+            new_skin = _grow_skin(cfg_run)
+            if new_skin is None:
+                raise RuntimeError(
+                    f"frozen-plan staleness ({ovst} particles beyond "
+                    f"skin/2) with the skin at its geometric maximum — "
+                    f"reduce the step (more n_steps) or lower rungs")
+            lines = [f"frozen-plan staleness ({ovst} particles) — "
+                     f"growing column skin to {new_skin:.3f}, "
+                     f"re-running segment"]
+            grown = cfg_run.replace(column_skin=new_skin)
+        elif ov == 0 and ovt == 0 and ovm == 0:
+            rung_occ_seen = occt
+            for key in totals:
+                totals[key] += stats[key]
+            return (new, hists), None
+        else:
+            grown, lines = heal_rung_channels(config, cfg_run, ov, ovt, ovm)
+        rerun_evals += stats["boundary_evals"]
+        rerun_masked += stats["interior_evals"]
+        for line in lines:
+            log(line)
+        return None, grown
+
+    def segment_with_heal(attempt, st, *args, rung_occ: int = 0):
+        """One stretch of steps from ``st`` after the pre-warm, re-run from
+        its start by ``attempt(forces, st, *args)`` after each heal until
+        nothing overflows."""
+        nonlocal cfg_run, forces
+        grown, lines = prewarm_capacity(config, cfg_run, st.pos, rung_occ)
         for line in lines:
             log(line)
         for _ in range(HEAL_ATTEMPTS):
             if grown is not cfg_run:
                 cfg_run = grown
-                acc_fn = build_cosmo_force(cfg_run, device=device,
-                                           dtype=dtype, checked=True)
-            new, g_new, overflow = kdk_steps(st, cosmo, a_seg, acc_fn,
-                                             config.box, g=g)
-            if overflow == 0:
-                return new, g_new
-            if not col_like:
-                raise RuntimeError(
-                    f"short-range force dropped for {overflow} particles")
-            rerun_evals += len(a_seg) - 1 + (g is None)
-            grown, line = heal_capacity(config, cfg_run, overflow)
-            log(line)
+                forces = build_forces(cfg_run)
+            done, grown = attempt(forces, st, *args)
+            if done is not None:
+                return done
         raise RuntimeError(
             "P3M cell capacity retries exhausted — state too clustered")
+
+    def log_rung_populations(prev: int, hists) -> None:
+        for k, h in enumerate(hists):
+            top = int(np.max(np.nonzero(h)[0])) + 1
+            log(f"Time step {prev + 1 + k:4d}   a = {a_grid[prev + 1 + k]:.4f}"
+                f"   Rung population: matter: "
+                + ", ".join(str(int(x)) for x in h[:top]))
 
     ic_wall = 0.0
     if state is None and initial_state is not None:
@@ -607,7 +957,13 @@ def run_simulation(
     prev = last_ckpt = start_idx
     for idx in bounds:
         t_seg = time.perf_counter()
-        state, g = segment_with_heal(state, g, a_grid[prev: idx + 1])
+        a_seg = a_grid[prev: idx + 1]
+        if rungs:
+            state, hists = segment_with_heal(rung_attempt, state, a_seg,
+                                             rung_occ=rung_occ_seen)
+            log_rung_populations(prev, hists)
+        else:
+            state, g = segment_with_heal(fixed_attempt, state, g, a_seg)
         sync()
         sample_energy(state)
         log(
@@ -626,6 +982,15 @@ def run_simulation(
     log_energy()
     if rerun_evals:
         log(f"Capacity heals repeated {rerun_evals} force evaluations")
+    if rerun_masked:
+        log(f"Capacity heals repeated {rerun_masked} masked interior "
+            f"evaluations")
+    if rungs:
+        log(f"Rung stepping: {totals['boundary_evals']} boundary and "
+            f"{totals['interior_evals']} masked interior force evaluations, "
+            f"{totals['refreezes']} plan refreezes"
+            + (f", at most {stale_max} particles beyond skin/2 in a "
+               f"segment" if stale_max else ""))
     sync()
     _record_capacity_memory(config, cfg_run)
     return SimulationResult(
@@ -637,4 +1002,5 @@ def run_simulation(
         wall_s=time.perf_counter() - t0,
         config_run=cfg_run,
         energy_samples=energy_samples or None,
+        stale_max=stale_max,
     )

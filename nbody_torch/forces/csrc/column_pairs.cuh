@@ -1,5 +1,5 @@
-// The column pair sum shared by K3 (pm_supercell.cu) and K4
-// (p3m_columns.cu): the plane layout, the block-to-targets map and the
+// The column pair sum shared by K3 (pm_supercell.cu), K4 and K5
+// (p3m_columns.cu): the plane layout, the block-to-targets maps and the
 // loop over a target chunk's 9 neighbour z-windows.
 //
 // Plane: (8, P2 * stride) float32 row-major, rows x, y, z, m (rows 4-7
@@ -35,6 +35,18 @@ struct ColumnGeom {
   size_t row;  // elements per plane row: P2 * stride
 };
 
+// The first target slot of this block's share of chunk k of interior
+// column ic (a chunk is g.chunk / kColThreads blocks along blockIdx.y).
+__device__ __forceinline__ size_t chunk_first(const ColumnGeom& g, int ic,
+                                              int k) {
+  const int P = g.ncell + 2;
+  const int tcol = (ic / g.ncell + 1) * P + (ic % g.ncell + 1);
+  return static_cast<size_t>(tcol) * g.stride + g.gz +
+         static_cast<size_t>(k) * g.chunk +
+         static_cast<size_t>(blockIdx.y % (g.chunk / kColThreads)) *
+             kColThreads;
+}
+
 // Where this block's targets are: interior column `ic`, chunk `k` and the
 // first target slot; false when the chunk is empty (the whole block
 // returns before any barrier).
@@ -42,14 +54,23 @@ __device__ __forceinline__ bool column_block(const ColumnGeom& g,
                                              const int* __restrict__ nch,
                                              int& ic, int& k, size_t& first) {
   ic = blockIdx.x;
-  const int subs = g.chunk / kColThreads;
-  k = blockIdx.y / subs;
+  k = blockIdx.y / (g.chunk / kColThreads);
   if (k >= nch[ic]) return false;
-  const int P = g.ncell + 2;
-  const int tcol = (ic / g.ncell + 1) * P + (ic % g.ncell + 1);
-  first = static_cast<size_t>(tcol) * g.stride + g.gz +
-          static_cast<size_t>(k) * g.chunk +
-          static_cast<size_t>(blockIdx.y % subs) * kColThreads;
+  first = chunk_first(g, ic, k);
+  return true;
+}
+
+// The same for the masked form: blockIdx.y / (chunk / kColThreads) is a
+// slot of column ic's chunk table `cht` (ncol * maxch), of which the
+// first nch_act[ic] hold the indices of the active chunks.
+__device__ __forceinline__ bool column_block_masked(
+    const ColumnGeom& g, const int* __restrict__ nch_act,
+    const int* __restrict__ cht, int& ic, int& k, size_t& first) {
+  ic = blockIdx.x;
+  const int slot = blockIdx.y / (g.chunk / kColThreads);
+  if (slot >= nch_act[ic]) return false;
+  k = cht[static_cast<size_t>(ic) * g.maxch + slot];
+  first = chunk_first(g, ic, k);
   return true;
 }
 

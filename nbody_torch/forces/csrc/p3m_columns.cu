@@ -1,7 +1,11 @@
-// K4: the column-packed short-range P3M pair sum, float32, for sm_90a.
+// K4: the column-packed short-range P3M pair sum, float32, for sm_90a,
+// and K5, the same sum restricted to a chunk table of active chunks.
 //
-// Replaces the Pallas kernel `_column_kernel` (with `_pair_accum`) that
-// nbody/forces/p3m_columns.py:_run_column_kernel launches.
+// K4 replaces the Pallas kernel `_column_kernel` (with `_pair_accum`) that
+// nbody/forces/p3m_columns.py:_run_column_kernel launches; K5 replaces
+// `_column_kernel_masked` that p3m_columns.py:
+// p3m_short_columns_frozen_masked launches (the rung tier's interior
+// ticks on a frozen plan).
 //
 // What it computes: for every target slot of every occupied 256-slot
 // chunk of every interior column of the plane (column_pairs.cuh), the sum
@@ -26,6 +30,13 @@
 // 256-slot chunk give ~2,500 blocks at the production geometry (K1's 256
 // blocks left most SMs idle).  Windows wider than 512 (healed clustered
 // states) only lengthen the tile loop.
+//
+// K5: the TPU kernel looped over a column's active chunks with a dynamic
+// trip count read from scalar memory.  Here the grid is K4's, a block per
+// (column, chunk-table slot, half chunk), and a block past the column's
+// active count returns at once; the others read their chunk index from
+// the table and run K4's body.  Slots of chunks not in the table stay 0.
+// What bounds it: as K4, over the active chunks only.
 
 #include <cuda_runtime.h>
 
@@ -59,27 +70,47 @@ column_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
 }
 
 template <int SPLIT, int SOFT>
-void launch(const float* plane, const int* ws, const int* nch,
+__global__ void __launch_bounds__(kColThreads)
+column_kernel_masked(const float* __restrict__ plane,
+                     const int* __restrict__ ws,
+                     const int* __restrict__ nch_act,
+                     const int* __restrict__ cht, ColumnGeom g, Params p,
+                     float* __restrict__ out) {
+  __shared__ float4 tile[kColThreads];
+  int ic, k;
+  size_t first;
+  if (!nbody_kernels::column_block_masked(g, nch_act, cht, ic, k, first))
+    return;
+  const size_t i = first + threadIdx.x;
+  const float xi = plane[i];
+  const float yi = plane[g.row + i];
+  const float zi = plane[2 * g.row + i];
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, xi, yi, zi,
+                                              p, tile, ax, ay, az);
+  out[i] = ax;
+  out[g.row + i] = ay;
+  out[2 * g.row + i] = az;
+}
+
+// cht == nullptr launches K4, else K5 with nch the active counts.
+template <int SPLIT, int SOFT>
+void launch(const float* plane, const int* ws, const int* nch, const int* cht,
             const ColumnGeom& g, const Params& p, float* out,
             cudaStream_t stream) {
   const dim3 grid(g.ncell * g.ncell, g.maxch * (g.chunk / kColThreads));
-  column_kernel<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(plane, ws, nch,
-                                                               g, p, out);
+  if (cht == nullptr)
+    column_kernel<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(
+        plane, ws, nch, g, p, out);
+  else
+    column_kernel_masked<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(
+        plane, ws, nch, cht, g, p, out);
 }
 
-}  // namespace
-
-extern "C" {
-
-// plane (8, (ncell + 2)^2 * stride) float32; ws (ncell^2 * 9 * maxch,)
-// int32; nch (ncell^2,) int32; out like plane, zeroed by the caller.
-// split: 0 = Gaussian, 1 = spline.  softening: 0 = Plummer, 1 = cubic
-// spline.  Returns cudaGetLastError() after the launch (0 on success); 1
-// (cudaErrorInvalidValue) for arguments the kernel does not take.
-int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
-                    int ncell, int stride, int W, int maxch, int gz, int chunk,
-                    double eps, double r_s, double r_cut, int split,
-                    int softening, float* out, void* stream) {
+int run(const float* plane, const int* ws, const int* nch, const int* cht,
+        int ncell, int stride, int W, int maxch, int gz, int chunk,
+        double eps, double r_s, double r_cut, int split, int softening,
+        float* out, void* stream) {
   if (ncell < 1 || stride < 1 || W < 1 || W > stride || maxch < 1 ||
       gz < 0 || chunk < kColThreads || chunk % kColThreads != 0 ||
       gz + maxch * chunk > stride || split < 0 || split > 1 ||
@@ -99,13 +130,42 @@ int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split == 0) {
-    if (softening == 0) launch<0, 0>(plane, ws, nch, g, p, out, s);
-    else                launch<0, 1>(plane, ws, nch, g, p, out, s);
+    if (softening == 0) launch<0, 0>(plane, ws, nch, cht, g, p, out, s);
+    else                launch<0, 1>(plane, ws, nch, cht, g, p, out, s);
   } else {
-    if (softening == 0) launch<1, 0>(plane, ws, nch, g, p, out, s);
-    else                launch<1, 1>(plane, ws, nch, g, p, out, s);
+    if (softening == 0) launch<1, 0>(plane, ws, nch, cht, g, p, out, s);
+    else                launch<1, 1>(plane, ws, nch, cht, g, p, out, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// plane (8, (ncell + 2)^2 * stride) float32; ws (ncell^2 * 9 * maxch,)
+// int32; nch (ncell^2,) int32; out like plane, zeroed by the caller.
+// split: 0 = Gaussian, 1 = spline.  softening: 0 = Plummer, 1 = cubic
+// spline.  Returns cudaGetLastError() after the launch (0 on success); 1
+// (cudaErrorInvalidValue) for arguments the kernel does not take.
+int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
+                    int ncell, int stride, int W, int maxch, int gz, int chunk,
+                    double eps, double r_s, double r_cut, int split,
+                    int softening, float* out, void* stream) {
+  return run(plane, ws, nch, nullptr, ncell, stride, W, maxch, gz, chunk, eps,
+             r_s, r_cut, split, softening, out, stream);
+}
+
+// K5.  As p3m_columns_f32, with nch_act (ncell^2,) int32 the active
+// chunks of each column and cht (ncell^2 * maxch,) int32 their indices
+// (the first nch_act[ic] entries of row ic).
+int p3m_columns_masked_f32(const float* plane, const int* ws,
+                           const int* nch_act, const int* cht, int ncell,
+                           int stride, int W, int maxch, int gz, int chunk,
+                           double eps, double r_s, double r_cut, int split,
+                           int softening, float* out, void* stream) {
+  return run(plane, ws, nch_act, cht, ncell, stride, W, maxch, gz, chunk, eps,
+             r_s, r_cut, split, softening, out, stream);
 }
 
 }  // extern "C"

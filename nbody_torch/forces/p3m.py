@@ -7,8 +7,12 @@ kernel, ``forces/csrc/p3m_short.cu``, on a CUDA tensor, its plain PyTorch
 version on a CPU tensor); above that the supercell tier
 (:mod:`nbody_torch.forces.pm_supercell`, K2 + K3) where the mesh tiles a
 chaining grid, and the columns tier (:mod:`nbody_torch.forces.
-p3m_columns`, K4) where it does not.  The cell tier ('cells', K6) is not
-ported yet: asking for it raises ``NotImplementedError``.
+p3m_columns`, K4) where it does not.  The cell tier ('cells') packs the
+particles into a ghost-padded plane of (ncell,)^3 cells
+(:func:`build_padded_plane`) whose pair sum is K6 (``forces/csrc/
+p3m_cells.cu``, :func:`run_cell_plane`); its two-plane masked form
+(:func:`p3m_short_cells_pallas_masked`) carries the rung tier's interior
+ticks.
 
 The weight functions below are the physics and keep the JAX package's
 algebra and constants exactly.
@@ -22,6 +26,7 @@ import math
 import torch
 
 from nbody_torch.forces.pm import pm_acc
+from nbody_torch.mesh.cells import build_cell_list, cell_capacity, cell_ids
 
 _INV_SQRT_PI = 1.0 / math.sqrt(math.pi)
 
@@ -216,15 +221,6 @@ def p3m_short_direct(pos, mass, box: float, eps: float, r_s: float,
     return G * torch.einsum("ij,ijk->ik", w, d)
 
 
-def cell_capacity(n: int, ncell: int, headroom: float = 1.0,
-                  minimum: int = 8) -> int:
-    """Static cell-list capacity: mean occupancy + 5 sigma Poisson tail,
-    rounded up to a multiple of 8 (``nbody.mesh.cells.cell_capacity``)."""
-    mean = n / ncell**3
-    cap = max(minimum, int(headroom * (mean + 5.0 * mean**0.5) + 2))
-    return -(-cap // 8) * 8
-
-
 def p3m_short_params(box: float, nmesh: int, n: int):
     """Default (r_s, r_cut, ncell, capacity) for a box/mesh/particle count:
     r_s = 1.25 mesh cells, r_cut = 4.5 r_s, cells of side >= r_cut."""
@@ -261,7 +257,7 @@ def resolve_shortrange(shortrange: str, n: int, box: float, r_cut: float,
     grid) or columns above ALLPAIRS_MAX_N particles and allpairs below; a
     box under 3 r_cut runs allpairs for every tier; supercell falls back
     to columns when no grid tiles the mesh or the capacity's stride is
-    over budget.  'cells' (K6) raises ``NotImplementedError``."""
+    over budget."""
     if shortrange not in _TIERS:
         raise ValueError(f"unknown shortrange tier {shortrange!r}")
     if shortrange == "auto":
@@ -282,9 +278,6 @@ def resolve_shortrange(shortrange: str, n: int, box: float, r_cut: float,
                 box, r_cut, capacity if capacity is not None
                 else auto_column_capacity(n, sc)):
             shortrange = "columns"
-    if shortrange == "cells":
-        raise NotImplementedError(
-            "shortrange='cells' (the cell-plane tier, K6) is not ported yet")
     return shortrange
 
 
@@ -314,10 +307,11 @@ def p3m_acc(
     ``part``: 'both' | 'long' (mesh only) | 'short' (pairs only) | 'split'
     (returns (acc_long, acc_short, overflow) from one evaluation).
     Defaults r_s = 1.25 cells, r_cut = 4.5 r_s.  ``shortrange`` picks the
-    tier (:func:`resolve_shortrange`): 'allpairs' (K1), 'columns' (K4),
-    'supercell' (K2 + K3; its 'short' part runs K4 on the same chaining
-    geometry) or 'auto'.  ``capacity``/``window`` set the column tiers'
-    bucket capacity and z-window (None: auto).  ``with_overflow=True``
+    tier (:func:`resolve_shortrange`): 'allpairs' (K1), 'cells' (K6),
+    'columns' (K4), 'supercell' (K2 + K3; its 'short' part runs K4 on
+    the same chaining geometry) or 'auto'.  ``capacity`` sets the cell or
+    column tiers' bucket capacity and ``window`` the column tiers'
+    z-window (None: auto).  ``with_overflow=True``
     returns (acc, overflow): 0 iff no force was dropped (the column tiers'
     field-encoded word, a 0-d tensor; the dense tier returns 0)."""
     if part not in ("both", "long", "short", "split"):
@@ -390,6 +384,12 @@ def p3m_acc(
         acc_short, overflow = p3m_short_columns(
             pos, mass, box, float(eps), float(r_s), float(r_cut),
             ncell=ncell_c, col_capacity=ck, window=w, **ckw)
+    elif tier == "cells":
+        ncell = int(box / float(r_cut))
+        cap = capacity if capacity is not None else cell_capacity(n, ncell)
+        acc_short, overflow = p3m_short_cells_pallas(
+            pos, mass, box, float(eps), float(r_s), float(r_cut),
+            ncell=ncell, capacity=cap, **ckw)
     else:
         acc_short = p3m_short_acc(pos, mass, box, float(eps), float(r_s),
                                   float(r_cut), **ckw)
@@ -400,3 +400,246 @@ def p3m_acc(
     if with_overflow:
         return acc, overflow
     return acc
+
+
+# ---------------------------------------------------------------------------
+# The cell tier: a ghost-padded plane of (ncell,)^3 cells and K6
+# ---------------------------------------------------------------------------
+
+
+def build_padded_plane(pos, mass, box: float, r_cut: float, ncell: int,
+                       capacity: int, valid=None):
+    """Bucket particles and assemble the ghost-padded float32 SoA cell
+    plane.
+
+    Returns (plane (8, M^3 K), overflow, K, gidx, counts), M = ncell + 2,
+    K = capacity rounded up to 128: the JAX package's four values, and
+    the (M^3,) int32 count of stored particles of every padded cell
+    (ghost cells repeat their periodic image's), where K6 stops.  Plane
+    rows are x, y, z, mass, then four zero rows; cell (px, py, pz) holds
+    slots [((px M + py) M + pz) K, + K), its particles first in the cell
+    list's order and then sentinels (-4 r_cut in each coordinate, zero
+    mass).  Ghost cells replicate the periodic wrap with the +-box shift
+    baked into their massive slots' coordinates.  ``gidx`` (n,) is each
+    particle's slot (M^3 K for an overflowed or excluded particle).
+    ``valid`` (n,) bool excludes particles from the plane entirely: the
+    rung tier's active-target plane."""
+    n = pos.shape[0]
+    dev = pos.device
+    f32 = torch.float32
+    K = -(-capacity // 128) * 128
+    cl = build_cell_list(pos.to(f32), box, ncell, capacity, valid=valid)
+    C3 = ncell**3
+    M = ncell + 2
+    ov = cl.slots >= C3 * capacity
+    cid = torch.clamp_max(cl.slots // capacity, C3 - 1)
+    rank = cl.slots - cid * capacity
+    slotK = torch.where(ov, torch.full_like(cid, C3 * K), cid * K + rank)
+
+    posw = torch.remainder(pos, box).to(f32)
+    data = torch.cat([posw, mass.to(f32)[:, None]], dim=1)
+    interior = torch.tensor([-4.0 * r_cut] * 3 + [0.0], dtype=f32,
+                            device=dev).repeat(C3 * K + 1, 1)
+    interior[slotK] = data
+    interior = interior[:C3 * K].reshape(ncell, ncell, ncell, K, 4)
+
+    wrap = (torch.arange(M, device=dev) - 1) % ncell
+    padded = interior[wrap][:, wrap][:, :, wrap]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    for ax in range(3):
+        for edge, delta in ((0, -box), (M - 1, box)):
+            sl = padded[(slice(None),) * ax + (edge,)]
+            sl[..., ax] += torch.where(sl[..., 3] > 0, zero + delta, zero)
+    soa = padded.reshape(M**3 * K, 4).T
+    plane = torch.cat([soa, torch.zeros_like(soa)], dim=0).contiguous()
+
+    cx, cy, cz = cid // (ncell * ncell), (cid // ncell) % ncell, cid % ncell
+    pad_cid = ((cx + 1) * M + (cy + 1)) * M + (cz + 1)
+    gidx = torch.where(ov, torch.full_like(cid, M**3 * K), pad_cid * K + rank)
+    stored = torch.clamp_max(cl.counts, capacity).reshape(ncell, ncell, ncell)
+    counts = stored[wrap][:, wrap][:, :, wrap].reshape(-1).to(torch.int32)
+    return plane, cl.overflow, K, gidx, counts.contiguous()
+
+
+def _real_cells(nx: int, ncell: int, device):
+    """Padded ids of the real cells of a plane with nx real x-slabs."""
+    M = ncell + 2
+    px = torch.arange(1, nx + 1, device=device)
+    py = torch.arange(1, ncell + 1, device=device)
+    c = (px[:, None, None] * M + py[None, :, None]) * M + py[None, None, :]
+    return c.reshape(-1)
+
+
+def cell_plane_plain(plane, counts, *, nx: int, ncell: int, K: int,
+                     eps2: float, r_s: float, r_cut: float,
+                     split: str = "gaussian", softening: str = "plummer",
+                     plane_j=None, K_j: int = 0, counts_j=None,
+                     max_pairs: int = 1 << 24):
+    """Plain PyTorch version of K6, in the plane's dtype: the output plane
+    whose rows 0-2 hold, at every stored target slot of every real cell,
+    the short-range sum over the stored sources of its 27 neighbour cells
+    of ``plane_j`` (default ``plane``), zeros everywhere else.  The JAX
+    kernel also visits the sentinel slots; they lie farther than r_cut
+    from every slot they meet, so the sums are the same."""
+    if plane_j is None:
+        plane_j, K_j, counts_j = plane, K, counts
+    elif K_j <= 0 or counts_j is None:
+        raise ValueError("plane_j requires its bucket width K_j and counts_j")
+    wfn = _weight_fn(split, softening)
+    dev = plane.device
+    M = ncell + 2
+    counts = counts.to(torch.int64)
+    counts_j = counts_j.to(torch.int64)
+    cells = _real_cells(nx, ncell, dev)
+    ci = counts[cells]
+    tcell = torch.repeat_interleave(cells, ci)
+    first = torch.cumsum(ci, 0) - ci
+    rank = torch.arange(tcell.numel(), device=dev) - torch.repeat_interleave(
+        first, ci)
+    tslot = tcell * K + rank
+    out = torch.zeros_like(plane)
+    kmax = int(counts_j.max()) if counts_j.numel() else 0
+    if tslot.numel() == 0 or kmax == 0:
+        return out
+    xt = plane[0:3, tslot]
+    acc = torch.zeros_like(xt)
+    jr = torch.arange(kmax, device=dev)
+    step = max(1, max_pairs // kmax)
+    offsets = [(ox * M + oy) * M + oz for ox in (-1, 0, 1)
+               for oy in (-1, 0, 1) for oz in (-1, 0, 1)]
+    for t0 in range(0, tslot.numel(), step):
+        sl = slice(t0, t0 + step)
+        for off in offsets:
+            scell = tcell[sl] + off
+            src = scell[:, None] * K_j + jr[None, :]
+            live = jr[None, :] < counts_j[scell][:, None]
+            src = torch.where(live, src, torch.zeros_like(src))
+            d = plane_j[0:3, src] - xt[:, sl, None]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            w = torch.where(live, plane_j[3, src], torch.zeros_like(r2))
+            w = w * wfn(r2, eps2, r_s, r_cut)
+            acc[:, sl] += torch.sum(w * d, dim=-1)
+    out[0:3, tslot] = acc
+    return out
+
+
+def _check_cell_plane(name: str, plane, counts, rows: int):
+    if plane.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, got "
+                        f"{plane.dtype}")
+    if tuple(plane.shape) != (8, rows) or not plane.is_contiguous():
+        raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
+                         f"contiguous (8, {rows})")
+    if counts.dtype != torch.int32:
+        raise TypeError(f"{name}: counts must be int32, got {counts.dtype}")
+
+
+def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
+                   eps2: float, r_s: float, r_cut: float,
+                   split: str = "gaussian", softening: str = "plummer",
+                   plane_j=None, K_j: int = 0, counts_j=None):
+    """K6: the cell-pair sum over a ghost-padded plane from
+    :func:`build_padded_plane` -> an output plane of the same shape whose
+    rows 0-2 hold the sums at the real cells' stored targets (see
+    :func:`cell_plane_plain`).  ``plane`` is (8, (nx + 2) M^2 K) with
+    ``counts`` its (nx + 2) M^2 per-cell counts; ``plane_j``/``K_j``/
+    ``counts_j`` an optional SOURCE plane of the same cell geometry with
+    its own bucket width (the rung tier's active-target plane against the
+    full plane).  A CUDA plane launches the kernel or raises; a CPU plane
+    takes the plain version.  ``run_cell_plane.launches`` counts kernel
+    launches."""
+    if split not in _SPLITS or softening not in _SOFTENINGS:
+        raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    kw = dict(nx=nx, ncell=ncell, K=K, eps2=eps2, r_s=r_s, r_cut=r_cut,
+              split=split, softening=softening, plane_j=plane_j, K_j=K_j,
+              counts_j=counts_j)
+    if plane.device.type == "cpu":
+        return cell_plane_plain(plane, counts, **kw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"run_cell_plane: no kernel for {plane.device}")
+    if plane_j is None:
+        plane_j, K_j, counts_j = plane, K, counts
+    elif K_j <= 0 or counts_j is None:
+        raise ValueError("plane_j requires its bucket width K_j and counts_j")
+    M = ncell + 2
+    ncells = (nx + 2) * M * M
+    for name, p, c, k in (("plane", plane, counts, K),
+                          ("plane_j", plane_j, counts_j, K_j)):
+        _check_cell_plane(f"run_cell_plane {name}", p, c, ncells * k)
+        if (c.device != plane.device or p.device != plane.device
+                or c.numel() != ncells or not c.is_contiguous()):
+            raise ValueError(f"run_cell_plane: {name} and its counts must be"
+                             f" contiguous, on {plane.device}, with "
+                             f"{ncells} cells")
+    from nbody_torch._kernels import load_library
+
+    lib = load_library()
+    out = torch.zeros_like(plane)
+    with torch.cuda.device(plane.device):
+        err = lib.p3m_cells_f32(
+            plane.data_ptr(), plane_j.data_ptr(), counts.data_ptr(),
+            counts_j.data_ptr(), nx, ncell, K, K_j, math.sqrt(float(eps2)),
+            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"run_cell_plane: CUDA launch failed (error {err})")
+    run_cell_plane.launches += 1
+    return out
+
+
+run_cell_plane.launches = 0
+
+
+def p3m_short_cells_pallas(pos, mass, box: float, eps: float, r_s: float,
+                           r_cut: float, G: float = 1.0, *, ncell: int,
+                           capacity: int, split: str = "gaussian",
+                           softening: str = "plummer"):
+    """Short-range P3M force over the ghost-padded cell plane (K6).
+
+    Returns (acc (N, 3) in ``pos``'s dtype, overflow 0-d tensor): the
+    particles of over-full cells lose their short-range term and are
+    counted in ``overflow``."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"cell size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    plane, overflow, K, gidx, counts = build_padded_plane(
+        pos, mass, box, r_cut, ncell, capacity)
+    out = run_cell_plane(plane, counts, nx=ncell, ncell=ncell, K=K,
+                         eps2=float(eps) ** 2, r_s=r_s, r_cut=r_cut,
+                         split=split, softening=softening)
+    from nbody_torch.forces.p3m_columns import read_back
+
+    return G * read_back(out, gidx, 3).to(pos.dtype), overflow
+
+
+def p3m_short_cells_pallas_masked(pos, mass, target, box: float, eps: float,
+                                  r_s: float, r_cut: float, G: float = 1.0,
+                                  *, ncell: int, capacity: int,
+                                  target_capacity: int,
+                                  split: str = "gaussian",
+                                  softening: str = "plummer"):
+    """Short-range P3M force ON the ``target`` particles FROM all, with
+    K6's two-plane form: a compact target plane holding only the targets
+    (bucket width K_target) against the full source plane, so the work
+    scales with K_target * K_source.  Non-target rows come back 0.
+
+    Returns (acc (N, 3), overflow_source, overflow_target,
+    occupancy_target): the two planes' bucket spills, which heal
+    different capacities, and the densest target cell's true occupancy,
+    which the driver pre-warms the next segment's target capacity from."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"cell size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    plane_j, ov_j, K_j, _, counts_j = build_padded_plane(
+        pos, mass, box, r_cut, ncell, capacity)
+    plane_i, ov_i, K_i, gidx, counts_i = build_padded_plane(
+        pos, mass, box, r_cut, ncell, target_capacity, valid=target)
+    C3 = ncell**3
+    cid = torch.where(target, cell_ids(pos, box, ncell), C3)
+    occ_i = torch.bincount(cid, minlength=C3 + 1)[:C3].max()
+    out = run_cell_plane(plane_i, counts_i, nx=ncell, ncell=ncell, K=K_i,
+                         eps2=float(eps) ** 2, r_s=r_s, r_cut=r_cut,
+                         split=split, softening=softening, plane_j=plane_j,
+                         K_j=K_j, counts_j=counts_j)
+    from nbody_torch.forces.p3m_columns import read_back
+
+    return G * read_back(out, gidx, 3).to(pos.dtype), ov_j, ov_i, occ_i

@@ -1,7 +1,8 @@
 """Column-packed short-range P3M tier: z-sorted (x, y) cell columns with
 per-chunk z-windows.
 
-Counterpart of :mod:`nbody.forces.p3m_columns` (the fresh-plane path).
+Counterpart of :mod:`nbody.forces.p3m_columns`: the fresh plane and the
+frozen column plans of the rung tier (:class:`ColumnPlan`).
 Particles are sorted once into z-ordered (x, y) chaining columns of side
 >= r_cut; each column is one contiguous bucket of capacity CK with a
 ghost band of ``gz`` slots at each z end (the wrap partners, +-box baked
@@ -12,12 +13,21 @@ its z-range +- r_cut can reach; the window starts come from the plane
 build.  Bucket, ghost and window overflow are counted and returned in one
 field-encoded word, so the driver's self-heal can grow the right knob.
 
+A frozen plan keeps everything about a plane that does not depend on the
+positions (the sort composed into per-slot gather indices, skin-widened
+window tables, the slot map), so that the plane at positions within
+skin/2 of the freeze positions is one row gather.
+
 The plane build is PyTorch.  The pair sum is K4, a CUDA kernel
 (``forces/csrc/p3m_columns.cu``) on a CUDA tensor, and its plain PyTorch
-version :func:`column_plane_plain` on a CPU tensor.
+version :func:`column_plane_plain` on a CPU tensor; K5, in the same
+source, is K4 restricted to a table of active chunks
+(:func:`run_column_plane_masked`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -131,8 +141,27 @@ def _plane_from_buf(buf, box: float, ncell: int, stride: int):
     return torch.cat([soa, torch.zeros_like(soa)], dim=0).contiguous()
 
 
+class ColumnPlan(NamedTuple):
+    """A frozen column bucketing, valid for positions within skin/2
+    (minimum image) of ``pos0``: a pair within r_cut then has frozen xy
+    separation <= r_cut + skin <= the column side, the window thresholds
+    were widened by the skin, and the ghost demand was counted with a
+    skin/2 wider wrap margin.  ``ov`` is the freeze-time overflow word;
+    the frozen evaluations return it as it is."""
+
+    pos0: torch.Tensor    # (n, 3) float32 wrapped positions at freeze
+    src_g: torch.Tensor   # (ncol, stride) int64 slot -> particle row
+    starts: torch.Tensor  # (ncol,) int64
+    counts: torch.Tensor  # (ncol,) int64 raw (may exceed CK)
+    ws: torch.Tensor      # (ncol * 9 * maxch,) int32 frozen window starts
+    nch: torch.Tensor     # (ncol,) int32
+    gidx: torch.Tensor    # (n,) int64 particle -> padded slot
+    ov: torch.Tensor      # 0-d int64 field-encoded freeze-time overflow
+
+
 def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
-                       col_capacity: int, window: int, chunk: int = 256):
+                       col_capacity: int, window: int, chunk: int = 256,
+                       skin: float = 0.0, with_plan: bool = False):
     """Sort particles into z-ordered (x, y)-column buckets and assemble
     the ghost-padded float32 SoA plane plus the per-chunk window tables.
 
@@ -142,7 +171,12 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     columns of stride = CK + 2 gz slots; ``ws`` holds each (column,
     neighbour, chunk)'s 128-aligned window start; ``gidx`` maps each
     particle to its padded slot (P2 * stride if its bucket was full).
-    The two overflow counts are 0-d int64 tensors on the device."""
+    The two overflow counts are 0-d int64 tensors on the device.
+
+    ``skin`` widens the window thresholds and the ghost margins as
+    :func:`freeze_column_plan` does (the extra sources lie beyond r_cut
+    and weigh nothing now); ``with_plan=True`` appends the
+    :class:`ColumnPlan` of the same sort."""
     n = pos.shape[0]
     dev = pos.device
     f32 = torch.float32
@@ -154,7 +188,7 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     ncol = ncell * ncell
     P = ncell + 2
     P2 = P * P
-    zmargin = 1.0001 * r_cut
+    zmargin = 1.0001 * r_cut + 0.5 * skin
 
     posw = torch.remainder(pos, box).to(f32)
     massf = mass.to(f32)
@@ -206,8 +240,8 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0, hi_n),
                  2]
     chunk_ok = ch[None, :] < nch[:, None]
-    qlo = (zmin - r_cut).contiguous()
-    qhi = (zmax + r_cut).contiguous()
+    qlo = (zmin - r_cut - skin).contiguous()
+    qhi = (zmax + r_cut + skin).contiguous()
 
     ic_x = cols // ncell
     ic_y = cols % ncell
@@ -233,8 +267,14 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
                          torch.full_like(rank, P2 * stride))
     gidx = torch.empty(n, dtype=torch.int64, device=dev)
     gidx[order] = gidx_s
-    return (plane, ws.to(torch.int32), nch.to(torch.int32), overflow_b,
+    base = (plane, ws.to(torch.int32), nch.to(torch.int32), overflow_b,
             ov_w, gidx, cnt_ck.to(torch.int32))
+    if not with_plan:
+        return base
+    plan = ColumnPlan(pos0=posw, src_g=order[src_c], starts=starts,
+                      counts=counts, ws=base[1], nch=base[2], gidx=gidx,
+                      ov=encode_overflow(overflow_b, ov_w))
+    return base + (plan,)
 
 
 # Largest column stride (slots) the JAX package's column kernels afford in
@@ -260,15 +300,19 @@ def encode_overflow(ov_b, ov_w):
 
 
 def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
-                   device=None):
+                   device=None, cht=None, maxch: int = 0):
     """(column id, chunk index, first padded slot) of every occupied chunk
-    of the interior columns, as int64 tensors: the targets of K3/K4."""
+    of the interior columns, as int64 tensors: the targets of K3/K4.  With
+    a chunk table ``cht`` (ncol * maxch), column ic's chunks are the first
+    nch[ic] entries of its row instead (K5's active chunks)."""
     ncol = ncell * ncell
     P = ncell + 2
     nch = nch.to(torch.int64)
     ic = torch.repeat_interleave(torch.arange(ncol, device=device), nch)
     first = torch.cumsum(nch, 0) - nch
     k = torch.arange(ic.numel(), device=device) - first[ic]
+    if cht is not None:
+        k = cht.to(torch.int64).reshape(ncol, maxch)[ic, k]
     pcol = (ic // ncell + 1) * P + (ic % ncell + 1)
     return ic, k, pcol * stride + gz + k * chunk
 
@@ -276,10 +320,11 @@ def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
 def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
                      maxch: int, gz: int, chunk: int, eps: float, r_s: float,
                      r_cut: float, split: str, softening: str,
-                     max_pairs: int = 1 << 24):
+                     max_pairs: int = 1 << 24, cht=None):
     """The short-range sums of every occupied chunk's targets over its 9
     neighbour windows, in the plane's dtype: (targets (B, chunk) slot
-    indices, sums (3, B, chunk)).
+    indices, sums (3, B, chunk)); with a chunk table ``cht``, of the
+    chunks it lists (see :func:`interior_slots`).
 
     Targets go in tiles of 32 slots and each window in tiles of 64; a
     tile pair whose z ranges lie more than r_cut apart holds no pair
@@ -292,7 +337,8 @@ def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
     dev = plane.device
     P = ncell + 2
     tt_n, ts_n = 32, 64  # chunk and W are multiples of 128
-    ic, k, first = interior_slots(ncell, stride, gz, chunk, nch, dev)
+    ic, k, first = interior_slots(ncell, stride, gz, chunk, nch, dev,
+                                  cht=cht, maxch=maxch)
     tgt = first[:, None] + torch.arange(chunk, device=dev)[None, :]
     jw = torch.arange(W, device=dev)
     nb = ic.numel()
@@ -329,14 +375,16 @@ def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
 
 def column_plane_plain(plane, ws, nch, *, ncell: int, stride: int, W: int,
                        maxch: int, gz: int, chunk: int, eps: float,
-                       r_s: float, r_cut: float, split: str, softening: str):
-    """Plain PyTorch version of K4: the (8, P2 * stride) output plane with
-    rows 0-2 the short-range sums at the occupied chunks' slots of the
-    interior columns and zeros everywhere else."""
+                       r_s: float, r_cut: float, split: str, softening: str,
+                       cht=None):
+    """Plain PyTorch version of K4 (and, with the chunk table ``cht``, of
+    K5): the (8, P2 * stride) output plane with rows 0-2 the short-range
+    sums at the slots of the occupied (listed) chunks of the interior
+    columns and zeros everywhere else."""
     tgt, sums = column_pair_sums(
         plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
         chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-        softening=softening)
+        softening=softening, cht=cht)
     out = torch.zeros_like(plane)
     out[0:3, tgt.reshape(-1)] = sums.reshape(3, -1)
     return out
@@ -354,7 +402,8 @@ def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
         raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
                          f"contiguous (8, {P2 * stride})")
     ncol = ncell * ncell
-    sizes = {"ws": ncol * 9 * maxch, "nch": ncol, "counts": ncol}
+    sizes = {"ws": ncol * 9 * maxch, "nch": ncol, "counts": ncol,
+             "cht": ncol * maxch}
     for key, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
@@ -404,6 +453,50 @@ def run_column_plane(plane, ws, nch, *, ncell: int, stride: int, W: int,
 run_column_plane.launches = 0
 
 
+def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
+                            stride: int, W: int, maxch: int, gz: int,
+                            chunk: int, eps: float, r_s: float, r_cut: float,
+                            split: str, softening: str):
+    """K5: K4 restricted to the active chunks, ``nch_act[ic]`` of them in
+    column ic, their indices the first entries of row ic of the chunk
+    table ``cht`` (ncol * maxch) -> the output plane, zeros at the slots
+    of chunks not listed.  A CUDA plane launches the kernel or raises; a
+    CPU plane takes :func:`column_plane_plain` with the table.
+    ``run_column_plane_masked.launches`` counts kernel launches."""
+    if split not in _SPLITS or softening not in _SOFTENINGS:
+        raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+              softening=softening)
+    if plane.device.type == "cpu":
+        return column_plane_plain(plane, ws, nch_act, cht=cht, **kw)
+    if plane.device.type != "cuda":
+        raise ValueError(f"run_column_plane_masked: no kernel for "
+                         f"{plane.device}")
+    check_plane_args("run_column_plane_masked", plane,
+                     {"ws": ws, "nch": nch_act, "cht": cht}, maxch=maxch,
+                     ncell=ncell, stride=stride)
+    from nbody_torch._kernels import load_library
+
+    lib = load_library()
+    out = torch.zeros_like(plane)
+    with torch.cuda.device(plane.device):
+        err = lib.p3m_columns_masked_f32(
+            plane.data_ptr(), ws.data_ptr(), nch_act.data_ptr(),
+            cht.data_ptr(), ncell, stride, W, maxch, gz, chunk, float(eps),
+            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"run_column_plane_masked: CUDA launch failed "
+                           f"(error {err})")
+    run_column_plane_masked.launches += 1
+    return out
+
+
+run_column_plane_masked.launches = 0
+
+
 def plane_geometry(box: float, r_cut: float, col_capacity: int,
                    window: int, chunk: int = 256):
     """(CK, gz, stride, W, maxch, chunk) of a column plane: the chunk
@@ -449,3 +542,120 @@ def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
         softening=softening)
     acc = read_back(out, gidx, 3)
     return G * acc.to(pos.dtype), encode_overflow(ov_b, ov_w)
+
+
+# ---------------------------------------------------------------------------
+# Frozen column plans (the rung tier's interior ticks)
+# ---------------------------------------------------------------------------
+
+
+def freeze_column_plan(pos, mass, box: float, r_cut: float, ncell: int,
+                       col_capacity: int, window: int, chunk: int = 256,
+                       skin: float = 0.0) -> ColumnPlan:
+    """Sort, buckets and window tables at the current positions, packaged
+    for reuse at positions within skin/2 of them (:class:`ColumnPlan`,
+    :func:`plan_drift_ok`)."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    if skin > 0.0 and (box / ncell) < r_cut + 2.0 * skin:
+        raise ValueError(
+            f"column side {box / ncell:.3f} < r_cut + 2 skin "
+            f"{r_cut + 2.0 * skin:.3f}: frozen xy bucketing would miss "
+            f"drifted pairs")
+    CK, _, _, W, _, chunk = plane_geometry(box, r_cut, col_capacity, window,
+                                           chunk)
+    return build_column_plane(pos, mass, box, r_cut, ncell, CK, W,
+                              chunk=chunk, skin=skin, with_plan=True)[-1]
+
+
+def plan_drift(pos, plan: ColumnPlan, box: float):
+    """(n,) squared minimum-image drift of each particle from its freeze
+    position, in the plan's float32."""
+    d = torch.remainder(pos, box).to(plan.pos0.dtype) - plan.pos0
+    d = d - box * torch.round(d * (1.0 / box))
+    return torch.sum(d * d, dim=1)
+
+
+def plan_drift_ok(pos, plan: ColumnPlan, box: float, skin: float):
+    """0-d bool tensor: every particle is within skin/2 of its freeze
+    position, the validity predicate of a :class:`ColumnPlan`."""
+    return torch.max(plan_drift(pos, plan, box)) <= (0.5 * skin) ** 2
+
+
+def frozen_plane(pos, mass, plan: ColumnPlan, box: float, r_cut: float,
+                 ncell: int, CK: int, gz: int, stride: int):
+    """The plan's plane at the current positions: one row gather by
+    ``plan.src_g`` of the positions unwrapped against the freeze positions
+    (within skin/2 of them, so possibly just outside [0, box)).  Returns
+    (plane, is_interior (ncol, stride))."""
+    posw = torch.remainder(pos, box).to(torch.float32)
+    d = posw - plan.pos0
+    d = d - box * torch.round(d * (1.0 / box))
+    rows = torch.cat([plan.pos0 + d, mass.to(torch.float32)[:, None]],
+                     dim=1)[plan.src_g]
+    _, src_ok, is_front, is_interior, is_back = _slot_sources(
+        plan.starts, plan.counts, CK, gz, stride)
+    buf, _ = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back, box,
+                          r_cut, 1.0001 * r_cut)
+    return _plane_from_buf(buf, box, ncell, stride), is_interior
+
+
+def p3m_short_columns_frozen(pos, mass, plan: ColumnPlan, box: float,
+                             eps: float, r_s: float, r_cut: float,
+                             G: float = 1.0, *, ncell: int, col_capacity: int,
+                             window: int, split: str = "gaussian",
+                             softening: str = "plummer", chunk: int = 256):
+    """Short-range column force (K4) on a frozen plan: no sort and no
+    window tables.  Returns (acc (N, 3), plan.ov)."""
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    plane, _ = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK, gz,
+                            stride)
+    out = run_column_plane(
+        plane, plan.ws, plan.nch, ncell=ncell, stride=stride, W=W,
+        maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
+        split=split, softening=softening)
+    return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov
+
+
+def active_chunk_table(act, plan: ColumnPlan, is_interior, *, ncell: int,
+                       CK: int, gz: int, maxch: int, chunk: int):
+    """(nch_act (ncol,) int32, cht (ncol * maxch,) int32): the number of
+    256-slot chunks of each column that hold an ``act`` particle, and
+    their indices, ascending, at the front of each column's row (the rest
+    of the row holds maxch)."""
+    ncol = ncell * ncell
+    act_slot = act[plan.src_g] & is_interior
+    act_chunk = torch.any(
+        act_slot[:, gz:gz + CK].reshape(ncol, maxch, chunk), dim=-1)
+    nch_act = torch.sum(act_chunk, dim=1).to(torch.int32)
+    iota = torch.arange(maxch, device=act.device)[None, :]
+    cht = torch.sort(torch.where(act_chunk, iota, maxch), dim=1).values
+    return nch_act, cht.reshape(ncol * maxch).to(torch.int32)
+
+
+def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
+                                    box: float, eps: float, r_s: float,
+                                    r_cut: float, G: float = 1.0, *,
+                                    ncell: int, col_capacity: int,
+                                    window: int, split: str = "gaussian",
+                                    softening: str = "plummer",
+                                    chunk: int = 256):
+    """Short-range column force ON the chunks that hold an ``act``
+    particle FROM all, on a frozen plan (K5): the rung tier's interior
+    tick.  Rows of other chunks come back 0; the other rows of a visited
+    chunk come back with their force, which the integrator's rung kick
+    factors zero.  Returns (acc (N, 3), plan.ov)."""
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    plane, is_interior = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK,
+                                      gz, stride)
+    nch_act, cht = active_chunk_table(act, plan, is_interior, ncell=ncell,
+                                      CK=CK, gz=gz, maxch=maxch, chunk=chunk)
+    out = run_column_plane_masked(
+        plane, plan.ws, nch_act, cht, ncell=ncell, stride=stride, W=W,
+        maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
+        split=split, softening=softening)
+    return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov

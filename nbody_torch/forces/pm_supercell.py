@@ -2,7 +2,9 @@
 feeds the PM deposit, and the PM readback is fused into the short-range
 column pair sum.
 
-Counterpart of :mod:`nbody.forces.pm_supercell` (the fresh-plane path).
+Counterpart of :mod:`nbody.forces.pm_supercell`: the fresh plane, which
+can also emit a frozen column plan, and the evaluation on a frozen plan
+(:func:`p3m_supercell_frozen`).
 When the PM mesh tiles the chaining columns (S = nmesh / ncell mesh cells
 per column side), a force evaluation is: the column plane of
 :func:`nbody_torch.forces.p3m_columns.build_column_plane`; K2, the CIC
@@ -28,12 +30,14 @@ import torch
 
 from nbody_torch.forces.p3m import _SOFTENINGS, _SPLITS
 from nbody_torch.forces.p3m_columns import (
+    ColumnPlan,
     build_column_plane,
     check_plane_args,
     column_pair_sums,
     column_window,
     columns_stride_ok,
     encode_overflow,
+    frozen_plane,
     interior_slots,
     plane_geometry,
     read_back,
@@ -337,7 +341,8 @@ def p3m_supercell_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
                       softening: str = "plummer", *, ncell: int,
                       col_capacity: int, window: int, grad_order: str = "fd4",
                       chunk: int = 256, part_split: bool = False,
-                      interlace: bool = False):
+                      interlace: bool = False, skin: float = 0.0,
+                      with_plan: bool = False):
     """Full P3M force (PM far field + short-range correction) from one
     particle sort: K2 deposit, FFT Poisson, K3 readback + pair sum.
 
@@ -346,18 +351,40 @@ def p3m_supercell_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
     force, which the driver's capacity heal repairs.  ``interlace=True``
     deposits a second time at the half-cell shift, alias-cancels in k and
     averages the two readbacks.  ``part_split=True`` returns (acc_long,
-    acc_short, overflow) from the same evaluation."""
+    acc_short, overflow) from the same evaluation.  ``with_plan=True``
+    appends the :class:`ColumnPlan` of the same sort, its tables widened
+    by ``skin`` (the rung tier's boundary tick hands it to the next
+    step's interior ticks)."""
     geom = supercell_geometry(nmesh, ncell)
     if geom is None:
         raise ValueError(f"nmesh={nmesh} does not tile ncell={ncell}")
-    S, _ = geom
     if box / ncell < r_cut - 1e-9:
         raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
                                                      col_capacity, window,
                                                      chunk)
-    plane, ws, nch, ov_b, ov_w, gidx, counts = build_column_plane(
-        pos, mass, box, float(r_cut), ncell, CK, W, chunk=chunk)
+    built = build_column_plane(pos, mass, box, float(r_cut), ncell, CK, W,
+                               chunk=chunk, skin=float(skin),
+                               with_plan=with_plan)
+    plane, ws, nch, ov_b, ov_w, gidx, counts = built[:7]
+    out = _supercell_eval(
+        plane, ws, nch, gidx, counts, pos, mass, box, nmesh, G=G, eps=eps,
+        r_s=r_s, r_cut=r_cut, deconvolve_p=deconvolve_p, split=split,
+        softening=softening, ncell=ncell, stride=stride, W=W, maxch=maxch,
+        gz=gz, chunk=chunk, grad_order=grad_order, part_split=part_split,
+        interlace=interlace, ov=encode_overflow(ov_b, ov_w))
+    return out + (built[7],) if with_plan else out
+
+
+def _supercell_eval(plane, ws, nch, gidx, counts, pos, mass, box: float,
+                    nmesh: int, *, G: float, eps: float, r_s: float,
+                    r_cut: float, deconvolve_p: int, split: str,
+                    softening: str, ncell: int, stride: int, W: int,
+                    maxch: int, gz: int, chunk: int, grad_order: str,
+                    part_split: bool, interlace: bool, ov):
+    """K2, the FFT solve, K3 and the per-particle read of one column
+    plane: (acc, ov) or (acc_long, acc_short, ov)."""
+    S, _ = supercell_geometry(nmesh, ncell)
     dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
                chunk=chunk)
     rho = supercell_deposit_from_plane(plane, counts, **dkw)
@@ -378,8 +405,38 @@ def p3m_supercell_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
         r_cut=float(r_cut), split=split, softening=softening, S=S,
         scale=float(nmesh / box), split_out=part_split,
         interlaced=interlace)
-    ov = encode_overflow(ov_b, ov_w)
     if part_split:
         both = read_back(out, gidx, 6).to(pos.dtype)
         return G * both[:, 3:6], G * both[:, 0:3], ov
     return G * read_back(out, gidx, 3).to(pos.dtype), ov
+
+
+def p3m_supercell_frozen(pos, mass, plan: ColumnPlan, box: float, nmesh: int,
+                         G: float = 1.0, eps: float = 0.0, r_s: float = 0.0,
+                         r_cut: float = 0.0, deconvolve_p: int = 2,
+                         split: str = "spline", softening: str = "plummer",
+                         *, ncell: int, col_capacity: int, window: int,
+                         grad_order: str = "fd4", chunk: int = 256,
+                         part_split: bool = False, interlace: bool = False):
+    """:func:`p3m_supercell_acc` on a frozen column plan: no sort and no
+    window tables; the plane is one row gather at the current positions
+    (within skin/2 of the freeze positions, so possibly just outside the
+    box and the frozen column: K2 and K3 wrap their mesh indices), K2, K3
+    and the read use the plan's windows and slot map.  The driver keeps
+    skin/2 below one PM cell.  Returns (acc, plan.ov), or (acc_long,
+    acc_short, plan.ov) with ``part_split=True``."""
+    geom = supercell_geometry(nmesh, ncell)
+    if geom is None:
+        raise ValueError(f"nmesh={nmesh} does not tile ncell={ncell}")
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    plane, _ = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK, gz,
+                            stride)
+    counts = torch.clamp_max(plan.counts, CK).to(torch.int32)
+    return _supercell_eval(
+        plane, plan.ws, plan.nch, plan.gidx, counts, pos, mass, box, nmesh,
+        G=G, eps=eps, r_s=r_s, r_cut=r_cut, deconvolve_p=deconvolve_p,
+        split=split, softening=softening, ncell=ncell, stride=stride, W=W,
+        maxch=maxch, gz=gz, chunk=chunk, grad_order=grad_order,
+        part_split=part_split, interlace=interlace, ov=plan.ov)

@@ -11,7 +11,18 @@ Writes, under ``tests/data/torch_port/``:
   CPU;
 * ``powerspec_a=1.00_n16_supercell_seed0``: the same run with
   ``shortrange='supercell'`` (chaining grid 4, S = 8), the Pallas kernels
-  in interpret mode.
+  in interpret mode;
+* ``powerspec_a=1.00_n16_rungs3_seed0`` and
+  ``powerspec_a=1.00_n16_supercell_rungs3_seed0``: the same two tiers
+  with ``rungs=3`` (dense tier: interior ticks on the two-plane cell
+  kernel; supercell tier: frozen column plans, interior ticks on the
+  masked column kernel), and
+  ``rung_population_n16[_supercell]_rungs3_seed0.txt``, their per-step
+  "Rung population" counts from run.log (columns: step, then the count on
+  each rung).  These two start at a = 0.3 and take 6 steps: at 16^3 in a
+  500 Mpc box the 142 steps from a = 0.02 put a particle above rung 0 at
+  8 of the 142 steps only, while these steps populate rungs 1 and 2 at
+  every step.
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
@@ -41,8 +52,28 @@ OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "data", "torch_port")
 SEED = 0
 CONFIG = SimulationConfig(n_side=16, output=OutputConfig(snapshot=False))
+#: the rung runs: a late start and few steps, so that every step has
+#: particles above rung 0
+RUNG_CONFIG = CONFIG.replace(rungs=3, a_begin=0.3, n_steps=6)
 #: the committed runs: file-name tag -> config, all from the same noise
-RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell")}
+RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell"),
+        "_rungs3": RUNG_CONFIG,
+        "_supercell_rungs3": RUNG_CONFIG.replace(shortrange="supercell")}
+
+
+def rung_populations(log_path: str, n_rungs: int) -> np.ndarray:
+    """(n_steps, 1 + n_rungs) int array of run.log's "Rung population"
+    lines: the step, then the count on each rung (0 where the line stops
+    at a shallower rung)."""
+    rows = []
+    with open(log_path) as f:
+        for line in f:
+            if "Rung population" not in line:
+                continue
+            step = int(line.split()[2])
+            pops = [int(x) for x in line.split("matter:")[1].split(",")]
+            rows.append([step] + pops + [0] * (n_rungs - len(pops)))
+    return np.array(rows, dtype=np.int64)
 
 
 def main() -> None:
@@ -74,8 +105,18 @@ def main() -> None:
             res = run_simulation(cfg, SEED, work)
             name = f"{os.path.basename(res.powerspecs[-1])}_n16{tag}_seed0"
             shutil.copy(res.powerspecs[-1], os.path.join(OUT, name))
-            print(f"JAX run ({cfg.shortrange}): {res.wall_s:.1f} s, wrote "
-                  f"{name}")
+            print(f"JAX run ({cfg.shortrange}, rungs={cfg.rungs}): "
+                  f"{res.wall_s:.1f} s, wrote {name}")
+            if cfg.rungs:
+                pops = rung_populations(os.path.join(work, "run.log"),
+                                        cfg.rungs)
+                pname = f"rung_population_n16{tag}_seed0.txt"
+                np.savetxt(os.path.join(OUT, pname), pops, fmt="%d",
+                           header="step " + " ".join(
+                               f"rung{r}" for r in range(cfg.rungs)))
+                deep = int((pops[:, 2:].sum(axis=1) > 0).sum())
+                print(f"  {pname}: {len(pops)} steps, rungs >= 1 populated "
+                      f"at {deep} of them")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""The torch port's CUDA kernels on the card: K1 against its plain
-version, its wrapper's checks and launch count, and a tiny run on the GPU
-against the same run on the CPU.  Skipped without a GPU.  On a machine
+"""The torch port's CUDA kernels on the card: K1-K6 against their plain
+versions, their wrappers' checks and launch counts, and tiny runs on the
+GPU against the same runs on the CPU.  Skipped without a GPU.  On a machine
 with one (and without JAX, which tests/conftest.py imports):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -196,3 +196,138 @@ def test_tiny_column_tier_run_on_gpu_matches_cpu(cuda, tmp_path, shortrange):
     d -= cfg.box * torch.round(d / cfg.box)
     assert float(d.abs().max()) < 1e-4 * cfg.box
     assert gpu.config_run == cpu.config_run
+
+
+def _cell_case(cuda, n=6000, box=100.0, seed=4):
+    """A full cell plane (4^3 cells) and an active-target plane of one
+    uniform state on the card."""
+    from nbody_torch.forces.p3m import build_padded_plane
+
+    pos, mass = _particles(n, box, cuda, seed=seed)
+    act = torch.rand(n, generator=torch.Generator().manual_seed(seed)) < 0.1
+    r_cut = 0.999 * box / 4
+    full = build_padded_plane(pos, mass, box, r_cut, 4, 256)
+    tgt = build_padded_plane(pos, mass, box, r_cut, 4, 64, valid=act.to(cuda))
+    assert int(full[1]) == int(tgt[1]) == 0
+    return full, tgt, dict(nx=4, ncell=4, eps2=0.01, r_s=4.0, r_cut=r_cut)
+
+
+@pytest.mark.parametrize("split,softening", VARIANTS)
+@pytest.mark.parametrize("two_plane", [False, True])
+def test_k6_matches_plain(cuda, split, softening, two_plane):
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    (plane, _, K, _, counts), (plane_i, _, K_i, _, counts_i), kw = \
+        _cell_case(cuda)
+    kw.update(split=split, softening=softening)
+    if two_plane:
+        kw.update(plane_j=plane, K_j=K, counts_j=counts)
+        plane, K, counts = plane_i, K_i, counts_i
+    before = run_cell_plane.launches
+    got = run_cell_plane(plane, counts, K=K, **kw)
+    torch.cuda.synchronize()
+    assert run_cell_plane.launches == before + 1
+    if two_plane:
+        kw["plane_j"] = kw["plane_j"].double()
+    ref = cell_plane_plain(plane.double(), counts, K=K, **kw)
+    assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+
+
+def test_cell_wrapper_rejects(cuda):
+    from nbody_torch.forces.p3m import run_cell_plane
+
+    (plane, _, K, _, counts), _, kw = _cell_case(cuda, n=1000)
+    with pytest.raises(TypeError):
+        run_cell_plane(plane.double(), counts, K=K, **kw)
+    with pytest.raises(TypeError):
+        run_cell_plane(plane, counts.long(), K=K, **kw)
+    with pytest.raises(ValueError):
+        run_cell_plane(plane, counts[:-1].contiguous(), K=K, **kw)
+    with pytest.raises(ValueError):
+        run_cell_plane(plane, counts, K=K, plane_j=plane, **kw)
+
+
+def _frozen_case(cuda, frac, n=6000, box=100.0, nmesh=32, seed=5):
+    """A frozen plan of a uniform state, the plane at positions drifted by
+    frac * skin/2, and its active-chunk table (2% of the particles)."""
+    from nbody_torch.forces.p3m_columns import (
+        active_chunk_table,
+        freeze_column_plan,
+        frozen_plane,
+        plane_geometry,
+    )
+    from nbody_torch.forces.pm_supercell import supercell_params
+
+    pos, mass = _particles(n, box, cuda, seed=seed)
+    r_s, r_cut, ncell, ck, w = supercell_params(box, nmesh, n)
+    skin = 3.0
+    plan = freeze_column_plan(pos, mass, box, r_cut, ncell, ck, w, skin=skin)
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn((n, 3), generator=g, dtype=torch.float64)
+    u = (u / u.norm(dim=1, keepdim=True)).to(cuda, torch.float32)
+    moved = pos + frac * 0.5 * skin * u
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
+    plane, interior = frozen_plane(moved, mass, plan, box, r_cut, ncell, CK,
+                                   gz, stride)
+    act = (torch.rand(n, generator=g) < 0.02).to(cuda)
+    nch_act, cht = active_chunk_table(act, plan, interior, ncell=ncell, CK=CK,
+                                      gz=gz, maxch=maxch, chunk=chunk)
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=0.1, r_s=r_s, r_cut=r_cut, split="spline",
+              softening="spline")
+    return plane, plan, nch_act, cht, kw
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.99])
+def test_k5_matches_plain(cuda, frac):
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        run_column_plane_masked,
+    )
+
+    plane, plan, nch_act, cht, kw = _frozen_case(cuda, frac)
+    assert 0 < int(nch_act.sum()) < int(plan.nch.sum())
+    before = run_column_plane_masked.launches
+    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw)
+    torch.cuda.synchronize()
+    assert run_column_plane_masked.launches == before + 1
+    ref = column_plane_plain(plane.double(), plan.ws, nch_act, cht=cht, **kw)
+    assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+
+
+def test_k5_with_every_chunk_is_k4(cuda):
+    from nbody_torch.forces.p3m_columns import (
+        run_column_plane,
+        run_column_plane_masked,
+    )
+
+    plane, plan, _, _, kw = _frozen_case(cuda, 0.5)
+    ncol, maxch = kw["ncell"] ** 2, kw["maxch"]
+    cht = torch.arange(maxch, device=cuda, dtype=torch.int32).repeat(ncol)
+    got = run_column_plane_masked(plane, plan.ws, plan.nch, cht, **kw)
+    assert torch.equal(got, run_column_plane(plane, plan.ws, plan.nch, **kw))
+
+
+def test_tiny_rung_run_on_gpu_matches_cpu(cuda, tmp_path):
+    """rungs=3 on the dense tier (K1 boundaries, K6 interior ticks): the
+    same populations and positions as the CPU run, in float32."""
+    from nbody_torch.forces.p3m import run_cell_plane
+
+    cfg = SimulationConfig(n_side=12, box=60.0, solver="p3m", pm_grid=32,
+                           n_steps=4, rungs=3, a_begin=0.2, a_end=0.3,
+                           output=OutputConfig(snapshot=False,
+                                               powerspec_bins=8))
+    before = run_cell_plane.launches
+    gpu = run_simulation(cfg, 0, str(tmp_path / "gpu"), device=cuda)
+    assert run_cell_plane.launches > before
+    cpu = run_simulation(cfg, 0, str(tmp_path / "cpu"), device="cpu")
+    d = gpu.state.pos.cpu().double() - cpu.state.pos.double()
+    d -= cfg.box * torch.round(d / cfg.box)
+    assert float(d.abs().max()) < 1e-4 * cfg.box
+
+    def pops(run):
+        with open(tmp_path / run / "run.log") as f:
+            return [line.split("   ")[-1] for line in f
+                    if "Rung population" in line]
+
+    assert pops("gpu") == pops("cpu") and len(pops("gpu")) == cfg.n_steps

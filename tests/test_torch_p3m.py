@@ -112,12 +112,23 @@ def test_p3m_short_params():
 
 @pytest.mark.parametrize("part", ["both", "short", "split"])
 def test_unported_tiers_raise(part):
-    """The unported cell tier (K6) names itself for every part and never
-    runs another tier in its place."""
-    pos, mass = _particles(64, 500.0)
-    with pytest.raises(NotImplementedError, match="cells"):
-        tp3m.p3m_acc(torch.tensor(pos), torch.tensor(mass), 500.0, 64,
-                     shortrange="cells", part=part)
+    """The cell tier (K6), which the port did not run before, now runs
+    for every part and matches the JAX package's cell tier (float32 cell
+    planes in both: the column tiers' tolerance, tests/test_torch_columns.
+    py)."""
+    pos, mass = _particles(400, 100.0)
+    kw = dict(G=1.2, eps=0.2, split="spline", softening="spline",
+              shortrange="cells", part=part)
+    # a 4^3 cell grid (r_cut 23.4)
+    got = tp3m.p3m_acc(torch.tensor(pos), torch.tensor(mass), 100.0, 24, **kw)
+    want = jp3m.p3m_acc(jnp.asarray(pos), jnp.asarray(mass), 100.0, 24, **kw)
+    if part != "split":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor) and g.ndim:
+            _close(g, w, rtol=2e-5)
+        else:
+            assert int(g) == int(w) == 0
 
 
 def test_auto_beyond_allpairs_raises_and_small_box_falls_back():
