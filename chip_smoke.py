@@ -48,16 +48,32 @@ script exits non-zero:
     with launch counts equal to those counted from run.log;
 14. the 16^3 rung runs (dense and supercell, a = 0.3 to 1 in 6 steps)
     from the committed white noise against the JAX package's P(k) and
-    per-step rung populations.
+    per-step rung populations;
+15. K7 (the all-pairs kernel, ``allpairs_pallas`` and
+    ``block_acc_pallas``) against its float64 plain version and the
+    dense oracles at N = 2, 1,000 and 32,768 with and without a box, at
+    3,001 targets against 5,000 sources, and its float64 form on the
+    Kepler pair and through the Kepler and solar-system drives against
+    the same drives on the CPU; its time at N = 262,144;
+16. the Ewald PP force (K1 with the Gaussian split plus the k-space sum)
+    at the 32^3 ICs in float32 against float64, the default
+    ``SimulationConfig(solver='pp')`` run through ``run_simulation`` with
+    K1's launch count, and the 16^3 PP run from the committed white noise
+    against the JAX package's P(k);
+17. ``plummer(4096)`` over 200 steps against the JAX package's committed
+    energy and momentum series, then the Plummer drive at N = 262,144
+    (``run_with_diagnostics``, 250 steps, dt 1e-3, eps 0.05) with its
+    energy and momentum gates, K7's launch count, steps/s and
+    interactions/s.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
-six kernels (launches from the run of each kernel's path, errors and
-times from phases 3, 7 and 11, and each kernel's bound: the larger of the
+kernels (launches from the run of each kernel's path, errors and times
+from phases 3, 7, 11 and 15, and each kernel's bound: the larger of the
 bytes the function needs over the card's memory rate and its operations
-over its float32 rate); then the card's name and power limit; the last line is ``{"ok":
-true, "device": {...}}``.  Run outputs go to ``output/chip_smoke/``
-(git-ignored).
+over its float32 rate); then the card's name and power limit; the last
+line is ``{"ok": true, "device": {...}}``.  Run outputs go to
+``output/chip_smoke/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -85,6 +101,13 @@ PORT_DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 # weight (a single missing neighbour is an O(1e-2) error).  K3 and K4
 # sum the same pairs from a float32 plane and K3 adds a float32 CIC read
 # of the force grids, so the same reasoning and bound hold.
+# [15] K7 reads 1e-7-3e-6 against float64 (sums of 128-source tiles added
+# tile by tile).  [16] the float32 Ewald force reads 5.0e-5 at the 32^3
+# ICs, where the real-space sum reaches every minimum image within 0.4999
+# box and cancels: the float32 separations and weights, not the order of
+# the kernel's sums, set it (K1's plain float32 version reads 7e-5 on a
+# subset of targets); the k-space half alone 2.1e-5.  TF32 in the k-space
+# products (~3e-4 of each phase) would read far above the limit.
 K1_REL_L2_TOL = 1e-4
 FORCE_REL_L2_TOL = 1e-4
 # K2 against its float32 plain version (the same coordinates, rounded op
@@ -111,6 +134,33 @@ TIER_TOL = 2e-5
 # step or measurement moves P(k) by far more.
 PK_REL_TOL = 1e-3
 
+# K7 in float64 against the float64 plain version and oracles: only the
+# order of the sums differs
+F64_REL_TOL = 1e-12
+# the Kepler and solar-system drives through the float64 K7 on the card
+# against the same drives through the plain version on the CPU, relative
+# to the largest position: float64 summation order, grown over the drive
+F64_DRIVE_TOL = 1e-9
+# [17] the Plummer drive at N = 262,144 over 250 steps: |dE/E|.  The JAX
+# package's canonical drive (plummer(4096), 200 steps) expects < 1e-5 and
+# its float32 run of the same protocol on a TPU read 4.2e-7 over 10,000
+# steps (tests/data/energy_10k.json); a wrong potential or a force that is
+# not the gradient of that potential drifts by far more
+PLUMMER_DRIFT_TOL = 1e-5
+# |total momentum| over sum m |v|: float32 rounding of the forces and of
+# the reduction leaves ~1e-8 (the committed JAX series of plummer(4096)
+# reads 5.7e-9 absolute); forces that are not pairwise antisymmetric (a
+# missing or doubled source tile) break it by orders of magnitude more
+MOMENTUM_TOL = 1e-6
+# the plummer(4096) energy series against the JAX package's committed
+# float32 series, every 25 steps over 200: |E_kin|, |E_pot| and |E|
+# differences over |E_0|.  Both are float32 (rsqrt and sums in another
+# order), so the series differ by ~1e-7-1e-6 of |E_0|; a wrong G, softening
+# or self-term moves E_pot by 1e-3 or more; momentum differences are held
+# to 1e-7 absolute (both series read ~1e-9)
+SERIES_E_TOL = 1e-5
+SERIES_P_TOL = 1e-7
+
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # 700 W limit): float32 outside the tensor cores and device memory.
 PEAK_F32_FLOPS = 67e12
@@ -123,6 +173,8 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOPS_VISIT_K1 = 22
 FLOPS_VISIT_COLUMNS = 10
 FLOPS_INSIDE = 40
+# K7: the JAX package's cost estimate for one pair (pallas_pp.py:136)
+FLOPS_PAIR_K7 = 20
 # K2: the coordinates (3 x multiply, 2 subtractions), floors and
 # fractions, and 8 corner weights and adds
 FLOPS_DEPOSIT = 50
@@ -134,15 +186,20 @@ FLOPS_PM_READ = 8 * 8
 # other side of it (20 of the 4,096 particles), a wrong rung rule moves
 # hundreds
 POP_TOL = 0.005
+#: the Plummer drive's particle count: the JAX package's energy protocol
+#: (scripts/energy_10k.py) and bench.py's exact all-pairs size
+PLUMMER_N = 262144
 
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, after a warm-up."""
-    fn()
+def cuda_time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, after a warm-up
+    call unless ``warm`` is false."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -248,6 +305,18 @@ def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
                                                   **ckw),
         "K6 plane_j without K_j": lambda: run_cell_plane(
             cplane, ccounts, plane_j=cplane, **ckw),
+    })
+    from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
+
+    bad.update({
+        "K7 float16": lambda: allpairs_pallas(pos.half(), mass.half(), eps),
+        "K7 non-contiguous": lambda: allpairs_pallas(pos.T.contiguous().T,
+                                                     mass, eps),
+        "K7 shape": lambda: allpairs_pallas(pos[:, :2].contiguous(), mass,
+                                            eps),
+        "K7 mixed dtypes": lambda: block_acc_pallas(pos, pos.double(), mass,
+                                                    eps),
+        "K7 eps 0": lambda: allpairs_pallas(pos, mass, 0.0),
     })
     for what, fn in bad.items():
         try:
@@ -902,6 +971,7 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
 
 
 def _wrappers() -> dict:
+    from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
     from nbody_torch.forces.p3m import p3m_short_acc, run_cell_plane
     from nbody_torch.forces.p3m_columns import (
         run_column_plane,
@@ -914,7 +984,8 @@ def _wrappers() -> dict:
 
     return {"K1": p3m_short_acc, "K2": supercell_deposit_from_plane,
             "K3": run_fused_column_plane, "K4": run_column_plane,
-            "K5": run_column_plane_masked, "K6": run_cell_plane}
+            "K5": run_column_plane_masked, "K6": run_cell_plane,
+            "K7": allpairs_pallas, "K7b": block_acc_pallas}
 
 
 def zero_launches(**counts) -> dict:
@@ -1030,6 +1101,296 @@ def rung_lines(tag: str, lines: list[str]) -> None:
             or "drift note" in line or "Rung stepping" in line
             or "Capacity heals" in line]:
         phase(f"    {tag} run.log: {line}")
+
+
+def pp_kernel_check(sizes=(2, 1000, 32768)) -> None:
+    """[15] K7 against its float64 plain version and the dense oracles on
+    the card: allpairs_pallas (acc, phi) with and without a box,
+    block_acc_pallas with other targets than sources, and the float64
+    instantiation on the Kepler pair and through the Kepler and
+    solar-system drives."""
+    from nbody_torch.core import units
+    from nbody_torch.diagnostics.energy import momentum, total_energy
+    from nbody_torch.forces.allpairs import (
+        direct_acc,
+        direct_acc_chunked,
+        direct_acc_periodic,
+    )
+    from nbody_torch.forces.pallas_pp import (
+        allpairs_pallas,
+        block_acc_pallas,
+        pp_block_plain,
+    )
+    from nbody_torch.ic import systems
+    from nbody_torch.integrate.leapfrog import run
+
+    eps, G = 0.05, 1.3
+    for n in sizes:
+        st = systems.plummer(n, seed=n)
+        pos, mass = st.pos, st.mass
+        p64, m64 = pos.double(), mass.double()
+        for box in (0.0, 2.0):
+            acc, phi = allpairs_pallas(pos, mass, eps, G, box=box)
+            torch.cuda.synchronize()
+            raw, pot = pp_block_plain(p64, p64, m64, eps, box)
+            phi_ref = -G * (pot - m64 / eps)
+            if box == 0.0:
+                acc_ref, epot = direct_acc_chunked(p64, m64, eps, G)
+                e_err = abs(float(0.5 * torch.sum(m64 * phi.double()) - epot)
+                            / float(epot))
+            else:
+                # the dense oracle holds (N, N, 3): the chunked plain
+                # version above 1,000 particles
+                acc_ref = (direct_acc_periodic(p64, m64, box, eps, G)
+                           if n <= 1000 else G * raw)
+                e_err = 0.0
+            ra, rp = rel_l2(acc, acc_ref), rel_l2(phi, phi_ref)
+            phase(f"[15] K7 allpairs N={n} box={box:g}: acc rel L2 {ra:.3e},"
+                  f" phi rel L2 {rp:.3e} (tol {FORCE_REL_L2_TOL:g})"
+                  + (f", E_pot vs direct_acc_chunked {e_err:.3e}"
+                     if box == 0.0 else ""))
+            if not max(ra, rp, e_err) <= FORCE_REL_L2_TOL:
+                raise AssertionError(f"K7 N={n} box={box} disagrees: {ra}, "
+                                     f"{rp}, {e_err}")
+    ti = systems.plummer(3001, seed=11).pos
+    src = systems.plummer(5000, seed=12, total_mass=2.0)
+    acc, pot = block_acc_pallas(ti, src.pos, src.mass, eps)
+    torch.cuda.synchronize()
+    ref = pp_block_plain(ti.double(), src.pos.double(), src.mass.double(), eps)
+    ra, rp = rel_l2(acc, ref[0]), rel_l2(pot, ref[1])
+    phase(f"[15] K7 block_acc Ni=3001 Nj=5000: acc rel L2 {ra:.3e}, pot rel "
+          f"L2 {rp:.3e} (tol {FORCE_REL_L2_TOL:g})")
+    if not max(ra, rp) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K7 block_acc disagrees: {ra}, {rp}")
+
+    # float64: the Kepler pair, then the Kepler orbit for one period and
+    # ten years of the solar system, each against the same drive on the
+    # CPU (the plain version)
+    Gs = units.SOLAR.G
+    kep = systems.two_body(G=Gs)
+    acc, _ = allpairs_pallas(kep.pos, kep.mass, 1e-8, Gs)
+    ra = rel_l2(acc, direct_acc(kep.pos, kep.mass, 1e-8, Gs))
+    if acc.dtype != torch.float64 or not ra <= F64_REL_TOL:
+        raise AssertionError(f"K7 float64 on the Kepler pair: {acc.dtype}, "
+                             f"{ra}")
+    period = systems.kepler_period(1.0, 1.0 + 3.0035e-6, G=Gs)
+    drives = {"Kepler": (kep, period / 2048, 2048, 1e-8),
+              "solar system": (systems.solar_system(), 1.0 / 365.25, 3652,
+                               1e-6)}
+    for name, (st0, dt, steps, e) in drives.items():
+        def acc_fn(p, m, e=e):
+            return allpairs_pallas(p, m, e, Gs)
+
+        before = block_acc_pallas.launches
+        t0 = time.perf_counter()
+        fin = run(st0, dt, steps, acc_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if block_acc_pallas.launches - before != steps + 1:
+            raise AssertionError(f"{name}: the drive did not run K7")
+        fin_cpu = run(st0.to("cpu"), dt, steps, acc_fn)
+        scale = float(fin_cpu.pos.abs().max())
+        d_pos = float((fin.pos.cpu() - fin_cpu.pos).abs().max()) / scale
+        e0 = float(total_energy(st0, eps=e, G=Gs))
+        drift = abs(float(total_energy(fin, eps=e, G=Gs)) / e0 - 1.0)
+        p_max = float(momentum(fin).abs().max())
+        msg = (f"[15] K7 float64 {name}: {steps} steps in {wall:.2f} s; "
+               f"final positions vs the CPU drive {d_pos:.3e} (tol "
+               f"{F64_DRIVE_TOL:g}); |dE/E| {drift:.3e}, max |P| {p_max:.3e}")
+        if name == "Kepler":
+            sep0, sep1 = st0.pos[1] - st0.pos[0], fin.pos[1] - fin.pos[0]
+            closure = float((sep1 - sep0).abs().max())
+            msg += f"; orbit closure {closure:.3e} AU (tol 2e-4)"
+            ok = closure <= 2e-4
+        else:
+            # tests/test_systems.py's gates for 100 years
+            msg += " (tol 5e-6, 1e-10)"
+            ok = drift < 5e-6 and p_max < 1e-10
+        phase(msg)
+        if not (ok and d_pos <= F64_DRIVE_TOL):
+            raise AssertionError(f"K7 float64 {name} drive: {msg}")
+
+
+def pp_kernel_time(n: int) -> dict:
+    """[15] K7 at N particles (the Plummer drive's shape): each wrapper's
+    time, its plain version's and the bound; returns the two rows'
+    numbers (max_abs_err against the float64 plain version)."""
+    from nbody_torch.forces.pallas_pp import (
+        allpairs_pallas,
+        block_acc_pallas,
+        pp_block_plain,
+    )
+    from nbody_torch.ic import systems
+
+    eps = 0.05
+    st = systems.plummer(n, seed=0)
+    pos, mass = st.pos, st.mass
+    # x, y, z and m of each particle read once, four sums written for each
+    b_ms, b_by = bound(16 * n + 16 * n, FLOPS_PAIR_K7 * n * n)
+
+    def allpairs_plain(p, m):
+        acc, pot = pp_block_plain(p, p, m, eps)
+        return acc, -(pot - m / eps)
+
+    raw64 = pp_block_plain(pos.double(), pos.double(), mass.double(), eps)
+    out = {}
+    for key, fn, plain, ref in (
+            ("K7", lambda: allpairs_pallas(pos, mass, eps), allpairs_plain,
+             (raw64[0], -(raw64[1] - mass.double() / eps))),
+            ("K7b", lambda: block_acc_pallas(pos, pos, mass, eps),
+             lambda p, m: pp_block_plain(p, p, m, eps), raw64)):
+        got = fn()
+        torch.cuda.synchronize()
+        err = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+        rel = rel_l2(got[0], ref[0])
+        ms = cuda_time_ms(fn, 10)
+        plain_ms = cuda_time_ms(lambda: plain(pos, mass), 1, warm=False)
+        phase(f"[15] {key} at N={n}: acc rel L2 {rel:.3e} (tol "
+              f"{FORCE_REL_L2_TOL:g}), max abs {err:.3e}; kernel {ms:.4f} ms"
+              f" ({n * n / ms * 1e3:.4e} interactions/s), plain f32 "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if not rel <= FORCE_REL_L2_TOL:
+            raise AssertionError(f"{key} at N={n} disagrees: {rel}")
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def ewald_check(noise, n_side: int = 32) -> int:
+    """[16] The Ewald PP force at the default 32^3 ICs, float32 on the card
+    against float64 on the card (K1's and the k-space half's plain
+    versions); the default solver='pp' run through run_simulation with
+    K1's launches equal to the evaluations counted from run.log; the
+    16^3 PP run from the JAX noise against the JAX P(k).  Returns K1's
+    launches in the default PP run."""
+    from nbody_torch.core import units
+    from nbody_torch.driver import OutputConfig, SimulationConfig
+    from nbody_torch.driver.simulate import realize_ics, run_simulation
+    from nbody_torch.forces.ewald import ewald_kspace_acc, ewald_pp_acc
+    from nbody_torch.forces.p3m import p3m_short_acc, p3m_short_plain
+
+    cfg = SimulationConfig(n_side=n_side, solver="pp",
+                           output=OutputConfig(snapshot=False))
+    box, eps, G = cfg.box, cfg.eps, units.COSMO.G
+    soft = cfg.softening_kernel
+    st = realize_ics(cfg, 0)
+    pos, mass = st.pos, st.mass
+    got = ewald_pp_acc(pos, mass, box, eps=eps, G=G, softening=soft)
+    torch.cuda.synchronize()
+    p64, m64 = pos.double(), mass.double()
+    sr = p3m_short_plain(p64, m64, box, eps, box / 16.0, 0.4999 * box, G=G,
+                         split="gaussian", softening=soft)
+    lr = ewald_kspace_acc(p64, m64, box, G=G)
+    rel, rel_lr = rel_l2(got, sr + lr), rel_l2(
+        ewald_kspace_acc(pos, mass, box, G=G), lr)
+    sr_args = (pos, mass, box, eps, box / 16.0, 0.4999 * box, G,
+               "gaussian", soft)
+    sr_ms = cuda_time_ms(lambda: p3m_short_acc(*sr_args), 20)
+    sr_plain_ms = cuda_time_ms(lambda: p3m_short_plain(*sr_args), 2)
+    lr_ms = cuda_time_ms(lambda: ewald_kspace_acc(pos, mass, box, G=G), 20)
+    n = pos.shape[0]
+    npad = -(-n // 128) * 128
+    inside = count_inside_dense(pos, box, 0.4999 * box)
+    b_ms, b_by = bound(4 * npad * 4 + n * 12,
+                       n * npad * FLOPS_VISIT_K1 + inside * FLOPS_INSIDE)
+    phase(f"[16] ewald_pp_acc at the {n_side}^3 ICs, float32 vs float64: "
+          f"rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), k-space half alone "
+          f"{rel_lr:.3e}; |acc| real-space {float(sr.norm()):.4e}, k-space "
+          f"{float(lr.norm()):.4e}; K1 (Gaussian split, r_cut 0.4999 box) "
+          f"{sr_ms:.4f} ms, plain f32 {sr_plain_ms:.3f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}; {inside / (n * n):.3f} of the pairs inside r_cut); "
+          f"k-space half {lr_ms:.4f} ms")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[16] ewald_pp_acc float32 disagrees: {rel}")
+
+    work = os.path.join(OUT, "default_pp")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    res = run_simulation(cfg, 0, work)
+    counts = read_launches()
+    lines = run_log(work)
+    evals = cfg.n_steps + 1 + rerun_evals(lines)
+    phase(f"[16] default PP run: N={cfg.n_particles} {cfg.n_steps} steps in "
+          f"{res.wall_s:.3f} s ({cfg.n_steps / res.wall_s:.2f} steps/s); "
+          f"launches {counts}; a = {float(res.state.time):.4f}")
+    for line in lines:
+        phase("    run.log: " + line)
+    check_run_outputs(res, cfg, "[16]")
+    want = zero_launches(K1=evals)
+    if counts != want or res.config_run != cfg:
+        raise AssertionError(f"[16] launches {counts}, expected {want}")
+
+    pp16 = SimulationConfig(n_side=16, solver="pp",
+                            output=OutputConfig(snapshot=False))
+    work16 = os.path.join(OUT, "n16_pp")
+    shutil.rmtree(work16, ignore_errors=True)
+    res16 = run_simulation(pp16, 0, work16,
+                           initial_state=realize_ics(pp16, 0, noise=noise))
+    pk_vs_reference(res16, pp16, "powerspec_a=1.00_n16_pp_seed0",
+                    "[16] 16^3 PP from the JAX noise")
+    return counts["K1"]
+
+
+def plummer_drive(n: int, steps: int) -> int:
+    """[17] plummer(4096) over 200 steps against the JAX package's
+    committed energy and momentum series; then the Plummer drive at N
+    particles, ``steps`` steps of run_with_diagnostics (dt 1e-3, eps 0.05,
+    a sample every 25 steps) with every launch count reset before and
+    read after.  Returns K7's launches in that drive."""
+    from nbody_torch.forces.pallas_pp import allpairs_pallas
+    from nbody_torch.ic import systems
+    from nbody_torch.integrate.leapfrog import run_with_diagnostics
+
+    def acc_fn(p, m):
+        return allpairs_pallas(p, m, eps=0.05)
+
+    ref = np.loadtxt(os.path.join(PORT_DATA, "plummer4096_energy_seed0.txt"))
+    _, d0, diags = run_with_diagnostics(systems.plummer(4096, seed=0), 1e-3,
+                                        200, acc_fn, diag_every=25)
+    e_kin = torch.cat([d0.e_kin[None], diags.e_kin]).double().cpu().numpy()
+    e_pot = torch.cat([d0.e_pot[None], diags.e_pot]).double().cpu().numpy()
+    mom = torch.cat([d0.momentum[None], diags.momentum]).double().cpu().numpy()
+    e0 = abs(ref[0, 4])
+    e_err = max(np.abs(e_kin - ref[:, 2]).max(), np.abs(e_pot - ref[:, 3]).max(),
+                np.abs(e_kin + e_pot - ref[:, 4]).max()) / e0
+    p_err = np.abs(mom - ref[:, 5:]).max()
+    drift = np.abs(e_kin + e_pot - e_kin[0] - e_pot[0]).max() / e0
+    phase(f"[17] plummer(4096) vs the JAX series at {len(ref)} samples over "
+          f"200 steps: energies {e_err:.3e} of |E0| (tol {SERIES_E_TOL:g}), "
+          f"momentum {p_err:.3e} (tol {SERIES_P_TOL:g}); |dE/E| {drift:.3e} "
+          f"(JAX {np.abs(ref[:, 4] - ref[0, 4]).max() / e0:.3e})")
+    if not (e_err <= SERIES_E_TOL and p_err <= SERIES_P_TOL):
+        raise AssertionError(f"[17] the plummer(4096) series differs: "
+                             f"{e_err}, {p_err}")
+
+    state = systems.plummer(n, seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, d0, diags = run_with_diagnostics(state, 1e-3, steps, acc_fn,
+                                            diag_every=25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    e = torch.cat([(d0.e_kin + d0.e_pot)[None],
+                   diags.e_kin + diags.e_pot]).double().cpu().numpy()
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    mom = float(diags.momentum.double().abs().max())
+    p_scale = float(torch.sum(final.mass * final.vel.norm(dim=1)))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (final.pos, final.vel))
+    phase(f"[17] Plummer N={n}: {steps} steps in {wall:.3f} s "
+          f"({steps / wall:.3f} steps/s, {n * n * (steps + 1) / wall:.4e} "
+          f"interactions/s); |dE/E| {drift:.3e} over {len(e)} samples (tol "
+          f"{PLUMMER_DRIFT_TOL:g}); max |P| / sum m|v| {mom / p_scale:.3e} "
+          f"(tol {MOMENTUM_TOL:g}); E0 {e[0]:.8f}; launches {counts}")
+    want = zero_launches(K7=steps + 1, K7b=steps + 1)
+    if counts != want or not finite or final.pos.shape != (n, 3):
+        raise AssertionError(f"[17] launches {counts}, expected {want}; "
+                             f"finite {finite}")
+    if not (drift < PLUMMER_DRIFT_TOL and mom / p_scale < MOMENTUM_TOL):
+        raise AssertionError(f"[17] |dE/E| {drift}, |P| {mom}")
+    return counts["K7"]
 
 
 def main() -> None:
@@ -1323,6 +1684,16 @@ def main() -> None:
         if not worst <= POP_TOL * r16.n_particles:
             raise AssertionError(f"[14]{tag}: populations differ by {worst}")
 
+    # -- 15. K7 against its plain version; its time at N = 262,144 --------
+    pp_kernel_check()
+    kernels.update(pp_kernel_time(PLUMMER_N))
+
+    # -- 16. the Ewald PP solver (K1 with the Gaussian split) -------------
+    ewald_check(noise)
+
+    # -- 17. the Plummer drive at N = 262,144 through K7 ------------------
+    k7_launches = plummer_drive(PLUMMER_N, 250)
+
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
@@ -1347,6 +1718,15 @@ def main() -> None:
                      "source": f"nbody_torch/forces/csrc/{source}",
                      "replaces": replaces,
                      "launches": launch_counts[path][key], **kernels[key]})
+    launch_counts["plummer"] = zero_launches(K7=k7_launches, K7b=k7_launches)
+    for key, name, replaces in (
+            ("K7", "allpairs_pallas", "nbody/forces/pallas_pp.py:76"),
+            ("K7b", "block_acc_pallas", "nbody/forces/pallas_pp.py:151")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "nbody_torch/forces/csrc/pp_allpairs.cu",
+                     "replaces": replaces,
+                     "launches": launch_counts["plummer"][key],
+                     **kernels[key]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

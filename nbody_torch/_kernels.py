@@ -104,6 +104,8 @@ _ENTRY_POINTS = {
     "p3m_cells_f32": "ppppiiiidddiipp",
     "pm_supercell_deposit_f32": "ppiiiiiiddpp",
     "pm_supercell_fused_f32": "ppppiiiiidiiiiidddiipp",
+    "pp_allpairs_f32": "pippiddpp",
+    "pp_allpairs_f64": "pippiddpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 

@@ -6,7 +6,8 @@ d(T + W)/dt = -H (2T + W), so C(a) = T + W + int (2T + W) dln a is
 conserved; |C(a) - C(a0)| / max|W| is the cosmological analogue of |dE/E|.
 W is the PM potential energy with the offset-dependent PM self-energy
 subtracted per particle from a table (see the JAX package for the
-measured caveats).
+measured caveats).  :func:`peculiar_energies_exact` is the exact
+(Ewald) functional of the PP solver, for validation.
 """
 
 from __future__ import annotations
@@ -89,6 +90,26 @@ def peculiar_energies(state: ParticleState, cosmo: Cosmology, box: float,
     W_self = (0.5 * amp * nmesh**3 / torch.sum(state.mass)
               * torch.sum(state.mass**2 * u))
     return T, W_raw - W_self
+
+
+def peculiar_energies_exact(state: ParticleState, cosmo: Cosmology,
+                            box: float, r_s: float | None = None,
+                            n_max: int = 10):
+    """(T, W) with W the exact periodic (Ewald) potential energy of the
+    comoving Poisson source lap(phi) = (3/2) Om H0^2 delta / a: the
+    force-consistent functional for
+    :func:`nbody_torch.forces.ewald.ewald_pp_acc` with eps = 0.  Dense
+    O(N^2); validation only, not on the run path."""
+    from nbody_torch.core import units
+    from nbody_torch.forces.ewald import ewald_potential_energy
+
+    a = state.time.to(state.pos.dtype)
+    v_pec = state.vel / a
+    T = 0.5 * torch.sum(state.mass * torch.sum(v_pec * v_pec, dim=-1))
+    W = ewald_potential_energy(
+        state.pos, state.mass, box, G=units.COSMO.G, r_s=r_s, n_max=n_max
+    ) / a
+    return T, W
 
 
 def layzer_irvine_residual(a, T, W) -> float:

@@ -1,17 +1,18 @@
 """Single simulation runs: config -> ICs -> KDK -> outputs.
 
 Counterpart of :func:`nbody.driver.simulate.run_simulation` for the
-single-device, fixed-step slice: LPT ICs, the comoving KDK with the PM or
-P3M force (dense, cells, supercell or columns short-range tier), or the
-per-particle rung KDK (``rungs >= 2``: dense or cell-plane boundary ticks
-with two-plane cell interior ticks, or frozen column plans on the
-supercell tier), the capacity pre-warm and self-heal, the Layzer-Irvine
-energy samples, and P(k) and snapshot outputs at the output times, in
-the same run.log, powerspec and snapshot formats.  The entry points run
-on the card unless the caller passes ``device="cpu"``.  Options outside
-the slice raise ``NotImplementedError`` (``solver='pp'``, ``subcycles >
-1`` without rungs, ``rung_active_capacity > 0``,
-``time_stepping='adaptive'`` and more than one device).
+single-device, fixed-step slice: LPT ICs, the comoving KDK with the PM,
+P3M (dense, cells, supercell or columns short-range tier) or exact
+periodic PP force (Ewald: K1 with the Gaussian split plus the k-space
+sum), or the per-particle rung KDK (``rungs >= 2``: dense or cell-plane
+boundary ticks with two-plane cell interior ticks, or frozen column plans
+on the supercell tier), the capacity pre-warm and self-heal, the
+Layzer-Irvine energy samples, and P(k) and snapshot outputs at the output
+times, in the same run.log, powerspec and snapshot formats.  The entry
+points run on the card unless the caller passes ``device="cpu"``.  Options
+outside the slice raise ``NotImplementedError`` (``subcycles > 1`` without
+rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'`` and more
+than one device).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from nbody_torch.diagnostics.layzer_irvine import (
     peculiar_energies,
 )
 from nbody_torch.driver.config import SimulationConfig
+from nbody_torch.forces.ewald import ewald_pp_acc
 from nbody_torch.forces.p3m import (
     auto_column_capacity,
     p3m_acc,
@@ -103,8 +105,6 @@ def check_supported(config: SimulationConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     and ``ValueError`` for rungs without the P3M solver (as the JAX
     package does)."""
-    if config.solver == "pp":
-        raise NotImplementedError("solver='pp' (Ewald PP, K7) is not ported yet")
     if config.rungs >= 2 and config.solver != "p3m":
         raise ValueError("rungs requires the p3m solver")
     if config.subcycles > 1 and config.rungs < 2:
@@ -123,6 +123,11 @@ def check_supported(config: SimulationConfig, device=None) -> None:
         dev = torch.device(device) if device is not None else None
         n_dev = (torch.cuda.device_count()
                  if dev is not None and dev.type == "cuda" else 1)
+    if n_dev > 1 and config.solver == "pp":
+        raise NotImplementedError(
+            f"solver='pp' with devices={n_dev} (the ring Ewald "
+            f"decomposition) is not ported yet"
+        )
     if n_dev > 1:
         raise NotImplementedError(
             f"devices={config.devices} (slab domain decomposition) is not "
@@ -182,10 +187,12 @@ def realize_ics(config: SimulationConfig, seed: int, *, device="cuda",
 def build_cosmo_force(config: SimulationConfig, *, device="cuda",
                       dtype=None, checked: bool = False) -> Callable:
     """acc_fn(pos, mass, a) -> canonical-momentum force for the config's
-    solver ('pm' or 'p3m'), the Newtonian periodic force in comoving
-    coordinates scaled by 1/a.  ``checked=True`` returns (g, overflow) for
-    the checked integrator: overflow is 0 iff no force was dropped (the
-    column tiers' field-encoded word, a 0-d tensor on the device)."""
+    solver ('pm', 'p3m' or 'pp', the exact periodic Ewald force), the
+    Newtonian periodic force in comoving coordinates scaled by 1/a.
+    ``checked=True`` returns (g, overflow) for the checked integrator:
+    overflow is 0 iff no force was dropped (the column tiers'
+    field-encoded word, a 0-d tensor on the device; always 0 for pm and
+    pp)."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     box, nmesh = config.box, config.mesh_size
@@ -199,6 +206,15 @@ def build_cosmo_force(config: SimulationConfig, *, device="cuda",
         if not checked:
             return pm_fn
         return lambda pos, mass, a: (pm_fn(pos, mass, a), 0)
+    if config.solver == "pp":
+        eps, softening = config.eps, config.softening_kernel
+
+        def pp_fn(pos, mass, a):
+            g = ewald_pp_acc(pos, mass, box, eps=eps, G=units.COSMO.G,
+                             softening=softening) / a
+            return (g, 0) if checked else g
+
+        return pp_fn
 
     kw = _p3m_kw(config)
 

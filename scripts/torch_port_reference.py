@@ -22,12 +22,24 @@ Writes, under ``tests/data/torch_port/``:
   each rung).  These two start at a = 0.3 and take 6 steps: at 16^3 in a
   500 Mpc box the 142 steps from a = 0.02 put a particle above rung 0 at
   8 of the 142 steps only, while these steps populate rungs 1 and 2 at
-  every step.
+  every step;
+* ``powerspec_a=1.00_n16_pp_seed0``: the same 16^3 run with
+  ``solver='pp'`` (the Ewald PP force: K1 with the Gaussian split in
+  interpret mode, plus the k-space sum);
+* ``plummer4096_energy_seed0.txt``: the energy and momentum series of
+  ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
+  ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
+  25 steps and at the start (columns: step, time, E_kin, E_pot, E, the
+  three momentum components).
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
-    python scripts/torch_port_reference.py
+    python scripts/torch_port_reference.py [pk] [pp] [plummer]
+
+where ``pk`` writes the noise and the dense, supercell and rung files,
+``pp`` the PP run's P(k) and ``plummer`` the Plummer series (all three
+without arguments).
 """
 
 from __future__ import annotations
@@ -59,6 +71,9 @@ RUNG_CONFIG = CONFIG.replace(rungs=3, a_begin=0.3, n_steps=6)
 RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell"),
         "_rungs3": RUNG_CONFIG,
         "_supercell_rungs3": RUNG_CONFIG.replace(shortrange="supercell")}
+PP_RUNS = {"_pp": CONFIG.replace(solver="pp")}
+#: the Plummer drive: N, seed, eps, dt, steps, sample stride
+PLUMMER = dict(n=4096, seed=0, eps=0.05, dt=1e-3, steps=200, every=25)
 
 
 def rung_populations(log_path: str, n_rungs: int) -> np.ndarray:
@@ -76,13 +91,52 @@ def rung_populations(log_path: str, n_rungs: int) -> np.ndarray:
     return np.array(rows, dtype=np.int64)
 
 
-def main() -> None:
+def plummer_series() -> None:
+    """The Plummer drive's energy and momentum series."""
+    from nbody.forces import allpairs_pallas
+    from nbody.ic import systems
+    from nbody.integrate import run_with_diagnostics
+
+    p = PLUMMER
+    state = systems.plummer(p["n"], seed=p["seed"])
+    _, d0, diags = run_with_diagnostics(
+        state, p["dt"], p["steps"],
+        lambda pos, m: allpairs_pallas(pos, m, eps=p["eps"]),
+        diag_every=p["every"])
+    rows = [[0, float(d0.time), float(d0.e_kin), float(d0.e_pot)]
+            + [float(x) for x in np.asarray(d0.momentum)]]
+    for k in range(p["steps"] // p["every"]):
+        rows.append([(k + 1) * p["every"], float(diags.time[k]),
+                     float(diags.e_kin[k]), float(diags.e_pot[k])]
+                    + [float(x) for x in np.asarray(diags.momentum[k])])
+    rows = np.array(rows)
+    rows = np.concatenate([rows[:, :4], rows[:, 2:3] + rows[:, 3:4],
+                           rows[:, 4:]], axis=1)
+    name = f"plummer{p['n']}_energy_seed{p['seed']}.txt"
+    np.savetxt(os.path.join(OUT, name), rows, fmt="%.9e",
+               header=f"plummer(n={p['n']}, seed={p['seed']}) float32, "
+                      f"allpairs_pallas eps={p['eps']}, dt={p['dt']}, "
+                      f"{p['steps']} KDK steps\n"
+                      "step time E_kin E_pot E px py pz")
+    drift = np.abs(rows[:, 4] - rows[0, 4]).max() / abs(rows[0, 4])
+    print(f"wrote {name}: |dE/E| {drift:.3e}, max |p| "
+          f"{np.abs(rows[:, 5:]).max():.3e}")
+
+
+def main(which) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
+    if "plummer" in which:
+        plummer_series()
     # the draw inside lpt_ic -> gaussian_delta_k -> white_noise_k
     noise = np.asarray(jax.random.normal(
         jax.random.key(SEED), (CONFIG.n_side,) * 3, jnp.float32))
-    np.save(os.path.join(OUT, "white_noise_n16_seed0.npy"), noise)
+    if "pk" not in which:
+        saved = np.load(os.path.join(OUT, "white_noise_n16_seed0.npy"))
+        if not np.array_equal(saved, noise):
+            raise SystemExit("the committed white noise is not this draw")
+    else:
+        np.save(os.path.join(OUT, "white_noise_n16_seed0.npy"), noise)
 
     import torch
 
@@ -100,12 +154,15 @@ def main() -> None:
     if np.abs(d).max() > 1e-3 or dv > 1e-4 * np.abs(np.asarray(ref.vel)).max():
         raise SystemExit("port ICs differ from the JAX ICs")
 
-    for tag, cfg in RUNS.items():
+    runs = dict(RUNS if "pk" in which else {},
+                **(PP_RUNS if "pp" in which else {}))
+    for tag, cfg in runs.items():
         with tempfile.TemporaryDirectory() as work:
             res = run_simulation(cfg, SEED, work)
             name = f"{os.path.basename(res.powerspecs[-1])}_n16{tag}_seed0"
             shutil.copy(res.powerspecs[-1], os.path.join(OUT, name))
-            print(f"JAX run ({cfg.shortrange}, rungs={cfg.rungs}): "
+            print(f"JAX run ({cfg.solver}, {cfg.shortrange}, rungs="
+                  f"{cfg.rungs}): "
                   f"{res.wall_s:.1f} s, wrote {name}")
             if cfg.rungs:
                 pops = rung_populations(os.path.join(work, "run.log"),
@@ -120,4 +177,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ["pk", "pp", "plummer"])

@@ -1,4 +1,4 @@
-"""The torch port's CUDA kernels on the card: K1-K6 against their plain
+"""The torch port's CUDA kernels on the card: K1-K7 against their plain
 versions, their wrappers' checks and launch counts, and tiny runs on the
 GPU against the same runs on the CPU.  Skipped without a GPU.  On a machine
 with one (and without JAX, which tests/conftest.py imports):
@@ -331,3 +331,109 @@ def test_tiny_rung_run_on_gpu_matches_cpu(cuda, tmp_path):
                     if "Rung population" in line]
 
     assert pops("gpu") == pops("cpu") and len(pops("gpu")) == cfg.n_steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("box", [0.0, 30.0])
+@pytest.mark.parametrize("n", [2, 7, 3001])
+def test_k7_matches_plain(cuda, dtype, box, n):
+    """allpairs_pallas (acc, phi) in both instantiations against the
+    float64 plain version; the last source tile is cut, not padded."""
+    from nbody_torch.forces.pallas_pp import allpairs_pallas, pp_block_plain
+
+    pos, mass = _particles(n, 100.0, cuda, seed=n)
+    pos, mass = pos.to(dtype), mass.to(dtype)
+    before = allpairs_pallas.launches
+    acc, phi = allpairs_pallas(pos, mass, 0.3, 2.0, box=box)
+    torch.cuda.synchronize()
+    assert allpairs_pallas.launches == before + 1
+    assert acc.dtype == phi.dtype == dtype and acc.shape == (n, 3)
+    raw, pot = pp_block_plain(pos.double(), pos.double(), mass.double(), 0.3,
+                              box)
+    ref_phi = -2.0 * (pot - mass.double() / 0.3)
+    tol = K1_REL_L2_TOL if dtype == torch.float32 else 1e-12
+    assert float((acc.double() - 2.0 * raw).norm() / (2.0 * raw).norm()) <= tol
+    assert float((phi.double() - ref_phi).norm() / ref_phi.norm()) <= tol
+
+
+def test_k7_block_acc_matches_plain(cuda):
+    from nbody_torch.forces.pallas_pp import block_acc_pallas, pp_block_plain
+
+    ti, _ = _particles(300, 10.0, cuda, seed=1)
+    tj, mj = _particles(1000, 10.0, cuda, seed=2)
+    before = block_acc_pallas.launches
+    acc, pot = block_acc_pallas(ti, tj, mj, 0.1)
+    torch.cuda.synchronize()
+    assert block_acc_pallas.launches == before + 1
+    ref = pp_block_plain(ti.double(), tj.double(), mj.double(), 0.1)
+    for got, want in zip((acc, pot), ref):
+        assert float((got.double() - want).norm() / want.norm()) <= K1_REL_L2_TOL
+
+
+def test_k7_wrapper_rejects(cuda):
+    from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
+
+    pos, mass = _particles(64, 5.0, cuda)
+    with pytest.raises(TypeError):
+        allpairs_pallas(pos.half(), mass.half(), 0.1)
+    with pytest.raises(TypeError):
+        block_acc_pallas(pos, pos.double(), mass, 0.1)
+    with pytest.raises(ValueError):
+        allpairs_pallas(pos.T.contiguous().T, mass, 0.1)
+    with pytest.raises(ValueError):
+        allpairs_pallas(pos, mass[:10], 0.1)
+    with pytest.raises(ValueError):
+        block_acc_pallas(pos, pos, mass, 0.1, box=-1.0)
+
+
+def test_newtonian_drive_on_gpu_matches_cpu(cuda):
+    """run_with_diagnostics on plummer(512) through K7 against the same
+    drive through the plain version on the CPU (float32 both)."""
+    from nbody_torch.forces.pallas_pp import allpairs_pallas
+    from nbody_torch.ic import systems
+    from nbody_torch.integrate.leapfrog import run_with_diagnostics
+
+    def acc_fn(p, m):
+        return allpairs_pallas(p, m, eps=0.05)
+
+    st = systems.plummer(512, seed=3)
+    gpu = run_with_diagnostics(st, 1e-3, 40, acc_fn, diag_every=10)
+    cpu = run_with_diagnostics(st.to("cpu"), 1e-3, 40, acc_fn, diag_every=10)
+    assert float((gpu[0].pos.cpu() - cpu[0].pos).abs().max()) < 1e-5
+    eg = (gpu[2].e_kin + gpu[2].e_pot).cpu()
+    ec = cpu[2].e_kin + cpu[2].e_pot
+    assert float((eg - ec).abs().max() / ec.abs().max()) < 1e-5
+
+
+def test_tiny_pp_run_on_gpu_matches_cpu(cuda, tmp_path):
+    """The Ewald PP solver through run_simulation: K1 launched once per
+    evaluation, the same run on the CPU (float32 both)."""
+    cfg = SimulationConfig(n_side=8, box=200.0, solver="pp", pm_grid=16,
+                           n_steps=4, output=OutputConfig(snapshot=False,
+                                                          powerspec_bins=8))
+    before = p3m_short_acc.launches
+    gpu = run_simulation(cfg, 0, str(tmp_path / "gpu"), device=cuda)
+    assert p3m_short_acc.launches == before + cfg.n_steps + 1
+    cpu = run_simulation(cfg, 0, str(tmp_path / "cpu"), device="cpu")
+    d = gpu.state.pos.cpu().double() - cpu.state.pos.double()
+    d -= cfg.box * torch.round(d / cfg.box)
+    assert float(d.abs().max()) < 1e-4 * cfg.box
+
+
+def test_adaptive_kepler_on_gpu_matches_cpu(cuda):
+    """run_adaptive on the e = 0.7 Kepler orbit through the float64 K7
+    against the same run through the plain version on the CPU."""
+    from nbody_torch.core import units
+    from nbody_torch.forces.pallas_pp import allpairs_pallas
+    from nbody_torch.ic import systems
+    from nbody_torch.integrate.adaptive import run_adaptive
+
+    def acc_fn(p, m):
+        return allpairs_pallas(p, m, 1e-4, units.SOLAR.G)
+
+    st = systems.two_body(e=0.7)
+    gpu = run_adaptive(st, 1.0, acc_fn, eps=1e-2, eta=0.05)
+    cpu = run_adaptive(st.to("cpu"), 1.0, acc_fn, eps=1e-2, eta=0.05)
+    assert int(gpu.n_steps) == int(cpu.n_steps) > 100
+    assert float(gpu.state.time) == 1.0
+    assert float((gpu.state.pos.cpu() - cpu.state.pos).abs().max()) < 1e-9

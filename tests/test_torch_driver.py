@@ -1,5 +1,5 @@
 """The torch port's whole slice against the JAX package, on the CPU:
-``run_simulation`` for the pm and p3m solvers from one float64 initial
+``run_simulation`` for the pm, p3m and pp solvers from one float64 initial
 state, the config JSON, the I/O formats, the energy diagnostics and the
 paths that are not ported yet."""
 
@@ -52,7 +52,7 @@ def _initial_state64(jcfg, seed=0):
     return JState.create(*arrays, dtype=jnp.float64), arrays
 
 
-@pytest.mark.parametrize("solver", ["pm", "p3m"])
+@pytest.mark.parametrize("solver", ["pm", "p3m", "pp"])
 def test_run_simulation_matches_jax(solver, tmp_path):
     """The whole slice: ICs in, final state, P(k) files at both output
     times, energy samples and run.log lines out."""
@@ -105,7 +105,7 @@ def test_config_json_round_trips_across_packages(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(solver="pp"), "pp"),
+    (dict(solver="pp", devices=2), "pp"),
     (dict(subcycles=2), "subcycles"),
     pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64),
                  "rungs", id="change2-rungs"),
