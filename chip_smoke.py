@@ -64,15 +64,23 @@ script exits non-zero:
     energy and momentum series, then the Plummer drive at N = 262,144
     (``run_with_diagnostics``, 250 steps, dt 1e-3, eps 0.05) with its
     energy and momentum gates, K7's launch count, steps/s and
-    interactions/s.
+    interactions/s;
+18. K8 (the Gram-form all-pairs kernel, ``allpairs_pallas_mxu``) against
+    its float64 plain version at N = 200, 1,500 and 32,768, sorted and
+    unsorted, and its wrapper's refusals; at the JAX package's own bench
+    conditions (``scripts/exp_mxu.py``: N = 2^18 uniform in a 500 box) its
+    launch's and its function's time beside K7's, and its error against
+    K7's float64 form at 2^15 and 2^18; then the Plummer drive of [17]
+    with K8 as its force (251 K8 launches, no other kernel).
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11 and 15, and each kernel's bound: the larger of the
-bytes the function needs over the card's memory rate and its operations
-over its float32 rate); then the card's name and power limit; the last
-line is ``{"ok": true, "device": {...}}``.  Run outputs go to
+from phases 3, 7, 11, 15 and 18, and each kernel's bound: the larger of
+the bytes the function needs over the card's memory rate and its
+operations over its float32 rate, for K8 its rsqrts over the SFU's rate
+and its TF32 products over the tensor cores'); then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.  Run outputs go to
 ``output/chip_smoke/`` (git-ignored).
 """
 
@@ -161,10 +169,29 @@ MOMENTUM_TOL = 1e-6
 SERIES_E_TOL = 1e-5
 SERIES_P_TOL = 1e-7
 
+# [18] K8 against float64: the JAX package's float32 envelope for this
+# kernel (tests/test_forces.py::test_mxu_matches_exact_kernel_f32), per
+# particle relative force error: the median below 1e-4 (the 3xTF32 Gram
+# r^2 keeps ~22 bits, and a typical particle reads ~1e-6) and the largest
+# below 1e-2 (a pair much closer together than to its tile centre is where
+# the Gram form loses accuracy); a one-pass TF32 Gram reads a median above
+# the limit (tests/test_torch_mxu.py plants one); E_pot, a sum of positive
+# terms, to 1e-5
+K8_MEDIAN_TOL = 1e-4
+K8_MAX_TOL = 1e-2
+K8_EPOT_TOL = 1e-5
+# [18] the Plummer drive through K8: |dE/E| < 1e-4 over the run, the
+# repo's energy contract (BASELINE.json); the momentum limit is [17]'s
+K8_DRIFT_TOL = 1e-4
+
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
-# 700 W limit): float32 outside the tensor cores and device memory.
+# 700 W limit): float32 outside the tensor cores, TF32 on the tensor
+# cores and device memory; and the SFU's rsqrt rate of sm_90 (the CUDA
+# programming guide's throughput table), scaled by the SM clock.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+RSQRT_PER_CLOCK_SM = 16
 # float32 operations per source visit, as the kernels are written (an FMA
 # counts 2): K1 3 differences + 3 minimum images (multiply, round, FMA)
 # + r^2 (5) + the cutoff test (2); the column kernels the same without
@@ -175,6 +202,9 @@ FLOPS_VISIT_COLUMNS = 10
 FLOPS_INSIDE = 40
 # K7: the JAX package's cost estimate for one pair (pallas_pp.py:136)
 FLOPS_PAIR_K7 = 20
+# K8's Gram r^2 on the tensor cores: two m16n8k8 products (2 x 1,024
+# multiply-adds) for each 16 x 8 block of pairs
+FLOPS_PAIR_K8_TC = 32
 # K2: the coordinates (3 x multiply, 2 subtractions), floors and
 # fractions, and 8 corner weights and adds
 FLOPS_DEPOSIT = 50
@@ -971,6 +1001,7 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
 
 
 def _wrappers() -> dict:
+    from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
     from nbody_torch.forces.p3m import p3m_short_acc, run_cell_plane
     from nbody_torch.forces.p3m_columns import (
@@ -985,7 +1016,8 @@ def _wrappers() -> dict:
     return {"K1": p3m_short_acc, "K2": supercell_deposit_from_plane,
             "K3": run_fused_column_plane, "K4": run_column_plane,
             "K5": run_column_plane_masked, "K6": run_cell_plane,
-            "K7": allpairs_pallas, "K7b": block_acc_pallas}
+            "K7": allpairs_pallas, "K7b": block_acc_pallas,
+            "K8": allpairs_pallas_mxu}
 
 
 def zero_launches(**counts) -> dict:
@@ -1331,12 +1363,50 @@ def ewald_check(noise, n_side: int = 32) -> int:
     return counts["K1"]
 
 
-def plummer_drive(n: int, steps: int) -> int:
+def plummer_run(n: int, steps: int, acc_fn) -> dict:
+    """``steps`` steps of run_with_diagnostics on plummer(n) (dt 1e-3, a
+    sample every 25 steps) through ``acc_fn``, with every launch count
+    reset before and read after: wall, steps/s, interactions/s, |dE/E|,
+    |P| / sum m|v|, E0, the launch counts and whether the state is sound."""
+    from nbody_torch.ic import systems
+    from nbody_torch.integrate.leapfrog import run_with_diagnostics
+
+    state = systems.plummer(n, seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, d0, diags = run_with_diagnostics(state, 1e-3, steps, acc_fn,
+                                            diag_every=25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    e = torch.cat([(d0.e_kin + d0.e_pot)[None],
+                   diags.e_kin + diags.e_pot]).double().cpu().numpy()
+    mom = float(diags.momentum.double().abs().max())
+    p_scale = float(torch.sum(final.mass * final.vel.norm(dim=1)))
+    sound = final.pos.shape == (n, 3) and all(
+        bool(torch.isfinite(t).all()) for t in (final.pos, final.vel))
+    return dict(wall=wall, steps_per_s=steps / wall,
+                rate=n * n * (steps + 1) / wall,
+                drift=float(np.abs(e - e[0]).max() / abs(e[0])),
+                mom=mom / p_scale, e0=float(e[0]), samples=len(e),
+                counts=counts, sound=sound)
+
+
+def plummer_line(tag: str, n: int, steps: int, run: dict, tol: float) -> str:
+    return (f"{tag} Plummer N={n}: {steps} steps in {run['wall']:.3f} s "
+            f"({run['steps_per_s']:.3f} steps/s, {run['rate']:.4e} "
+            f"interactions/s); |dE/E| {run['drift']:.3e} over "
+            f"{run['samples']} samples (tol {tol:g}); max |P| / sum m|v| "
+            f"{run['mom']:.3e} (tol {MOMENTUM_TOL:g}); E0 {run['e0']:.8f}; "
+            f"launches {run['counts']}")
+
+
+def plummer_drive(n: int, steps: int) -> dict:
     """[17] plummer(4096) over 200 steps against the JAX package's
     committed energy and momentum series; then the Plummer drive at N
-    particles, ``steps`` steps of run_with_diagnostics (dt 1e-3, eps 0.05,
-    a sample every 25 steps) with every launch count reset before and
-    read after.  Returns K7's launches in that drive."""
+    particles through K7 (:func:`plummer_run`, eps 0.05).  Returns that
+    run's numbers."""
     from nbody_torch.forces.pallas_pp import allpairs_pallas
     from nbody_torch.ic import systems
     from nbody_torch.integrate.leapfrog import run_with_diagnostics
@@ -1363,34 +1433,156 @@ def plummer_drive(n: int, steps: int) -> int:
         raise AssertionError(f"[17] the plummer(4096) series differs: "
                              f"{e_err}, {p_err}")
 
-    state = systems.plummer(n, seed=0)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    final, d0, diags = run_with_diagnostics(state, 1e-3, steps, acc_fn,
-                                            diag_every=25)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_launches()
-    e = torch.cat([(d0.e_kin + d0.e_pot)[None],
-                   diags.e_kin + diags.e_pot]).double().cpu().numpy()
-    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
-    mom = float(diags.momentum.double().abs().max())
-    p_scale = float(torch.sum(final.mass * final.vel.norm(dim=1)))
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (final.pos, final.vel))
-    phase(f"[17] Plummer N={n}: {steps} steps in {wall:.3f} s "
-          f"({steps / wall:.3f} steps/s, {n * n * (steps + 1) / wall:.4e} "
-          f"interactions/s); |dE/E| {drift:.3e} over {len(e)} samples (tol "
-          f"{PLUMMER_DRIFT_TOL:g}); max |P| / sum m|v| {mom / p_scale:.3e} "
-          f"(tol {MOMENTUM_TOL:g}); E0 {e[0]:.8f}; launches {counts}")
+    run = plummer_run(n, steps, acc_fn)
+    phase(plummer_line("[17]", n, steps, run, PLUMMER_DRIFT_TOL))
     want = zero_launches(K7=steps + 1, K7b=steps + 1)
-    if counts != want or not finite or final.pos.shape != (n, 3):
-        raise AssertionError(f"[17] launches {counts}, expected {want}; "
-                             f"finite {finite}")
-    if not (drift < PLUMMER_DRIFT_TOL and mom / p_scale < MOMENTUM_TOL):
-        raise AssertionError(f"[17] |dE/E| {drift}, |P| {mom}")
-    return counts["K7"]
+    if run["counts"] != want or not run["sound"]:
+        raise AssertionError(f"[17] launches {run['counts']}, expected "
+                             f"{want}; sound {run['sound']}")
+    if not (run["drift"] < PLUMMER_DRIFT_TOL and run["mom"] < MOMENTUM_TOL):
+        raise AssertionError(f"[17] |dE/E| {run['drift']}, |P| {run['mom']}")
+    return run
+
+
+def k8_errors(acc, phi, mass, ref, ref_phi):
+    """(median and largest per-particle relative force error, relative
+    E_pot error) of K8's float32 output against float64 references."""
+    err = (acc.double() - ref).norm(dim=1) / ref.norm(dim=1)
+    e_pot = float(torch.sum(mass.double() * phi.double()))
+    e_ref = float(torch.sum(mass.double() * ref_phi))
+    return float(err.median()), float(err.max()), abs(e_pot / e_ref - 1.0)
+
+
+def k8_gate(tag: str, med: float, worst: float, e_err: float) -> str:
+    if not (med < K8_MEDIAN_TOL and worst < K8_MAX_TOL
+            and e_err <= K8_EPOT_TOL):
+        raise AssertionError(f"{tag}: median {med}, max {worst}, E_pot "
+                             f"{e_err}")
+    return (f"force error median {med:.3e} (tol {K8_MEDIAN_TOL:g}), max "
+            f"{worst:.3e} (tol {K8_MAX_TOL:g}); E_pot {e_err:.3e} (tol "
+            f"{K8_EPOT_TOL:g})")
+
+
+def mxu_kernel_check(sizes=(200, 1500, 32768)) -> None:
+    """[18] K8 against its float64 plain version, uniform in a 500 box with
+    eps 0.5 and unit masses (the JAX package's envelope shape), sorted and
+    unsorted; its wrapper refuses eps = 0, float64 and non-contiguous
+    positions without launching."""
+    from nbody_torch.forces.pallas_mxu import (
+        allpairs_pallas_mxu,
+        gram_allpairs_plain,
+    )
+
+    eps = 0.5
+    for n in sizes:
+        rng = np.random.default_rng(n)
+        pos = torch.tensor(rng.uniform(0, 500.0, (n, 3)),
+                           dtype=torch.float32, device="cuda")
+        mass = torch.ones(n, device="cuda")
+        for sort in (True, False):
+            acc, phi = allpairs_pallas_mxu(pos, mass, eps, sort=sort)
+            torch.cuda.synchronize()
+            ref, ref_phi = gram_allpairs_plain(pos.double(), mass.double(),
+                                               eps, sort=sort)
+            tag = f"[18] K8 N={n} sort={sort}"
+            phase(f"{tag} vs float64: "
+                  + k8_gate(tag, *k8_errors(acc, phi, mass, ref, ref_phi)))
+    before = allpairs_pallas_mxu.launches
+    bad = {"eps = 0": lambda: allpairs_pallas_mxu(pos, mass, 0.0),
+           "float64": lambda: allpairs_pallas_mxu(pos.double(), mass.double(),
+                                                  eps),
+           "non-contiguous": lambda: allpairs_pallas_mxu(
+               pos.T.contiguous().T, mass, eps)}
+    for what, fn in bad.items():
+        try:
+            fn()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError(f"[18] K8's wrapper accepted: {what}")
+    if allpairs_pallas_mxu.launches != before:
+        raise AssertionError("[18] a refused call launched K8")
+    phase(f"[18] K8's wrapper refuses: {', '.join(bad)}")
+
+
+def mxu_bench(n: int) -> dict:
+    """[18] K8 at the JAX package's bench conditions (scripts/exp_mxu.py:
+    N uniform in a 500 box, eps 0.03 * 500 / 64, default_rng(7), unit
+    masses, default tiles): its error against K7's float64 form at 2^15
+    (exp_mxu's check) and at N; the launch's time (CUDA events around the
+    launch alone), the whole function's (sort and scatter included), K7's
+    on the same positions and the plain version's; and the bound.  Returns
+    K8's row."""
+    from nbody_torch.forces import pallas_mxu as mx
+    from nbody_torch.forces.pallas_pp import allpairs_pallas
+
+    box = 500.0
+    eps = 0.03 * box / round(n ** (1 / 3))
+    rng = np.random.default_rng(7)
+    pos = torch.tensor(rng.uniform(0, box, (n, 3)), dtype=torch.float32,
+                       device="cuda")
+    mass = torch.ones(n, device="cuda")
+    for m in (1 << 15, n):
+        p, pm = pos[:m].contiguous(), mass[:m]
+        acc, phi = mx.allpairs_pallas_mxu(p, pm, eps)
+        ref, ref_phi = allpairs_pallas(p.double(), pm.double(), eps)
+        torch.cuda.synchronize()
+        tag = f"[18] K8 N={m} (exp_mxu)"
+        phase(f"{tag} vs K7 float64: "
+              + k8_gate(tag, *k8_errors(acc, phi, pm, ref, ref_phi)))
+    err = max(max_abs(acc, ref), max_abs(phi, ref_phi))
+    del ref, ref_phi
+
+    _, pos_s, mass_s, ctr = mx._sorted_tiles(pos, mass, 256, 1024, True, 6)
+    pos4 = torch.cat([pos_s, mass_s[:, None]], dim=1)
+    ms = cuda_time_ms(lambda: mx._launch(pos4, ctr, 256, eps), 10)
+    fn_ms = cuda_time_ms(lambda: mx.allpairs_pallas_mxu(pos, mass, eps), 10)
+    k7_ms = cuda_time_ms(lambda: allpairs_pallas(pos, mass, eps), 10)
+    plain_ms = cuda_time_ms(lambda: mx.gram_allpairs_plain(pos, mass, eps), 1,
+                            warm=False)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pairs = pos4.shape[0] ** 2
+    t_sfu = pairs / (RSQRT_PER_CLOCK_SM * sms * clock_mhz * 1e6) * 1e3
+    t_tc = FLOPS_PAIR_K8_TC * pairs / PEAK_TF32_FLOPS * 1e3
+    # x, y, z and m of each particle read once, four sums written for each
+    t_bytes = 32 * n / PEAK_BYTES_PER_S * 1e3
+    b_ms = max(t_sfu, t_tc, t_bytes)
+    b_by = "bytes" if b_ms == t_bytes else "operations"
+    phase(f"[18] K8 at N={n} (exp_mxu, eps {eps:g}): launch {ms:.4f} ms "
+          f"({n * n / ms * 1e3:.4e} interactions/s), the function "
+          f"{fn_ms:.4f} ms ({n * n / fn_ms * 1e3:.4e}/s); K7 {k7_ms:.4f} ms "
+          f"({n * n / k7_ms * 1e3:.4e}/s); plain f32 {plain_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}: rsqrt on the SFU {t_sfu:.4f} ms at "
+          f"{clock_mhz:g} MHz x {sms} SMs, TF32 products {t_tc:.4f} ms, "
+          f"bytes {t_bytes:.4f} ms); max abs error vs float64 {err:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def mxu_drive(n: int, steps: int, k7_run: dict) -> int:
+    """[18] the Plummer drive of [17] with K8 as its force (the JAX
+    package's ForceFn contract, eps 0.05).  Returns K8's launches."""
+    from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
+
+    def acc_fn(p, m):
+        return allpairs_pallas_mxu(p, m, eps=0.05)
+
+    run = plummer_run(n, steps, acc_fn)
+    phase(plummer_line("[18] K8", n, steps, run, K8_DRIFT_TOL))
+    phase(f"[18] beside K7's [17] drive: {run['steps_per_s']:.3f} vs "
+          f"{k7_run['steps_per_s']:.3f} steps/s, {run['rate']:.4e} vs "
+          f"{k7_run['rate']:.4e} interactions/s, |dE/E| {run['drift']:.3e} "
+          f"vs {k7_run['drift']:.3e}")
+    want = zero_launches(K8=steps + 1)
+    if run["counts"] != want or not run["sound"]:
+        raise AssertionError(f"[18] launches {run['counts']}, expected "
+                             f"{want}; sound {run['sound']}")
+    if not (run["drift"] < K8_DRIFT_TOL and run["mom"] < MOMENTUM_TOL):
+        raise AssertionError(f"[18] |dE/E| {run['drift']}, |P| {run['mom']}")
+    return run["counts"]["K8"]
 
 
 def main() -> None:
@@ -1692,7 +1884,13 @@ def main() -> None:
     ewald_check(noise)
 
     # -- 17. the Plummer drive at N = 262,144 through K7 ------------------
-    k7_launches = plummer_drive(PLUMMER_N, 250)
+    k7_run = plummer_drive(PLUMMER_N, 250)
+    k7_launches = k7_run["counts"]["K7"]
+
+    # -- 18. K8 against its plain version, at exp_mxu's shape, the drive --
+    mxu_kernel_check()
+    kernels["K8"] = mxu_bench(PLUMMER_N)
+    k8_launches = mxu_drive(PLUMMER_N, 250, k7_run)
 
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
@@ -1727,6 +1925,10 @@ def main() -> None:
                      "replaces": replaces,
                      "launches": launch_counts["plummer"][key],
                      **kernels[key]})
+    rows.append({"name": "allpairs_pallas_mxu", "route": "cuda",
+                 "source": "nbody_torch/forces/csrc/pp_gram.cu",
+                 "replaces": "nbody/forces/pallas_mxu.py:176",
+                 "launches": k8_launches, **kernels["K8"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,7 @@ _ENTRY_POINTS = {
     "pm_supercell_fused_f32": "ppppiiiiidiiiiidddiipp",
     "pp_allpairs_f32": "pippiddpp",
     "pp_allpairs_f64": "pippiddpp",
+    "pp_gram_f32": "ppiiddpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 

@@ -28,8 +28,9 @@ class GRFSpec:
 
 
 def white_noise_k(nmesh: int, generator: torch.Generator | None = None, *,
-                  noise=None, device=None, dtype=torch.float32):
-    """rfftn of unit real white noise: Hermitian, <|w_k|^2> = N^3.
+                  noise=None, device="cuda", dtype=torch.float32):
+    """rfftn of unit real white noise: Hermitian, <|w_k|^2> = N^3, on
+    ``device`` (the card unless the caller asks for the CPU).
 
     The noise is drawn in float64 on the generator's device and cast, so
     one seed gives the same field (to the dtype's rounding) for every
@@ -48,10 +49,11 @@ def white_noise_k(nmesh: int, generator: torch.Generator | None = None, *,
 
 def gaussian_delta_k(spec: GRFSpec, power: Callable, amplitude: float = 1.0,
                      generator: torch.Generator | None = None, *, noise=None,
-                     device=None, dtype=torch.float32):
+                     device="cuda", dtype=torch.float32):
     """delta(k) on the rfft grid for the isotropic spectrum ``power(k)``
     (host numpy callable, k in 1/length -> P in length^3), in the 'grid'
-    measurement convention (or 'fac').  ``amplitude`` multiplies P(k)."""
+    measurement convention (or 'fac'), on ``device``.  ``amplitude``
+    multiplies P(k)."""
     nmesh, box = spec.nmesh, spec.box
     wk = white_noise_k(nmesh, generator, noise=noise, device=device,
                        dtype=dtype)

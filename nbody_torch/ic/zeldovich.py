@@ -61,10 +61,11 @@ def lpt_ic(
     generator: torch.Generator | None = None,
     *,
     noise=None,
-    device=None,
+    device="cuda",
     dtype=torch.float32,
 ) -> ParticleState:
-    """Cosmological ICs: lattice + LPT displacement at scale factor a_init.
+    """Cosmological ICs: lattice + LPT displacement at scale factor a_init,
+    on ``device`` (the card unless the caller asks for the CPU).
 
     ``power``: linear P(k) at a = 1 (host numpy callable), scaled here by
     D(a_init).  ``order``: 1 (Zel'dovich) or 2 (2LPT).  The white noise

@@ -1,4 +1,4 @@
-"""The torch port's CUDA kernels on the card: K1-K7 against their plain
+"""The torch port's CUDA kernels on the card: K1-K8 against their plain
 versions, their wrappers' checks and launch counts, and tiny runs on the
 GPU against the same runs on the CPU.  Skipped without a GPU.  On a machine
 with one (and without JAX, which tests/conftest.py imports):
@@ -437,3 +437,57 @@ def test_adaptive_kepler_on_gpu_matches_cpu(cuda):
     assert int(gpu.n_steps) == int(cpu.n_steps) > 100
     assert float(gpu.state.time) == 1.0
     assert float((gpu.state.pos.cpu() - cpu.state.pos).abs().max()) < 1e-9
+
+
+# K8 against the float64 plain version: the JAX package's float32
+# envelope for this kernel (tests/test_forces.py), per-particle relative
+# force error, and E_pot to 1e-5 (see chip_smoke.py)
+K8_MEDIAN_TOL, K8_MAX_TOL, K8_EPOT_TOL = 1e-4, 1e-2, 1e-5
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("n", [1500, 32768])
+def test_k8_matches_plain(cuda, n, sort):
+    """allpairs_pallas_mxu uniform in a 500 box (eps 0.5, unit masses)
+    against its float64 plain version; N = 1,500 is ragged against the
+    tiles."""
+    from nbody_torch.forces.pallas_mxu import (
+        allpairs_pallas_mxu,
+        gram_allpairs_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    pos = torch.tensor(rng.uniform(0, 500.0, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    mass = torch.ones(n, device=cuda)
+    before = allpairs_pallas_mxu.launches
+    acc, phi = allpairs_pallas_mxu(pos, mass, 0.5, sort=sort)
+    torch.cuda.synchronize()
+    assert allpairs_pallas_mxu.launches == before + 1
+    assert acc.dtype == phi.dtype == torch.float32 and acc.shape == (n, 3)
+    ref, ref_phi = gram_allpairs_plain(pos.double(), mass.double(), 0.5,
+                                       sort=sort)
+    err = (acc.double() - ref).norm(dim=1) / ref.norm(dim=1)
+    assert float(err.median()) < K8_MEDIAN_TOL
+    assert float(err.max()) < K8_MAX_TOL
+    e_pot, e_ref = float(torch.sum(phi.double())), float(torch.sum(ref_phi))
+    assert abs(e_pot / e_ref - 1.0) <= K8_EPOT_TOL
+
+
+def test_k8_wrapper_rejects(cuda):
+    from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
+
+    pos, mass = _particles(256, 5.0, cuda)
+    before = allpairs_pallas_mxu.launches
+    with pytest.raises(TypeError):
+        allpairs_pallas_mxu(pos.double(), mass.double(), 0.1)
+    with pytest.raises(ValueError):
+        allpairs_pallas_mxu(pos, mass, 0.0)
+    with pytest.raises(ValueError):
+        allpairs_pallas_mxu(pos.T.contiguous().T, mass, 0.1)
+    with pytest.raises(ValueError):
+        allpairs_pallas_mxu(pos, mass, 0.1, ti=192)
+    assert allpairs_pallas_mxu.launches == before
+    for _ in range(3):
+        allpairs_pallas_mxu(pos, mass, 0.1)
+    assert allpairs_pallas_mxu.launches == before + 3

@@ -7,6 +7,8 @@ to the port.  The JAX ICs are float32 whatever the x64 setting (its noise
 is drawn in float32), so the IC tolerances are float32's.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +76,8 @@ def test_gaussian_delta_k_from_noise():
     want = j_gdk(key, JSpec(nmesh=n, box=box), lambda k: jc.linear_power(k))
     got = gaussian_delta_k(TSpec(nmesh=n, box=box),
                            lambda k: TCosmology().linear_power(k),
-                           noise=_jax_noise(key, n), dtype=torch.float64)
+                           noise=_jax_noise(key, n), dtype=torch.float64,
+                           device="cpu")
     want = np.asarray(want)
     # float32 noise and float32 JAX arithmetic on its side
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -90,7 +93,7 @@ def test_lpt_ic_from_jax_noise(order):
                     lambda k: jc.linear_power(k), jc, a0, order=order)
     got = t_lpt_ic(TSpec(nmesh=n, box=box), lambda k: tc.linear_power(k), tc,
                    a0, order=order, noise=_jax_noise(key, n),
-                   dtype=torch.float64)
+                   dtype=torch.float64, device="cpu")
     d = got.pos.numpy() - np.asarray(want.pos)
     d -= box * np.round(d / box)
     # float32 positions of magnitude box carry ~box * 6e-8 rounding
@@ -102,15 +105,25 @@ def test_lpt_ic_from_jax_noise(order):
     assert float(got.time) == pytest.approx(a0)
 
 
+@pytest.mark.parametrize("fn", [white_noise_k, gaussian_delta_k, t_lpt_ic])
+def test_ic_entry_points_default_to_the_card(fn):
+    """As the JAX functions run on the default device, the port's IC entry
+    points build on the card unless the caller asks for the CPU (read from
+    the signature: nothing is allocated on a card here)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_white_noise_from_generator_is_reproducible():
     """One seed, one field: a CPU generator draws the same noise for every
     dtype, so float32 and float64 runs of a seed start alike."""
-    w64 = white_noise_k(8, torch.Generator().manual_seed(5), dtype=torch.float64)
-    w32 = white_noise_k(8, torch.Generator().manual_seed(5), dtype=torch.float32)
+    w64 = white_noise_k(8, torch.Generator().manual_seed(5), device="cpu",
+                        dtype=torch.float64)
+    w32 = white_noise_k(8, torch.Generator().manual_seed(5), device="cpu",
+                        dtype=torch.float32)
     assert w64.dtype == torch.complex128 and w32.dtype == torch.complex64
     np.testing.assert_allclose(w32.numpy(), w64.numpy(), rtol=0, atol=1e-4)
     with pytest.raises(ValueError):
-        white_noise_k(8, noise=np.zeros((8, 8, 4)))
+        white_noise_k(8, noise=np.zeros((8, 8, 4)), device="cpu")
 
 
 def test_tabulated_power_spectrum(tmp_path):
