@@ -73,10 +73,29 @@ script exits non-zero:
     K7's float64 form at 2^15 and 2^18; then the Plummer drive of [17]
     with K8 as its force (251 K8 launches, no other kernel).
 
+19. the slab domain decomposition, four shards on the one card: (a) the
+    slab sites of K2 (its haloed slab after the halo exchange, with a
+    planted unsent halo plane that must fail the check), K3 (plain,
+    interlaced, split_out) and K4 on every shard's plane of the cfg64
+    ICs, and K6 on the 32^3 ICs, each at the domain driver's geometry,
+    against their plain versions; (b) the domain force of the supercell,
+    columns and cells tiers against the single-device force of the same
+    tier, per particle within the JAX package's limits; (c) cfg64 (the
+    supercell tier), cfg64 with ``shortrange='columns'`` and the default
+    32^3 config (the cells tier) with ``devices=4`` through
+    ``run_simulation`` with no device argument: the slab sites' launches
+    equal 4 x the force evaluations counted from run.log, and P(k) at
+    a = 1 matches the single-device run of [5] / [9], with wall time,
+    steps/s, heals and peak device memory beside the single-device run's
+    (P(k) in three bands of k, see DOMAIN_PK_BANDS);
+    (d) the 16^3 domain runs (cells on 2 and 4 shards, supercell and
+    columns on 4) from the committed white noise against the JAX
+    package's committed domain P(k).
+
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15 and 18, and each kernel's bound: the larger of
+from phases 3, 7, 11, 15, 18 and 19, and each kernel's bound: the larger of
 the bytes the function needs over the card's memory rate and its
 operations over its float32 rate, for K8 its rsqrts over the SFU's rate
 and its TF32 products over the tensor cores'); then the card's name and
@@ -419,7 +438,7 @@ def driver_plane(state, config, cfg_run, prewarm: bool):
 
 
 def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
-                r_cut: float, targets=None, **_):
+                r_cut: float, targets=None, nx: int | None = None, **_):
     """The work the column pair sum needs, counted on the plane: (the
     source visits, the pairs inside r_cut, the (P^2, stride) bool of the
     plane slots those visits read, the number of targets).  A visit is a
@@ -429,10 +448,12 @@ def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
     restricts the targets (K5: the active particles only).  The kernels
     also visit the rest of each chunk's windows, and targets in the
     padding and ghost slots of a column's last chunk (and K5 the inactive
-    targets of an active chunk); that is not counted."""
+    targets of an active chunk); that is not counted.  ``nx``: a slab
+    plane's interior x-rows (its ghost x-rows are the neighbours')."""
     P = ncell + 2
-    x = plane[:4].reshape(4, P * P, stride)
-    ic = torch.arange(ncell * ncell, device=plane.device)
+    nx = ncell if nx is None else nx
+    x = plane[:4].reshape(4, (nx + 2) * P, stride)
+    ic = torch.arange(nx * ncell, device=plane.device)
     cx, cy = ic // ncell, ic % ncell
     cmax = int(counts.max())
     t = x[:, (cx + 1) * P + (cy + 1), gz:gz + cmax]
@@ -443,7 +464,8 @@ def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
     rc2 = float(r_cut) ** 2
     group = max(1, (1 << 26) // (cmax * stride))
     visits = inside = 0
-    read = torch.zeros((P * P, stride), dtype=torch.bool, device=plane.device)
+    read = torch.zeros(((nx + 2) * P, stride), dtype=torch.bool,
+                       device=plane.device)
     for o2 in range(9):
         scol = (cx + o2 // 3) * P + (cy + o2 % 3)
         src = x[:, scol]
@@ -632,20 +654,23 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
 
 
 def needed_work_cells(plane, counts, K: int, plane_j, counts_j, K_j: int, *,
-                      ncell: int, r_cut: float, **_):
+                      ncell: int, r_cut: float, nx: int | None = None, **_):
     """The work the cell pair sum needs, counted on the planes as
     :func:`needed_work` counts it: (the stored sources of a stored
     target's 27 neighbour cells within +-r_cut of it in z, the pairs among
     them inside r_cut, the distinct particles those visits read (a ghost
     slot is its periodic image's particle), the number of targets).  The
     kernel also visits the sources of the neighbour cells farther than
-    r_cut in z; that is not counted."""
+    r_cut in z; that is not counted.  ``nx``: a slab plane's real
+    x-layers (its ghost x-layers hold the neighbours' particles, no
+    images)."""
     from nbody_torch.forces.p3m import _real_cells
 
     dev = plane.device
     M = ncell + 2
+    nx = ncell if nx is None else nx
     counts, counts_j = counts.to(torch.int64), counts_j.to(torch.int64)
-    cells = _real_cells(ncell, ncell, dev)
+    cells = _real_cells(nx, ncell, dev)
     ci = counts[cells]
     tcell = torch.repeat_interleave(cells, ci)
     first = torch.repeat_interleave(torch.cumsum(ci, 0) - ci, ci)
@@ -658,9 +683,10 @@ def needed_work_cells(plane, counts, K: int, plane_j, counts_j, K_j: int, *,
     visits = inside = 0
     # each padded cell's periodic image among the real cells
     fold = (torch.arange(M, device=dev) - 1) % ncell + 1
-    image = ((fold[:, None, None] * M + fold[None, :, None]) * M
+    fold_x = fold if nx == ncell else torch.arange(nx + 2, device=dev)
+    image = ((fold_x[:, None, None] * M + fold[None, :, None]) * M
              + fold[None, None, :]).reshape(-1)
-    read = torch.zeros(M**3 * kmax, dtype=torch.bool, device=dev)
+    read = torch.zeros((nx + 2) * M * M * kmax, dtype=torch.bool, device=dev)
     for ox in (-1, 0, 1):
         for oy in (-1, 0, 1):
             for oz in (-1, 0, 1):
@@ -998,6 +1024,488 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
         if not (rel <= FORCE_REL_L2_TOL and rel_fr <= FORCE_REL_L2_TOL
                 and int(fz[2]) == 0 and int(fr[2]) == 0):
             raise AssertionError(f"K3 on the frozen plane: {rel}, {rel_fr}")
+
+
+# [19] the slab domain decomposition: four shards on the one card
+DOMAIN_SHARDS = 4
+# the domain force against the single-device force of the same tier, per
+# particle |g - g_ref| / |g_ref|: the JAX package's own limits
+# (tests/test_domain.py:257, :930, :1024), set there on random
+# positions: the median below 1e-5, the largest below 1e-4 (cells,
+# columns) or 2e-4 (supercell).  At the Zel'dovich ICs a particle's force
+# is a near cancellation (the smallest |g| ~1% of the median), and the
+# float32 PM half of the two solves (a slab FFT against cuFFT's 3-D
+# transform) differs by ~1e-5 of the median |g| at every particle, so a
+# few particles read above those limits (the supercell tier's pair sums
+# agree bit for bit).  There the domain force is held, as the tiers are
+# held to each other in [8], to TIER_TOL of the largest |g|, and the JAX
+# limits apply on uniform random positions of the same count.
+DOMAIN_MEDIAN_TOL = 1e-5
+DOMAIN_MAX_TOL = {"cells": 1e-4, "columns": 1e-4, "supercell": 2e-4}
+# the devices=4 runs' P(k) at a = 1 against the single-device run of the
+# same config, bin by bin, in three bands of k / k_Nyq: float32
+# trajectories of the same ICs diverge at small scales: at 64^3 the
+# single-device run against a repeat of itself reads up to 5.5e-4 in the
+# top band (its bins reach the particle grid's own Nyquist scale), 1.6e-4
+# below k_Nyq/4 and 3.7e-5 below k_Nyq/8, the domain runs against one
+# device up to 9.2e-4, 1.5e-4 and 6.3e-5 (this phase and
+# scripts/torch_profile_domain.py on the H100).  A domain fault that
+# loses or misplaces force moves the large scales: particles dropped at
+# the slab cuts (found with this phase, now fixed) read 2.2e-4 - 4.7e-4
+# in the first four bins.
+DOMAIN_PK_BANDS = ((1 / 8, 2e-4), (1 / 4, 1e-3), (1 / 2, 2e-3))
+
+
+def domain_setup(state, config, tier: str):
+    """``state`` decomposed into DOMAIN_SHARDS shards on the card, at the
+    knobs the domain driver starts ``config`` from on ``tier``
+    (``domain_column_knobs``), healed by the driver's own rule
+    (``heal_domain``) until the tier's slab planes drop nothing at
+    ``state``.  Returns (group, geom, shards, ck, cw, run.log lines)."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.distributed.sharding import device_mesh
+    from nbody_torch.driver.simulate import (
+        HEAL_ATTEMPTS,
+        domain_column_knobs,
+        heal_domain,
+    )
+    from nbody_torch.forces.p3m import supercell_ncell
+    from nbody_torch.forces.p3m_columns import column_window, encode_overflow
+
+    D, box = DOMAIN_SHARDS, config.box
+    group = device_mesh(D)
+    geom = td.domain_p3m_geometry(box, config.mesh_size, D,
+                                  config.n_particles,
+                                  bucket_capacity=config.cell_capacity or None)
+    shards = td.domain_decompose(state, group, box,
+                                 td.slab_grid(geom, tier))
+    ck, cw = domain_column_knobs(config, tier, geom)
+    E = max(64, shards[0].pos.shape[0] // 8)
+    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
+    lines = []
+    for _ in range(HEAL_ATTEMPTS):
+        if tier == "cells":
+            ov = max(int(b[1]) for b in td.build_local_plane(
+                pos, mass, box=box, r_cut=geom.r_cut, ncell=geom.ncell,
+                group=group, capacity=geom.bucket_capacity))
+        else:
+            nct = (supercell_ncell(box, config.mesh_size, geom.r_cut)
+                   if tier == "supercell" else geom.ncell)
+            ov = max(int(encode_overflow(b[3], b[4]))
+                     for b in td.build_local_column_plane(
+                         pos, mass, box=box, r_cut=geom.r_cut, ncell=nct,
+                         group=group, col_capacity=ck,
+                         window=cw or column_window(box, geom.r_cut, ck)))
+        if ov == 0:
+            return group, geom, shards, ck, cw, lines
+        geom, ck, cw, E, new = heal_domain(config, tier, geom, ck, cw, E, ov,
+                                           0)
+        lines += new
+    raise AssertionError(f"the slab planes still overflow: {lines}")
+
+
+def _mean_ms(fns, reps: int) -> float:
+    """Device time of one call, averaged over calling every fn of ``fns``
+    (one a shard) ``reps`` times."""
+    return cuda_time_ms(lambda: [f() for f in fns], reps) / len(fns)
+
+
+def _slab_row(errs, ms, plain_ms, nbytes, flops, D, lib_ms=None) -> dict:
+    """A kernel row of a slab site: times per launch (the mean over the
+    shards' launches), its bound the mean of the shards' bounds."""
+    b_ms, b_by = bound(nbytes / D, flops / D)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def slab_supercell_check(state, config) -> dict:
+    """[19](a) K2's and K3's slab sites on every shard's local column plane
+    at the domain driver's supercell geometry: K2 against its float32
+    plain version after the halo exchange (and a right halo plane left
+    unsent, which must fail the same check), K3 plain, interlaced and
+    split_out against its float64 plain version on the slab's haloed
+    force grids (slices of the whole box's solve: the slab solve's
+    values).  Returns the two rows for the JSON line."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import supercell_ncell
+    from nbody_torch.forces.p3m_columns import column_window, plane_geometry
+    from nbody_torch.forces.pm import pm_module
+    from nbody_torch.forces.pm_supercell import (
+        deposit_node_masses_plain,
+        extract_local_subgrids,
+        fold_slab_node_masses,
+        fused_column_plane_plain,
+        run_fused_column_plane,
+        slab_halo_fold,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+
+    group, geom, shards, ck, cw, lines = domain_setup(state, config,
+                                                      "supercell")
+    D, box, nmesh = group.size, config.box, config.mesh_size
+    sc = supercell_ncell(box, nmesh, geom.r_cut)
+    S, ZP = supercell_geometry(nmesh, sc)
+    nx = sc // D
+    CK, gz, stride, W, maxch, chunk = plane_geometry(
+        box, geom.r_cut, ck, cw or column_window(box, geom.r_cut, ck))
+    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
+    built = td.build_local_column_plane(
+        pos, mass, box=box, r_cut=geom.r_cut, ncell=sc, group=group,
+        col_capacity=CK, window=W, chunk=chunk)
+    planes = [b[0] for b in built]
+    counts = [b[6] for b in built]
+    rows0 = [d * nx for d in range(D)]
+    phase(f"[19] supercell slab planes: {D} shards of {nx} x {sc} columns, "
+          f"capacity {CK}, window {W}, stride {stride}, chunk {chunk}"
+          + "".join(f"; {x}" for x in lines))
+    dkw = dict(box=box, nmesh=nmesh, ncell=sc, stride=stride, gz=gz,
+               chunk=chunk, nx=nx)
+    pkw = dict(ncell=sc, S=S, ZP=ZP, stride=stride, gz=gz,
+               scale=nmesh / box, nx=nx)
+
+    def plain_ext(p, c, r0, shift):
+        return fold_slab_node_masses(
+            deposit_node_masses_plain(p, c, shift=shift, row0=r0, **pkw),
+            nx=nx, ncell=sc, S=S, ZP=ZP, nmesh=nmesh)
+
+    k2_errs = []
+    for shift in (0.0, 0.5):
+        exts = [supercell_deposit_from_plane(p, c, shift=shift, row0=r0,
+                                             **dkw)
+                for p, c, r0 in zip(planes, counts, rows0)]
+        torch.cuda.synchronize()
+        got = torch.cat(slab_halo_fold(exts, group))
+        ref = torch.cat(slab_halo_fold(
+            [plain_ext(p, c, r0, shift)
+             for p, c, r0 in zip(planes, counts, rows0)], group))
+        scale_m = float(ref.abs().max())
+        err = max_abs(got, ref) / scale_m
+        unsent = [e.clone() for e in exts]
+        for e in unsent:
+            e[-2] = 0.0  # node nml deposited, never sent to the right
+        bad = max_abs(torch.cat(slab_halo_fold(unsent, group)), ref) / scale_m
+        phase(f"[19] K2 slab shift {shift}: max |node - plain f32| / max "
+              f"{err:.3e} (tol {NODE_MASS_TOL:g}); planted unsent halo plane "
+              f"{bad:.3e} (must exceed the tol); mass {float(got.sum()):.6e} "
+              f"of {float(sum(m.sum() for m in mass)):.6e}")
+        if not err <= NODE_MASS_TOL:
+            raise AssertionError(f"K2 slab disagrees with its plain version: "
+                                 f"{err}")
+        if bad <= NODE_MASS_TOL:
+            raise AssertionError(f"the K2 slab check missed an unsent halo "
+                                 f"plane: {bad}")
+        if shift == 0.0:
+            rho = got
+        k2_errs.append(max_abs(got, ref))
+    n_real = sum(int(c.sum()) for c in counts)
+    k2_ms = _mean_ms([lambda p=p, c=c, r0=r0: supercell_deposit_from_plane(
+        p, c, row0=r0, **dkw) for p, c, r0 in zip(planes, counts, rows0)], 50)
+    k2_plain_ms = _mean_ms([lambda p=p, c=c, r0=r0: plain_ext(p, c, r0, 0.0)
+                            for p, c, r0 in zip(planes, counts, rows0)], 2)
+    lib_ms = cuda_time_ms(lambda: td.slab_deposit(
+        pos, mass, box=box, nmesh=nmesh, group=group), 20) / D
+    nml = nx * S
+    k2 = _slab_row(k2_errs, k2_ms, k2_plain_ms,
+                   n_real * 16 + sum(c.numel() for c in counts) * 4
+                   + D * (nml + 3) * nmesh**2 * 4, n_real * FLOPS_DEPOSIT, D,
+                   lib_ms)
+    phase(f"[19] K2 slab: kernel {k2_ms:.4f} ms a launch, plain f32 "
+          f"{k2_plain_ms:.3f} ms, slab_deposit (index_add_) {lib_ms:.4f} ms "
+          f"a shard, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}); "
+          f"{n_real} particles over {D} shards")
+
+    # the whole box's force grids from the slab deposit, cut into slabs
+    mass_sum = torch.sum(rho)
+    amp = 4.0 * math.pi * mass_sum / box**3
+    kw = _pair_kw(config, dict(ncell=sc, stride=stride, W=W, maxch=maxch,
+                               gz=gz, chunk=chunk, nx=nx))
+    split = config.force_split
+    halos = {}
+    rho1 = torch.cat(slab_halo_fold(
+        [supercell_deposit_from_plane(p, c, shift=0.5, row0=r0, **dkw)
+         for p, c, r0 in zip(planes, counts, rows0)], group))
+    for il in (False, True):
+        pm = pm_module(box, nmesh, config.deconvolve_p, il,
+                       kw["r_s"] if split == "gaussian" else 0.0,
+                       kw["r_cut"] if split == "spline" else 0.0,
+                       config.pm_gradient, 0.0, rho.device, torch.float32)
+        grids = pm.force_grids_from_rho(rho, amp, mass_sum,
+                                        rho1=rho1 if il else None)
+        halos[il] = extract_local_subgrids(
+            list(torch.chunk(grids.contiguous(), D, dim=1)), group)
+    k3_errs = []
+    for il, so in ((False, False), (True, False), (False, True)):
+        fkw = dict(S=S, scale=nmesh / box, split_out=so, interlaced=il, **kw)
+        rels = []
+        for b, p, h, r0 in zip(built, planes, halos[il], rows0):
+            got = run_fused_column_plane(p, b[1], b[2], h, row0=r0, **fkw)
+            torch.cuda.synchronize()
+            ref = fused_column_plane_plain(p.double(), b[1], b[2], h.double(),
+                                           row0=r0, **fkw)
+            rels.append(rel_l2(got, ref))
+            if not il and not so:
+                k3_errs.append(max_abs(got, ref))
+        phase(f"[19] K3 slab interlaced={il} split_out={so}: rel L2 per "
+              f"shard {', '.join(f'{r:.3e}' for r in rels)} (tol "
+              f"{FORCE_REL_L2_TOL:g})")
+        if not max(rels) <= FORCE_REL_L2_TOL:
+            raise AssertionError(f"K3 slab disagrees with its plain "
+                                 f"version: {rels}")
+    fkw = dict(S=S, scale=nmesh / box, **kw)
+    args = list(zip(built, planes, halos[False], rows0))
+    k3_ms = _mean_ms([lambda b=b, p=p, h=h, r0=r0: run_fused_column_plane(
+        p, b[1], b[2], h, row0=r0, **fkw) for b, p, h, r0 in args], 20)
+    k3_plain_ms = _mean_ms([lambda b=b, p=p, h=h, r0=r0:
+                            fused_column_plane_plain(p, b[1], b[2], h,
+                                                     row0=r0, **fkw)
+                            for b, p, h, r0 in args], 1)
+    visits = inside = n_t = nbytes = 0
+    for b, p, h in zip(built, planes, halos[False]):
+        v, i, _, t = needed_work(p, b[6], **kw)
+        visits, inside, n_t = visits + v, inside + i, n_t + t
+        nbytes += needed_bytes(t, t) + h.numel() * 4
+    k3 = _slab_row(k3_errs, k3_ms, k3_plain_ms, nbytes,
+                   visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE
+                   + n_real * FLOPS_PM_READ, D)
+    kernel_visits = sum(int(b[2].sum()) for b in built) * chunk * 9 * W
+    phase(f"[19] K3 slab: kernel {k3_ms:.4f} ms a launch, plain f32 "
+          f"{k3_plain_ms:.3f} ms, bound {k3['bound_ms']:.4f} ms "
+          f"({k3['bound_by']}); {visits:.4e} visits within r_cut in z over "
+          f"{D} shards (the kernels make {kernel_visits:.4e}), {inside:.4e} "
+          f"inside r_cut")
+    return {"K2s": k2, "K3s": k3}
+
+
+def slab_columns_check(state, config) -> dict:
+    """[19](a) K4's slab site on every shard's local column plane at the
+    domain driver's columns geometry, against its float64 plain
+    version."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        column_window,
+        plane_geometry,
+        run_column_plane,
+    )
+
+    group, geom, shards, ck, cw, lines = domain_setup(state, config,
+                                                      "columns")
+    D, box = group.size, config.box
+    nx = geom.ncell // D
+    CK, gz, stride, W, maxch, chunk = plane_geometry(
+        box, geom.r_cut, ck, cw or column_window(box, geom.r_cut, ck))
+    built = td.build_local_column_plane(
+        [s.pos for s in shards], [s.mass for s in shards], box=box,
+        r_cut=geom.r_cut, ncell=geom.ncell, group=group, col_capacity=CK,
+        window=W, chunk=chunk)
+    phase(f"[19] columns slab planes: {D} shards of {nx} x {geom.ncell} "
+          f"columns, capacity {CK}, window {W}, stride {stride}, chunk "
+          f"{chunk}" + "".join(f"; {x}" for x in lines))
+    kw = _pair_kw(config, dict(ncell=geom.ncell, stride=stride, W=W,
+                               maxch=maxch, gz=gz, chunk=chunk, nx=nx))
+    rels, errs = [], []
+    for b in built:
+        got = run_column_plane(b[0], b[1], b[2], **kw)
+        torch.cuda.synchronize()
+        ref = column_plane_plain(b[0].double(), b[1], b[2], **kw)
+        rels.append(rel_l2(got, ref))
+        errs.append(max_abs(got, ref))
+    phase(f"[19] K4 slab: rel L2 per shard {', '.join(f'{r:.3e}' for r in rels)}"
+          f" (tol {FORCE_REL_L2_TOL:g})")
+    if not max(rels) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K4 slab disagrees with its plain version: "
+                             f"{rels}")
+    ms = _mean_ms([lambda b=b: run_column_plane(b[0], b[1], b[2], **kw)
+                   for b in built], 20)
+    plain_ms = _mean_ms([lambda b=b: column_plane_plain(b[0], b[1], b[2],
+                                                        **kw)
+                         for b in built], 1)
+    visits = inside = nbytes = 0
+    for b in built:
+        v, i, _, t = needed_work(b[0], b[6], **kw)
+        visits, inside, nbytes = visits + v, inside + i, \
+            nbytes + needed_bytes(t, t)
+    row = _slab_row(errs, ms, plain_ms, nbytes,
+                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    phase(f"[19] K4 slab: kernel {ms:.4f} ms a launch, plain f32 "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
+          f"{D} shards, {inside:.4e} inside r_cut")
+    return {"K4s": row}
+
+
+def slab_cells_check(state, config) -> dict:
+    """[19](a) K6's slab site on every shard's cell plane (the domain
+    geometry's bucket capacity, healed by the driver's rule) against its
+    float64 plain version."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    group, geom, shards, _, _, lines = domain_setup(state, config, "cells")
+    D = group.size
+    nx = geom.ncell // D
+    built = td.build_local_plane(
+        [s.pos for s in shards], [s.mass for s in shards], box=config.box,
+        r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+        capacity=geom.bucket_capacity)
+    K = built[0][2]
+    phase(f"[19] cell slab planes: {D} shards of {nx} x {geom.ncell}^2 "
+          f"cells, K {K} (capacity {geom.bucket_capacity})"
+          + "".join(f"; {x}" for x in lines))
+    kw = dict(nx=nx, ncell=geom.ncell, K=K, eps2=config.eps**2,
+              r_s=geom.r_s, r_cut=geom.r_cut, split=config.force_split,
+              softening=config.softening_kernel)
+    rels, errs = [], []
+    for plane, _, _, _, counts in built:
+        got = run_cell_plane(plane, counts, **kw)
+        torch.cuda.synchronize()
+        ref = cell_plane_plain(plane.double(), counts, **kw)
+        rels.append(rel_l2(got, ref))
+        errs.append(max_abs(got, ref))
+    phase(f"[19] K6 slab: rel L2 per shard {', '.join(f'{r:.3e}' for r in rels)}"
+          f" (tol {FORCE_REL_L2_TOL:g})")
+    if not max(rels) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K6 slab disagrees with its plain version: "
+                             f"{rels}")
+    ms = _mean_ms([lambda b=b: run_cell_plane(b[0], b[4], **kw)
+                   for b in built], 20)
+    plain_ms = _mean_ms([lambda b=b: cell_plane_plain(b[0], b[4], **kw)
+                         for b in built], 2)
+    visits = inside = nbytes = 0
+    for plane, _, _, _, counts in built:
+        v, i, n_src, t = needed_work_cells(plane, counts, K, plane, counts,
+                                           K, ncell=geom.ncell,
+                                           r_cut=geom.r_cut, nx=nx)
+        visits, inside, nbytes = visits + v, inside + i, \
+            nbytes + needed_bytes(n_src, t)
+    row = _slab_row(errs, ms, plain_ms, nbytes,
+                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    phase(f"[19] K6 slab: kernel {ms:.4f} ms a launch, plain f32 "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
+          f"{D} shards, {inside:.4e} inside r_cut")
+    return {"K6s": row}
+
+
+def domain_force_check(state, config, tier: str, single_knobs: dict,
+                       per_particle: bool) -> None:
+    """[19](b) the domain force of ``tier`` (DOMAIN_SHARDS shards, the
+    domain driver's knobs at ``state``) against the single-device force
+    of the same tier (``single_knobs``: its capacity and window), rows
+    matched by position: per particle within the JAX package's limits
+    (``per_particle``), else to TIER_TOL of the largest force."""
+    from nbody_torch.core import units
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import p3m_acc
+
+    group, geom, shards, ck, cw, _ = domain_setup(state, config, tier)
+    box, nmesh, a = config.box, config.mesh_size, 0.5
+    fkw = dict(split=config.force_split, softening=config.softening_kernel,
+               interlace=config.interlace, deconvolve_p=config.deconvolve_p,
+               grad_order=config.pm_gradient)
+    acc_fn, _ = td.make_domain_p3m_force(
+        config.cosmology(), box, nmesh, group, config.eps,
+        config.n_particles, bucket_capacity=geom.bucket_capacity,
+        shortrange=tier, col_capacity=ck or None, col_window=cw or None,
+        **fkw)
+    g, ov = acc_fn([s.pos for s in shards], [s.mass for s in shards], a)
+    g = torch.cat([x[s.mass > 0] for x, s in zip(g, shards)]).double()
+    ref, ov1 = p3m_acc(state.pos, state.mass, box, nmesh, G=units.COSMO.G,
+                       eps=config.eps, shortrange=tier, with_overflow=True,
+                       **single_knobs, **fkw)
+    if int(ov) or int(ov1):
+        raise AssertionError(f"[19] {tier} force overflows ({int(ov)}, "
+                             f"{int(ov1)})")
+    # the domain's rows: each slab's particles in their original order
+    xgrid = td.slab_grid(geom, tier)
+    slab = td._slab_of(state.pos[:, 0].cpu(), box, xgrid,
+                       xgrid // group.size).numpy()
+    perm = np.argsort(slab, kind="stable")
+    ref = (ref / a).double()[torch.as_tensor(perm, device=ref.device)]
+    rel = (g - ref).norm(dim=1) / torch.clamp_min(ref.norm(dim=1), 1e-12)
+    med, worst = float(rel.median()), float(rel.max())
+    scale = float((g - ref).norm(dim=1).max() / ref.norm(dim=1).max())
+    small = float(ref.norm(dim=1)[rel.argmax()] / ref.norm(dim=1).median())
+    where = ("random positions" if per_particle else "the ICs")
+    gate = (f"per particle median tol {DOMAIN_MEDIAN_TOL:g}, max tol "
+            f"{DOMAIN_MAX_TOL[tier]:g}" if per_particle
+            else f"max |diff| / max |g| tol {TIER_TOL:g}")
+    phase(f"[19] {tier} domain force ({group.size} shards) vs one device at "
+          f"{where}, N={config.n_particles}: per particle median {med:.3e}, "
+          f"max {worst:.3e} (at |g| = {small:.3e} of the median); max "
+          f"|diff| / max |g| {scale:.3e} ({gate})")
+    ok = (med < DOMAIN_MEDIAN_TOL and worst < DOMAIN_MAX_TOL[tier]
+          if per_particle else scale <= TIER_TOL)
+    if not ok:
+        raise AssertionError(f"[19] {tier} domain force disagrees at "
+                             f"{where}: {med}, {worst}, {scale}")
+
+
+def domain_run(cfg, tag: str, single: dict) -> dict:
+    """[19](c) ``run_simulation(cfg)`` with no device argument on
+    DOMAIN_SHARDS shards: launches of the tier's slab sites = D x the
+    force evaluations counted from run.log (heals included), a finite
+    state at a = 1, and P(k) at a = 1 against the single-device run of
+    the same config (``single``: its powerspec, wall, steps/s and peak
+    memory) bin by bin for k <= k_Nyq/2.  Returns the launch counts."""
+    from nbody_torch.driver.simulate import _domain_tier, run_simulation
+
+    work = os.path.join(OUT, f"domain_{tag}")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_simulation(cfg, 0, work)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    lines = run_log(work)
+    tier = _domain_tier(cfg, cfg.devices)
+    m = [re.match(r"Domain force evaluations: (\d+) on (\d+) shards", x)
+         for x in lines]
+    evals = next(int(x.group(1)) for x in m if x)
+    segments = sum(1 for x in lines if x.startswith("Time step"))
+    heals = sum(1 for x in lines if "re-running" in x)
+    if evals != cfg.n_steps + segments + rerun_evals(lines):
+        raise AssertionError(f"[19] {tag}: {evals} evaluations, but "
+                             f"{cfg.n_steps} steps + {segments} segments + "
+                             f"{rerun_evals(lines)} repeated")
+    for line in lines:
+        if ("Domain" in line or "re-running" in line or "Energy" in line
+                or "Capacity" in line):
+            phase(f"    run.log: {line}")
+    check_run_outputs(res, cfg, f"[19] {tag}")
+    D = cfg.devices
+    want = zero_launches(
+        K2=D * evals if tier == "supercell" else 0,
+        K3=D * evals if tier == "supercell" else 0,
+        K4=D * evals if tier == "columns" else 0,
+        K6=D * evals if tier == "cells" else 0)
+    if counts != want:
+        raise AssertionError(f"[19] {tag}: launches {counts}, expected {want}")
+    got_pk = np.loadtxt(res.powerspecs[0])
+    ref_pk = np.loadtxt(single["pk"])
+    k_nyq = np.pi * cfg.mesh_size / cfg.box
+    if not np.array_equal(got_pk[:, 1], ref_pk[:, 1]):
+        raise AssertionError(f"[19] {tag}: P(k) bins differ")
+    rel_pk = np.abs(got_pk[:, 2] / ref_pk[:, 2] - 1.0)
+    bands, lo = [], 0.0
+    for frac, tol in DOMAIN_PK_BANDS:
+        sel = (ref_pk[:, 0] > lo) & (ref_pk[:, 0] <= frac * k_nyq)
+        bands.append((frac, tol, int(sel.sum()), float(rel_pk[sel].max())))
+        lo = frac * k_nyq
+    phase(f"[19] {tag} ({tier} tier, {D} shards): {cfg.n_steps} steps in "
+          f"{res.wall_s:.3f} s ({cfg.n_steps / res.wall_s:.2f} steps/s), "
+          f"{heals} heals, peak device memory {peak:.1f} MiB; one device: "
+          f"{single['wall']:.3f} s ({cfg.n_steps / single['wall']:.2f} "
+          f"steps/s), {single['mem']:.1f} MiB; launches {counts} = {D} x "
+          f"{evals} evaluations; P(k) vs one device, max rel "
+          + ", ".join(f"{m:.3e} at {n} bins to k_Nyq*{f:g} (tol {t:g})"
+                      for f, t, n, m in bands))
+    for f, t, n, m in bands:
+        if not m <= t:
+            raise AssertionError(f"[19] {tag}: P(k) differs from one device "
+                                 f"by {m} up to k_Nyq*{f:g}")
+    return counts
 
 
 def _wrappers() -> dict:
@@ -1666,9 +2174,13 @@ def main() -> None:
     work = os.path.join(OUT, "default")
     shutil.rmtree(work, ignore_errors=True)
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     res = run_simulation(run_cfg, 0, work)
     counts = read_launches()
     k1_launches = counts["K1"]
+    # the single-device runs [19] sets its domain runs beside
+    single = {"default": dict(pk=res.powerspecs[0], wall=res.wall_s,
+                              mem=torch.cuda.max_memory_allocated() / 2**20)}
     phase(f"[5] default run: N={run_cfg.n_particles} mesh "
           f"{run_cfg.mesh_size} {run_cfg.n_steps} steps in {res.wall_s:.3f} s"
           f" ({run_cfg.n_steps / res.wall_s:.2f} steps/s); launches "
@@ -1745,6 +2257,7 @@ def main() -> None:
         work64 = os.path.join(OUT, f"cfg64_{run64.shortrange}")
         shutil.rmtree(work64, ignore_errors=True)
         reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         res64 = run_simulation(run64, 0, work64)
         counts = read_launches()
         lines = run_log(work64)
@@ -1774,6 +2287,8 @@ def main() -> None:
             raise AssertionError(f"cfg64 resolved to {resolved}")
         launch_counts[resolved] = counts
         results[resolved] = res64
+        single[resolved] = dict(pk=res64.powerspecs[0], wall=res64.wall_s,
+                                mem=torch.cuda.max_memory_allocated() / 2**20)
         phase(f"[9] {resolved}: {fused} launched {counts[fused]} = "
               f"{run64.n_steps} steps + 1 + {evals - run64.n_steps - 1} "
               f"re-run evaluations")
@@ -1892,6 +2407,55 @@ def main() -> None:
     kernels["K8"] = mxu_bench(PLUMMER_N)
     k8_launches = mxu_drive(PLUMMER_N, 250, k7_run)
 
+    # -- 19. the slab domain decomposition: four shards on the card -------
+    # (a) each slab site against its plain version, at the domain
+    # driver's geometry on every shard's plane
+    kernels.update(slab_supercell_check(ics64, cfg64))
+    kernels.update(slab_columns_check(ics64, col64))
+    kernels.update(slab_cells_check(ics32, run_cfg))
+    # (b) the domain force against the single-device force of its tier,
+    # at the ICs and on uniform random positions of the same count
+    for ics, tcfg, tier in ((ics64, cfg64, "supercell"),
+                            (ics64, col64, "columns"),
+                            (ics32, run_cfg, "cells")):
+        gen = torch.Generator().manual_seed(19)
+        rnd = ics.replace(pos=(torch.rand(tuple(ics.pos.shape), generator=gen,
+                                          dtype=torch.float64) * tcfg.box
+                               ).to(dev, torch.float32))
+        for st, per_particle in ((ics, False), (rnd, True)):
+            if tier == "cells":
+                cells_cfg = tcfg.replace(shortrange="cells")
+                grown, _ = prewarm_capacity(cells_cfg, cells_cfg, st.pos)
+                knobs = dict(capacity=grown.cell_capacity or None)
+            else:
+                healed, _ = driver_knobs(st, tcfg, tcfg, True)
+                _, ck_t, w_t = column_knobs(tcfg, healed)
+                knobs = dict(capacity=ck_t, window=w_t)
+            domain_force_check(st, tcfg, tier, knobs, per_particle)
+    # (c) the full runs through run_simulation with no device argument
+    domain_counts = {
+        "supercell": domain_run(cfg64.replace(devices=DOMAIN_SHARDS),
+                                "cfg64_supercell", single["supercell"]),
+        "columns": domain_run(col64.replace(devices=DOMAIN_SHARDS),
+                              "cfg64_columns", single["columns"]),
+        "cells": domain_run(run_cfg.replace(devices=DOMAIN_SHARDS),
+                            "default_cells", single["default"]),
+    }
+    # (d) the 16^3 domain runs against the JAX package's committed P(k)
+    for n_dev, shortrange, name in ((2, "auto", "domain2"),
+                                    (4, "auto", "domain4"),
+                                    (4, "supercell", "domain4_supercell"),
+                                    (4, "columns", "domain4_columns")):
+        c16 = SimulationConfig(n_side=16, devices=n_dev,
+                               shortrange=shortrange,
+                               output=OutputConfig(snapshot=False))
+        work16d = os.path.join(OUT, f"n16_{name}")
+        shutil.rmtree(work16d, ignore_errors=True)
+        r16 = run_simulation(c16, 0, work16d,
+                             initial_state=realize_ics(c16, 0, noise=noise))
+        pk_vs_reference(r16, c16, f"powerspec_a=1.00_n16_{name}_seed0",
+                        f"[19] 16^3 {name} from the JAX noise")
+
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
@@ -1929,6 +2493,19 @@ def main() -> None:
                  "source": "nbody_torch/forces/csrc/pp_gram.cu",
                  "replaces": "nbody/forces/pallas_mxu.py:176",
                  "launches": k8_launches, **kernels["K8"]})
+    for key, name, source, replaces, path, site in (
+            ("K2s", "supercell_deposit_local", "pm_supercell.cu",
+             "nbody/forces/pm_supercell.py:609", "supercell", "K2"),
+            ("K3s", "run_fused_column_plane (slab)", "pm_supercell.cu",
+             "nbody/distributed/domain.py:862", "supercell", "K3"),
+            ("K4s", "p3m_short_columns_local", "p3m_columns.cu",
+             "nbody/forces/p3m_columns.py:1282", "columns", "K4"),
+            ("K6s", "run_cell_plane (slab)", "p3m_cells.cu",
+             "nbody/distributed/domain.py:904", "cells", "K6")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"nbody_torch/forces/csrc/{source}",
+                     "replaces": replaces,
+                     "launches": domain_counts[path][site], **kernels[key]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -99,11 +99,11 @@ def _build(so: Path) -> None:
 # i = int, d = double; every entry point returns a CUDA error code
 _ENTRY_POINTS = {
     "p3m_short_acc_f32": "piidddddiipp",
-    "p3m_columns_f32": "pppiiiiiidddiipp",
-    "p3m_columns_masked_f32": "ppppiiiiiidddiipp",
+    "p3m_columns_f32": "pppiiiiiiidddiipp",
+    "p3m_columns_masked_f32": "ppppiiiiiiidddiipp",
     "p3m_cells_f32": "ppppiiiidddiipp",
-    "pm_supercell_deposit_f32": "ppiiiiiiddpp",
-    "pm_supercell_fused_f32": "ppppiiiiidiiiiidddiipp",
+    "pm_supercell_deposit_f32": "ppiiiiiiiiiddpp",
+    "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiidddiipp",
     "pp_allpairs_f32": "pippiddpp",
     "pp_allpairs_f64": "pippiddpp",
     "pp_gram_f32": "ppiiddpp",

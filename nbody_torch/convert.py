@@ -53,3 +53,31 @@ def plan_from_numpy(*fields, device) -> ColumnPlan:
     return ColumnPlan(*(
         torch.as_tensor(np.array(f), dtype=_PLAN_DTYPES[name], device=device)
         for name, f in zip(ColumnPlan._fields, fields)))
+
+
+def domain_state_from_numpy(pos, vel, mass, time, *, n_dev: int, devices,
+                            dtype=torch.float32) -> list:
+    """The port's slab-resident shards from the JAX package's block-sharded
+    domain state as numpy ((D * C, 3) positions and velocities, (D * C,)
+    masses, the scale factor): shard d takes rows [d C, (d + 1) C) onto
+    ``devices[d]`` (a :class:`~nbody_torch.distributed.collectives.
+    ShardGroup`'s ``devices``)."""
+    pos, vel, mass = np.array(pos), np.array(vel), np.array(mass)
+    if pos.shape[0] % n_dev:
+        raise ValueError(f"{pos.shape[0]} rows do not split over {n_dev} "
+                         f"shards")
+    C = pos.shape[0] // n_dev
+    return [ParticleState.create(pos[d * C:(d + 1) * C],
+                                 vel[d * C:(d + 1) * C],
+                                 mass[d * C:(d + 1) * C], np.array(time),
+                                 device=devices[d], dtype=dtype)
+            for d in range(n_dev)]
+
+
+def domain_state_to_numpy(shards: list):
+    """(pos, vel, mass, time) numpy arrays of slab-resident shards in the
+    JAX package's block-sharded layout (shard d's C rows at [d C,
+    (d + 1) C))."""
+    cat = [np.concatenate([getattr(s, f).detach().cpu().numpy()
+                           for s in shards]) for f in ("pos", "vel", "mass")]
+    return (*cat, shards[0].time.detach().cpu().numpy())

@@ -92,6 +92,59 @@ def peculiar_energies(state: ParticleState, cosmo: Cosmology, box: float,
     return T, W_raw - W_self
 
 
+def peculiar_energies_domain(shards: list, cosmo: Cosmology, box: float,
+                             nmesh: int, group, deconvolve_p: int = 2):
+    """:func:`peculiar_energies` of a slab-resident state (empty slots have
+    mass 0): T and W are partial sums added over the shards, and the
+    potential comes from the slab deposit, the distributed FFT and the
+    slab read-back, so nothing larger than nmesh^3 / D lives on a shard.
+    Counterpart of the JAX package's ``peculiar_energies_domain``."""
+    from nbody_torch.distributed.domain import slab_deposit, slab_gather3
+    from nbody_torch.distributed.fft import (
+        kvecs_slab,
+        slab_irfftn,
+        slab_rfftn,
+    )
+
+    D = group.size
+    a = float(shards[0].time)
+    amp = 1.5 * float(cosmo.Omega_m) * float(cosmo.H0) ** 2 / a
+    pos = [s.pos for s in shards]
+    mass = [s.mass for s in shards]
+    T = 0.5 * group.psum([torch.sum(s.mass * torch.sum(s.vel * s.vel, dim=-1))
+                          / (a * a) for s in shards])[0]
+    M = group.psum([torch.sum(m) for m in mass])
+    grids = slab_deposit(pos, mass, box=box, nmesh=nmesh, group=group)
+    phi_k = []
+    for d, x in enumerate(slab_rfftn(grids, group)):
+        dtype, dev = pos[d].dtype, pos[d].device
+        delta_k = x / (M[d] / nmesh**3)
+        kx, ky, kz = kvecs_slab(nmesh, box, d, D, dtype, dev)
+        if deconvolve_p:
+            h = box / nmesh
+
+            def sinc(k):
+                return torch.sinc(k * (h / (2.0 * np.pi)))
+
+            W_k = (sinc(kx) * sinc(ky) * sinc(kz)) ** deconvolve_p
+            delta_k = delta_k / torch.clamp_min(W_k, 1e-8)
+        k2 = kx**2 + ky**2 + kz**2
+        inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0),
+                             torch.zeros_like(k2))
+        phi_k.append(-amp * delta_k * inv_k2)
+    phi = slab_irfftn(phi_k, nmesh, group)
+    phi_at = slab_gather3([p[None] for p in phi], pos, box=box, group=group)
+    W_raw = 0.5 * group.psum([torch.sum(m * f[:, 0])
+                              for m, f in zip(mass, phi_at)])[0]
+    self_terms = []
+    for p, m in zip(pos, mass):
+        u = _self_potential_per_particle(torch.remainder(p, box), box, nmesh)
+        self_terms.append(torch.sum(torch.where(m > 0, m**2 * u,
+                                                torch.zeros_like(u))))
+    W_self = 0.5 * amp * nmesh**3 / M[0] * group.psum(self_terms)[0]
+    return T, W_raw - W_self
+
+
 def peculiar_energies_exact(state: ParticleState, cosmo: Cosmology,
                             box: float, r_s: float | None = None,
                             n_max: int = 10):

@@ -11,8 +11,11 @@ Layzer-Irvine energy samples, and P(k) and snapshot outputs at the output
 times, in the same run.log, powerspec and snapshot formats.  The entry
 points run on the card unless the caller passes ``device="cpu"``.  Options
 outside the slice raise ``NotImplementedError`` (``subcycles > 1`` without
-rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'`` and more
-than one device).
+rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on
+more than one device rungs, subcycles, ``ic_realization='domain'`` and the
+PP solver).  ``devices > 1`` runs the slab domain decomposition
+(:mod:`nbody_torch.distributed.domain`): D shards driven by one process,
+placed round-robin over the visible cards.
 """
 
 from __future__ import annotations
@@ -101,12 +104,41 @@ def _device_dtype(device, dtype) -> tuple[torch.device, torch.dtype]:
     return device, dtype
 
 
+def _n_devices(config: SimulationConfig, device=None) -> int:
+    """The run's shard count: ``config.devices``, or with 0 every visible
+    card (one shard on the CPU)."""
+    if config.devices > 0:
+        return config.devices
+    dev = torch.device(device) if device is not None else None
+    return (torch.cuda.device_count()
+            if dev is not None and dev.type == "cuda" else 1)
+
+
 def check_supported(config: SimulationConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     and ``ValueError`` for rungs without the P3M solver (as the JAX
     package does)."""
     if config.rungs >= 2 and config.solver != "p3m":
         raise ValueError("rungs requires the p3m solver")
+    n_dev = _n_devices(config, device)
+    if n_dev > 1:
+        missing = []
+        if config.solver == "pp":
+            missing.append("solver='pp' (the ring Ewald decomposition)")
+        if config.rungs >= 2:
+            missing.append("rungs >= 2 (the domain rung tier: masked slab "
+                           "kernels and frozen local column plans)")
+        if config.subcycles > 1:
+            missing.append("subcycles > 1 (the subcycled domain runner)")
+        if config.time_stepping != "fixed":
+            missing.append(f"time_stepping={config.time_stepping!r} (the "
+                           f"adaptive domain runner)")
+        if config.ic_realization != "host":
+            missing.append(f"ic_realization={config.ic_realization!r} "
+                           f"(lpt_ic_domain)")
+        if missing:
+            raise NotImplementedError(
+                f"devices={n_dev}: not ported yet: " + "; ".join(missing))
     if config.subcycles > 1 and config.rungs < 2:
         raise NotImplementedError(
             "subcycles > 1 without rungs (subcycled KDK) is not ported yet")
@@ -117,21 +149,6 @@ def check_supported(config: SimulationConfig, device=None) -> None:
     if config.time_stepping != "fixed":
         raise NotImplementedError(
             f"time_stepping={config.time_stepping!r} is not ported yet"
-        )
-    n_dev = config.devices
-    if n_dev == 0:
-        dev = torch.device(device) if device is not None else None
-        n_dev = (torch.cuda.device_count()
-                 if dev is not None and dev.type == "cuda" else 1)
-    if n_dev > 1 and config.solver == "pp":
-        raise NotImplementedError(
-            f"solver='pp' with devices={n_dev} (the ring Ewald "
-            f"decomposition) is not ported yet"
-        )
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"devices={config.devices} (slab domain decomposition) is not "
-            f"ported yet"
         )
 
 
@@ -195,6 +212,11 @@ def build_cosmo_force(config: SimulationConfig, *, device="cuda",
     pp)."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
+    if _n_devices(config, device) > 1:
+        raise NotImplementedError(
+            "build_cosmo_force with devices > 1 (the sharded ring PP and "
+            "replicated-grid PM/P3M forces) is not ported yet; "
+            "run_simulation runs devices > 1 on the domain decomposition")
     box, nmesh = config.box, config.mesh_size
     if config.solver == "pm":
         pm_fn = make_pm_cosmo_force(
@@ -776,6 +798,11 @@ def run_simulation(
     ``result.config_run`` is the healed config."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
+    n_dev = _n_devices(config, device)
+    if n_dev > 1:
+        return _run_simulation_domain(
+            config, seed, workdir, device, dtype, initial_state,
+            checkpoint_every_steps, resume, n_dev)
     t0 = time.perf_counter()
     cosmo = config.cosmology()
     cfg_run = _apply_capacity_memory(config)
@@ -1020,3 +1047,280 @@ def run_simulation(
         energy_samples=energy_samples or None,
         stale_max=stale_max,
     )
+
+
+# ---------------------------------------------------------------------------
+# devices > 1: the slab domain decomposition
+# ---------------------------------------------------------------------------
+
+
+def _domain_tier(config: SimulationConfig, n_dev: int, *,
+                 rungs: bool = False, adaptive: bool = False) -> str:
+    """Short-range tier of the domain path: 'supercell' where the mesh
+    tiles a chaining grid that also splits over the shards, else
+    'columns' beyond the dense tier's range; 'cells' otherwise, and for
+    the rung and adaptive paths and the PM solver."""
+    if rungs or adaptive or config.solver != "p3m":
+        return "cells"
+    resolved = _resolved_shortrange(config)
+    if resolved == "supercell":
+        sc = supercell_ncell(
+            config.box, config.mesh_size,
+            p3m_short_params(config.box, config.mesh_size,
+                             config.n_particles)[1])
+        return "supercell" if sc and sc % n_dev == 0 else "columns"
+    if resolved == "columns":
+        return "columns"
+    return "cells"
+
+
+def measure_powerspec_sharded(shards: list, group, config: SimulationConfig,
+                              a: float, path: str | None = None,
+                              seed: int | None = None):
+    """:func:`measure_powerspec` of a slab-resident state through the
+    sharded estimator
+    (:func:`nbody_torch.distributed.measure.measure_powerspec_domain`):
+    the same columns and file, with nothing larger than nmesh^3 / D on a
+    shard.  Returns (k, modes, P, P_corrected, P_linear) as numpy."""
+    from nbody_torch.distributed.measure import measure_powerspec_domain
+
+    edges, order, interlace = _measurement_options(config)
+    raw, corr = measure_powerspec_domain(
+        shards, group, box=config.box, nmesh=config.mesh_size,
+        n_global=config.n_particles, edges=edges, deconvolve_p=1,
+        window_order=order, interlace=interlace)
+    return _finish_powerspec(raw, corr, config, a, edges=edges, path=path,
+                             seed=seed)
+
+
+def domain_column_knobs(config: SimulationConfig, tier: str,
+                        geom) -> tuple[int, int]:
+    """(column capacity, column window; 0 = auto) a domain run of
+    ``config`` starts from on a column tier (both 0 on the cells tier):
+    the config's own, else the mean column + 6 sigma Poisson tail of the
+    tier's chaining grid (the supercell grid divides the mesh; the
+    columns grid is the domain geometry's, slab-divisible), 128-aligned,
+    or what an earlier run of the same geometry healed to."""
+    if tier not in ("columns", "supercell"):
+        return 0, 0
+    mem = _CAPACITY_MEMORY.get(_capacity_signature(config), {})
+    nct = (supercell_ncell(config.box, config.mesh_size, geom.r_cut)
+           if tier == "supercell" else geom.ncell)
+    mean_col = config.n_particles / nct**2
+    ck = config.column_capacity or max(
+        -(-int(mean_col + 6.0 * mean_col**0.5 + 8) // 128) * 128,
+        mem.get("column_capacity", 0))
+    return ck, config.column_window or mem.get("column_window", 0)
+
+
+def heal_domain(config: SimulationConfig, tier: str, geom, ck: int, cw: int,
+                E: int, ov_b: int, ov_e: int):
+    """The domain run's heal after a stretch dropped force: on the column
+    tiers the field-encoded word's window misses widen the window 1.5x and
+    its bucket spills double the capacity; on the cells tier the bucket
+    capacity doubles; exchange overflow doubles the exchange capacity.
+    Returns (geom, ck, cw, E, run.log lines)."""
+    lines = []
+    if ov_b and tier in ("columns", "supercell"):
+        cur_w = cw or column_window(config.box, geom.r_cut, ck)
+        if (ov_b >> 16) == 0:
+            cw = -(-int(1.5 * cur_w) // 128) * 128
+            lines.append(f"column z-window misses inside scan "
+                         f"({ov_b & 0xffff} slots) — widening z-window to "
+                         f"{cw}, re-running segment")
+        else:
+            ck *= 2
+            cw = -(-int(1.5 * cur_w) // 128) * 128 if cw else 0
+            lines.append(f"column bucket overflow inside scan "
+                         f"({ov_b >> 16} particles) — doubling column "
+                         f"capacity to {ck}, re-running segment")
+    elif ov_b:
+        geom = geom._replace(bucket_capacity=2 * geom.bucket_capacity)
+        lines.append(f"P3M bucket overflow inside scan ({ov_b} particles) — "
+                     f"doubling bucket capacity to {geom.bucket_capacity}, "
+                     f"re-running segment")
+    if ov_e:
+        E *= 2
+        lines.append(f"slab-exchange overflow ({ov_e} particles) — doubling "
+                     f"exchange capacity to {E}, re-running segment")
+    return geom, ck, cw, E, lines
+
+
+def _run_simulation_domain(config: SimulationConfig, seed: int,
+                           workdir: str | None, device, dtype,
+                           initial_state: ParticleState | None,
+                           checkpoint_every_steps: int | None, resume: bool,
+                           n_dev: int) -> SimulationResult:
+    """The ``devices > 1`` branch of :func:`run_simulation`: the ICs are
+    realized on one device and decomposed once into slab-resident shards
+    (:func:`~nbody_torch.distributed.domain.domain_decompose`, shards
+    round-robin over the visible cards), then the fixed-step domain runner
+    (:func:`~nbody_torch.distributed.domain.run_cosmological_domain`) runs
+    stretches of at most 32 steps, each re-run from its start after a
+    heal of the exchange, bucket or column knobs; P(k) at the output
+    times comes from the sharded estimator, snapshots and checkpoints from
+    :func:`~nbody_torch.distributed.domain.domain_gather`.  The run.log
+    lines are the JAX driver's, plus the count of force evaluations."""
+    from nbody_torch.diagnostics.layzer_irvine import (
+        peculiar_energies_domain,
+    )
+    from nbody_torch.distributed.domain import (
+        domain_decompose,
+        domain_gather,
+        domain_p3m_geometry,
+        run_cosmological_domain,
+        slab_grid,
+    )
+    from nbody_torch.distributed.sharding import device_mesh
+
+    t0 = time.perf_counter()
+    cosmo = config.cosmology()
+    group = device_mesh(n_dev, device)
+    split = "none" if config.solver == "pm" else config.force_split
+    geom = domain_p3m_geometry(config.box, config.mesh_size, n_dev,
+                               config.n_particles,
+                               bucket_capacity=config.cell_capacity or None)
+    a_grid = log_a_steps(config.a_begin, config.a_end, config.n_steps)
+    last = len(a_grid) - 1
+    out_idx = sorted({int(np.argmin(np.abs(a_grid - a)))
+                      for a in config.output.snapshot_times
+                      if config.a_begin < a <= config.a_end})
+    out_idx = [i for i in out_idx if i > 0]
+
+    workdir = workdir if workdir is not None else config.output.dir
+    snapshots, powerspecs = [], []
+    if workdir:
+        config.save(os.path.join(workdir, "config.json"))
+    log_path = os.path.join(workdir, "run.log") if workdir else None
+    ckpt_path = (os.path.join(workdir, "autosave", CHECKPOINT_NAME)
+                 if workdir else None)
+
+    def log(msg: str) -> None:
+        if log_path:
+            with open(log_path, "a") as f:
+                f.write(msg + "\n")
+        else:
+            print(f"[run] {msg}", flush=True)
+
+    state, start_idx = None, 0
+    if resume and ckpt_path and os.path.exists(ckpt_path):
+        state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
+        start_idx = int(extra["grid_index"])
+    if state is None:
+        state = (initial_state.to(device=device, dtype=dtype)
+                 if initial_state is not None
+                 else realize_ics(config, seed, device=device, dtype=dtype))
+    tier = _domain_tier(config, n_dev)
+    dstate = domain_decompose(state, group, config.box,
+                              ncell=slab_grid(geom, tier))
+    del state
+    C = dstate[0].pos.shape[0]
+    E = max(64, C // 8)
+
+    bounds = set(out_idx) | {last}
+    if checkpoint_every_steps:
+        bounds |= set(range(checkpoint_every_steps, last,
+                            checkpoint_every_steps))
+    bounds |= set(range(start_idx + SAMPLE_EVERY_STEPS, last,
+                        SAMPLE_EVERY_STEPS))
+    bounds = sorted(i for i in bounds if i > start_idx)
+
+    log(f"nbody run: solver={config.solver} N={config.n_particles} "
+        f"box={config.box:g} Mpc mesh={config.mesh_size} "
+        f"a={config.a_begin:g}->{config.a_end:g} in {config.n_steps} steps "
+        f"(seed={seed}, start_idx={start_idx})")
+    ck, cw = domain_column_knobs(config, tier, geom)
+    log(f"Domain decomposition: {n_dev}x1x1 ({geom.ncell} chaining cells, "
+        f"{C} slots/device, bucket capacity {geom.bucket_capacity}, "
+        f"short-range tier {tier}"
+        + (f", column capacity {ck}" if tier in ("columns", "supercell")
+           else "") + ")")
+
+    evals = {"total": 0, "repeated": 0}
+
+    def run_segment(dst, lo, hi):
+        nonlocal geom, E, ck, cw
+        for _ in range(HEAL_ATTEMPTS):
+            res = run_cosmological_domain(
+                dst, cosmo, a_grid[lo: hi + 1], group, box=config.box,
+                nmesh=config.mesh_size, eps=config.eps,
+                n_global=config.n_particles, geom=geom, split=split,
+                deconvolve_p=config.deconvolve_p, interlace=config.interlace,
+                grad_order=config.pm_gradient, subcycles=config.subcycles,
+                softening=config.softening_kernel, exchange_capacity=E,
+                shortrange=tier, col_capacity=ck or None,
+                col_window=cw or None)
+            evals["total"] += res.force_evals
+            ov_b, ov_e = res.bucket_overflow, res.exchange_overflow
+            if ov_b == 0 and ov_e == 0:
+                return res.state
+            evals["repeated"] += res.force_evals
+            geom, ck, cw, E, lines = heal_domain(config, tier, geom, ck, cw,
+                                                 E, ov_b, ov_e)
+            for line in lines:
+                log(line)
+        raise RuntimeError("domain capacity retries exhausted")
+
+    meta_of = lambda a: SnapshotMeta.from_cosmology(cosmo, config.box, a=a)  # noqa: E731
+    energy_samples: list[tuple[float, float, float]] = []
+
+    def sample_energy(dst) -> None:
+        if not config.output.energy_log:
+            return
+        T, W = peculiar_energies_domain(dst, cosmo, config.box,
+                                        config.mesh_size, group)
+        energy_samples.append((float(dst[0].time), float(T), float(W)))
+
+    def log_energy() -> None:
+        if len(energy_samples) < 2:
+            return
+        a_s, T_s, W_s = (np.array(c) for c in zip(*energy_samples))
+        res = layzer_irvine_residual(a_s, T_s, W_s)
+        log(f"Energy budget: T = {T_s[-1]:.6e}  W = {W_s[-1]:.6e}  "
+            f"Layzer-Irvine residual = {100.0 * res:.2f}%")
+
+    sample_energy(dstate)
+    prev = last_ckpt = start_idx
+    for idx in bounds:
+        t_seg = time.perf_counter()
+        dstate = run_segment(dstate, prev, idx)
+        log(f"Time step {idx:4d}   a = {a_grid[idx]:.4f}   "
+            f"({idx - prev} steps in {time.perf_counter() - t_seg:.2f} s)")
+        sample_energy(dstate)
+        if idx in out_idx and workdir:
+            log_energy()
+            a_out = float(a_grid[idx])
+            tag = f"a={a_out:.2f}"
+            if config.output.snapshot:
+                spath = os.path.join(workdir, "snapshots",
+                                     f"snapshot_{tag}.hdf5")
+                write_snapshot(spath, domain_gather(dstate), meta_of(a_out))
+                snapshots.append(spath)
+                log(f"Snapshot written: {spath}")
+            if config.output.powerspec:
+                ppath = os.path.join(workdir, "powerspec",
+                                     f"powerspec_{tag}")
+                measure_powerspec_sharded(dstate, group, config, a_out,
+                                          path=ppath, seed=seed)
+                powerspecs.append(ppath)
+                log(f"Power spectrum written (sharded): {ppath}")
+        if (checkpoint_every_steps and ckpt_path and idx < last
+                and idx - last_ckpt >= checkpoint_every_steps):
+            save_checkpoint(ckpt_path, domain_gather(dstate), {
+                "grid_index": idx, "seed": seed, "a": float(a_grid[idx])})
+            last_ckpt = idx
+        prev = idx
+    if evals["repeated"]:
+        log(f"Capacity heals repeated {evals['repeated']} force evaluations")
+    log(f"Domain force evaluations: {evals['total']} on {n_dev} shards")
+    cfg_run = config.replace(**{
+        f: v for f, v in (("column_capacity", ck), ("column_window", cw))
+        if v and not getattr(config, f)})
+    _record_capacity_memory(config, cfg_run)
+    final = domain_gather(dstate)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return SimulationResult(
+        state=final, config=config, seed=seed, snapshots=snapshots,
+        powerspecs=powerspecs, wall_s=time.perf_counter() - t0,
+        config_run=cfg_run, energy_samples=energy_samples or None)

@@ -3,10 +3,12 @@
 // loop over a target chunk's 9 neighbour z-windows.
 //
 // Plane: (8, P2 * stride) float32 row-major, rows x, y, z, m (rows 4-7
-// unused on input), P2 = (ncell + 2)^2 padded columns of `stride` slots;
+// unused on input), P2 = (nx + 2) * (ncell + 2) padded columns of `stride`
+// slots: nx interior x-rows (ncell for the whole box, ncell / D for a
+// slab's plane, whose two ghost x-rows are its neighbours' edge rows);
 // padded column (px, py) starts at slot (px * P + py) * stride, P =
-// ncell + 2.  Interior column ic = cx * ncell + cy is padded column
-// (cx + 1, cy + 1).  Its chunk k holds the target slots
+// ncell + 2.  Interior column ic = cx * ncell + cy (cx < nx) is padded
+// column (cx + 1, cy + 1).  Its chunk k holds the target slots
 // [gz + k * chunk, gz + (k + 1) * chunk) and interacts with window
 // [ws, ws + W) of each neighbour (cx + o2 / 3, cy + o2 % 3), o2 = 0..8,
 // ws = ws_tab[(ic * 9 + o2) * maxch + k].  Ghost columns and ghost slots
@@ -26,13 +28,14 @@ namespace nbody_kernels {
 constexpr int kColThreads = 128;
 
 struct ColumnGeom {
-  int ncell;   // interior columns per side
+  int nx;      // interior x-rows of the plane (ncell, or a slab's share)
+  int ncell;   // interior columns per y side
   int stride;  // slots per padded column
   int W;       // window width (slots), <= stride, multiple of 128
   int maxch;   // chunk slots per column in the window table
   int gz;      // z-ghost slots at each column end
   int chunk;   // targets per chunk (a multiple of kColThreads)
-  size_t row;  // elements per plane row: P2 * stride
+  size_t row;  // elements per plane row: (nx + 2) * (ncell + 2) * stride
 };
 
 // The first target slot of this block's share of chunk k of interior

@@ -2,7 +2,9 @@
 // and K5, the same sum restricted to a chunk table of active chunks.
 //
 // K4 replaces the Pallas kernel `_column_kernel` (with `_pair_accum`) that
-// nbody/forces/p3m_columns.py:_run_column_kernel launches; K5 replaces
+// nbody/forces/p3m_columns.py:_run_column_kernel launches, and that
+// p3m_columns.py:p3m_short_columns_local launches on a slab's plane of the
+// domain decomposition (nx = ncell / D interior x-rows); K5 replaces
 // `_column_kernel_masked` that p3m_columns.py:
 // p3m_short_columns_frozen_masked launches (the rung tier's interior
 // ticks on a frozen plan).
@@ -98,7 +100,7 @@ template <int SPLIT, int SOFT>
 void launch(const float* plane, const int* ws, const int* nch, const int* cht,
             const ColumnGeom& g, const Params& p, float* out,
             cudaStream_t stream) {
-  const dim3 grid(g.ncell * g.ncell, g.maxch * (g.chunk / kColThreads));
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColThreads));
   if (cht == nullptr)
     column_kernel<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(
         plane, ws, nch, g, p, out);
@@ -108,24 +110,26 @@ void launch(const float* plane, const int* ws, const int* nch, const int* cht,
 }
 
 int run(const float* plane, const int* ws, const int* nch, const int* cht,
-        int ncell, int stride, int W, int maxch, int gz, int chunk,
+        int nx, int ncell, int stride, int W, int maxch, int gz, int chunk,
         double eps, double r_s, double r_cut, int split, int softening,
         float* out, void* stream) {
-  if (ncell < 1 || stride < 1 || W < 1 || W > stride || maxch < 1 ||
-      gz < 0 || chunk < kColThreads || chunk % kColThreads != 0 ||
+  if (ncell < 1 || nx < 1 || nx > ncell || stride < 1 || W < 1 ||
+      W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
+      chunk % kColThreads != 0 ||
       gz + maxch * chunk > stride || split < 0 || split > 1 ||
       softening < 0 || softening > 1 ||
       maxch * (chunk / kColThreads) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ColumnGeom g;
+  g.nx = nx;
   g.ncell = ncell;
   g.stride = stride;
   g.W = W;
   g.maxch = maxch;
   g.gz = gz;
   g.chunk = chunk;
-  g.row = static_cast<size_t>(ncell + 2) * (ncell + 2) * stride;
+  g.row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
   // the column tiers bake the box into the ghost coordinates
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -143,29 +147,32 @@ int run(const float* plane, const int* ws, const int* nch, const int* cht,
 
 extern "C" {
 
-// plane (8, (ncell + 2)^2 * stride) float32; ws (ncell^2 * 9 * maxch,)
-// int32; nch (ncell^2,) int32; out like plane, zeroed by the caller.
+// plane (8, (nx + 2) * (ncell + 2) * stride) float32, nx interior x-rows
+// (ncell for the whole box, ncell / D for a slab's plane); ws
+// (nx * ncell * 9 * maxch,) int32; nch (nx * ncell,) int32; out like
+// plane, zeroed by the caller.
 // split: 0 = Gaussian, 1 = spline.  softening: 0 = Plummer, 1 = cubic
 // spline.  Returns cudaGetLastError() after the launch (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
 int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
-                    int ncell, int stride, int W, int maxch, int gz, int chunk,
-                    double eps, double r_s, double r_cut, int split,
+                    int nx, int ncell, int stride, int W, int maxch, int gz,
+                    int chunk, double eps, double r_s, double r_cut, int split,
                     int softening, float* out, void* stream) {
-  return run(plane, ws, nch, nullptr, ncell, stride, W, maxch, gz, chunk, eps,
-             r_s, r_cut, split, softening, out, stream);
+  return run(plane, ws, nch, nullptr, nx, ncell, stride, W, maxch, gz, chunk,
+             eps, r_s, r_cut, split, softening, out, stream);
 }
 
-// K5.  As p3m_columns_f32, with nch_act (ncell^2,) int32 the active
-// chunks of each column and cht (ncell^2 * maxch,) int32 their indices
+// K5.  As p3m_columns_f32, with nch_act (nx * ncell,) int32 the active
+// chunks of each column and cht (nx * ncell * maxch,) int32 their indices
 // (the first nch_act[ic] entries of row ic).
 int p3m_columns_masked_f32(const float* plane, const int* ws,
-                           const int* nch_act, const int* cht, int ncell,
-                           int stride, int W, int maxch, int gz, int chunk,
-                           double eps, double r_s, double r_cut, int split,
-                           int softening, float* out, void* stream) {
-  return run(plane, ws, nch_act, cht, ncell, stride, W, maxch, gz, chunk, eps,
-             r_s, r_cut, split, softening, out, stream);
+                           const int* nch_act, const int* cht, int nx,
+                           int ncell, int stride, int W, int maxch, int gz,
+                           int chunk, double eps, double r_s, double r_cut,
+                           int split, int softening, float* out,
+                           void* stream) {
+  return run(plane, ws, nch_act, cht, nx, ncell, stride, W, maxch, gz, chunk,
+             eps, r_s, r_cut, split, softening, out, stream);
 }
 
 }  // extern "C"

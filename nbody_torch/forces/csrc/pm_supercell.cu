@@ -2,9 +2,12 @@
 // with the column pair sum, float32, for sm_90a.
 //
 // K2 replaces the Pallas kernel `_deposit_kernel` that
-// nbody/forces/pm_supercell.py:_deposit_node_masses launches; K3 replaces
-// `_column_pm_kernel` that pm_supercell.py:run_fused_column_plane
-// launches.  The plane layout is that of column_pairs.cuh.
+// nbody/forces/pm_supercell.py:_deposit_node_masses launches (from
+// supercell_deposit_from_plane, and on a slab from supercell_deposit_local);
+// K3 replaces `_column_pm_kernel` that pm_supercell.py:
+// run_fused_column_plane launches (on a slab from
+// nbody/distributed/domain.py:supercell_eval).  The plane layout is that
+// of column_pairs.cuh.
 //
 // K2 computes the CIC mass grid (nmesh^3, periodic) of the plane's real
 // slots (the first counts[c] interior slots of each column; z-ghosts and
@@ -20,6 +23,26 @@
 // read per particle and the 4 B per node of the mesh (8.4 MB at 128^3);
 // the adds of neighbouring slots (z-sorted within a column) spread over a
 // few mesh cells, so contention stays low on uniform states.
+//
+// On a slab of the domain decomposition (`slab` = 1) both kernels run
+// over the slab's nx = ncell / D interior x-rows, the first of which is
+// row `row0` of the whole box's chaining grid, and x no longer wraps.
+// The plane keeps box coordinates: a particle's coordinates in cells are
+// taken against its tile's origin in the box, op by op as on the whole
+// box's plane (so a slab rounds each CIC weight exactly as one device
+// does), and only its node index is made slab-local.  (The TPU kernel
+// works on a plane whose x the caller shifted to the slab's origin,
+// nbody/distributed/domain.py:807; the shift rounds x once more.)  Then:
+// K2 writes into a haloed slab of nx * S + 3 mesh planes (plane p holds
+// local node p - 1; the caller sends planes 0 and nx * S + 1, + 2 to the
+// neighbours, as pm_supercell.py:supercell_deposit_local does with its
+// ppermutes), and K3 reads haloed force grids of nx * S + 4 planes (local
+// node p - 1 again: one plane from the left neighbour, three from the
+// right, the x extent of extract_local_subgrids).  A resident particle's
+// CIC corners lie in local nodes -1 .. nx * S + 1, inside the halo; a
+// corner outside it (the sentinel slots of a chunk's tail, parked far
+// off) adds and reads nothing, as the TPU kernel's node subgrid gives it
+// no weight.
 //
 // K3 computes K4's output (p3m_columns.cu) with the PM force added first:
 // each target reads its 8 CIC corners of the force grids (3, nmesh^3)
@@ -50,10 +73,18 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
+// The mesh x-plane of node `ix`: periodic over nmesh, or on a slab the
+// haloed plane ix + 1 of nxg, -1 outside the halo.
+__device__ __forceinline__ int x_plane(int ix, int nmesh, int nxg, int slab) {
+  if (!slab) return wrap(ix, nmesh);
+  return (ix + 1 >= 0 && ix + 1 < nxg) ? ix + 1 : -1;
+}
+
 __global__ void __launch_bounds__(kDepositThreads)
 deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
-               int ncell, int S, int nmesh, int stride, int gz, size_t row,
-               float scale, float shift, float* __restrict__ rho) {
+               int ncell, int S, int nmesh, int nxg, int slab, int row0,
+               int stride, int gz, size_t row, float scale, float shift,
+               float* __restrict__ rho) {
   const int ic = blockIdx.x;
   const int r = blockIdx.y * kDepositThreads + threadIdx.x;
   if (r >= counts[ic]) return;
@@ -65,7 +96,8 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
   // coordinates in cells relative to the tile origin, as the TPU kernel,
   // rounded op by op as the plain version (no multiply-add contraction)
   const float x = __fsub_rn(__fsub_rn(__fmul_rn(plane[i], scale),
-                                      static_cast<float>(cx * S)), shift);
+                                      static_cast<float>((cx + row0) * S)),
+                            shift);
   const float y = __fsub_rn(__fsub_rn(__fmul_rn(plane[row + i], scale),
                                       static_cast<float>(cy * S)), shift);
   const float z = __fsub_rn(__fmul_rn(plane[2 * row + i], scale), shift);
@@ -80,7 +112,9 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
   const float wz[2] = {1.0f - fz, fz};
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
-    const size_t gx = static_cast<size_t>(wrap(ix + a, nmesh)) * nmesh;
+    const int px = x_plane(ix + a, nmesh, nxg, slab);
+    if (px < 0) continue;
+    const size_t gx = static_cast<size_t>(px) * nmesh;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const size_t gxy = (gx + wrap(iy + b, nmesh)) * nmesh;
@@ -93,11 +127,13 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
   }
 }
 
-// Trilinear read of three periodic (nmesh^3) grids spaced n3 apart at
-// (x, y, z) in cells, x and y relative to the tile origin (x0, y0).
+// Trilinear read of three (nxg, nmesh, nmesh) grids spaced n3 apart at
+// (x, y, z) in cells, x and y relative to the tile origin (x0, y0); x
+// periodic, or haloed on a slab (x_plane).
 __device__ __forceinline__ float3 cic_read3(const float* __restrict__ grids,
-                                            size_t n3, int nmesh, float x,
-                                            float y, float z, int x0, int y0) {
+                                            size_t n3, int nmesh, int nxg,
+                                            int slab, float x, float y,
+                                            float z, int x0, int y0) {
   const float fx0 = floorf(x), fy0 = floorf(y), fz0 = floorf(z);
   const float fx = x - fx0, fy = y - fy0, fz = z - fz0;
   const int ix = static_cast<int>(fx0) + x0;
@@ -109,7 +145,9 @@ __device__ __forceinline__ float3 cic_read3(const float* __restrict__ grids,
   float3 f = make_float3(0.0f, 0.0f, 0.0f);
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
-    const size_t gx = static_cast<size_t>(wrap(ix + a, nmesh)) * nmesh;
+    const int px = x_plane(ix + a, nmesh, nxg, slab);
+    if (px < 0) continue;
+    const size_t gx = static_cast<size_t>(px) * nmesh;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const size_t gxy = (gx + wrap(iy + b, nmesh)) * nmesh;
@@ -131,8 +169,8 @@ template <int SPLIT, int SOFT, bool INTERLACED, bool SPLIT_OUT>
 __global__ void __launch_bounds__(kColThreads)
 fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
              const int* __restrict__ nch, const float* __restrict__ grids,
-             int nmesh, int S, float scale, ColumnGeom g, Params p,
-             float* __restrict__ out) {
+             int nmesh, int nxg, int slab, int row0, int S, float scale,
+             ColumnGeom g, Params p, float* __restrict__ out) {
   __shared__ float4 tile[kColThreads];
   int ic, k;
   size_t first;
@@ -145,15 +183,16 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
   // PM force at the target (the TPU kernel's first-neighbour visit)
   const int x0 = (ic / g.ncell) * S;
   const int y0 = (ic % g.ncell) * S;
-  const float xr = __fsub_rn(__fmul_rn(xi, scale), static_cast<float>(x0));
+  const float xr =
+      __fsub_rn(__fmul_rn(xi, scale), static_cast<float>(x0 + row0 * S));
   const float yr = __fsub_rn(__fmul_rn(yi, scale), static_cast<float>(y0));
   const float zr = __fmul_rn(zi, scale);
-  const size_t n3 = static_cast<size_t>(nmesh) * nmesh * nmesh;
-  float3 pm = cic_read3(grids, n3, nmesh, xr, yr, zr, x0, y0);
+  const size_t n3 = static_cast<size_t>(nxg) * nmesh * nmesh;
+  float3 pm = cic_read3(grids, n3, nmesh, nxg, slab, xr, yr, zr, x0, y0);
   if (INTERLACED) {
     // the shift subtracts, as in the gather's convention
-    const float3 f1 = cic_read3(grids + 3 * n3, n3, nmesh, xr - 0.5f,
-                                yr - 0.5f, zr - 0.5f, x0, y0);
+    const float3 f1 = cic_read3(grids + 3 * n3, n3, nmesh, nxg, slab,
+                                xr - 0.5f, yr - 0.5f, zr - 0.5f, x0, y0);
     pm.x = 0.5f * (pm.x + f1.x);
     pm.y = 0.5f * (pm.y + f1.y);
     pm.z = 0.5f * (pm.z + f1.z);
@@ -176,34 +215,39 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
 
 template <int SPLIT, int SOFT, bool INTERLACED, bool SPLIT_OUT>
 void launch_fused(const float* plane, const int* ws, const int* nch,
-                  const float* grids, int nmesh, int S, float scale,
-                  const ColumnGeom& g, const Params& p, float* out,
-                  cudaStream_t stream) {
-  const dim3 grid(g.ncell * g.ncell, g.maxch * (g.chunk / kColThreads));
+                  const float* grids, int nmesh, int nxg, int slab, int row0,
+                  int S, float scale, const ColumnGeom& g, const Params& p,
+                  float* out, cudaStream_t stream) {
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColThreads));
   fused_kernel<SPLIT, SOFT, INTERLACED, SPLIT_OUT>
-      <<<grid, kColThreads, 0, stream>>>(plane, ws, nch, grids, nmesh, S,
-                                         scale, g, p, out);
+      <<<grid, kColThreads, 0, stream>>>(plane, ws, nch, grids, nmesh, nxg,
+                                         slab, row0, S, scale, g, p, out);
 }
 
 template <int SPLIT, int SOFT>
 void dispatch_fused(bool interlaced, bool split_out, const float* plane,
                     const int* ws, const int* nch, const float* grids,
-                    int nmesh, int S, float scale, const ColumnGeom& g,
-                    const Params& p, float* out, cudaStream_t s) {
+                    int nmesh, int nxg, int slab, int row0, int S,
+                    float scale, const ColumnGeom& g, const Params& p,
+                    float* out, cudaStream_t s) {
   if (interlaced) {
     if (split_out)
-      launch_fused<SPLIT, SOFT, true, true>(plane, ws, nch, grids, nmesh, S,
-                                            scale, g, p, out, s);
+      launch_fused<SPLIT, SOFT, true, true>(plane, ws, nch, grids, nmesh, nxg,
+                                            slab, row0, S, scale, g, p, out,
+                                            s);
     else
-      launch_fused<SPLIT, SOFT, true, false>(plane, ws, nch, grids, nmesh, S,
-                                             scale, g, p, out, s);
+      launch_fused<SPLIT, SOFT, true, false>(plane, ws, nch, grids, nmesh,
+                                             nxg, slab, row0, S, scale, g, p,
+                                             out, s);
   } else {
     if (split_out)
-      launch_fused<SPLIT, SOFT, false, true>(plane, ws, nch, grids, nmesh, S,
-                                             scale, g, p, out, s);
+      launch_fused<SPLIT, SOFT, false, true>(plane, ws, nch, grids, nmesh,
+                                             nxg, slab, row0, S, scale, g, p,
+                                             out, s);
     else
-      launch_fused<SPLIT, SOFT, false, false>(plane, ws, nch, grids, nmesh, S,
-                                              scale, g, p, out, s);
+      launch_fused<SPLIT, SOFT, false, false>(plane, ws, nch, grids, nmesh,
+                                              nxg, slab, row0, S, scale, g, p,
+                                              out, s);
   }
 }
 
@@ -211,53 +255,65 @@ void dispatch_fused(bool interlaced, bool split_out, const float* plane,
 
 extern "C" {
 
-// K2.  plane (8, (ncell + 2)^2 * stride) float32; counts (ncell^2,) int32
-// (real slots per column, <= CK); rho (nmesh^3,) float32, zeroed by the
-// caller, receives the masses.  Returns cudaGetLastError() after the
-// launch (0 on success); 1 (cudaErrorInvalidValue) for arguments the
-// kernel does not take.
-int pm_supercell_deposit_f32(const float* plane, const int* counts, int ncell,
-                             int S, int nmesh, int stride, int gz, int CK,
-                             double scale, double shift, float* rho,
-                             void* stream) {
-  if (ncell < 1 || S < 1 || nmesh != ncell * S || stride < 1 || gz < 0 ||
-      CK < 1 || gz + CK > stride) {
+// K2.  plane (8, (nx + 2) * (ncell + 2) * stride) float32; counts
+// (nx * ncell,) int32 (real slots per column, <= CK); rho, zeroed by the
+// caller, receives the masses: (nmesh^3,) with nx = ncell and slab = 0,
+// or on a slab (slab = 1, nx = ncell / D, its first x-row row0 of the
+// box's grid) the haloed (nx * S + 3, nmesh, nmesh).  Returns
+// cudaGetLastError() after the launch (0 on success); 1
+// (cudaErrorInvalidValue) for arguments the kernel does not take.
+int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
+                             int ncell, int slab, int row0, int S, int nmesh,
+                             int stride, int gz, int CK, double scale,
+                             double shift, float* rho, void* stream) {
+  if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
+      slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
+      (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S ||
+      stride < 1 || gz < 0 || CK < 1 || gz + CK > stride) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t row = static_cast<size_t>(ncell + 2) * (ncell + 2) * stride;
-  const dim3 grid(ncell * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
+  const size_t row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
+  const int nxg = slab ? nx * S + 3 : nmesh;
+  const dim3 grid(nx * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
   deposit_kernel<<<grid, kDepositThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      plane, counts, ncell, S, nmesh, stride, gz, row,
+      plane, counts, ncell, S, nmesh, nxg, slab, row0, stride, gz, row,
       static_cast<float>(scale), static_cast<float>(shift), rho);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3.  plane, ws, nch and out as p3m_columns_f32; grids (3, nmesh^3)
-// float32, or (6, nmesh^3) with `interlaced` (rows 3-5 read at -0.5
-// cell).  `split_out` writes the PM force to rows 3-5 and the short-range
-// sum alone to rows 0-2.
+// K3.  plane, ws, nch and out as p3m_columns_f32; grids (3, nxg, nmesh,
+// nmesh) float32, or (6, ...) with `interlaced` (rows 3-5 read at -0.5
+// cell): nxg = nmesh periodic (slab = 0, nx = ncell), or on a slab
+// (slab = 1, its first x-row row0 of the box's grid) the haloed
+// nx * S + 4 planes.  `split_out` writes the PM force to rows 3-5 and the
+// short-range sum alone to rows 0-2.
 int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
                            const float* grids, int nmesh, int interlaced,
-                           int split_out, int ncell, int S, double scale,
-                           int stride, int W, int maxch, int gz, int chunk,
-                           double eps, double r_s, double r_cut, int split,
+                           int split_out, int nx, int ncell, int slab,
+                           int row0, int S, double scale, int stride, int W,
+                           int maxch, int gz, int chunk, double eps,
+                           double r_s, double r_cut, int split,
                            int softening, float* out, void* stream) {
-  if (ncell < 1 || S < 1 || nmesh != ncell * S || stride < 1 || W < 1 ||
-      W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
+  if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
+      slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
+      (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S || stride < 1 ||
+      W < 1 || W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
       chunk % kColThreads != 0 || gz + maxch * chunk > stride ||
       split < 0 || split > 1 || softening < 0 || softening > 1 ||
       maxch * (chunk / kColThreads) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ColumnGeom g;
+  g.nx = nx;
   g.ncell = ncell;
   g.stride = stride;
   g.W = W;
   g.maxch = maxch;
   g.gz = gz;
   g.chunk = chunk;
-  g.row = static_cast<size_t>(ncell + 2) * (ncell + 2) * stride;
+  g.row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
+  const int nxg = slab ? nx * S + 4 : nmesh;
   // the column tiers bake the box into the ghost coordinates
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
   const float sc = static_cast<float>(scale);
@@ -265,18 +321,18 @@ int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
   const bool il = interlaced != 0, so = split_out != 0;
   if (split == 0) {
     if (softening == 0)
-      dispatch_fused<0, 0>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
-                           out, s);
+      dispatch_fused<0, 0>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
+                           row0, S, sc, g, p, out, s);
     else
-      dispatch_fused<0, 1>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
-                           out, s);
+      dispatch_fused<0, 1>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
+                           row0, S, sc, g, p, out, s);
   } else {
     if (softening == 0)
-      dispatch_fused<1, 0>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
-                           out, s);
+      dispatch_fused<1, 0>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
+                           row0, S, sc, g, p, out, s);
     else
-      dispatch_fused<1, 1>(il, so, plane, ws, nch, grids, nmesh, S, sc, g, p,
-                           out, s);
+      dispatch_fused<1, 1>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
+                           row0, S, sc, g, p, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

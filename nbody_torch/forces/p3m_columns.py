@@ -300,12 +300,13 @@ def encode_overflow(ov_b, ov_w):
 
 
 def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
-                   device=None, cht=None, maxch: int = 0):
+                   device=None, cht=None, maxch: int = 0, nx: int | None = None):
     """(column id, chunk index, first padded slot) of every occupied chunk
     of the interior columns, as int64 tensors: the targets of K3/K4.  With
     a chunk table ``cht`` (ncol * maxch), column ic's chunks are the first
-    nch[ic] entries of its row instead (K5's active chunks)."""
-    ncol = ncell * ncell
+    nch[ic] entries of its row instead (K5's active chunks).  ``nx`` is
+    the plane's count of interior x-rows (ncell, or a slab's ncell / D)."""
+    ncol = (ncell if nx is None else nx) * ncell
     P = ncell + 2
     nch = nch.to(torch.int64)
     ic = torch.repeat_interleave(torch.arange(ncol, device=device), nch)
@@ -320,11 +321,12 @@ def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
 def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
                      maxch: int, gz: int, chunk: int, eps: float, r_s: float,
                      r_cut: float, split: str, softening: str,
-                     max_pairs: int = 1 << 24, cht=None):
+                     max_pairs: int = 1 << 24, cht=None,
+                     nx: int | None = None):
     """The short-range sums of every occupied chunk's targets over its 9
     neighbour windows, in the plane's dtype: (targets (B, chunk) slot
     indices, sums (3, B, chunk)); with a chunk table ``cht``, of the
-    chunks it lists (see :func:`interior_slots`).
+    chunks it lists (see :func:`interior_slots`); ``nx`` interior x-rows.
 
     Targets go in tiles of 32 slots and each window in tiles of 64; a
     tile pair whose z ranges lie more than r_cut apart holds no pair
@@ -338,7 +340,7 @@ def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
     P = ncell + 2
     tt_n, ts_n = 32, 64  # chunk and W are multiples of 128
     ic, k, first = interior_slots(ncell, stride, gz, chunk, nch, dev,
-                                  cht=cht, maxch=maxch)
+                                  cht=cht, maxch=maxch, nx=nx)
     tgt = first[:, None] + torch.arange(chunk, device=dev)[None, :]
     jw = torch.arange(W, device=dev)
     nb = ic.numel()
@@ -376,32 +378,38 @@ def column_pair_sums(plane, ws, nch, *, ncell: int, stride: int, W: int,
 def column_plane_plain(plane, ws, nch, *, ncell: int, stride: int, W: int,
                        maxch: int, gz: int, chunk: int, eps: float,
                        r_s: float, r_cut: float, split: str, softening: str,
-                       cht=None):
+                       cht=None, nx: int | None = None):
     """Plain PyTorch version of K4 (and, with the chunk table ``cht``, of
-    K5): the (8, P2 * stride) output plane with rows 0-2 the short-range
-    sums at the slots of the occupied (listed) chunks of the interior
-    columns and zeros everywhere else."""
+    K5): the output plane, shaped like ``plane``, with rows 0-2 the
+    short-range sums at the slots of the occupied (listed) chunks of the
+    interior columns and zeros everywhere else.  ``nx`` is the count of
+    interior x-rows: ncell for the whole box's (8, P2 * stride) plane, a
+    slab's ncell / D for its (8, (nx + 2) * P * stride) plane."""
     tgt, sums = column_pair_sums(
         plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
         chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-        softening=softening, cht=cht)
+        softening=softening, cht=cht, nx=nx)
     out = torch.zeros_like(plane)
     out[0:3, tgt.reshape(-1)] = sums.reshape(3, -1)
     return out
 
 
 def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
-                     ncell: int, stride: int):
+                     ncell: int, stride: int, nx: int | None = None):
     """Raise on what the column kernels do not take: a float32 contiguous
-    (8, P2 * stride) plane and int32 contiguous tables on its device."""
-    P2 = (ncell + 2) ** 2
+    (8, (nx + 2) * (ncell + 2) * stride) plane and int32 contiguous tables
+    on its device (nx = ncell unless given)."""
+    nx = ncell if nx is None else nx
+    if not 1 <= nx <= ncell:
+        raise ValueError(f"{name}: nx={nx} outside 1..ncell={ncell}")
+    P2 = (nx + 2) * (ncell + 2)
     if plane.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, "
                         f"got {plane.dtype}")
     if tuple(plane.shape) != (8, P2 * stride) or not plane.is_contiguous():
         raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
                          f"contiguous (8, {P2 * stride})")
-    ncol = ncell * ncell
+    ncol = nx * ncell
     sizes = {"ws": ncol * 9 * maxch, "nch": ncol, "counts": ncol,
              "cht": ncol * maxch}
     for key, t in ints.items():
@@ -415,30 +423,33 @@ def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
 
 def run_column_plane(plane, ws, nch, *, ncell: int, stride: int, W: int,
                      maxch: int, gz: int, chunk: int, eps: float, r_s: float,
-                     r_cut: float, split: str, softening: str):
+                     r_cut: float, split: str, softening: str,
+                     nx: int | None = None):
     """K4: the short-range column pair sum over a plane from
-    :func:`build_column_plane` -> the (8, P2 * stride) output plane (see
+    :func:`build_column_plane` (or, with ``nx`` = ncell / D, a slab's plane
+    from :func:`build_local_column_plane`) -> the output plane (see
     :func:`column_plane_plain`).  A CUDA plane launches the kernel or
     raises; a CPU plane takes the plain version.  ``run_column_plane.
     launches`` counts kernel launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    nx = ncell if nx is None else nx
     kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
               chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-              softening=softening)
+              softening=softening, nx=nx)
     if plane.device.type == "cpu":
         return column_plane_plain(plane, ws, nch, **kw)
     if plane.device.type != "cuda":
         raise ValueError(f"run_column_plane: no kernel for {plane.device}")
     check_plane_args("run_column_plane", plane, {"ws": ws, "nch": nch},
-                     maxch=maxch, ncell=ncell, stride=stride)
+                     maxch=maxch, ncell=ncell, stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
     out = torch.zeros_like(plane)
     with torch.cuda.device(plane.device):
         err = lib.p3m_columns_f32(
-            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(), ncell, stride,
+            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(), nx, ncell, stride,
             W, maxch, gz, chunk, float(eps), float(r_s), float(r_cut),
             _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -483,7 +494,7 @@ def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
     with torch.cuda.device(plane.device):
         err = lib.p3m_columns_masked_f32(
             plane.data_ptr(), ws.data_ptr(), nch_act.data_ptr(),
-            cht.data_ptr(), ncell, stride, W, maxch, gz, chunk, float(eps),
+            cht.data_ptr(), ncell, ncell, stride, W, maxch, gz, chunk, float(eps),
             float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -659,3 +670,202 @@ def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
         maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
         split=split, softening=softening)
     return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov
+
+
+# ---------------------------------------------------------------------------
+# The slab tier of the domain decomposition
+# ---------------------------------------------------------------------------
+
+
+def _local_column_buf(pos, mass, d: int, *, box: float, r_cut: float,
+                      ncell: int, nxl: int, CK: int, gz: int, stride: int,
+                      chunk: int):
+    """Shard d's half of :func:`build_local_column_plane` before the halo
+    exchange: its z-sorted (x, y) columns of the nxl x-rows it owns, in
+    the slot layout of :func:`build_column_plane`, with the y ghost ring
+    (local wrap) and default x-rows at both ends."""
+    C = pos.shape[0]
+    dev = pos.device
+    f32 = torch.float32
+    ncol_l = nxl * ncell
+    P = ncell + 2
+    zmargin = 1.0001 * r_cut
+    posw = torch.remainder(pos, box).to(f32)
+    massf = mass.to(f32)
+    valid = massf > 0
+    cx = torch.clamp((posw[:, 0] * (ncell / box)).to(torch.int32), 0,
+                     ncell - 1).to(torch.int64)
+    cy = torch.clamp((posw[:, 1] * (ncell / box)).to(torch.int32), 0,
+                     ncell - 1).to(torch.int64)
+    cxl = cx - d * nxl
+    resident = valid & (cxl >= 0) & (cxl < nxl)
+    col = torch.where(resident, cxl * ncell + cy,
+                      torch.full_like(cxl, ncol_l))
+    order = _col_z_order(col, posw[:, 2], box)
+    pos_s = posw[order]
+    mass_s = massf[order]
+    col_s = col[order]
+
+    cols = torch.arange(ncol_l, device=dev)
+    starts = torch.searchsorted(col_s, cols, right=False)
+    ends = torch.searchsorted(col_s, cols, right=True)
+    counts = ends - starts
+    rank = torch.arange(C, device=dev) - starts[torch.clamp(col_s, 0,
+                                                            ncol_l - 1)]
+    ok = (rank < CK) & (col_s < ncol_l)
+    overflow_b = torch.sum(resident) - torch.sum(ok)
+
+    src, src_ok, is_front, is_interior, is_back = _slot_sources(
+        starts, counts, CK, gz, stride)
+    src_c = torch.clamp(src, 0, max(C - 1, 0))
+    rows = torch.cat([pos_s, mass_s[:, None]], dim=1)[src_c]
+    buf, z_raw = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back,
+                              box, r_cut, zmargin)
+    nb = torch.sum(is_interior & (z_raw <= zmargin), dim=1)
+    nf = torch.sum(is_interior & (z_raw >= box - zmargin), dim=1)
+    ov_g = (torch.sum(torch.clamp_min(nb - gz, 0))
+            + torch.sum(torch.clamp_min(nf - gz, 0)))
+
+    grid4 = buf.reshape(nxl, ncell, stride, 4)
+    wrap = (torch.arange(P, device=dev) - 1) % ncell
+    padded = grid4[:, wrap].clone()
+    zero = torch.zeros((), dtype=f32, device=dev)
+    for edge, delta in ((0, -box), (P - 1, box)):
+        lo = padded[:, edge]
+        lo[..., 1] += torch.where(lo[..., 3] > 0, zero + delta, zero)
+    defaults = torch.tensor([-8.0 * r_cut, -8.0 * r_cut, box + 3.0 * r_cut,
+                             0.0], dtype=f32, device=dev)
+    zero_row = defaults.expand(1, P, stride, 4)
+    p5 = torch.cat([zero_row, padded, zero_row], dim=0)
+    return dict(p5=p5, pos_s=pos_s, starts=starts, counts=counts,
+                order=order, ok=ok, rank=rank, cxl=cxl, cy=cy,
+                overflow_b=overflow_b + ov_g)
+
+
+def build_local_column_plane(pos: list, mass: list, *, box: float,
+                             r_cut: float, ncell: int, group,
+                             col_capacity: int, window: int,
+                             chunk: int = 256):
+    """Slab sibling of :func:`build_column_plane` for the domain
+    decomposition, on every shard of ``group``: shard d owns the nxl =
+    ncell / D x-rows [d nxl, (d + 1) nxl) of full-height z columns.  z
+    (ghost copies at each column end) and y (the local wrap ring) are
+    periodic as in the whole-box plane; the two ghost x-rows are the
+    neighbours' edge rows, whole y-padded rows moved by a ppermute each
+    way, with -box / +box added to x where the ring wraps.  The window
+    starts are taken after the halo exchange, from the 128-slot fences of
+    the padded columns, as in the JAX package.
+
+    Returns one tuple a shard: (plane (8, (nxl + 2) * P * stride), ws
+    (nxl * ncell * 9 * maxch,) int32, nch (nxl * ncell,) int32,
+    overflow_bucket, overflow_window, gidx (C,) int64, counts (nxl *
+    ncell,) int32): overflow_bucket counts resident particles beyond CK
+    and z-ghost demand beyond gz, overflow_window the window misses;
+    ``gidx`` maps resident rows to their padded slot and every other row
+    to the sentinel; ``counts`` is min(raw, CK), the slab deposit's mask."""
+    D = group.size
+    if ncell % D:
+        raise ValueError(f"ncell={ncell} does not split over {D} shards")
+    CK = _ceil128(col_capacity)
+    gz = ghost_slots(CK, (float(r_cut) / box) * CK)
+    stride = CK + 2 * gz
+    W = min(_ceil128(window), stride)
+    if CK % chunk:
+        chunk = 128
+    maxch = CK // chunk
+    nxl = ncell // D
+    ncol_l = nxl * ncell
+    P = ncell + 2
+    parts = [_local_column_buf(p, m, d, box=box, r_cut=float(r_cut),
+                               ncell=ncell, nxl=nxl, CK=CK, gz=gz,
+                               stride=stride, chunk=chunk)
+             for d, (p, m) in enumerate(zip(pos, mass))]
+    from_left = group.ppermute([q["p5"][nxl] for q in parts], +1)
+    from_right = group.ppermute([q["p5"][1] for q in parts], -1)
+    out = []
+    for d, q in enumerate(parts):
+        p5 = q["p5"].clone()
+        for row, halo, delta in ((0, from_left[d], -box if d == 0 else 0.0),
+                                 (nxl + 1, from_right[d],
+                                  box if d == D - 1 else 0.0)):
+            h = halo.clone()
+            h[..., 0] += torch.where(h[..., 3] > 0, delta, 0.0)
+            p5[row] = h
+        plane4 = p5.reshape((nxl + 2) * P * stride, 4)
+        plane = torch.cat([plane4.T, torch.zeros_like(plane4.T)],
+                          dim=0).contiguous()
+
+        # window tables from the padded plane: a window starts one
+        # 128-slot fence below the first fence above the chunk's reach
+        dev = plane.device
+        zcols = plane4[:, 2].reshape((nxl + 2) * P, stride)
+        fence = zcols[:, ::128]
+        starts, counts, pos_s = q["starts"], q["counts"], q["pos_s"]
+        C = pos_s.shape[0]
+        cnt_ck = torch.clamp_max(counts, CK)
+        ch = torch.arange(maxch, device=dev)
+        nch = -(-cnt_ck // chunk)
+        idx0 = starts[:, None] + ch[None, :] * chunk
+        last = starts[:, None] + cnt_ck[:, None] - 1
+        hi_n = max(C - 1, 0)
+        zmin = pos_s[torch.clamp(idx0, 0, hi_n), 2]
+        zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0,
+                                 hi_n), 2]
+        chunk_ok = ch[None, :] < nch[:, None]
+        qlo = (zmin - r_cut)[:, :, None]
+        qhi = (zmax + r_cut)[:, :, None]
+        cols = torch.arange(ncol_l, device=dev)
+        ic_x, ic_y = cols // ncell, cols % ncell
+        ws_list = []
+        ov_w = torch.zeros((), dtype=torch.int64, device=dev)
+        for o2 in range(9):
+            nc = (ic_x + 1 + o2 // 3 - 1) * P + (ic_y + 1 + o2 % 3 - 1)
+            cnt_lo = torch.sum(fence[nc][:, None, :] <= qlo, dim=-1)
+            start = torch.clamp(torch.clamp_min(cnt_lo - 1, 0) * 128, 0,
+                                stride - W)
+            hi_exact = torch.sum(zcols[nc][:, None, :] < qhi, dim=-1)
+            ov_w = ov_w + torch.sum(torch.where(
+                chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0))
+            ws_list.append(start)
+        ws = torch.stack(ws_list, dim=1).reshape(ncol_l * 9 * maxch)
+
+        pc = (torch.clamp(q["cxl"], 0, nxl - 1) + 1) * P + (q["cy"] + 1)
+        sentinel = (nxl + 2) * P * stride
+        order = q["order"]
+        gidx_s = torch.where(q["ok"], pc[order] * stride + gz + q["rank"],
+                             torch.full_like(q["rank"], sentinel))
+        gidx = torch.empty(C, dtype=torch.int64, device=dev)
+        gidx[order] = gidx_s
+        out.append((plane, ws.to(torch.int32), nch.to(torch.int32),
+                    q["overflow_b"], ov_w, gidx, cnt_ck.to(torch.int32)))
+    return out
+
+
+def p3m_short_columns_local(pos: list, mass: list, *, box: float, eps: float,
+                            r_s: float, r_cut: float, G: float = 1.0,
+                            ncell: int, group, col_capacity: int,
+                            window: int, split: str = "gaussian",
+                            softening: str = "plummer", chunk: int = 256):
+    """The column tier's short-range force on every shard's slab: K4 on
+    each local plane of :func:`build_local_column_plane` (nx = ncell / D
+    interior x-rows).  Returns (acc list (C, 3), overflow list): each
+    shard's field-encoded word (bucket/ghost * 65536 + window misses),
+    not yet reduced over the shards."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    nxl = ncell // group.size
+    accs, ovs = [], []
+    for p, (plane, ws, nch, ov_b, ov_w, gidx, _) in zip(
+            pos, build_local_column_plane(
+                pos, mass, box=box, r_cut=float(r_cut), ncell=ncell,
+                group=group, col_capacity=CK, window=W, chunk=chunk)):
+        out = run_column_plane(
+            plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch,
+            gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
+            softening=softening, nx=nxl)
+        accs.append(G * read_back(out, gidx, 3).to(p.dtype))
+        ovs.append(encode_overflow(ov_b, ov_w))
+    return accs, ovs

@@ -233,10 +233,11 @@ class PMForce(nn.Module):
 def pm_module(box: float, nmesh: int, deconvolve_p: int = 2,
               interlace: bool = False, longrange_split: float = 0.0,
               spline_split: float = 0.0, grad_order: str = "fd4",
-              grid_shift: float = 0.0, device=None,
+              grid_shift: float = 0.0, device="cuda",
               dtype=torch.float32) -> PMForce:
     """One :class:`PMForce` per geometry, device and dtype in a process,
-    so the functional entry points build their buffers once."""
+    so the functional entry points build their buffers once; on the card
+    unless ``device`` says otherwise."""
     return PMForce(box, nmesh, deconvolve_p=deconvolve_p,
                    interlace=interlace, longrange_split=longrange_split,
                    spline_split=spline_split, grad_order=grad_order,
@@ -263,14 +264,14 @@ def pm_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
 def make_pm_cosmo_force(cosmo: Cosmology, box: float, nmesh: int,
                         deconvolve_p: int = 2, interlace: bool = False,
                         grad_order: str = "fd4", cell_centered: bool = False,
-                        *, device=None, dtype=torch.float32):
+                        *, device="cuda", dtype=torch.float32):
     """Comoving canonical-momentum force g(pos, mass, a) = -grad phi with
-    lap phi = (3/2) Omega_m H0^2 delta / a."""
+    lap phi = (3/2) Omega_m H0^2 delta / a, its buffers on ``device`` (the
+    card unless the caller asks for the CPU)."""
     base = 1.5 * cosmo.Omega_m * cosmo.H0**2
     pm = pm_module(float(box), int(nmesh), int(deconvolve_p), bool(interlace),
                    0.0, 0.0, grad_order, 0.5 if cell_centered else 0.0,
-                   torch.device(device) if device is not None else None,
-                   dtype)
+                   torch.device(device), dtype)
 
     def acc_fn(pos, mass, a):
         return pm(pos, mass, base / a)

@@ -61,16 +61,19 @@ def supercell_geometry(nmesh: int, ncell: int):
 
 def deposit_node_masses_plain(plane, counts, *, ncell: int, S: int, ZP: int,
                               stride: int, gz: int, scale: float,
-                              shift: float = 0.0, max_elems: int = 1 << 24):
+                              shift: float = 0.0, max_elems: int = 1 << 24,
+                              nx: int | None = None, row0: int = 0):
     """CIC node masses of each interior column's real slots on its haloed
     16 x 16 x ZP node grid, in the plane's dtype: (ncol * 256, ZP), row
     a * 16 + b = node (a - 1, b - 1) of the column's tile, lane l = z node
     l - 1.  Every weight is the CIC triangle max(0, 1 - |u - node|) of the
     coordinates in mesh cells minus ``shift``, as in the JAX package's
     kernel; columns are processed in groups of at most ``max_elems``
-    weights."""
+    weights.  ``nx`` is the plane's count of interior x-rows (ncell, or a
+    slab's ncell / D: ncol = nx * ncell) and ``row0`` the box's x-row of
+    the first (a slab's plane keeps box coordinates)."""
     dev, dt = plane.device, plane.dtype
-    ncol = ncell * ncell
+    ncol = (ncell if nx is None else nx) * ncell
     P = ncell + 2
     CK = stride - 2 * gz
     lane = torch.arange(256, device=dev)
@@ -84,7 +87,7 @@ def deposit_node_masses_plain(plane, counts, *, ncell: int, S: int, ZP: int,
         c = torch.arange(c0, min(ncol, c0 + step), device=dev)
         pcol = (c // ncell + 1) * P + (c % ncell + 1)
         slots = (pcol * stride + gz)[:, None] + r[None, :]
-        x0 = ((c // ncell) * S).to(dt)[:, None]
+        x0 = ((c // ncell + row0) * S).to(dt)[:, None]
         y0 = ((c % ncell) * S).to(dt)[:, None]
         x = plane[0][slots] * scale - x0 - shift
         y = plane[1][slots] * scale - y0 - shift
@@ -129,29 +132,83 @@ def fold_node_masses(nodes, *, ncell: int, S: int, ZP: int, nmesh: int):
     return res
 
 
+def fold_slab_node_masses(nodes, *, nx: int, ncell: int, S: int, ZP: int,
+                          nmesh: int):
+    """The haloed (nx * S + 3, nmesh, nmesh) mass slab of a slab plane's
+    per-column node masses (:func:`deposit_node_masses_plain` with ``nx``):
+    y and z fold periodically as in :func:`fold_node_masses`; x does not
+    wrap, and plane p holds local node p - 1 (node -1 and nodes nx * S,
+    nx * S + 1 belong to the neighbouring slabs, :func:`slab_halo_fold`).
+    The fold of the JAX package's ``supercell_deposit_local`` before its
+    ppermutes."""
+    nml = nx * S
+    O = nodes.reshape(nx, ncell, 16, 16, ZP)
+    A = _fold_rows(O, t_axis=1, r_axis=3, S=S)  # (nx, ncell, 16, S, ZP)
+    ext_z = A[..., : nmesh + 4]
+    Az = ext_z[..., 1: nmesh + 1].clone()
+    Az[..., nmesh - 1] += ext_z[..., 0]
+    Az[..., 0] += ext_z[..., nmesh + 1]
+    Az[..., 1] += ext_z[..., nmesh + 2]
+    Az[..., 2] += ext_z[..., nmesh + 3]
+    ext = torch.zeros((nml + 3, ncell, S, nmesh), dtype=nodes.dtype,
+                      device=nodes.device)
+    for r in range(S + 3):
+        # tile t's row r is local node t * S + r - 1, plane t * S + r
+        ext[r: r + nx * S: S] += Az[:, :, r]
+    return ext.reshape(nml + 3, nmesh, nmesh)
+
+
+def slab_halo_fold(exts: list, group) -> list:
+    """The shards' (nml, nmesh, nmesh) mass slabs from their haloed slabs
+    (nml + 3 planes, plane p = local node p - 1): node -1 goes to the left
+    neighbour's last plane, nodes nml and nml + 1 to the right neighbour's
+    first two (a ppermute each way, as ``supercell_deposit_local``)."""
+    nml = exts[0].shape[0] - 3
+    left = group.ppermute([e[0] for e in exts], -1)
+    right = group.ppermute([e[nml + 1: nml + 3] for e in exts], +1)
+    out = []
+    for e, lf, rt in zip(exts, left, right):
+        g = e[1: nml + 1].clone()
+        g[nml - 1] += lf
+        g[0:2] += rt
+        out.append(g)
+    return out
+
+
 def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
                                  ncell: int, stride: int, gz: int,
-                                 chunk: int = 256, shift: float = 0.0):
+                                 chunk: int = 256, shift: float = 0.0,
+                                 nx: int | None = None, row0: int = 0):
     """K2: CIC deposit of a column plane's real slots (the first
     ``counts[c]`` interior slots of each column; ghosts excluded) onto the
     (nmesh,)^3 mesh, coordinates in cells minus ``shift``: the contract of
     :func:`nbody_torch.mesh.cic.cic_deposit` over the deposited particles.
+    With ``nx`` < ncell the plane is a slab's (nx interior x-rows from the
+    box's x-row ``row0``, box coordinates) and the result its haloed
+    (nx * S + 3, nmesh, nmesh) slab (:func:`fold_slab_node_masses`;
+    :func:`supercell_deposit_local` sends the halo planes on).
 
     A CUDA plane launches the kernel (which adds each particle's 8 corner
-    masses straight into the periodic mesh) or raises; a CPU plane takes
-    :func:`deposit_node_masses_plain` + :func:`fold_node_masses`.
-    ``supercell_deposit_from_plane.launches`` counts kernel launches."""
+    masses straight into the mesh) or raises; a CPU plane takes
+    :func:`deposit_node_masses_plain` + :func:`fold_node_masses` (or
+    :func:`fold_slab_node_masses`).  ``supercell_deposit_from_plane.
+    launches`` counts kernel launches."""
     geom = supercell_geometry(nmesh, ncell)
     if geom is None:
         raise ValueError(
             f"supercell deposit needs nmesh % ncell == 0 and nmesh/ncell <= "
             f"13 (got nmesh={nmesh}, ncell={ncell})")
     S, ZP = geom
+    nx = ncell if nx is None else nx
+    slab = nx != ncell
     scale = float(nmesh / box)
     if plane.device.type == "cpu":
         nodes = deposit_node_masses_plain(
             plane, counts, ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz,
-            scale=scale, shift=float(shift))
+            scale=scale, shift=float(shift), nx=nx, row0=row0)
+        if slab:
+            return fold_slab_node_masses(nodes, nx=nx, ncell=ncell, S=S,
+                                         ZP=ZP, nmesh=nmesh)
         return fold_node_masses(nodes, ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
     if plane.device.type != "cuda":
         raise ValueError(f"supercell_deposit_from_plane: no kernel for "
@@ -159,16 +216,16 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     CK = stride - 2 * gz
     check_plane_args("supercell_deposit_from_plane", plane,
                      {"counts": counts}, maxch=CK // chunk, ncell=ncell,
-                     stride=stride)
+                     stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
-    rho = torch.zeros((nmesh, nmesh, nmesh), dtype=torch.float32,
-                      device=plane.device)
+    rho = torch.zeros((nx * S + 3 if slab else nmesh, nmesh, nmesh),
+                      dtype=torch.float32, device=plane.device)
     with torch.cuda.device(plane.device):
         err = lib.pm_supercell_deposit_f32(
-            plane.data_ptr(), counts.data_ptr(), ncell, S, nmesh, stride, gz,
-            CK, scale, float(shift), rho.data_ptr(),
+            plane.data_ptr(), counts.data_ptr(), nx, ncell, int(slab), row0,
+            S, nmesh, stride, gz, CK, scale, float(shift), rho.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -181,10 +238,12 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
 supercell_deposit_from_plane.launches = 0
 
 
-def _cic_read(grids, x, y, z, x0, y0):
-    """Trilinear read of (C, N, N, N) periodic grids at coordinates in
-    cells, x and y relative to the tile origin (x0, y0): (C,) + x.shape."""
-    nmesh = grids.shape[1]
+def _cic_read(grids, x, y, z, x0, y0, slab: bool = False):
+    """Trilinear read of (C, X, N, N) grids at coordinates in cells, x and
+    y relative to the tile origin (x0, y0): (C,) + x.shape.  x is periodic
+    over X = N, or on a ``slab`` a haloed axis whose plane p holds local
+    node p - 1 (a corner outside it reads nothing)."""
+    nmesh = grids.shape[-1]
     flat = grids.reshape(grids.shape[0], -1)
     s = [x, y, z]
     base = [torch.floor(u) for u in s]
@@ -196,31 +255,42 @@ def _cic_read(grids, x, y, z, x0, y0):
         w = 1.0
         for ax in range(3):
             w = w * (f[ax] if d[ax] else 1.0 - f[ax])
-        lin = ((idx[0] + d[0]) % nmesh * nmesh
-               + (idx[1] + d[1]) % nmesh) * nmesh + (idx[2] + d[2]) % nmesh
+        if slab:
+            px = idx[0] + d[0] + 1
+            inside = (px >= 0) & (px < grids.shape[1])
+            w = torch.where(inside, w, torch.zeros_like(w))
+            px = torch.where(inside, px, torch.zeros_like(px))
+        else:
+            px = (idx[0] + d[0]) % nmesh
+        lin = ((px * nmesh + (idx[1] + d[1]) % nmesh) * nmesh
+               + (idx[2] + d[2]) % nmesh)
         out = out + w * flat[:, lin]
     return out
 
 
 def column_pm_readback(plane, nch, grids, *, ncell: int, stride: int,
                        gz: int, chunk: int, S: int, scale: float,
-                       interlaced: bool = False):
+                       interlaced: bool = False, nx: int | None = None,
+                       row0: int = 0):
     """The PM force at every occupied chunk's target slot, in the plane's
     dtype: (targets (B, chunk), force (3, B, chunk)); with ``interlaced``
     the mean of the unshifted read of grids 0-2 and the read of grids 3-5
-    at -0.5 cell."""
+    at -0.5 cell.  With ``nx`` < ncell the plane is a slab's (from the
+    box's x-row ``row0``) and ``grids`` its haloed slab grids
+    (:func:`extract_local_subgrids`)."""
     dev = plane.device
-    ic, _, first = interior_slots(ncell, stride, gz, chunk, nch, dev)
+    slab = nx is not None and nx != ncell
+    ic, _, first = interior_slots(ncell, stride, gz, chunk, nch, dev, nx=nx)
     tgt = first[:, None] + torch.arange(chunk, device=dev)[None, :]
     ix0 = (ic // ncell * S)[:, None]
     iy0 = (ic % ncell * S)[:, None]
-    x = plane[0][tgt] * scale - ix0.to(plane.dtype)
+    x = plane[0][tgt] * scale - (ix0 + row0 * S).to(plane.dtype)
     y = plane[1][tgt] * scale - iy0.to(plane.dtype)
     z = plane[2][tgt] * scale
     g = grids.to(plane.dtype)
-    f = _cic_read(g[0:3], x, y, z, ix0, iy0)
+    f = _cic_read(g[0:3], x, y, z, ix0, iy0, slab)
     if interlaced:
-        f1 = _cic_read(g[3:6], x - 0.5, y - 0.5, z - 0.5, ix0, iy0)
+        f1 = _cic_read(g[3:6], x - 0.5, y - 0.5, z - 0.5, ix0, iy0, slab)
         f = 0.5 * (f + f1)
     return tgt, f
 
@@ -230,18 +300,21 @@ def fused_column_plane_plain(plane, ws, nch, grids, *, ncell: int,
                              chunk: int, eps: float, r_s: float, r_cut: float,
                              split: str, softening: str, S: int, scale: float,
                              split_out: bool = False,
-                             interlaced: bool = False):
-    """Plain PyTorch version of K3: the (8, P2 * stride) output plane whose
-    rows 0-2 hold PM + short-range force at the occupied chunks' slots of
-    the interior columns (``split_out``: short range in rows 0-2, PM in
-    rows 3-5), zeros elsewhere."""
+                             interlaced: bool = False,
+                             nx: int | None = None, row0: int = 0):
+    """Plain PyTorch version of K3: the output plane, shaped like
+    ``plane``, whose rows 0-2 hold PM + short-range force at the occupied
+    chunks' slots of the interior columns (``split_out``: short range in
+    rows 0-2, PM in rows 3-5), zeros elsewhere; ``nx`` and ``row0`` as in
+    :func:`column_pm_readback`."""
     tgt, pm = column_pm_readback(plane, nch, grids, ncell=ncell,
                                  stride=stride, gz=gz, chunk=chunk, S=S,
-                                 scale=scale, interlaced=interlaced)
+                                 scale=scale, interlaced=interlaced, nx=nx,
+                                 row0=row0)
     _, short = column_pair_sums(
         plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
         chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-        softening=softening)
+        softening=softening, nx=nx)
     out = torch.zeros_like(plane)
     flat = tgt.reshape(-1)
     if split_out:
@@ -257,32 +330,39 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
                            eps: float, r_s: float, r_cut: float, split: str,
                            softening: str, S: int, scale: float,
                            split_out: bool = False,
-                           interlaced: bool = False):
+                           interlaced: bool = False,
+                           nx: int | None = None, row0: int = 0):
     """K3: the PM readback from the (3 or 6, N, N, N) force ``grids``
-    fused with the short-range column pair sum -> the (8, P2 * stride)
-    output plane of :func:`fused_column_plane_plain`.  A CUDA plane
-    launches the kernel or raises; a CPU plane takes the plain version.
+    fused with the short-range column pair sum -> the output plane of
+    :func:`fused_column_plane_plain`.  With ``nx`` < ncell the plane is a
+    slab's (from the box's x-row ``row0``, box coordinates) and ``grids``
+    the slab's haloed (3 or 6, nx * S + 4, N, N) grids
+    (:func:`extract_local_subgrids`).  A CUDA plane launches the
+    kernel or raises; a CPU plane takes the plain version.
     ``run_fused_column_plane.launches`` counts kernel launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    nx = ncell if nx is None else nx
     kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
               chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
               softening=softening, S=S, scale=scale, split_out=split_out,
-              interlaced=interlaced)
+              interlaced=interlaced, nx=nx, row0=row0)
     if plane.device.type == "cpu":
         return fused_column_plane_plain(plane, ws, nch, grids, **kw)
     if plane.device.type != "cuda":
         raise ValueError(f"run_fused_column_plane: no kernel for "
                          f"{plane.device}")
     check_plane_args("run_fused_column_plane", plane, {"ws": ws, "nch": nch},
-                     maxch=maxch, ncell=ncell, stride=stride)
+                     maxch=maxch, ncell=ncell, stride=stride, nx=nx)
     nmesh = grids.shape[-1]
+    slab = nx != ncell
     nc = 6 if interlaced else 3
+    nxg = nx * S + 4 if slab else nmesh
     if (grids.dtype != torch.float32 or grids.device != plane.device
-            or tuple(grids.shape) != (nc, nmesh, nmesh, nmesh)
+            or tuple(grids.shape) != (nc, nxg, nmesh, nmesh)
             or not grids.is_contiguous()):
         raise ValueError(f"run_fused_column_plane: grids must be contiguous "
-                         f"float32 ({nc}, N, N, N) on {plane.device}, got "
+                         f"float32 ({nc}, {nxg}, N, N) on {plane.device}, got "
                          f"{grids.dtype} {tuple(grids.shape)}")
     from nbody_torch._kernels import load_library
 
@@ -291,8 +371,8 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
     with torch.cuda.device(plane.device):
         err = lib.pm_supercell_fused_f32(
             plane.data_ptr(), ws.data_ptr(), nch.data_ptr(),
-            grids.data_ptr(), nmesh, int(interlaced), int(split_out), ncell,
-            S, float(scale), stride, W, maxch, gz, chunk, float(eps),
+            grids.data_ptr(), nmesh, int(interlaced), int(split_out), nx,
+            ncell, int(slab), row0, S, float(scale), stride, W, maxch, gz, chunk, float(eps),
             float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -440,3 +520,44 @@ def p3m_supercell_frozen(pos, mass, plan: ColumnPlan, box: float, nmesh: int,
         split=split, softening=softening, ncell=ncell, stride=stride, W=W,
         maxch=maxch, gz=gz, chunk=chunk, grad_order=grad_order,
         part_split=part_split, interlace=interlace, ov=plan.ov)
+
+
+# ---------------------------------------------------------------------------
+# The slab tier of the domain decomposition
+# ---------------------------------------------------------------------------
+
+
+def supercell_deposit_local(planes: list, counts: list, *, box: float,
+                            nmesh: int, ncell: int, group, stride: int,
+                            gz: int, chunk: int = 256,
+                            shift: float = 0.0) -> list:
+    """Slab sibling of :func:`supercell_deposit_from_plane`: K2 on each
+    shard's local column plane (from
+    :func:`nbody_torch.forces.p3m_columns.build_local_column_plane`) into
+    its haloed slab, then the halo planes to the neighbours
+    (:func:`slab_halo_fold`).  Returns the shards' (nmesh / D,
+    nmesh, nmesh) mass slabs: the contract of
+    :func:`nbody_torch.distributed.domain.slab_deposit` over the deposited
+    particles."""
+    nx = ncell // group.size
+    exts = [supercell_deposit_from_plane(
+        p, c, box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
+        chunk=chunk, shift=shift, nx=nx, row0=d * nx)
+        for d, (p, c) in enumerate(zip(planes, counts))]
+    return slab_halo_fold(exts, group)
+
+
+def extract_local_subgrids(grids: list, group) -> list:
+    """The shards' haloed force grids (C, nml + 4, N, N) from their local
+    (C, nml, N, N) slabs: plane p is local node p - 1, so node -1 is the
+    left neighbour's last plane and nodes nml .. nml + 2 the right
+    neighbour's first three (a ppermute each way).  K3 reads a slab's
+    target forces from them.  The JAX package cuts the same halo into
+    per-column 16 x 16 x ZP node subgrids for its MXU contraction; the
+    card reads the grids directly (TPU mechanics, see
+    ``csrc/pm_supercell.cu``)."""
+    nml = grids[0].shape[1]
+    from_left = group.ppermute([g[:, nml - 1:] for g in grids], +1)
+    from_right = group.ppermute([g[:, :3] for g in grids], -1)
+    return [torch.cat([lf, g, rt], dim=1).contiguous()
+            for lf, g, rt in zip(from_left, grids, from_right)]

@@ -26,6 +26,16 @@ Writes, under ``tests/data/torch_port/``:
 * ``powerspec_a=1.00_n16_pp_seed0``: the same 16^3 run with
   ``solver='pp'`` (the Ewald PP force: K1 with the Gaussian split in
   interpret mode, plus the k-space sum);
+* ``powerspec_a=1.00_n16_domain2_seed0``, ``..._n16_domain4_seed0``,
+  ``..._n16_domain4_supercell_seed0`` and ``..._n16_domain4_columns_seed0``:
+  the same 16^3 run on the slab domain decomposition (``devices`` = 2 and
+  4 of the 8-device CPU mesh; the cells tier, and at 4 devices the
+  supercell and columns tiers), its P(k) from the sharded estimator.  The
+  JAX driver's supercell branch reads a name ``sc`` at
+  ``nbody/driver/simulate.py:1900`` that the function never defines (the
+  chaining grid ``_domain_tier`` computes and drops); the script supplies
+  that value as the module global the lookup falls through to, and changes
+  nothing else;
 * ``plummer4096_energy_seed0.txt``: the energy and momentum series of
   ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
   ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
@@ -35,11 +45,11 @@ Writes, under ``tests/data/torch_port/``:
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
-    python scripts/torch_port_reference.py [pk] [pp] [plummer]
+    python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
-``pp`` the PP run's P(k) and ``plummer`` the Plummer series (all three
-without arguments).
+``pp`` the PP run's P(k), ``plummer`` the Plummer series and ``domain``
+the four domain runs' P(k) (all four without arguments).
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ import tempfile
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("NBODY_NO_COMPILE_CACHE", "1")
+# the domain runs shard over a virtual 8-device CPU mesh (tests/conftest.py)
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
@@ -72,6 +84,12 @@ RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell"),
         "_rungs3": RUNG_CONFIG,
         "_supercell_rungs3": RUNG_CONFIG.replace(shortrange="supercell")}
 PP_RUNS = {"_pp": CONFIG.replace(solver="pp")}
+DOMAIN_RUNS = {
+    "_domain2": CONFIG.replace(devices=2),
+    "_domain4": CONFIG.replace(devices=4),
+    "_domain4_supercell": CONFIG.replace(devices=4, shortrange="supercell"),
+    "_domain4_columns": CONFIG.replace(devices=4, shortrange="columns"),
+}
 #: the Plummer drive: N, seed, eps, dt, steps, sample stride
 PLUMMER = dict(n=4096, seed=0, eps=0.05, dt=1e-3, steps=200, every=25)
 
@@ -155,14 +173,23 @@ def main(which) -> None:
         raise SystemExit("port ICs differ from the JAX ICs")
 
     runs = dict(RUNS if "pk" in which else {},
-                **(PP_RUNS if "pp" in which else {}))
+                **(PP_RUNS if "pp" in which else {}),
+                **(DOMAIN_RUNS if "domain" in which else {}))
     for tag, cfg in runs.items():
+        if cfg.devices > 1 and cfg.shortrange == "supercell":
+            from nbody.driver import simulate
+            from nbody.forces.p3m import p3m_short_params, supercell_ncell
+
+            simulate.sc = supercell_ncell(
+                cfg.box, cfg.mesh_size,
+                p3m_short_params(cfg.box, cfg.mesh_size,
+                                 cfg.n_particles)[1])
         with tempfile.TemporaryDirectory() as work:
             res = run_simulation(cfg, SEED, work)
             name = f"{os.path.basename(res.powerspecs[-1])}_n16{tag}_seed0"
             shutil.copy(res.powerspecs[-1], os.path.join(OUT, name))
             print(f"JAX run ({cfg.solver}, {cfg.shortrange}, rungs="
-                  f"{cfg.rungs}): "
+                  f"{cfg.rungs}, devices={cfg.devices}): "
                   f"{res.wall_s:.1f} s, wrote {name}")
             if cfg.rungs:
                 pops = rung_populations(os.path.join(work, "run.log"),
@@ -177,4 +204,4 @@ def main(which) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["pk", "pp", "plummer"])
+    main(sys.argv[1:] or ["pk", "pp", "plummer", "domain"])

@@ -491,3 +491,182 @@ def test_k8_wrapper_rejects(cuda):
     for _ in range(3):
         allpairs_pallas_mxu(pos, mass, 0.1)
     assert allpairs_pallas_mxu.launches == before + 3
+
+
+# ---------------------------------------------------------------------------
+# the slab sites of K2, K3, K4 and K6: four shards on the card
+# ---------------------------------------------------------------------------
+
+
+def _domain_case(cuda, D=4, n=20000, box=500.0, nmesh=64, seed=6):
+    """Clustered particles decomposed into D shards on the card, and the
+    domain geometry (cells tier ncell 8, supercell grid 8 = S 8)."""
+    from nbody_torch.core.types import ParticleState
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.distributed.sharding import device_mesh
+
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand((n, 3), generator=g, dtype=torch.float64) * box
+    pos[: n // 4] = torch.remainder(
+        pos[: n // 4] * 0.2 + torch.tensor([100.0, 250.0, 490.0]), box)
+    st = ParticleState.create(pos, torch.zeros_like(pos),
+                              torch.ones(n, dtype=torch.float64), 0.5,
+                              device=cuda, dtype=torch.float32)
+    group = device_mesh(D)
+    geom = td.domain_p3m_geometry(box, nmesh, D, n)
+    shards = td.domain_decompose(st, group, box, geom.ncell)
+    return group, geom, shards
+
+
+def _slab_column_planes(cuda, ncell, ck=4096, w=4096):
+    from nbody_torch.distributed import domain as td
+
+    group, geom, shards = _domain_case(cuda)
+    D = group.size
+    built = td.build_local_column_plane(
+        [s.pos for s in shards], [s.mass for s in shards], box=geom.box,
+        r_cut=geom.r_cut, ncell=ncell, group=group, col_capacity=ck,
+        window=w)
+    from nbody_torch.forces.p3m_columns import plane_geometry
+
+    CK, gz, stride, W, maxch, chunk = plane_geometry(geom.box, geom.r_cut,
+                                                     ck, w)
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=0.5, r_s=geom.r_s, r_cut=geom.r_cut,
+              split="spline", softening="spline", nx=ncell // D)
+    for b in built:
+        assert int(b[3]) == 0 and int(b[4]) == 0
+    return group, geom, built, kw
+
+
+def test_k4_slab_matches_plain(cuda):
+    from nbody_torch.forces.p3m_columns import column_plane_plain, run_column_plane
+
+    group, geom, built, kw = _slab_column_planes(cuda, 8)
+    before = run_column_plane.launches
+    for plane, ws, nch, *_ in built:
+        got = run_column_plane(plane, ws, nch, **kw)
+        torch.cuda.synchronize()
+        ref = column_plane_plain(plane.double(), ws, nch, **kw)
+        assert float(ref.norm()) > 0
+        assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    assert run_column_plane.launches == before + group.size
+
+
+def _slab_supercell(cuda):
+    """The supercell tier's slab planes (box coordinates)."""
+    group, geom, built, kw = _slab_column_planes(cuda, 8)
+    return group, geom, built, [b[0] for b in built], kw
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.5])
+def test_k2_slab_matches_plain(cuda, shift):
+    from nbody_torch.forces.pm_supercell import (
+        deposit_node_masses_plain,
+        fold_slab_node_masses,
+        slab_halo_fold,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+
+    group, geom, built, planes, kw = _slab_supercell(cuda)
+    nmesh, nx = geom.nmesh, kw["nx"]
+    S, ZP = supercell_geometry(nmesh, 8)
+    dkw = dict(box=geom.box, nmesh=nmesh, ncell=8, stride=kw["stride"],
+               gz=kw["gz"], chunk=kw["chunk"], shift=shift, nx=nx)
+    before = supercell_deposit_from_plane.launches
+    got, ref = [], []
+    for d, (b, p) in enumerate(zip(built, planes)):
+        got.append(supercell_deposit_from_plane(p, b[6], row0=d * nx, **dkw))
+        nodes = deposit_node_masses_plain(
+            p, b[6], ncell=8, S=S, ZP=ZP, stride=kw["stride"], gz=kw["gz"],
+            scale=nmesh / geom.box, shift=shift, nx=nx, row0=d * nx)
+        ref.append(fold_slab_node_masses(nodes, nx=nx, ncell=8, S=S, ZP=ZP,
+                                         nmesh=nmesh))
+    torch.cuda.synchronize()
+    assert supercell_deposit_from_plane.launches == before + group.size
+    assert got[0].shape == (nx * S + 3, nmesh, nmesh)
+    g = torch.cat(slab_halo_fold(got, group))
+    r = torch.cat(slab_halo_fold(ref, group))
+    # float32 sums in another order (atomic adds), see chip_smoke.py
+    assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    assert abs(float(g.sum()) - 20000.0) < 1e-2
+
+
+@pytest.mark.parametrize("interlaced,split_out", [(False, True), (True, True),
+                                                  (False, False)])
+def test_k3_slab_matches_plain(cuda, interlaced, split_out):
+    from nbody_torch.forces.pm_supercell import (
+        extract_local_subgrids,
+        fused_column_plane_plain,
+        run_fused_column_plane,
+    )
+
+    group, geom, built, planes, kw = _slab_supercell(cuda)
+    nmesh = geom.nmesh
+    g = torch.Generator().manual_seed(3)
+    grids = torch.randn((6 if interlaced else 3,) + (nmesh,) * 3, generator=g)
+    halo = extract_local_subgrids(
+        list(torch.chunk(grids.to(cuda), group.size, dim=1)), group)
+    kw = dict(kw, S=8, scale=nmesh / geom.box, interlaced=interlaced,
+              split_out=split_out)
+    before = run_fused_column_plane.launches
+    for d, (b, p, h) in enumerate(zip(built, planes, halo)):
+        row0 = d * kw["nx"]
+        got = run_fused_column_plane(p, b[1], b[2], h, row0=row0, **kw)
+        torch.cuda.synchronize()
+        ref = fused_column_plane_plain(p.double(), b[1], b[2], h.double(),
+                                       row0=row0, **kw)
+        assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    assert run_fused_column_plane.launches == before + group.size
+
+
+def test_k6_slab_matches_plain(cuda):
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    group, geom, shards = _domain_case(cuda)
+    kw = dict(nx=geom.ncell // group.size, ncell=geom.ncell, eps2=0.25,
+              r_s=geom.r_s, r_cut=geom.r_cut, split="spline",
+              softening="spline")
+    before = run_cell_plane.launches
+    for plane, ov, K, _, counts in td.build_local_plane(
+            [s.pos for s in shards], [s.mass for s in shards],
+            box=geom.box, r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+            capacity=8192):
+        assert int(ov) == 0
+        got = run_cell_plane(plane, counts, K=K, **kw)
+        torch.cuda.synchronize()
+        ref = cell_plane_plain(plane.double(), counts, K=K, **kw)
+        assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    assert run_cell_plane.launches == before + group.size
+
+
+@pytest.mark.parametrize("shortrange", ["cells", "supercell", "columns"])
+def test_tiny_domain_run_on_gpu_matches_cpu(cuda, tmp_path, shortrange):
+    """A short 16^3 run on four shards on the card against the same run
+    on the CPU, with every slab site's launches = 4 x the evaluations."""
+    from nbody_torch.forces.p3m import run_cell_plane
+    from nbody_torch.forces.p3m_columns import run_column_plane
+    from nbody_torch.forces.pm_supercell import (
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+    )
+
+    cfg = SimulationConfig(n_side=16, devices=4, n_steps=6, a_begin=0.3,
+                           shortrange=shortrange,
+                           output=OutputConfig(snapshot=False))
+    fns = {"cells": [run_cell_plane], "columns": [run_column_plane],
+           "supercell": [supercell_deposit_from_plane,
+                         run_fused_column_plane]}[shortrange]
+    before = [f.launches for f in fns]
+    gpu = run_simulation(cfg, 0, str(tmp_path / "gpu"))
+    evals = int((tmp_path / "gpu" / "run.log").read_text().split(
+        "Domain force evaluations: ")[1].split()[0])
+    assert [f.launches - b for f, b in zip(fns, before)] == [4 * evals] * len(fns)
+    cpu = run_simulation(cfg, 0, str(tmp_path / "cpu"), device="cpu")
+    assert bool(torch.isfinite(gpu.state.pos).all())
+    pg, pc = (np.loadtxt(r.powerspecs[-1]) for r in (gpu, cpu))
+    m = pc[:, 0] <= 0.5 * np.pi * cfg.mesh_size / cfg.box
+    assert np.array_equal(pg[:, 1], pc[:, 1])
+    assert np.abs(pg[m, 2] / pc[m, 2] - 1.0).max() < 1e-3

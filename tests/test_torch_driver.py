@@ -110,7 +110,7 @@ def test_config_json_round_trips_across_packages(tmp_path):
     pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64),
                  "rungs", id="change2-rungs"),
     (dict(time_stepping="adaptive"), "adaptive"),
-    (dict(devices=2), "devices"),
+    (dict(devices=2, ic_realization="domain"), "devices"),
     (dict(solver="p3m", rungs=3, time_stepping="adaptive"), "adaptive"),
     (dict(solver="p3m", box=500.0, pm_grid=64, shortrange="supercell",
           subcycles=2), "subcycles"),

@@ -1,6 +1,8 @@
 """The torch port's mesh operations and PM force against the JAX package,
 on the CPU, float64 (same seeded numpy inputs through both)."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,6 +204,14 @@ def test_pm_module_buffers_live_on_its_device():
     assert pm.green.shape == (16, 16, 9) and pm.green.dtype == torch.float64
 
 
+@pytest.mark.parametrize("fn", [tpm.make_pm_cosmo_force, tpm.pm_module])
+def test_pm_entry_points_default_to_the_card(fn):
+    """Like the port's other entry points, the PM builders put their
+    buffers on the card unless the caller passes ``device="cpu"``."""
+    sig = inspect.signature(getattr(fn, "__wrapped__", fn))
+    assert sig.parameters["device"].default == "cuda"
+
+
 @pytest.mark.parametrize("interlace", [False, True])
 def test_pm_cosmo_force(interlace):
     pos, mass = _particles(seed=8)
@@ -209,7 +219,7 @@ def test_pm_cosmo_force(interlace):
     want = jpm.make_pm_cosmo_force(jc, 50.0, 16, interlace=interlace)(
         jnp.asarray(pos), jnp.asarray(mass), 0.3)
     got = tpm.make_pm_cosmo_force(tc, 50.0, 16, interlace=interlace,
-                                  dtype=torch.float64)(
+                                  device="cpu", dtype=torch.float64)(
         torch.tensor(pos), torch.tensor(mass), 0.3)
     _close(got, want)
     want_phi = jpm.pm_potential_k(jnp.asarray(pos), jnp.asarray(mass), 50.0, 16)
