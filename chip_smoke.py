@@ -90,12 +90,33 @@ script exits non-zero:
     (P(k) in three bands of k, see DOMAIN_PK_BANDS);
     (d) the 16^3 domain runs (cells on 2 and 4 shards, supercell and
     columns on 4) from the committed white noise against the JAX
-    package's committed domain P(k).
+    package's committed domain P(k);
+20. rungs on the slab domain decomposition, four shards on the one card:
+    (d) cfg64 and the default config with ``devices=4, rungs=3`` (frozen
+    local column plans, K5's slab site, until a staleness heal at the
+    skin's ceiling moves the interior ticks to the masked cell planes)
+    and the default config with ``column_skin=0`` (K6's two-plane slab
+    site) through ``run_simulation`` with no device argument: K5's and
+    K6's launches equal those counted from run.log, P(k) at a = 1 in
+    DOMAIN_PK_BANDS and the rung populations at a = 1 within
+    DOMAIN_POP_TOL of the single-device rung runs of [13] / [12], with
+    wall time, steps/s, heals, plan freezes, peak device memory, the
+    route each run finished on and its stale_max; (a) K5's slab site on
+    every shard's frozen plan of the cfg64 run's final state (undrifted
+    and at 0.999 skin/2) and (b) K6's masked slab site on the 32^3 cell
+    run's final state, each at the driver's geometry against its float64
+    plain version; (c) the two hazards planted: a massive particle
+    outside its shard's slab raises its plan's word and the rung
+    runner's plan channel, a drift past skin/2 is counted by
+    local_plan_stale, and both read 0 when sound; (e) the 16^3 domain
+    rung runs (2 and 4 shards on frozen plans, 4 on the cell planes)
+    from the committed white noise against the JAX package's P(k) and
+    rung populations.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 18 and 19, and each kernel's bound: the larger of
+from phases 3, 7, 11, 15, 18, 19 and 20, and each kernel's bound: the larger of
 the bytes the function needs over the card's memory rate and its
 operations over its float32 rate, for K8 its rsqrts over the SFU's rate
 and its TF32 products over the tensor cores'); then the card's name and
@@ -1508,6 +1529,425 @@ def domain_run(cfg, tag: str, single: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [20] rungs on the slab domain decomposition
+# ---------------------------------------------------------------------------
+
+# the devices=4 rung runs' rung populations at a = 1 against the
+# single-device rung run of the same config: each rung's count within 1%
+# of N (the 16^3 runs against the JAX package's are held to POP_TOL)
+DOMAIN_POP_TOL = 0.01
+
+
+def shard_rows(values, state, box: float, ncell: int, shards: list) -> list:
+    """A per-particle tensor of ``state`` as the rows of the slab-resident
+    ``shards`` that domain_decompose made of it on the ``ncell`` grid:
+    each slab's particles in their original order, then the empty slots
+    (zeros)."""
+    from nbody_torch.distributed import domain as td
+
+    D = len(shards)
+    slab = td._slab_of(state.pos[:, 0].cpu(), box, ncell,
+                       ncell // D).to(values.device)
+    out = []
+    for d, s in enumerate(shards):
+        v = values[slab == d]
+        pad = torch.zeros((s.pos.shape[0] - v.shape[0],) + tuple(
+            v.shape[1:]), dtype=v.dtype, device=v.device)
+        out.append(torch.cat([v, pad]).to(s.pos.device))
+    return out
+
+
+def slab_sources_read(read, plans: list, d: int, *, ncell: int,
+                      nxl: int) -> int:
+    """The distinct particles behind the plane slots that shard d's pair
+    sum reads (``read``: ((nxl + 2) P, stride) bool): the interior x-rows
+    are the shard's own columns, the ghost x-rows its neighbours' edge
+    rows, and a y-ghost column is its periodic image; each plan's slot
+    map (z ghosts included) names the particle."""
+    D, P = len(plans), ncell + 2
+    dev = read.device
+    iy = (torch.arange(P, device=dev) - 1) % ncell
+    seen = {}
+    for px in range(nxl + 2):
+        owner = (d - 1) % D if px == 0 else (d + 1) % D if px == nxl + 1 \
+            else d
+        lx = nxl - 1 if px == 0 else 0 if px == nxl + 1 else px - 1
+        plan = plans[owner]
+        if owner not in seen:
+            seen[owner] = torch.zeros(plan.pos0.shape[0], dtype=torch.bool,
+                                      device=dev)
+        r = read[px * P:(px + 1) * P]
+        seen[owner][plan.src_g[lx * ncell + iy][r]] = True
+    return sum(int(v.sum()) for v in seen.values())
+
+
+def frozen_slab_setup(state, cfg, cfg_run):
+    """``state`` on DOMAIN_SHARDS shards with every shard's frozen local
+    plan at the geometry the domain driver gives ``cfg``'s run
+    (``domain_frozen_knobs`` with the run's healed capacity and window,
+    its grown skin if it grew one), healed by the driver's rule
+    (``heal_domain_frozen``) until no plan's word is nonzero.  Returns
+    (group, geom, shards, plans, knobs, run.log lines)."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.distributed.sharding import device_mesh
+    from nbody_torch.driver.simulate import (
+        HEAL_ATTEMPTS,
+        domain_frozen_knobs,
+        heal_domain_frozen,
+    )
+    from nbody_torch.forces.p3m_columns import freeze_local_column_plan
+
+    D, box = DOMAIN_SHARDS, cfg.box
+    group = device_mesh(D)
+    geom = td.domain_p3m_geometry(box, cfg.mesh_size, D, cfg.n_particles)
+    skin, ck, cw = domain_frozen_knobs(cfg, geom, cfg_run.column_capacity)
+    if cfg_run.column_skin > 0.0:
+        skin = cfg_run.column_skin
+    cw = max(cw, cfg_run.column_window)
+    if skin <= 0.0:
+        raise AssertionError(f"{cfg}: no frozen plans at this geometry")
+    shards = td.domain_decompose(state, group, box, geom.ncell)
+    lines = []
+    for _ in range(HEAL_ATTEMPTS):
+        plans = freeze_local_column_plan(
+            [s.pos for s in shards], [s.mass for s in shards], box=box,
+            r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+            col_capacity=ck, window=cw, skin=skin)
+        ov = max(int(pl.ov) for pl in plans)
+        if ov == 0:
+            return group, geom, shards, plans, dict(
+                ck=ck, cw=cw, skin=skin), lines
+        ck, cw, skin, new, _ = heal_domain_frozen(cfg, geom, ck, cw, skin,
+                                                  ov, 0)
+        lines += new
+    raise AssertionError(f"the frozen slab plans still overflow: {lines}")
+
+
+def k5_slab_check(res, cfg) -> dict:
+    """[20](a) K5's slab site on every shard's frozen local plan of the
+    cfg64 rung run's final state (the driver's geometry), the targets the
+    particles above rung 0 there (the rung rule of [11]): at the freeze
+    positions and at a drift of 0.999 skin/2, against the float64 plain
+    version; times and the bound at the drift."""
+    from nbody_torch.forces.p3m_columns import (
+        _frozen_buf,
+        _local_plane_from_buf,
+        active_chunk_table,
+        column_plane_plain,
+        plane_geometry,
+        run_column_plane_masked,
+    )
+
+    group, geom, shards, plans, knobs, lines = frozen_slab_setup(
+        res.state, cfg, res.config_run)
+    D, box = group.size, cfg.box
+    nxl = geom.ncell // D
+    CK, gz, stride, W, maxch, chunk = plane_geometry(
+        box, geom.r_cut, knobs["ck"], knobs["cw"])
+    act = shard_rows(rung_mask(res.state, cfg.replace(devices=1)),
+                     res.state, box, geom.ncell, shards)
+    act = [a & (s.mass > 0) for a, s in zip(act, shards)]
+    phase(f"[20] frozen slab plans of the 64^3 rung run's final state: {D} "
+          f"shards of {nxl} x {geom.ncell} columns, capacity {CK}, window "
+          f"{W}, stride {stride}, skin {knobs['skin']:.4f} Mpc; "
+          f"{sum(int(a.sum()) for a in act)} active particles"
+          + "".join(f"; {x}" for x in lines))
+    kw = _pair_kw(cfg, dict(ncell=geom.ncell, stride=stride, W=W,
+                            maxch=maxch, gz=gz, chunk=chunk, nx=nxl))
+    for frac in (0.0, 0.999):
+        gen = torch.Generator().manual_seed(20)
+        moved = []
+        for s in shards:
+            u = torch.randn(tuple(s.pos.shape), generator=gen,
+                            dtype=torch.float64)
+            u = (u / u.norm(dim=1, keepdim=True)).to(s.pos)
+            moved.append(s.pos + frac * 0.5 * knobs["skin"] * u)
+        frozen = [_frozen_buf(p, s.mass, pl, box, geom.r_cut, CK, gz, stride)
+                  for p, s, pl in zip(moved, shards, plans)]
+        planes = [pl for pl, _ in _local_plane_from_buf(
+            [b for b, _ in frozen], box=box, r_cut=geom.r_cut,
+            ncell=geom.ncell, group=group, stride=stride)]
+        tables = [active_chunk_table(a, pl, f[1], CK=CK, nx=nxl,
+                                     ncell=geom.ncell, gz=gz, maxch=maxch,
+                                     chunk=chunk)
+                  for a, pl, f in zip(act, plans, frozen)]
+        rels, errs = [], []
+        for plane, pl, (nch_act, cht) in zip(planes, plans, tables):
+            got = run_column_plane_masked(plane, pl.ws, nch_act, cht, **kw)
+            torch.cuda.synchronize()
+            ref = column_plane_plain(plane.double(), pl.ws, nch_act, cht=cht,
+                                     **kw)
+            rels.append(rel_l2(got, ref))
+            errs.append(max_abs(got, ref))
+        phase(f"[20] K5 slab at drift {frac:g} x skin/2: rel L2 per shard "
+              f"{', '.join(f'{r:.3e}' for r in rels)} (tol "
+              f"{FORCE_REL_L2_TOL:g}); {sum(int(t[0].sum()) for t in tables)}"
+              f" of {sum(int(pl.nch.sum()) for pl in plans)} chunks active")
+        if not max(rels) <= FORCE_REL_L2_TOL:
+            raise AssertionError(f"K5 slab disagrees with its plain version "
+                                 f"at drift {frac}: {rels}")
+    launch = [lambda p=p, pl=pl, t=t: run_column_plane_masked(
+        p, pl.ws, t[0], t[1], **kw) for p, pl, t in zip(planes, plans, tables)]
+    ms = _mean_ms(launch, 20)
+    plain_ms = _mean_ms([lambda p=p, pl=pl, t=t: column_plane_plain(
+        p, pl.ws, t[0], cht=t[1], **kw)
+        for p, pl, t in zip(planes, plans, tables)], 1)
+    visits = inside = nbytes = 0
+    for d, (plane, pl, a, f) in enumerate(zip(planes, plans, act, frozen)):
+        counts = torch.clamp_max(pl.counts, CK).to(torch.int32)
+        v, i, read, n_t = needed_work(plane, counts,
+                                      targets=a[pl.src_g] & f[1], **kw)
+        n_src = slab_sources_read(read, plans, d, ncell=geom.ncell, nxl=nxl)
+        visits, inside = visits + v, inside + i
+        nbytes += needed_bytes(n_src, n_t)
+    row = _slab_row(errs, ms, plain_ms, nbytes,
+                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    phase(f"[20] K5 slab: kernel {ms:.4f} ms a launch, plain f32 "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {visits:.4e} visits of active targets "
+          f"within r_cut in z over {D} shards, {inside:.4e} inside r_cut")
+    return {"K5s": row}
+
+
+def k6_masked_slab_check(res, cfg) -> dict:
+    """[20](b) K6's two-plane slab site on every shard of the 32^3 rung
+    run's final state (column_skin=0): the active particles' plane (the
+    run's rung capacity, doubled by the driver's rule while it spills)
+    against the slab's cell plane (the domain geometry's bucket capacity,
+    healed as in [19]), against the float64 plain version."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    group, geom, shards, _, _, lines = domain_setup(res.state, cfg, "cells")
+    D, box = group.size, cfg.box
+    nxl = geom.ncell // D
+    act = shard_rows(rung_mask(res.state, cfg.replace(devices=1)),
+                     res.state, box, geom.ncell, shards)
+    act = [a & (s.mass > 0) for a, s in zip(act, shards)]
+    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
+    pkw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group)
+    src = td.build_local_plane(pos, mass, capacity=geom.bucket_capacity,
+                               **pkw)
+    tcap = res.config_run.rung_capacity or 128
+    while True:
+        tgt = td.build_local_plane(pos, mass, capacity=tcap, valid=act, **pkw)
+        if max(int(t[1]) for t in tgt) == 0:
+            break
+        tcap *= 2
+    K_j, K_i = src[0][2], tgt[0][2]
+    phase(f"[20] masked cell slab planes of the 32^3 rung run's final "
+          f"state: {D} shards of {nxl} x {geom.ncell}^2 cells, source K "
+          f"{K_j}, target K {K_i}; {sum(int(a.sum()) for a in act)} active "
+          f"particles" + "".join(f"; {x}" for x in lines))
+    kw = dict(nx=nxl, ncell=geom.ncell, eps2=cfg.eps**2, r_s=geom.r_s,
+              r_cut=geom.r_cut, split=cfg.force_split,
+              softening=cfg.softening_kernel)
+    rels, errs = [], []
+    for (pj, _, _, _, cj), (pi, _, _, _, ci) in zip(src, tgt):
+        got = run_cell_plane(pi, ci, K=K_i, plane_j=pj, K_j=K_j, counts_j=cj,
+                             **kw)
+        torch.cuda.synchronize()
+        ref = cell_plane_plain(pi.double(), ci, K=K_i, plane_j=pj.double(),
+                               K_j=K_j, counts_j=cj, **kw)
+        rels.append(rel_l2(got, ref))
+        errs.append(max_abs(got, ref))
+    phase(f"[20] K6 masked slab: rel L2 per shard "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (tol {FORCE_REL_L2_TOL:g})")
+    if not max(rels) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"K6 masked slab disagrees with its plain "
+                             f"version: {rels}")
+    pairs = list(zip(src, tgt))
+    ms = _mean_ms([lambda s=s, t=t: run_cell_plane(
+        t[0], t[4], K=K_i, plane_j=s[0], K_j=K_j, counts_j=s[4], **kw)
+        for s, t in pairs], 20)
+    plain_ms = _mean_ms([lambda s=s, t=t: cell_plane_plain(
+        t[0], t[4], K=K_i, plane_j=s[0], K_j=K_j, counts_j=s[4], **kw)
+        for s, t in pairs], 2)
+    visits = inside = nbytes = 0
+    for s, t in pairs:
+        v, i, n_src, n_t = needed_work_cells(t[0], t[4], K_i, s[0], s[4], K_j,
+                                             ncell=geom.ncell,
+                                             r_cut=geom.r_cut, nx=nxl)
+        visits, inside = visits + v, inside + i
+        nbytes += needed_bytes(n_src, n_t, True)
+    row = _slab_row(errs, ms, plain_ms, nbytes,
+                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    phase(f"[20] K6 masked slab: kernel {ms:.4f} ms a launch, plain f32 "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
+          f"{D} shards, {inside:.4e} inside r_cut")
+    return {"K6ms": row}
+
+
+def planted_hazards_check(res, cfg) -> None:
+    """[20](c) the two hazards the port makes loud, planted in the cfg64
+    rung run's final state at the driver's frozen geometry: a massive
+    particle moved into the next shard's slab with no exchange must raise
+    its plan's non-resident count (the bucket field of the word) and the
+    rung runner's plan channel, and a drift of 1.01 skin/2 must be counted
+    by local_plan_stale; the sound plans and positions read 0."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m_columns import (
+        freeze_local_column_plan,
+        local_plan_stale,
+    )
+
+    group, geom, shards, plans, knobs, _ = frozen_slab_setup(
+        res.state, cfg, res.config_run)
+    D, box, skin = group.size, cfg.box, knobs["skin"]
+    fkw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+               col_capacity=knobs["ck"], window=knobs["cw"], skin=skin)
+    pos = [s.pos.clone() for s in shards]
+    row = int(torch.nonzero(shards[0].mass > 0)[0])
+    pos[0][row, 0] = 1.5 * box / D
+    planted = freeze_local_column_plan(pos, [s.mass for s in shards], **fkw)
+    words = [int(pl.ov) for pl in planted]
+    stale = []
+    for frac in (0.0, 1.01):
+        moved = [s.pos.clone() for s in shards]
+        for p in moved:
+            p[:64, 0] += frac * 0.5 * skin
+        stale.append([int(local_plan_stale(p, pl, box, skin))
+                      for p, pl in zip(moved, plans)])
+    # one step of the run's own last step size, from its final state
+    from nbody_torch.integrate.cosmo_stepping import log_a_steps
+
+    a0 = float(res.state.time)
+    a_last = log_a_steps(cfg.a_begin, cfg.a_end, cfg.n_steps)[-2:]
+    a_step = [a0, a0 * float(a_last[1] / a_last[0])]
+    kw = dict(box=box, nmesh=cfg.mesh_size, eps=cfg.eps,
+              n_global=cfg.n_particles, geom=geom, split=cfg.force_split,
+              softening=cfg.softening_kernel, rungs=cfg.rungs,
+              eta_disp=cfg.step_eta_disp, eta_acc=cfg.step_eta_acc,
+              target_capacity=res.config_run.rung_capacity or 128,
+              rung_frozen=True, col_capacity=knobs["ck"],
+              col_window=knobs["cw"], column_skin=skin)
+    runs = {}
+    for tag, p in (("sound", [s.pos for s in shards]), ("planted", pos)):
+        st = [s.replace(pos=x) for s, x in zip(shards, p)]
+        runs[tag] = td.run_cosmological_domain(st, cfg.cosmology(), a_step,
+                                               group, **kw)
+    phase(f"[20] planted hazards: non-resident massive particle -> plan "
+          f"words {words} (sound {[int(pl.ov) for pl in plans]}), rung "
+          f"runner plan channel {runs['planted'].plan_overflow} (sound "
+          f"{runs['sound'].plan_overflow}, {runs['planted'].plan_freezes} "
+          f"freeze); local_plan_stale per shard undrifted {stale[0]}, 64 "
+          f"rows drifted 1.01 x skin/2 {stale[1]}")
+    if not (words[0] >> 16 >= 1 and all(int(pl.ov) == 0 for pl in plans)
+            and runs["planted"].plan_overflow >> 16 >= 1
+            and runs["sound"].plan_overflow == 0
+            and runs["planted"].plan_freezes == 1):
+        raise AssertionError("[20] the non-resident particle is not counted")
+    if not (stale[0] == [0] * D and min(stale[1]) >= 64):
+        raise AssertionError(f"[20] the drift past skin/2 is not counted: "
+                             f"{stale}")
+
+
+def domain_rung_run(cfg, tag: str, **kw):
+    """[20] ``run_simulation(cfg)`` with rungs on DOMAIN_SHARDS shards,
+    every launch count reset before and read after: K5's launches must be
+    D x the frozen-plan interior evaluations and K6's (the one-plane
+    boundary and the two-plane masked interior forms) D x the boundary and
+    masked interior evaluations, each counted from run.log: a boundary
+    evaluation per step and per segment, an interior one per sub-tick j
+    whose deepest populated rung is >= rung_active_min(j), on the route
+    its segment finished on (frozen plans until a heal moves column_skin
+    to 0), and those repeated after heals.  Returns (result, run numbers
+    for the report)."""
+    from nbody_torch.driver.simulate import run_simulation
+    from nbody_torch.integrate.cosmo_stepping import rung_active_min
+
+    work = os.path.join(OUT, f"domain_rungs_{tag}")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_simulation(cfg, 0, work, **kw)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    lines = run_log(work)
+    R, D = cfg.rungs, cfg.devices
+    route = ("frozen" if "frozen rung plans" in next(
+        x for x in lines if x.startswith("Domain decomposition"))
+        else "masked")
+    interior = {"frozen": 0, "masked": 0}
+    for line in lines:
+        if "healing column_skin to 0" in line:
+            route = "masked"
+        if "Rung population" in line:
+            deepest = len(line.split("matter:")[1].split(",")) - 1
+            interior[route] += sum(1 for j in range(1, 2 ** (R - 1))
+                                   if deepest >= rung_active_min(j, R))
+    segments = sum(1 for x in lines
+                   if re.match(r"Time step\s+\d+\s+a = \S+\s+\(\d+ steps", x))
+    m = next(re.match(r"Domain rung stepping: (\d+) boundary, (\d+) "
+                      r"frozen-plan interior and (\d+) masked interior force "
+                      r"evaluations, (\d+) plan freezes", x) for x in lines
+             if x.startswith("Domain rung stepping"))
+    B, F, M, Z = (int(x) for x in m.groups())
+    want_b = cfg.n_steps + segments + rerun_evals(lines)
+    want_f = interior["frozen"] + rerun_evals(lines, "frozen-plan interior")
+    want_m = interior["masked"] + rerun_evals(lines, "masked interior")
+    if (B, F, M) != (want_b, want_f, want_m):
+        raise AssertionError(f"[20] {tag}: run.log counts {(B, F, M)}, the "
+                             f"populations give {(want_b, want_f, want_m)}")
+    want = zero_launches(K5=D * F, K6=D * (B + M))
+    if counts != want:
+        raise AssertionError(f"[20] {tag}: launches {counts}, expected {want}")
+    check_run_outputs(res, cfg, f"[20] {tag}")
+    final = "masked" if res.config_run.column_skin == 0.0 else route
+    for line in lines:
+        if ("Domain" in line or "re-running" in line or "drift note" in line
+                or "Capacity" in line or "pre-warming" in line):
+            phase(f"    run.log: {line}")
+    return res, dict(B=B, F=F, M=M, Z=Z, peak=peak, route=final,
+                     heals=sum(1 for x in lines if "re-running" in x),
+                     pops=rung_populations(lines), counts=counts)
+
+
+def domain_rung_vs_single(cfg, tag: str, single: dict) -> tuple:
+    """[20](d) a full-width rung run on DOMAIN_SHARDS shards against the
+    single-device rung run of the same config (``single``: its P(k) file,
+    wall, peak memory and populations at a = 1): P(k) at a = 1 in
+    DOMAIN_PK_BANDS and each rung's count at a = 1 within DOMAIN_POP_TOL of
+    N.  Returns (result, run numbers)."""
+    res, run = domain_rung_run(cfg, tag)
+    got_pk, ref_pk = np.loadtxt(res.powerspecs[0]), np.loadtxt(single["pk"])
+    if not np.array_equal(got_pk[:, 1], ref_pk[:, 1]):
+        raise AssertionError(f"[20] {tag}: P(k) bins differ")
+    rel_pk = np.abs(got_pk[:, 2] / ref_pk[:, 2] - 1.0)
+    k_nyq = np.pi * cfg.mesh_size / cfg.box
+    bands, lo = [], 0.0
+    for frac, tol in DOMAIN_PK_BANDS:
+        sel = (ref_pk[:, 0] > lo) & (ref_pk[:, 0] <= frac * k_nyq)
+        bands.append((frac, tol, int(sel.sum()), float(rel_pk[sel].max())))
+        lo = frac * k_nyq
+    pops, ref = run["pops"][-1], single["pops"]
+    n = max(len(pops), len(ref))
+    dpop = max(abs(a - b) for a, b in zip(pops + [0] * (n - len(pops)),
+                                          ref + [0] * (n - len(ref))))
+    phase(f"[20] {tag} ({DOMAIN_SHARDS} shards, interior ticks finished on "
+          f"the {run['route']} route, stale_max {res.stale_max}): "
+          f"{cfg.n_steps} steps in {res.wall_s:.3f} s "
+          f"({cfg.n_steps / res.wall_s:.2f} steps/s), {run['heals']} heals, "
+          f"{run['Z']} plan freezes, peak device memory {run['peak']:.1f} MiB; one device: "
+          f"{single['wall']:.3f} s ({cfg.n_steps / single['wall']:.2f} "
+          f"steps/s), {single['mem']:.1f} MiB; evaluations {run['B']} "
+          f"boundary, {run['F']} frozen-plan and {run['M']} masked interior;"
+          f" launches {run['counts']}; populations at a = 1 {pops} vs one "
+          f"device {ref} (largest difference {dpop}, tol "
+          f"{DOMAIN_POP_TOL * cfg.n_particles:g}); P(k) vs one device, max "
+          f"rel " + ", ".join(f"{m:.3e} at {nb} bins to k_Nyq*{f:g} (tol "
+                              f"{t:g})" for f, t, nb, m in bands))
+    for f, t, nb, m in bands:
+        if not m <= t:
+            raise AssertionError(f"[20] {tag}: P(k) differs from one device "
+                                 f"by {m} up to k_Nyq*{f:g}")
+    if not dpop <= DOMAIN_POP_TOL * cfg.n_particles:
+        raise AssertionError(f"[20] {tag}: populations differ by {dpop}")
+    return res, run
+
+
 def _wrappers() -> dict:
     from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
@@ -1613,6 +2053,7 @@ def rung_run(cfg, tag: str, work: str, **kw):
 
     shutil.rmtree(work, ignore_errors=True)
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     res = run_simulation(cfg, 0, work, **kw)
     launches = read_launches()
     lines = run_log(work)
@@ -2325,6 +2766,9 @@ def main() -> None:
     if counts != want:
         raise AssertionError(f"[12] launches {counts}, expected {want}")
     k6_launches = counts["K6"]
+    single["rungs32"] = dict(pk=res32.powerspecs[0], wall=res32.wall_s,
+                             mem=torch.cuda.max_memory_allocated() / 2**20,
+                             pops=rung_populations(lines)[-1])
 
     # -- 13. cfg64 with rungs=3: frozen plans, K2 + K3 and K5 ------------
     r64 = cfg64.replace(rungs=3)
@@ -2345,6 +2789,9 @@ def main() -> None:
     if counts != want:
         raise AssertionError(f"[13] launches {counts}, expected {want}")
     k5_launches = counts["K5"]
+    single["rungs64"] = dict(pk=res64r.powerspecs[0], wall=res64r.wall_s,
+                             mem=torch.cuda.max_memory_allocated() / 2**20,
+                             pops=rung_populations(lines)[-1])
 
     # -- 11. K5, K6 and the frozen-plane K2/K3 at full-size shapes --------
     # active sets from the rung rule at the late states of [5] and [13]
@@ -2456,6 +2903,49 @@ def main() -> None:
         pk_vs_reference(r16, c16, f"powerspec_a=1.00_n16_{name}_seed0",
                         f"[19] 16^3 {name} from the JAX noise")
 
+    # -- 20. rungs on the slab domain decomposition: four shards ---------
+    # (d) the full-width runs through run_simulation with no device
+    # argument, each beside the single-device rung run of [13] / [12]
+    r64d, run64d = domain_rung_vs_single(
+        r64.replace(devices=DOMAIN_SHARDS), "cfg64_rungs3", single["rungs64"])
+    domain_rung_vs_single(r32.replace(devices=DOMAIN_SHARDS),
+                          "default_rungs3", single["rungs32"])
+    r32c, run32c = domain_rung_vs_single(
+        r32.replace(devices=DOMAIN_SHARDS, column_skin=0.0),
+        "default_rungs3_cells", single["rungs32"])
+    if run64d["F"] == 0 or run32c["M"] == 0:
+        raise AssertionError("[20] K5's or K6's masked slab site was not "
+                             "launched by its run")
+    # (a) K5's slab site and (b) K6's masked slab site at the runs'
+    # geometries; (c) the two hazards, planted
+    kernels.update(k5_slab_check(r64d, r64.replace(devices=DOMAIN_SHARDS)))
+    kernels.update(k6_masked_slab_check(
+        r32c, r32.replace(devices=DOMAIN_SHARDS, column_skin=0.0)))
+    planted_hazards_check(r64d, r64.replace(devices=DOMAIN_SHARDS))
+    # (e) the 16^3 domain rung runs against the JAX package's committed
+    # runs (the same route: every JAX run kept its stale particles, at
+    # most the port's tolerance)
+    for n_dev, skin, name in ((2, -1.0, "domain2"), (4, -1.0, "domain4"),
+                              (4, 0.0, "domain4_cells")):
+        c16 = SimulationConfig(n_side=16, rungs=3, a_begin=0.3, n_steps=6,
+                               devices=n_dev, column_skin=skin,
+                               output=OutputConfig(snapshot=False))
+        r16, run16 = domain_rung_run(
+            c16, f"n16_{name}", initial_state=realize_ics(c16, 0, noise=noise))
+        pk_vs_reference(r16, c16, f"powerspec_a=1.00_n16_{name}_rungs3_seed0",
+                        f"[20] 16^3 {name} rungs=3 from the JAX noise")
+        ref = np.loadtxt(os.path.join(
+            PORT_DATA, f"rung_population_n16_{name}_rungs3_seed0.txt"),
+            dtype=np.int64)
+        got = np.array([p + [0] * (3 - len(p)) for p in run16["pops"]])
+        worst = int(np.abs(got - ref[:, 1:]).max())
+        phase(f"[20] 16^3 {name} rung populations vs JAX at {len(got)} steps:"
+              f" largest difference {worst} particles (tol "
+              f"{POP_TOL * c16.n_particles:g}); interior ticks on the "
+              f"{run16['route']} route, stale_max {r16.stale_max}")
+        if not worst <= POP_TOL * c16.n_particles:
+            raise AssertionError(f"[20] {name}: populations differ by {worst}")
+
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
@@ -2506,6 +2996,17 @@ def main() -> None:
                      "source": f"nbody_torch/forces/csrc/{source}",
                      "replaces": replaces,
                      "launches": domain_counts[path][site], **kernels[key]})
+    for key, name, source, replaces, launches in (
+            ("K5s", "p3m_local_columns_frozen_masked", "p3m_columns.cu",
+             "nbody/forces/p3m_columns.py:1656",
+             DOMAIN_SHARDS * run64d["F"]),
+            ("K6ms", "run_cell_plane (masked slab)", "p3m_cells.cu",
+             "nbody/distributed/domain.py:941",
+             DOMAIN_SHARDS * run32c["M"])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"nbody_torch/forces/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     **kernels[key]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ two boundary layers come from the neighbours (halo exchange); the PM far
 field deposits onto the shard's mesh slab (one spill plane to each
 neighbour), solves Poisson through the transpose-decomposed FFT
 (:mod:`nbody_torch.distributed.fft`) and reads the force back from the
-slab plus one halo plane from each side.
+slab plus one halo plane from each side.  With rungs, the interior
+sub-ticks kick the active rungs only: on frozen local column plans (K5's
+slab site) or on a compact plane of the active targets against the
+slab's cell plane (K6's two-plane slab site).
 
 One process drives every shard (:class:`ShardGroup`): a shard's arrays
 are the entries of Python lists, on the shard's device, and each
@@ -40,7 +43,10 @@ from nbody_torch.forces.p3m_columns import (
     build_local_column_plane,
     column_window,
     encode_overflow,
+    freeze_local_column_plan,
     ghost_slots,
+    local_plan_stale,
+    p3m_local_columns_frozen_masked,
     p3m_short_columns_local,
     read_back,
 )
@@ -541,7 +547,8 @@ def make_domain_p3m_local(cosmo, geom: DomainP3M, eps: float, *,
                           grad_order: str = "fd4", interlace: bool = False,
                           part: str = "both", shortrange: str = "cells",
                           col_capacity: int | None = None,
-                          col_window: int | None = None) -> Callable:
+                          col_window: int | None = None,
+                          target_capacity: int = 128) -> Callable:
     """The force on every shard: acc(pos, mass, a) -> (g, overflow), g and
     overflow lists of the shards' canonical-momentum forces -grad(phi)/a
     and overflow words (not yet reduced over the shards).
@@ -552,11 +559,17 @@ def make_domain_p3m_local(cosmo, geom: DomainP3M, eps: float, *,
     "long" (the far field alone, returns g), "short" (the short-range
     force alone, returns (g, overflow)), or "split" (the supercell tier's
     fused evaluation: acc(pos, mass, a_s, a_l) -> (g_short, g_long,
-    overflow)).  ``shortrange``: "cells" (K6 on the slab's cell plane),
-    "columns" (K4 on its column plane) or "supercell" (one column plane
-    for K2's deposit and K3's fused readback + pair sum); the column tiers
-    need ``col_capacity`` and give the field-encoded word bucket * 65536
-    + window misses.  The rung tier's "short_masked" is not ported yet."""
+    overflow)) or "short_masked" (the rung tier's interior ticks:
+    acc(pos, mass, act, a) -> (g, ov_source, ov_target, occupancy_target)
+    lists, the short-range force ON the ``act`` rows FROM all by K6's
+    two-plane form, a plane of the active rows at ``target_capacity``
+    against the slab's cell plane; ``occupancy_target`` is the densest
+    active resident cell, the driver's pre-warm signal; it rides the cell
+    geometry whatever ``shortrange``).  ``shortrange``: "cells" (K6 on the
+    slab's cell plane), "columns" (K4 on its column plane) or "supercell"
+    (one column plane for K2's deposit and K3's fused readback + pair
+    sum); the column tiers need ``col_capacity`` and give the
+    field-encoded word bucket * 65536 + window misses."""
     box, nmesh, ncell = geom.box, geom.nmesh, geom.ncell
     D = group.size
     if D != geom.n_dev:
@@ -566,14 +579,10 @@ def make_domain_p3m_local(cosmo, geom: DomainP3M, eps: float, *,
     G = units.COSMO.G
     eps2 = float(eps) ** 2
     h_cell = box / nmesh
-    if part == "short_masked":
-        raise NotImplementedError(
-            "part='short_masked' (the domain rung tier's masked interior "
-            "ticks) is not ported yet")
-    if part not in ("both", "long", "short", "split"):
+    if part not in ("both", "long", "short", "split", "short_masked"):
         raise ValueError(f"unknown part {part!r}")
-    if part == "short" and split == "none":
-        raise ValueError("part='short' is meaningless with split='none'")
+    if part in ("short", "short_masked") and split == "none":
+        raise ValueError(f"part={part!r} is meaningless with split='none'")
     if part == "split" and shortrange != "supercell":
         raise ValueError("part='split' is the fused supercell path")
     if shortrange not in ("cells", "columns", "supercell"):
@@ -741,10 +750,42 @@ def make_domain_p3m_local(cosmo, geom: DomainP3M, eps: float, *,
             ovs.append(ov)
         return accs, ovs
 
+    def short_range_masked(pos: list, mass: list, act: list, a: float):
+        src = build_local_plane(pos, mass, box=box, r_cut=geom.r_cut,
+                                ncell=ncell, group=group,
+                                capacity=geom.bucket_capacity)
+        tgt = build_local_plane(pos, mass, box=box, r_cut=geom.r_cut,
+                                ncell=ncell, group=group,
+                                capacity=target_capacity, valid=act)
+        C3l = nxl * ncell * ncell
+        accs, ovs_j, ovs_i, occs = [], [], [], []
+        for d, (p, m, ac, (plane_j, ov_j, K_j, _, counts_j),
+                (plane_i, ov_i, K_i, gidx, counts_i)) in enumerate(
+                    zip(pos, mass, act, src, tgt)):
+            # the densest active resident cell of the slab
+            c = torch.clamp((torch.remainder(p, box) * (ncell / box)).to(
+                torch.int32), 0, ncell - 1).to(torch.int64)
+            cxl = c[:, 0] - d * nxl
+            res = ac & (m > 0) & (cxl >= 0) & (cxl < nxl)
+            cid = torch.where(res, (cxl * ncell + c[:, 1]) * ncell + c[:, 2],
+                              torch.full_like(cxl, C3l))
+            occs.append(torch.bincount(cid, minlength=C3l + 1)[:C3l].max())
+            out = run_cell_plane(plane_i, counts_i, nx=nxl, ncell=ncell,
+                                 K=K_i, eps2=eps2, r_s=geom.r_s,
+                                 r_cut=geom.r_cut, split=split,
+                                 softening=softening, plane_j=plane_j,
+                                 K_j=K_j, counts_j=counts_j)
+            accs.append(read_back(out, gidx, 3).to(p.dtype) * (G / a))
+            ovs_j.append(ov_j)
+            ovs_i.append(ov_i)
+        return accs, ovs_j, ovs_i, occs
+
     if part == "long":
         return far_field
     if part == "short":
         return short_range
+    if part == "short_masked":
+        return short_range_masked
     if part == "split":
         return supercell_eval
     if shortrange == "supercell":
@@ -789,8 +830,26 @@ def make_domain_p3m_force(cosmo, box: float, nmesh: int, group: ShardGroup,
 class DomainRunResult(NamedTuple):
     state: list                  # the shards' ParticleStates at a_grid[-1]
     exchange_overflow: int       # sum over shards of each's max over steps
-    bucket_overflow: int         # max over shards and steps (field word)
-    force_evals: int             # force evaluations of this call
+    bucket_overflow: int         # fixed steps: max over shards and steps
+    #                              (field word); rungs: the sum over shards
+    #                              of each's max, as the JAX package reduces
+    force_evals: int             # force evaluations of this call (with
+    #                              rungs: the boundary evaluations)
+    # the rung tier only (None otherwise), reduced as the JAX package
+    # does: the active-target plane's spills (sum over shards), the
+    # densest active cell seen (max), the per-step rung populations
+    # (n_steps, n_rungs); the frozen plans' field-encoded word and their
+    # staleness count (max over shards, steps and ticks: never summed,
+    # the word is field-encoded; 0 on the masked route)
+    target_overflow: int | None = None
+    target_occupancy: int | None = None
+    rung_hists: np.ndarray | None = None
+    plan_overflow: int | None = None
+    plan_stale: int | None = None
+    # the rung tier's interior evaluations (K5 or K6 two-plane, one
+    # launch a shard each) and plan freezes of this call
+    interior_evals: int = 0
+    plan_freezes: int = 0
 
 
 def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
@@ -801,10 +860,14 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
                             deconvolve_p: int = 2, split: str = "spline",
                             grad_order: str = "fd4", interlace: bool = False,
                             subcycles: int = 1, softening: str = "plummer",
-                            rungs: int = 0, shortrange: str = "cells",
+                            rungs: int = 0, eta_disp: float = 0.25,
+                            eta_acc: float = 0.025,
+                            target_capacity: int = 128,
+                            shortrange: str = "cells",
                             col_capacity: int | None = None,
-                            col_window: int | None = None
-                            ) -> DomainRunResult:
+                            col_window: int | None = None,
+                            rung_frozen: bool = False,
+                            column_skin: float = 0.0) -> DomainRunResult:
     """Comoving KDK over ``a_grid`` with slab-resident shards: a force
     evaluation at the start, then per step a kick, the drift (+ periodic
     wrap), :func:`slab_exchange` and the closing kick, as a Python loop in
@@ -813,14 +876,23 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
     exchange keeps.  The overflow words are reduced on
     the device (the exchange counts added over shards, the bucket word
     the max of the shards' field-encoded words) and read once, at the
-    end.  Subcycles and rungs are not ported yet."""
+    end.
+
+    ``rungs >= 2`` integrates with per-particle rungs instead
+    (:func:`_run_domain_rungs`): the interior sub-ticks kick the active
+    rungs through the masked cell planes (K6's two-plane slab site, at
+    ``target_capacity``) or, with ``rung_frozen``, on each step's frozen
+    local column plans (K5's slab site; needs ``col_capacity`` and
+    ``column_skin > 0``); the boundary ticks take the cells tier's full
+    short force.  Subcycles are not ported yet."""
     from nbody_torch.integrate.cosmo_stepping import cosmo_kick_drift_factors
 
-    if int(rungs) >= 2:
-        raise NotImplementedError(
-            "rungs >= 2 on the domain decomposition (the masked slab "
-            "kernels and frozen local plans) are not ported yet")
-    if int(subcycles) > 1 and split != "none":
+    rung_mode = int(rungs) >= 2
+    if rung_mode and split == "none":
+        raise ValueError(
+            "rungs require a force split (split='none' is a pure PM solver "
+            "with no short-range pass to subdivide)")
+    if int(subcycles) > 1 and split != "none" and not rung_mode:
         raise NotImplementedError(
             "subcycles > 1 on the domain decomposition is not ported yet")
     D = group.size
@@ -828,27 +900,28 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
         geom = domain_p3m_geometry(box, nmesh, D, n_global)
     C = shards[0].pos.shape[0]
     E = exchange_capacity or max(64, C // 8)
+    fkw = dict(deconvolve_p=deconvolve_p, split=split, grad_order=grad_order,
+               interlace=interlace, softening=softening)
+    if rung_mode:
+        return _run_domain_rungs(
+            shards, cosmo, a_grid, group, box=box, nmesh=nmesh, eps=eps,
+            geom=geom, E=E, n_rungs=int(rungs), eta_disp=eta_disp,
+            eta_acc=eta_acc, target_capacity=target_capacity,
+            col_capacity=col_capacity, col_window=col_window,
+            rung_frozen=rung_frozen, column_skin=column_skin, fkw=fkw)
     xgrid = slab_grid(geom, shortrange)
     local_acc = make_domain_p3m_local(
-        cosmo, geom, eps, group=group, deconvolve_p=deconvolve_p,
-        split=split, grad_order=grad_order, interlace=interlace,
-        softening=softening, shortrange=shortrange,
-        col_capacity=col_capacity, col_window=col_window)
+        cosmo, geom, eps, group=group, shortrange=shortrange,
+        col_capacity=col_capacity, col_window=col_window, **fkw)
     a_grid = np.asarray(a_grid, dtype=np.float64)
     K1, Dr, K2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
     pos = [s.pos for s in shards]
     vel = [s.vel for s in shards]
     mass = [s.mass for s in shards]
 
-    def zero(d):
-        return torch.zeros((), dtype=torch.int64, device=group.devices[d])
-
-    def word(o, d):
-        return torch.as_tensor(o, device=group.devices[d]).to(torch.int64)
-
     g, ovs = local_acc(pos, mass, float(shards[0].time))
-    ov_bk = [word(o, d) for d, o in enumerate(ovs)]
-    ov_ex = [zero(d) for d in range(D)]
+    ov_bk = _chan_max(group, _zeros(group), ovs)
+    ov_ex = _zeros(group)
     for a1, k1, dr, k2 in zip(a_grid[1:], K1, Dr, K2):
         p_half = [v + x * float(k1) for v, x in zip(vel, g)]
         pos = [torch.remainder(p + ph * float(dr), box)
@@ -858,17 +931,207 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
             exchange_capacity=E)
         g, ovs = local_acc(pos, mass, float(a1))
         vel = [ph + x * float(k2) for ph, x in zip(p_half, g)]
-        ov_ex = [torch.maximum(a, word(b, d))
-                 for d, (a, b) in enumerate(zip(ov_ex, ov_e))]
-        ov_bk = [torch.maximum(a, word(b, d))
-                 for d, (a, b) in enumerate(zip(ov_bk, ovs))]
-    time = float(a_grid[-1])
-    out = [ParticleState(pos=p, vel=v, mass=m,
-                         time=torch.as_tensor(time, dtype=p.dtype,
-                                              device=p.device))
-           for p, v, m in zip(pos, vel, mass)]
+        ov_ex = _chan_max(group, ov_ex, ov_e)
+        ov_bk = _chan_max(group, ov_bk, ovs)
     return DomainRunResult(
-        state=out,
+        state=_states(pos, vel, mass, float(a_grid[-1])),
         exchange_overflow=int(group.psum(ov_ex)[0]),
         bucket_overflow=int(group.pmax(ov_bk)[0]),
         force_evals=len(a_grid))
+
+
+def _zeros(group: ShardGroup) -> list:
+    """A 0 overflow word on every shard's device."""
+    return [torch.zeros((), dtype=torch.int64, device=dev)
+            for dev in group.devices]
+
+
+def _chan_max(group: ShardGroup, chan: list, new: list) -> list:
+    """Each shard's channel word, the max of its word so far and its new
+    one (a count or a tensor)."""
+    return [torch.maximum(c, torch.as_tensor(x, device=dev).to(torch.int64))
+            for c, x, dev in zip(chan, new, group.devices)]
+
+
+def _states(pos: list, vel: list, mass: list, time: float) -> list:
+    return [ParticleState(pos=p, vel=v, mass=m,
+                          time=torch.as_tensor(time, dtype=p.dtype,
+                                               device=p.device))
+            for p, v, m in zip(pos, vel, mass)]
+
+
+def _run_domain_rungs(shards: list, cosmo, a_grid, group: ShardGroup, *,
+                      box: float, nmesh: int, eps: float, geom: DomainP3M,
+                      E: int, n_rungs: int, eta_disp: float, eta_acc: float,
+                      target_capacity: int, col_capacity: int | None,
+                      col_window: int | None, rung_frozen: bool,
+                      column_skin: float, fkw: dict) -> DomainRunResult:
+    """The domain rung tier (CONCEPT's block steps on the slab
+    decomposition; the JAX package's ``run_cosmological_domain(rungs=...)``
+    and ``_rung_ticks``).  Each global step assigns rungs from the
+    displacement and acceleration demand of the carried force, kicks the
+    far field at the half-steps and kicks rung r at every 2^(R - 1 - r)-th
+    of the n_sub = 2^(R - 1) sub-ticks.  Every sub-tick drifts every
+    shard; the boundary tick migrates (:func:`slab_exchange`, with the
+    carried forces and the rungs riding along) and takes the full short
+    force of the cells tier.  Interior ticks kick the active rungs:
+
+    * masked route: every sub-tick migrates too, and K6's two-plane slab
+      site evaluates the force on the active rows;
+    * frozen route (``rung_frozen``): each step's local column plans are
+      frozen at its start, right after the last boundary's exchange, and
+      the particles stay on their shard until the next boundary; K5's
+      slab site evaluates the force on the chunks with an active row,
+      and the plans' staleness (drift beyond skin/2) is counted.
+
+    The step's global rung histogram is read on the host once per step
+    (the only read before the end): a tick whose lowest active rung is
+    above the deepest populated rung is skipped on every shard (its kick
+    would add 0), and a step without an active interior tick freezes no
+    plan (a plan no tick uses drops no force).  The overflow channels
+    stay on the device until the end."""
+    from nbody_torch.integrate.cosmo_stepping import (
+        _assign_rungs,
+        _rung_demand,
+        cosmo_kick_drift_factors,
+        rung_active_min,
+        rung_kick_tables,
+    )
+
+    D = group.size
+    split = fkw["split"]
+    long_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                     part="long", **fkw)
+    short_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                      part="short", **fkw)
+    G = units.COSMO.G
+    if rung_frozen:
+        if not col_capacity:
+            raise ValueError(
+                "rung_frozen needs an explicit col_capacity (compute it via "
+                "nbody_torch.forces.p3m_columns.column_params)")
+        if column_skin <= 0.0:
+            raise ValueError(
+                "rung_frozen needs column_skin > 0 (the per-step drift "
+                "budget the frozen plan is sized for)")
+        ck = _ceil128(col_capacity)
+        ckw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+                   col_capacity=ck,
+                   window=int(col_window or column_window(box, geom.r_cut,
+                                                          ck)))
+        skin = float(column_skin)
+    else:
+        masked_acc = make_domain_p3m_local(
+            cosmo, geom, eps, group=group, part="short_masked",
+            target_capacity=target_capacity, **fkw)
+
+    a_grid = np.asarray(a_grid, dtype=np.float64)
+    n_steps = len(a_grid) - 1
+    n_sub = 2 ** (n_rungs - 1)
+    KL1, _, KL2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
+    Fk, Dr, A_sub = rung_kick_tables(cosmo, a_grid, n_rungs)
+    pos = [s.pos for s in shards]
+    vel = [s.vel for s in shards]
+    mass = [s.mass for s in shards]
+    dtype = pos[0].dtype
+    tabs = {}
+
+    def tab(d):
+        """Shard d's device copies of the step tables and the demand's
+        0-d factors (one set a device)."""
+        dev = group.devices[d]
+        if dev not in tabs:
+            def t(x):
+                return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+            tabs[dev] = dict(
+                Fk=t(Fk), a0=t(a_grid[:-1]), a1=t(a_grid[1:]),
+                cell=t(box / nmesh), eta=t(eta_disp),
+                acc=t(2.0 * eta_acc * eps) if eta_acc * eps > 0 else None)
+        return tabs[dev]
+
+    def chan_max(chan, new):
+        return _chan_max(group, chan, new)
+
+    zeros = _zeros(group)
+    ov_ex = ov_tg = occ_tg = ov_pl = ov_st = zeros
+    H0, Om, OL = float(cosmo.H0), float(cosmo.Omega_m), float(cosmo.Omega_L)
+
+    t0 = float(shards[0].time)
+    gl = long_acc(pos, mass, t0)
+    gs, ovs = short_acc(pos, mass, t0)
+    ov_bk = chan_max(zeros, ovs)
+    n_boundary, n_interior, n_freeze = 1, 0, 0
+    hists = np.zeros((n_steps, n_rungs), dtype=np.int64)
+    for i in range(n_steps):
+        rung, counts = [], []
+        for d in range(D):
+            tb = tab(d)
+            dla = _rung_demand(vel[d], gl[d], gs[d], tb["a0"][i], tb["cell"],
+                               tb["eta"], tb["acc"], H0, Om, OL)
+            dla = torch.where(mass[d] > 0, dla, torch.full_like(dla, np.inf))
+            r = _assign_rungs(dla, torch.log(tb["a1"][i])
+                              - torch.log(tb["a0"][i]), n_rungs)
+            rung.append(r)
+            # resident populations only: parked rows go to a dropped bin
+            counts.append(torch.bincount(
+                torch.where(mass[d] > 0, r, torch.full_like(r, n_rungs)),
+                minlength=n_rungs + 1)[:n_rungs])
+        hists[i] = group.psum(counts)[0].tolist()
+        deepest = int(np.nonzero(hists[i])[0].max()) if hists[i].any() else 0
+        plans = None
+        if rung_frozen and deepest >= 1:
+            plans = freeze_local_column_plan(pos, mass, skin=skin, **ckw)
+            ov_pl = chan_max(ov_pl, [pl.ov for pl in plans])
+            n_freeze += 1
+        p = [v + x * float(KL1[i]) + y * tab(d)["Fk"][i, 0][r][:, None]
+             for d, (v, x, y, r) in enumerate(zip(vel, gl, gs, rung))]
+        for j in range(1, n_sub + 1):
+            pos = [torch.remainder(x + q * float(Dr[i, j - 1]), box)
+                   for x, q in zip(pos, p)]
+            a_s = float(A_sub[i, j - 1])
+            if not rung_frozen or j == n_sub:
+                pos, p, mass, (gl, gs, rung), ov_e = slab_exchange(
+                    pos, p, mass, box=box, ncell=geom.ncell, group=group,
+                    exchange_capacity=E, extras=(gl, gs, rung))
+                ov_ex = chan_max(ov_ex, ov_e)
+            if j == n_sub:
+                g, ovs = short_acc(pos, mass, a_s)
+                gs = g
+                ov_bk = chan_max(ov_bk, ovs)
+                n_boundary += 1
+            elif deepest < rung_active_min(j, n_rungs):
+                continue
+            else:
+                act = [(r >= rung_active_min(j, n_rungs)) & (m > 0)
+                       for r, m in zip(rung, mass)]
+                if rung_frozen:
+                    g, ovs = p3m_local_columns_frozen_masked(
+                        pos, mass, act, plans, eps=float(eps), r_s=geom.r_s,
+                        G=G, split=split, softening=fkw["softening"], **ckw)
+                    g = [x / a_s for x in g]
+                    ov_pl = chan_max(ov_pl, ovs)
+                    ov_st = chan_max(ov_st, [
+                        local_plan_stale(x, pl, box, skin)
+                        for x, pl in zip(pos, plans)])
+                else:
+                    g, ov_j, ov_i, occ_i = masked_acc(pos, mass, act, a_s)
+                    ov_bk = chan_max(ov_bk, ov_j)
+                    ov_tg = chan_max(ov_tg, ov_i)
+                    occ_tg = chan_max(occ_tg, occ_i)
+                n_interior += 1
+            p = [q + x * tab(d)["Fk"][i, j][r][:, None]
+                 for d, (q, x, r) in enumerate(zip(p, g, rung))]
+        gl = long_acc(pos, mass, float(a_grid[i + 1]))
+        vel = [q + x * float(KL2[i]) for q, x in zip(p, gl)]
+    return DomainRunResult(
+        state=_states(pos, vel, mass, float(a_grid[-1])),
+        exchange_overflow=int(group.psum(ov_ex)[0]),
+        bucket_overflow=int(group.psum(ov_bk)[0]),
+        force_evals=n_boundary,
+        target_overflow=int(group.psum(ov_tg)[0]),
+        target_occupancy=int(group.pmax(occ_tg)[0]),
+        rung_hists=hists,
+        plan_overflow=int(group.pmax(ov_pl)[0]),
+        plan_stale=int(group.pmax(ov_st)[0]),
+        interior_evals=n_interior, plan_freezes=n_freeze)

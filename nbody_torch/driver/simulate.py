@@ -12,10 +12,10 @@ times, in the same run.log, powerspec and snapshot formats.  The entry
 points run on the card unless the caller passes ``device="cpu"``.  Options
 outside the slice raise ``NotImplementedError`` (``subcycles > 1`` without
 rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on
-more than one device rungs, subcycles, ``ic_realization='domain'`` and the
-PP solver).  ``devices > 1`` runs the slab domain decomposition
-(:mod:`nbody_torch.distributed.domain`): D shards driven by one process,
-placed round-robin over the visible cards.
+more than one device subcycles, ``ic_realization='domain'`` and the PP
+solver).  ``devices > 1`` runs the slab domain decomposition
+(:mod:`nbody_torch.distributed.domain`), with fixed steps or rungs: D
+shards driven by one process, placed round-robin over the visible cards.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from nbody_torch.forces.p3m import (
     supercell_ncell,
 )
 from nbody_torch.forces.p3m_columns import (
+    _ceil128,
     column_window,
     freeze_column_plan,
     p3m_short_columns_frozen_masked,
@@ -125,9 +126,6 @@ def check_supported(config: SimulationConfig, device=None) -> None:
         missing = []
         if config.solver == "pp":
             missing.append("solver='pp' (the ring Ewald decomposition)")
-        if config.rungs >= 2:
-            missing.append("rungs >= 2 (the domain rung tier: masked slab "
-                           "kernels and frozen local column plans)")
         if config.subcycles > 1:
             missing.append("subcycles > 1 (the subcycled domain runner)")
         if config.time_stepping != "fixed":
@@ -759,6 +757,26 @@ def stale_tolerance(config: SimulationConfig) -> int:
     return max(16, config.n_particles // 65536)
 
 
+def _drift_note(n: int) -> str:
+    """run.log's note for ``n`` stale particles kept (see
+    :func:`stale_tolerance`)."""
+    return (f"frozen-plan drift note: {n} rung-clamped particles exceeded "
+            f"the skin/2 budget this segment (window coverage not "
+            f"guaranteed for them; matches CONCEPT's rung-clamp accuracy)")
+
+
+def _rung_population_lines(a_grid, lo: int, hists) -> list[str]:
+    """run.log's "Rung population" line of each step after ``lo``: the
+    counts up to the deepest populated rung."""
+    lines = []
+    for k, h in enumerate(hists):
+        top = int(np.max(np.nonzero(h)[0])) + 1
+        lines.append(f"Time step {lo + 1 + k:4d}   a = "
+                     f"{a_grid[lo + 1 + k]:.4f}   Rung population: matter: "
+                     + ", ".join(str(int(x)) for x in h[:top]))
+    return lines
+
+
 def run_simulation(
     config: SimulationConfig,
     seed: int = 0,
@@ -890,10 +908,7 @@ def run_simulation(
             eta_acc=config.step_eta_acc, eps=config.eps,
             frozen_both_fns=frozen_fns, stats=stats)
         if ovst and ovst <= stale_tolerance(config):
-            log(f"frozen-plan drift note: {ovst} rung-clamped particles "
-                f"exceeded the skin/2 budget this segment (window "
-                f"coverage not guaranteed for them; matches CONCEPT's "
-                f"rung-clamp accuracy)")
+            log(_drift_note(ovst))
             stale_max = max(stale_max, ovst)
             ovst = 0
         if ovst:
@@ -937,13 +952,6 @@ def run_simulation(
                 return done
         raise RuntimeError(
             "P3M cell capacity retries exhausted — state too clustered")
-
-    def log_rung_populations(prev: int, hists) -> None:
-        for k, h in enumerate(hists):
-            top = int(np.max(np.nonzero(h)[0])) + 1
-            log(f"Time step {prev + 1 + k:4d}   a = {a_grid[prev + 1 + k]:.4f}"
-                f"   Rung population: matter: "
-                + ", ".join(str(int(x)) for x in h[:top]))
 
     ic_wall = 0.0
     if state is None and initial_state is not None:
@@ -1004,7 +1012,8 @@ def run_simulation(
         if rungs:
             state, hists = segment_with_heal(rung_attempt, state, a_seg,
                                              rung_occ=rung_occ_seen)
-            log_rung_populations(prev, hists)
+            for line in _rung_population_lines(a_grid, prev, hists):
+                log(line)
         else:
             state, g = segment_with_heal(fixed_attempt, state, g, a_seg)
         sync()
@@ -1117,8 +1126,10 @@ def heal_domain(config: SimulationConfig, tier: str, geom, ck: int, cw: int,
                 E: int, ov_b: int, ov_e: int):
     """The domain run's heal after a stretch dropped force: on the column
     tiers the field-encoded word's window misses widen the window 1.5x and
-    its bucket spills double the capacity; on the cells tier the bucket
-    capacity doubles; exchange overflow doubles the exchange capacity.
+    its bucket spills double the capacity; on the cells tier the planes'
+    128-slot bucket doubles (the JAX driver doubles the capacity, which
+    below 128 leaves the bucket as it was); exchange overflow doubles the
+    exchange capacity.
     Returns (geom, ck, cw, E, run.log lines)."""
     lines = []
     if ov_b and tier in ("columns", "supercell"):
@@ -1135,7 +1146,10 @@ def heal_domain(config: SimulationConfig, tier: str, geom, ck: int, cw: int,
                          f"({ov_b >> 16} particles) — doubling column "
                          f"capacity to {ck}, re-running segment")
     elif ov_b:
-        geom = geom._replace(bucket_capacity=2 * geom.bucket_capacity)
+        # the planes round the capacity up to 128-slot buckets: double the
+        # bucket, or a heal below the rounding changes nothing
+        geom = geom._replace(bucket_capacity=2 * _ceil128(
+            geom.bucket_capacity))
         lines.append(f"P3M bucket overflow inside scan ({ov_b} particles) — "
                      f"doubling bucket capacity to {geom.bucket_capacity}, "
                      f"re-running segment")
@@ -1146,6 +1160,87 @@ def heal_domain(config: SimulationConfig, tier: str, geom, ck: int, cw: int,
     return geom, ck, cw, E, lines
 
 
+def domain_frozen_knobs(config: SimulationConfig, geom,
+                        ck: int = 0) -> tuple[float, int, int]:
+    """(skin, column capacity, column window) of the frozen local column
+    plans a domain rung run of ``config`` starts from on ``geom``'s
+    chaining grid, or skin 0 (the masked cell planes) when the skin is off
+    or the column side cannot hold it (side >= r_cut + 2 skin).  The auto
+    skin (``column_skin < 0``) is the rung sizing of
+    :func:`_frozen_geometry`, capped at the geometric ceiling 0.49 (side -
+    r_cut); the capacity is ``ck``, the config's or the mean column + 6
+    sigma, or what an earlier run of the same geometry healed to; the
+    window is widened to hold the skin-widened thresholds."""
+    if config.rungs < 2 or config.solver != "p3m":
+        return 0.0, ck, 0
+    mem = _CAPACITY_MEMORY.get(_capacity_signature(config), {})
+    side = config.box / geom.ncell
+    skin = config.column_skin
+    if skin < 0.0:
+        skin_r = (1.65 * float(config.step_eta_disp)
+                  * (2 ** (int(config.rungs) - 1))
+                  * (config.box / config.mesh_size))
+        skin = min(max(0.05 * geom.r_cut, skin_r),
+                   0.49 * (side - geom.r_cut))
+    if not (skin > 0.0 and side >= geom.r_cut + 2.0 * skin):
+        return 0.0, ck, 0
+    mean_col = config.n_particles / geom.ncell**2
+    ck = ck or config.column_capacity or max(
+        -(-int(mean_col + 6.0 * mean_col**0.5 + 8) // 128) * 128,
+        mem.get("column_capacity", 0))
+    base_w = (config.column_window or mem.get("column_window", 0)
+              or column_window(config.box, geom.r_cut, ck))
+    return float(skin), ck, max(base_w, _skin_window(config, geom, ck, skin))
+
+
+def _skin_window(config: SimulationConfig, geom, ck: int,
+                 skin: float) -> int:
+    """The z-window that holds a frozen plan's skin-widened thresholds."""
+    rc_slots = (geom.r_cut / config.box) * ck
+    span = 256.0 + 2.2 * rc_slots + 127.0 + 2.0 * skin * ck / config.box
+    return -(-int(span) // 128) * 128
+
+
+def heal_domain_frozen(config: SimulationConfig, geom, ck: int, cw: int,
+                       skin: float, ov_p: int, ov_s: int):
+    """The frozen local plans' heals after a domain rung segment, in the
+    JAX driver's order: the plans' field-encoded word first (window misses
+    widen the window 1.5x, bucket spills double the capacity), then their
+    staleness ``ov_s`` (the most particles of one shard beyond skin/2 at
+    one tick).  Up to :func:`stale_tolerance` stale particles are kept;
+    more grow the skin 1.5x toward its ceiling 0.49 (side - r_cut) (with
+    the window widened to hold it); at the ceiling the skin heals to 0,
+    which moves the interior ticks to the masked cell planes (the JAX
+    driver keeps such a segment with a warning and leaves those
+    particles' pairs unchecked).  Returns (ck, cw, skin, run.log lines of
+    a heal that re-runs the segment, the stale count kept with a note or
+    0)."""
+    if ov_p:
+        if (ov_p >> 16) == 0:
+            cw = -(-int(1.5 * cw) // 128) * 128
+            return ck, cw, skin, [
+                f"frozen-plan z-window misses ({ov_p & 0xffff} slots) — "
+                f"widening z-window to {cw}, re-running segment"], 0
+        return 2 * ck, cw, skin, [
+            f"frozen-plan bucket overflow ({ov_p >> 16} particles) — "
+            f"doubling column capacity to {2 * ck}, re-running segment"], 0
+    if not ov_s:
+        return ck, cw, skin, [], 0
+    if ov_s <= stale_tolerance(config):
+        return ck, cw, skin, [], ov_s
+    smax = 0.49 * (config.box / geom.ncell - geom.r_cut)
+    if skin < smax:
+        skin = min(1.5 * skin, smax)
+        return ck, max(cw, _skin_window(config, geom, ck, skin)), skin, [
+            f"frozen-plan staleness ({ov_s} particles beyond skin/2) — "
+            f"growing column_skin to {skin:.3g}, re-running segment"], 0
+    return ck, cw, 0.0, [
+        f"frozen-plan staleness ({ov_s} particles beyond skin/2) with "
+        f"column_skin at the geometric ceiling {skin:.3g} — healing "
+        f"column_skin to 0 (masked cell planes for the interior ticks), "
+        f"re-running segment"], 0
+
+
 def _run_simulation_domain(config: SimulationConfig, seed: int,
                            workdir: str | None, device, dtype,
                            initial_state: ParticleState | None,
@@ -1154,13 +1249,24 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     """The ``devices > 1`` branch of :func:`run_simulation`: the ICs are
     realized on one device and decomposed once into slab-resident shards
     (:func:`~nbody_torch.distributed.domain.domain_decompose`, shards
-    round-robin over the visible cards), then the fixed-step domain runner
+    round-robin over the visible cards), then the domain runner
     (:func:`~nbody_torch.distributed.domain.run_cosmological_domain`) runs
-    stretches of at most 32 steps, each re-run from its start after a
-    heal of the exchange, bucket or column knobs; P(k) at the output
-    times comes from the sharded estimator, snapshots and checkpoints from
+    stretches of at most 32 steps (32 // 2^(rungs - 1) with rungs), each
+    re-run from its start after a heal; P(k) at the output times comes
+    from the sharded estimator, snapshots and checkpoints from
     :func:`~nbody_torch.distributed.domain.domain_gather`.  The run.log
-    lines are the JAX driver's, plus the count of force evaluations."""
+    lines are the JAX driver's, plus the counts of force evaluations.
+
+    With rungs the interior ticks ride frozen local column plans when the
+    skin fits the column side (:func:`domain_frozen_knobs`), else the
+    masked cell planes.  The heals follow the JAX driver's order: the
+    plans' word (window x1.5 or capacity x2), their staleness, the target
+    plane (rung capacity x2), the bucket and the exchange.  Staleness up
+    to :func:`stale_tolerance` particles is noted in run.log and kept
+    (``result.stale_max``); more grows the skin toward its ceiling, and at
+    the ceiling the port heals ``column_skin`` to 0 and re-runs the
+    segment on the masked cell planes, which have no drift budget (the
+    JAX driver keeps such a segment with a warning)."""
     from nbody_torch.diagnostics.layzer_irvine import (
         peculiar_energies_domain,
     )
@@ -1177,6 +1283,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     cosmo = config.cosmology()
     group = device_mesh(n_dev, device)
     split = "none" if config.solver == "pm" else config.force_split
+    rungs = int(config.rungs) if config.rungs >= 2 else 0
     geom = domain_p3m_geometry(config.box, config.mesh_size, n_dev,
                                config.n_particles,
                                bucket_capacity=config.cell_capacity or None)
@@ -1210,19 +1317,19 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         state = (initial_state.to(device=device, dtype=dtype)
                  if initial_state is not None
                  else realize_ics(config, seed, device=device, dtype=dtype))
-    tier = _domain_tier(config, n_dev)
+    tier = _domain_tier(config, n_dev, rungs=bool(rungs))
     dstate = domain_decompose(state, group, config.box,
                               ncell=slab_grid(geom, tier))
     del state
     C = dstate[0].pos.shape[0]
     E = max(64, C // 8)
 
+    seg_steps = max(2, SAMPLE_EVERY_STEPS // 2 ** max(rungs - 1, 0))
     bounds = set(out_idx) | {last}
     if checkpoint_every_steps:
         bounds |= set(range(checkpoint_every_steps, last,
                             checkpoint_every_steps))
-    bounds |= set(range(start_idx + SAMPLE_EVERY_STEPS, last,
-                        SAMPLE_EVERY_STEPS))
+    bounds |= set(range(start_idx + seg_steps, last, seg_steps))
     bounds = sorted(i for i in bounds if i > start_idx)
 
     log(f"nbody run: solver={config.solver} N={config.n_particles} "
@@ -1230,17 +1337,25 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         f"a={config.a_begin:g}->{config.a_end:g} in {config.n_steps} steps "
         f"(seed={seed}, start_idx={start_idx})")
     ck, cw = domain_column_knobs(config, tier, geom)
+    skin, ck, fw = domain_frozen_knobs(config, geom, ck)
+    cw = fw or cw
     log(f"Domain decomposition: {n_dev}x1x1 ({geom.ncell} chaining cells, "
         f"{C} slots/device, bucket capacity {geom.bucket_capacity}, "
         f"short-range tier {tier}"
         + (f", column capacity {ck}" if tier in ("columns", "supercell")
-           else "") + ")")
-
-    evals = {"total": 0, "repeated": 0}
+           else "")
+        + (f", frozen rung plans (skin {skin:.3g}, column capacity {ck})"
+           if skin > 0.0 else "") + ")")
+    mem = _CAPACITY_MEMORY.get(_capacity_signature(config), {})
+    rcap = config.rung_capacity or max(128, mem.get("rung_capacity", 0))
+    skin0, stale_max = skin, 0
+    evals = dict(total=0, repeated=0, frozen=0, masked=0, freezes=0,
+                 repeated_frozen=0, repeated_masked=0)
 
     def run_segment(dst, lo, hi):
-        nonlocal geom, E, ck, cw
+        nonlocal geom, E, rcap, ck, cw, skin, stale_max
         for _ in range(HEAL_ATTEMPTS):
+            frozen = skin > 0.0
             res = run_cosmological_domain(
                 dst, cosmo, a_grid[lo: hi + 1], group, box=config.box,
                 nmesh=config.mesh_size, eps=config.eps,
@@ -1248,15 +1363,50 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
                 deconvolve_p=config.deconvolve_p, interlace=config.interlace,
                 grad_order=config.pm_gradient, subcycles=config.subcycles,
                 softening=config.softening_kernel, exchange_capacity=E,
+                rungs=rungs, eta_disp=config.step_eta_disp,
+                eta_acc=config.step_eta_acc, target_capacity=rcap,
                 shortrange=tier, col_capacity=ck or None,
-                col_window=cw or None)
+                col_window=cw or None, rung_frozen=frozen,
+                column_skin=skin)
+            route = "frozen" if frozen else "masked"
             evals["total"] += res.force_evals
+            evals[route] += res.interior_evals
+            evals["freezes"] += res.plan_freezes
+            lines = []
+            if frozen:
+                ck, cw, skin, lines, kept = heal_domain_frozen(
+                    config, geom, ck, cw, skin, res.plan_overflow,
+                    res.plan_stale)
+                if kept:
+                    log(_drift_note(kept))
+                    stale_max = max(stale_max, kept)
             ov_b, ov_e = res.bucket_overflow, res.exchange_overflow
-            if ov_b == 0 and ov_e == 0:
+            ov_t = res.target_overflow or 0
+            if not lines and ov_b == 0 and ov_e == 0 and ov_t == 0:
+                if rungs:
+                    for line in _rung_population_lines(a_grid, lo,
+                                                       res.rung_hists):
+                        log(line)
+                    occ = res.target_occupancy
+                    needed = -(-int(occ * 1.35) // 128) * 128
+                    if needed > rcap:
+                        log(f"pre-warming rung target capacity to {needed} "
+                            f"(densest active bucket {occ})")
+                        rcap = needed
                 return res.state
             evals["repeated"] += res.force_evals
-            geom, ck, cw, E, lines = heal_domain(config, tier, geom, ck, cw,
-                                                 E, ov_b, ov_e)
+            evals[f"repeated_{route}"] += res.interior_evals
+            # the channels' knobs are independent, so every channel that
+            # dropped force heals before the one re-run (the JAX driver
+            # re-runs after the plans' heal alone)
+            if ov_t:
+                rcap *= 2
+                lines.append(f"rung target-plane overflow ({ov_t} "
+                             f"particles) — doubling rung capacity to "
+                             f"{rcap}, re-running segment")
+            geom, ck, cw, E, more = heal_domain(config, tier, geom, ck, cw,
+                                                E, ov_b, ov_e)
+            lines += more
             for line in lines:
                 log(line)
         raise RuntimeError("domain capacity retries exhausted")
@@ -1312,15 +1462,33 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         prev = idx
     if evals["repeated"]:
         log(f"Capacity heals repeated {evals['repeated']} force evaluations")
+    for route, what in (("masked", "masked interior"),
+                        ("frozen", "frozen-plan interior")):
+        if evals[f"repeated_{route}"]:
+            log(f"Capacity heals repeated {evals[f'repeated_{route}']} "
+                f"{what} evaluations")
     log(f"Domain force evaluations: {evals['total']} on {n_dev} shards")
-    cfg_run = config.replace(**{
-        f: v for f, v in (("column_capacity", ck), ("column_window", cw))
-        if v and not getattr(config, f)})
+    if rungs:
+        log(f"Domain rung stepping: {evals['total']} boundary, "
+            f"{evals['frozen']} frozen-plan interior and {evals['masked']} "
+            f"masked interior force evaluations, {evals['freezes']} plan "
+            f"freezes"
+            + (f", at most {stale_max} particles beyond skin/2 in a "
+               f"segment" if stale_max else ""))
+    learned = {f: v for f, v in (("column_capacity", ck),
+                                 ("column_window", cw),
+                                 ("rung_capacity", rcap if rungs else 0))
+               if v and not getattr(config, f)}
+    cfg_run = config.replace(**learned)
     _record_capacity_memory(config, cfg_run)
+    if skin != skin0:
+        # the staleness heals' skin (0: the masked cell planes)
+        cfg_run = cfg_run.replace(column_skin=skin)
     final = domain_gather(dstate)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return SimulationResult(
         state=final, config=config, seed=seed, snapshots=snapshots,
         powerspecs=powerspecs, wall_s=time.perf_counter() - t0,
-        config_run=cfg_run, energy_samples=energy_samples or None)
+        config_run=cfg_run, energy_samples=energy_samples or None,
+        stale_max=stale_max)

@@ -4,7 +4,10 @@
 // against the full source plane).
 //
 // Replaces the Pallas kernel `_cell_kernel` that
-// nbody/forces/p3m.py:run_cell_plane launches.
+// nbody/forces/p3m.py:run_cell_plane launches, on the whole box's plane
+// and on a slab's (nx = ncell / D): the domain decomposition's short
+// force (nbody/distributed/domain.py:904) and, in the two-plane form,
+// its rung tier's interior ticks (domain.py:941).
 //
 // Plane: (8, (nx + 2) * M * M * K) float32 row-major, rows x, y, z, m
 // (rows 4-7 unused on input), M = ncell + 2 padded cells per y and z side

@@ -7,7 +7,9 @@
 // domain decomposition (nx = ncell / D interior x-rows); K5 replaces
 // `_column_kernel_masked` that p3m_columns.py:
 // p3m_short_columns_frozen_masked launches (the rung tier's interior
-// ticks on a frozen plan).
+// ticks on a frozen plan) and p3m_columns.py:
+// p3m_local_columns_frozen_masked launches on a shard's frozen slab
+// plane (the domain rung tier's interior ticks, nx = ncell / D).
 //
 // What it computes: for every target slot of every occupied 256-slot
 // chunk of every interior column of the plane (column_pairs.cuh), the sum

@@ -18,6 +18,11 @@ positions (the sort composed into per-slot gather indices, skin-widened
 window tables, the slot map), so that the plane at positions within
 skin/2 of the freeze positions is one row gather.
 
+The slab tier of the domain decomposition builds the same plane over a
+shard's own x-rows (:func:`build_local_column_plane`, K4's slab site),
+and freezes it for the domain rung tier (:class:`LocalColumnPlan`,
+:func:`p3m_local_columns_frozen_masked`, K5's slab site).
+
 The plane build is PyTorch.  The pair sum is K4, a CUDA kernel
 (``forces/csrc/p3m_columns.cu``) on a CUDA tensor, and its plain PyTorch
 version :func:`column_plane_plain` on a CPU tensor; K5, in the same
@@ -467,18 +472,22 @@ run_column_plane.launches = 0
 def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
                             stride: int, W: int, maxch: int, gz: int,
                             chunk: int, eps: float, r_s: float, r_cut: float,
-                            split: str, softening: str):
+                            split: str, softening: str,
+                            nx: int | None = None):
     """K5: K4 restricted to the active chunks, ``nch_act[ic]`` of them in
     column ic, their indices the first entries of row ic of the chunk
     table ``cht`` (ncol * maxch) -> the output plane, zeros at the slots
-    of chunks not listed.  A CUDA plane launches the kernel or raises; a
-    CPU plane takes :func:`column_plane_plain` with the table.
-    ``run_column_plane_masked.launches`` counts kernel launches."""
+    of chunks not listed; ``nx`` = ncell / D for a slab's frozen plane
+    (:func:`p3m_local_columns_frozen_masked`).  A CUDA plane launches the
+    kernel or raises; a CPU plane takes :func:`column_plane_plain` with
+    the table.  ``run_column_plane_masked.launches`` counts kernel
+    launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
+    nx = ncell if nx is None else nx
     kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
               chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-              softening=softening)
+              softening=softening, nx=nx)
     if plane.device.type == "cpu":
         return column_plane_plain(plane, ws, nch_act, cht=cht, **kw)
     if plane.device.type != "cuda":
@@ -486,7 +495,7 @@ def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
                          f"{plane.device}")
     check_plane_args("run_column_plane_masked", plane,
                      {"ws": ws, "nch": nch_act, "cht": cht}, maxch=maxch,
-                     ncell=ncell, stride=stride)
+                     ncell=ncell, stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
@@ -494,7 +503,7 @@ def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
     with torch.cuda.device(plane.device):
         err = lib.p3m_columns_masked_f32(
             plane.data_ptr(), ws.data_ptr(), nch_act.data_ptr(),
-            cht.data_ptr(), ncell, ncell, stride, W, maxch, gz, chunk, float(eps),
+            cht.data_ptr(), nx, ncell, stride, W, maxch, gz, chunk, float(eps),
             float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
@@ -593,12 +602,13 @@ def plan_drift_ok(pos, plan: ColumnPlan, box: float, skin: float):
     return torch.max(plan_drift(pos, plan, box)) <= (0.5 * skin) ** 2
 
 
-def frozen_plane(pos, mass, plan: ColumnPlan, box: float, r_cut: float,
-                 ncell: int, CK: int, gz: int, stride: int):
-    """The plan's plane at the current positions: one row gather by
-    ``plan.src_g`` of the positions unwrapped against the freeze positions
-    (within skin/2 of them, so possibly just outside [0, box)).  Returns
-    (plane, is_interior (ncol, stride))."""
+def _frozen_buf(pos, mass, plan, box: float, r_cut: float, CK: int,
+                gz: int, stride: int):
+    """The (ncol, stride, 4) column buffer of a frozen plan (whole-box or
+    slab) at the current positions: one row gather by ``plan.src_g`` of
+    the positions unwrapped against the freeze positions (within skin/2 of
+    them, so possibly just outside [0, box)).  Returns (buf, is_interior
+    (ncol, stride))."""
     posw = torch.remainder(pos, box).to(torch.float32)
     d = posw - plan.pos0
     d = d - box * torch.round(d * (1.0 / box))
@@ -608,6 +618,15 @@ def frozen_plane(pos, mass, plan: ColumnPlan, box: float, r_cut: float,
         plan.starts, plan.counts, CK, gz, stride)
     buf, _ = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back, box,
                           r_cut, 1.0001 * r_cut)
+    return buf, is_interior
+
+
+def frozen_plane(pos, mass, plan: ColumnPlan, box: float, r_cut: float,
+                 ncell: int, CK: int, gz: int, stride: int):
+    """The plan's plane at the current positions (:func:`_frozen_buf`).
+    Returns (plane, is_interior (ncol, stride))."""
+    buf, is_interior = _frozen_buf(pos, mass, plan, box, r_cut, CK, gz,
+                                   stride)
     return _plane_from_buf(buf, box, ncell, stride), is_interior
 
 
@@ -631,12 +650,14 @@ def p3m_short_columns_frozen(pos, mass, plan: ColumnPlan, box: float,
 
 
 def active_chunk_table(act, plan: ColumnPlan, is_interior, *, ncell: int,
-                       CK: int, gz: int, maxch: int, chunk: int):
+                       CK: int, gz: int, maxch: int, chunk: int,
+                       nx: int | None = None):
     """(nch_act (ncol,) int32, cht (ncol * maxch,) int32): the number of
     256-slot chunks of each column that hold an ``act`` particle, and
     their indices, ascending, at the front of each column's row (the rest
-    of the row holds maxch)."""
-    ncol = ncell * ncell
+    of the row holds maxch).  ``nx`` interior x-rows (ncell, or a slab's
+    ncell / D with a :class:`LocalColumnPlan`)."""
+    ncol = (ncell if nx is None else nx) * ncell
     act_slot = act[plan.src_g] & is_interior
     act_chunk = torch.any(
         act_slot[:, gz:gz + CK].reshape(ncol, maxch, chunk), dim=-1)
@@ -677,19 +698,21 @@ def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
 # ---------------------------------------------------------------------------
 
 
+
+
 def _local_column_buf(pos, mass, d: int, *, box: float, r_cut: float,
                       ncell: int, nxl: int, CK: int, gz: int, stride: int,
-                      chunk: int):
-    """Shard d's half of :func:`build_local_column_plane` before the halo
-    exchange: its z-sorted (x, y) columns of the nxl x-rows it owns, in
-    the slot layout of :func:`build_column_plane`, with the y ghost ring
-    (local wrap) and default x-rows at both ends."""
+                      zmargin: float):
+    """Shard d's z-sorted (x, y) columns of the nxl x-rows it owns, in the
+    slot layout of :func:`build_column_plane`: the (nxl * ncell, stride,
+    4) buffer before the y ring and the halo exchange, and what the window
+    tables, the slot map and a frozen plan take from the sort.  ``zmargin``
+    is the wrap margin of the ghost bands and their demand (a frozen plan
+    widens it by skin/2)."""
     C = pos.shape[0]
     dev = pos.device
     f32 = torch.float32
     ncol_l = nxl * ncell
-    P = ncell + 2
-    zmargin = 1.0001 * r_cut
     posw = torch.remainder(pos, box).to(f32)
     massf = mass.to(f32)
     valid = massf > 0
@@ -725,21 +748,112 @@ def _local_column_buf(pos, mass, d: int, *, box: float, r_cut: float,
     nf = torch.sum(is_interior & (z_raw >= box - zmargin), dim=1)
     ov_g = (torch.sum(torch.clamp_min(nb - gz, 0))
             + torch.sum(torch.clamp_min(nf - gz, 0)))
+    return dict(buf=buf, posw=posw, pos_s=pos_s, starts=starts,
+                counts=counts, order=order, src_c=src_c, ok=ok, rank=rank,
+                cxl=cxl, cy=cy, overflow_b=overflow_b + ov_g,
+                nonresident=torch.sum(valid) - torch.sum(resident))
 
-    grid4 = buf.reshape(nxl, ncell, stride, 4)
-    wrap = (torch.arange(P, device=dev) - 1) % ncell
-    padded = grid4[:, wrap].clone()
-    zero = torch.zeros((), dtype=f32, device=dev)
-    for edge, delta in ((0, -box), (P - 1, box)):
-        lo = padded[:, edge]
-        lo[..., 1] += torch.where(lo[..., 3] > 0, zero + delta, zero)
-    defaults = torch.tensor([-8.0 * r_cut, -8.0 * r_cut, box + 3.0 * r_cut,
-                             0.0], dtype=f32, device=dev)
-    zero_row = defaults.expand(1, P, stride, 4)
-    p5 = torch.cat([zero_row, padded, zero_row], dim=0)
-    return dict(p5=p5, pos_s=pos_s, starts=starts, counts=counts,
-                order=order, ok=ok, rank=rank, cxl=cxl, cy=cy,
-                overflow_b=overflow_b + ov_g)
+
+def _local_plane_from_buf(bufs: list, *, box: float, r_cut: float,
+                          ncell: int, group, stride: int) -> list:
+    """Every shard's (8, (nxl + 2) * P * stride) SoA plane from its column
+    buffer: the y ghost ring (local wrap, +-box baked into y), then the
+    two ghost x-rows, the neighbours' edge rows, whole y-padded rows moved
+    by a ppermute each way with -box / +box added to x where the ring
+    wraps.  The routing is fixed: only the rows' data depend on the
+    positions, so a frozen plan re-assembles its plane with it every tick.
+    Returns one (plane, plane4 ((nxl + 2) * P * stride, 4)) a shard."""
+    D = group.size
+    nxl = ncell // D
+    P = ncell + 2
+    p5s = []
+    for buf in bufs:
+        dev, f32 = buf.device, buf.dtype
+        grid4 = buf.reshape(nxl, ncell, stride, 4)
+        wrap = (torch.arange(P, device=dev) - 1) % ncell
+        padded = grid4[:, wrap].clone()
+        zero = torch.zeros((), dtype=f32, device=dev)
+        for edge, delta in ((0, -box), (P - 1, box)):
+            lo = padded[:, edge]
+            lo[..., 1] += torch.where(lo[..., 3] > 0, zero + delta, zero)
+        defaults = torch.tensor([-8.0 * r_cut, -8.0 * r_cut,
+                                 box + 3.0 * r_cut, 0.0], dtype=f32,
+                                device=dev)
+        zero_row = defaults.expand(1, P, stride, 4)
+        p5s.append(torch.cat([zero_row, padded, zero_row], dim=0))
+    from_left = group.ppermute([p5[nxl] for p5 in p5s], +1)
+    from_right = group.ppermute([p5[1] for p5 in p5s], -1)
+    out = []
+    for d, p5 in enumerate(p5s):
+        p5 = p5.clone()
+        for row, halo, delta in ((0, from_left[d], -box if d == 0 else 0.0),
+                                 (nxl + 1, from_right[d],
+                                  box if d == D - 1 else 0.0)):
+            h = halo.clone()
+            h[..., 0] += torch.where(h[..., 3] > 0, delta, 0.0)
+            p5[row] = h
+        plane4 = p5.reshape((nxl + 2) * P * stride, 4)
+        plane = torch.cat([plane4.T, torch.zeros_like(plane4.T)],
+                          dim=0).contiguous()
+        out.append((plane, plane4))
+    return out
+
+
+def _local_windows(plane4, q: dict, *, r_cut: float, ncell: int, nxl: int,
+                   CK: int, stride: int, W: int, maxch: int, chunk: int,
+                   skin: float = 0.0):
+    """(ws (nxl * ncell * 9 * maxch,) int32, nch int32, window misses) of
+    a slab's plane: a window starts one 128-slot fence below the first
+    fence above the chunk's reach (z - r_cut - skin), read from the padded
+    plane after the halo exchange, as in the JAX package."""
+    dev = plane4.device
+    P = ncell + 2
+    ncol_l = nxl * ncell
+    zcols = plane4[:, 2].reshape((nxl + 2) * P, stride)
+    fence = zcols[:, ::128]
+    starts, counts, pos_s = q["starts"], q["counts"], q["pos_s"]
+    C = pos_s.shape[0]
+    cnt_ck = torch.clamp_max(counts, CK)
+    ch = torch.arange(maxch, device=dev)
+    nch = -(-cnt_ck // chunk)
+    idx0 = starts[:, None] + ch[None, :] * chunk
+    last = starts[:, None] + cnt_ck[:, None] - 1
+    hi_n = max(C - 1, 0)
+    zmin = pos_s[torch.clamp(idx0, 0, hi_n), 2]
+    zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0,
+                             hi_n), 2]
+    chunk_ok = ch[None, :] < nch[:, None]
+    qlo = (zmin - r_cut - skin)[:, :, None]
+    qhi = (zmax + r_cut + skin)[:, :, None]
+    cols = torch.arange(ncol_l, device=dev)
+    ic_x, ic_y = cols // ncell, cols % ncell
+    ws_list = []
+    ov_w = torch.zeros((), dtype=torch.int64, device=dev)
+    for o2 in range(9):
+        nc = (ic_x + 1 + o2 // 3 - 1) * P + (ic_y + 1 + o2 % 3 - 1)
+        cnt_lo = torch.sum(fence[nc][:, None, :] <= qlo, dim=-1)
+        start = torch.clamp(torch.clamp_min(cnt_lo - 1, 0) * 128, 0,
+                            stride - W)
+        hi_exact = torch.sum(zcols[nc][:, None, :] < qhi, dim=-1)
+        ov_w = ov_w + torch.sum(torch.where(
+            chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0))
+        ws_list.append(start)
+    ws = torch.stack(ws_list, dim=1).reshape(ncol_l * 9 * maxch)
+    return ws.to(torch.int32), nch.to(torch.int32), ov_w
+
+
+def _local_gidx(q: dict, *, ncell: int, nxl: int, gz: int, stride: int):
+    """(C,) int64 each row's padded slot; the sentinel (nxl + 2) * P *
+    stride for rows not stored (non-resident or beyond CK)."""
+    P = ncell + 2
+    pc = (torch.clamp(q["cxl"], 0, nxl - 1) + 1) * P + (q["cy"] + 1)
+    sentinel = (nxl + 2) * P * stride
+    order = q["order"]
+    gidx_s = torch.where(q["ok"], pc[order] * stride + gz + q["rank"],
+                         torch.full_like(q["rank"], sentinel))
+    gidx = torch.empty(order.numel(), dtype=torch.int64, device=order.device)
+    gidx[order] = gidx_s
+    return gidx
 
 
 def build_local_column_plane(pos: list, mass: list, *, box: float,
@@ -751,8 +865,7 @@ def build_local_column_plane(pos: list, mass: list, *, box: float,
     ncell / D x-rows [d nxl, (d + 1) nxl) of full-height z columns.  z
     (ghost copies at each column end) and y (the local wrap ring) are
     periodic as in the whole-box plane; the two ghost x-rows are the
-    neighbours' edge rows, whole y-padded rows moved by a ppermute each
-    way, with -box / +box added to x where the ring wraps.  The window
+    neighbours' edge rows (:func:`_local_plane_from_buf`).  The window
     starts are taken after the halo exchange, from the 128-slot fences of
     the padded columns, as in the JAX package.
 
@@ -766,78 +879,24 @@ def build_local_column_plane(pos: list, mass: list, *, box: float,
     D = group.size
     if ncell % D:
         raise ValueError(f"ncell={ncell} does not split over {D} shards")
-    CK = _ceil128(col_capacity)
-    gz = ghost_slots(CK, (float(r_cut) / box) * CK)
-    stride = CK + 2 * gz
-    W = min(_ceil128(window), stride)
-    if CK % chunk:
-        chunk = 128
-    maxch = CK // chunk
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
     nxl = ncell // D
-    ncol_l = nxl * ncell
-    P = ncell + 2
-    parts = [_local_column_buf(p, m, d, box=box, r_cut=float(r_cut),
-                               ncell=ncell, nxl=nxl, CK=CK, gz=gz,
-                               stride=stride, chunk=chunk)
+    geo = dict(ncell=ncell, nxl=nxl, CK=CK, stride=stride)
+    parts = [_local_column_buf(p, m, d, box=box, r_cut=float(r_cut), gz=gz,
+                               zmargin=1.0001 * float(r_cut), **geo)
              for d, (p, m) in enumerate(zip(pos, mass))]
-    from_left = group.ppermute([q["p5"][nxl] for q in parts], +1)
-    from_right = group.ppermute([q["p5"][1] for q in parts], -1)
+    planes = _local_plane_from_buf([q["buf"] for q in parts], box=box,
+                                   r_cut=float(r_cut), ncell=ncell,
+                                   group=group, stride=stride)
     out = []
-    for d, q in enumerate(parts):
-        p5 = q["p5"].clone()
-        for row, halo, delta in ((0, from_left[d], -box if d == 0 else 0.0),
-                                 (nxl + 1, from_right[d],
-                                  box if d == D - 1 else 0.0)):
-            h = halo.clone()
-            h[..., 0] += torch.where(h[..., 3] > 0, delta, 0.0)
-            p5[row] = h
-        plane4 = p5.reshape((nxl + 2) * P * stride, 4)
-        plane = torch.cat([plane4.T, torch.zeros_like(plane4.T)],
-                          dim=0).contiguous()
-
-        # window tables from the padded plane: a window starts one
-        # 128-slot fence below the first fence above the chunk's reach
-        dev = plane.device
-        zcols = plane4[:, 2].reshape((nxl + 2) * P, stride)
-        fence = zcols[:, ::128]
-        starts, counts, pos_s = q["starts"], q["counts"], q["pos_s"]
-        C = pos_s.shape[0]
-        cnt_ck = torch.clamp_max(counts, CK)
-        ch = torch.arange(maxch, device=dev)
-        nch = -(-cnt_ck // chunk)
-        idx0 = starts[:, None] + ch[None, :] * chunk
-        last = starts[:, None] + cnt_ck[:, None] - 1
-        hi_n = max(C - 1, 0)
-        zmin = pos_s[torch.clamp(idx0, 0, hi_n), 2]
-        zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0,
-                                 hi_n), 2]
-        chunk_ok = ch[None, :] < nch[:, None]
-        qlo = (zmin - r_cut)[:, :, None]
-        qhi = (zmax + r_cut)[:, :, None]
-        cols = torch.arange(ncol_l, device=dev)
-        ic_x, ic_y = cols // ncell, cols % ncell
-        ws_list = []
-        ov_w = torch.zeros((), dtype=torch.int64, device=dev)
-        for o2 in range(9):
-            nc = (ic_x + 1 + o2 // 3 - 1) * P + (ic_y + 1 + o2 % 3 - 1)
-            cnt_lo = torch.sum(fence[nc][:, None, :] <= qlo, dim=-1)
-            start = torch.clamp(torch.clamp_min(cnt_lo - 1, 0) * 128, 0,
-                                stride - W)
-            hi_exact = torch.sum(zcols[nc][:, None, :] < qhi, dim=-1)
-            ov_w = ov_w + torch.sum(torch.where(
-                chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0))
-            ws_list.append(start)
-        ws = torch.stack(ws_list, dim=1).reshape(ncol_l * 9 * maxch)
-
-        pc = (torch.clamp(q["cxl"], 0, nxl - 1) + 1) * P + (q["cy"] + 1)
-        sentinel = (nxl + 2) * P * stride
-        order = q["order"]
-        gidx_s = torch.where(q["ok"], pc[order] * stride + gz + q["rank"],
-                             torch.full_like(q["rank"], sentinel))
-        gidx = torch.empty(C, dtype=torch.int64, device=dev)
-        gidx[order] = gidx_s
-        out.append((plane, ws.to(torch.int32), nch.to(torch.int32),
-                    q["overflow_b"], ov_w, gidx, cnt_ck.to(torch.int32)))
+    for q, (plane, plane4) in zip(parts, planes):
+        ws, nch, ov_w = _local_windows(plane4, q, r_cut=float(r_cut), W=W,
+                                       maxch=maxch, chunk=chunk, **geo)
+        gidx = _local_gidx(q, ncell=ncell, nxl=nxl, gz=gz, stride=stride)
+        out.append((plane, ws, nch, q["overflow_b"], ov_w, gidx,
+                    torch.clamp_max(q["counts"], CK).to(torch.int32)))
     return out
 
 
@@ -869,3 +928,126 @@ def p3m_short_columns_local(pos: list, mass: list, *, box: float, eps: float,
         accs.append(G * read_back(out, gidx, 3).to(p.dtype))
         ovs.append(encode_overflow(ov_b, ov_w))
     return accs, ovs
+
+
+# ---------------------------------------------------------------------------
+# Frozen local column plans (the domain rung tier's interior ticks)
+# ---------------------------------------------------------------------------
+
+
+class LocalColumnPlan(NamedTuple):
+    """Slab sibling of :class:`ColumnPlan`: everything about one shard's
+    local column plane that does not depend on the positions, from
+    :func:`freeze_local_column_plan`.  It stays valid while every local
+    particle is within skin/2 (minimum image) of ``pos0`` and the shard's
+    particle set is the one it was frozen with (no :func:`slab_exchange
+    <nbody_torch.distributed.domain.slab_exchange>` in between: the domain
+    rung tier freezes at the step boundary, right after the exchange, and
+    migrates again only at the next boundary).  The x-halo rows are
+    re-assembled from the neighbours' current positions each tick by the
+    fixed ppermutes of :func:`_local_plane_from_buf`.
+
+    ``ov`` is the freeze-time field-encoded word.  Unlike the JAX
+    package's, its bucket field also counts the shard's massive rows that
+    lie outside its slab: such a row has no slot and would get no force
+    (an exchange that disagrees with the freeze's cut)."""
+
+    pos0: torch.Tensor    # (C, 3) float32 wrapped positions at freeze
+    src_g: torch.Tensor   # (nxl * ncell, stride) int64 slot -> local row
+    starts: torch.Tensor  # (nxl * ncell,) int64 into the frozen sort order
+    counts: torch.Tensor  # (nxl * ncell,) int64 raw per-column counts
+    ws: torch.Tensor      # (nxl * ncell * 9 * maxch,) int32 window starts
+    nch: torch.Tensor     # (nxl * ncell,) int32
+    gidx: torch.Tensor    # (C,) int64 local row -> padded slot
+    ov: torch.Tensor      # 0-d int64 field-encoded freeze-time overflow
+
+
+def freeze_local_column_plan(pos: list, mass: list, *, box: float,
+                             r_cut: float, ncell: int, group,
+                             col_capacity: int, window: int,
+                             chunk: int = 256,
+                             skin: float = 0.0) -> list:
+    """Every shard's :class:`LocalColumnPlan` at the current positions:
+    the sort of :func:`build_local_column_plane`, its ghost bands and
+    their demand with the wrap margin widened by skin/2 and its window
+    tables with the thresholds widened by the skin (on the table plane,
+    after the halo exchange).  One plan a shard."""
+    if box / ncell < r_cut - 1e-9:
+        raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
+    if skin > 0.0 and (box / ncell) < r_cut + 2.0 * skin:
+        raise ValueError(
+            f"column side {box / ncell:.3f} < r_cut + 2 skin "
+            f"{r_cut + 2.0 * skin:.3f}: frozen xy bucketing would miss "
+            f"drifted pairs")
+    D = group.size
+    if ncell % D:
+        raise ValueError(f"ncell={ncell} does not split over {D} shards")
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    nxl = ncell // D
+    geo = dict(ncell=ncell, nxl=nxl, CK=CK, stride=stride)
+    parts = [_local_column_buf(p, m, d, box=box, r_cut=float(r_cut), gz=gz,
+                               zmargin=1.0001 * float(r_cut) + 0.5 * skin,
+                               **geo)
+             for d, (p, m) in enumerate(zip(pos, mass))]
+    tables = _local_plane_from_buf([q["buf"] for q in parts], box=box,
+                                   r_cut=float(r_cut), ncell=ncell,
+                                   group=group, stride=stride)
+    plans = []
+    for q, (_, plane4) in zip(parts, tables):
+        ws, nch, ov_w = _local_windows(plane4, q, r_cut=float(r_cut), W=W,
+                                       maxch=maxch, chunk=chunk, skin=skin,
+                                       **geo)
+        ov_b = q["overflow_b"] + q["nonresident"]
+        plans.append(LocalColumnPlan(
+            pos0=q["posw"], src_g=q["order"][q["src_c"]], starts=q["starts"],
+            counts=q["counts"], ws=ws, nch=nch,
+            gidx=_local_gidx(q, ncell=ncell, nxl=nxl, gz=gz, stride=stride),
+            ov=encode_overflow(ov_b, ov_w)))
+    return plans
+
+
+def local_plan_stale(pos, plan: LocalColumnPlan, box: float, skin: float):
+    """0-d count of one shard's particles beyond skin/2 (minimum image) of
+    their freeze positions: the plan-staleness channel (callers take the
+    max over shards and ticks)."""
+    return torch.sum(plan_drift(pos, plan, box) > (0.5 * skin) ** 2)
+
+
+def p3m_local_columns_frozen_masked(pos: list, mass: list, act: list,
+                                    plans: list, *, box: float, eps: float,
+                                    r_s: float, r_cut: float, G: float = 1.0,
+                                    ncell: int, group, col_capacity: int,
+                                    window: int, split: str = "gaussian",
+                                    softening: str = "plummer",
+                                    chunk: int = 256):
+    """The domain rung tier's interior tick on the shards' frozen plans
+    (K5's slab site): one row gather a shard and the fixed halo
+    ppermutes re-assemble each plane at the current positions (no sort,
+    no window tables, no exchange), the chunks that hold an ``act``
+    target make each shard's chunk table, and K5 runs once a shard with
+    nx = ncell / D.  Returns (acc list (C, 3), the plans' words): rows of
+    chunks without an active target come back 0, and the other rows of a
+    visited chunk with their force, which the rung kick factors zero."""
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
+                                                     col_capacity, window,
+                                                     chunk)
+    nxl = ncell // group.size
+    frozen = [_frozen_buf(p, m, plan, box, float(r_cut), CK, gz, stride)
+              for p, m, plan in zip(pos, mass, plans)]
+    planes = _local_plane_from_buf([b for b, _ in frozen], box=box,
+                                   r_cut=float(r_cut), ncell=ncell,
+                                   group=group, stride=stride)
+    accs = []
+    for p, a, plan, (_, interior), (plane, _) in zip(pos, act, plans, frozen,
+                                                      planes):
+        nch_act, cht = active_chunk_table(a, plan, interior, ncell=ncell,
+                                          CK=CK, gz=gz, maxch=maxch,
+                                          chunk=chunk, nx=nxl)
+        out = run_column_plane_masked(
+            plane, plan.ws, nch_act, cht, ncell=ncell, stride=stride, W=W,
+            maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
+            split=split, softening=softening, nx=nxl)
+        accs.append(G * read_back(out, plan.gidx, 3).to(p.dtype))
+    return accs, [plan.ov for plan in plans]

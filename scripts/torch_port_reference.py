@@ -36,6 +36,15 @@ Writes, under ``tests/data/torch_port/``:
   chaining grid ``_domain_tier`` computes and drops); the script supplies
   that value as the module global the lookup falls through to, and changes
   nothing else;
+* ``powerspec_a=1.00_n16_domain2_rungs3_seed0``,
+  ``..._n16_domain4_rungs3_seed0`` and ``..._n16_domain4_cells_rungs3_seed0``
+  with ``rung_population_n16_domain{2,4,4_cells}_rungs3_seed0.txt``: the
+  rung runs (``rungs=3``, a = 0.3, 6 steps) on the slab domain
+  decomposition, on 2 and 4 devices with the driver's auto skin (frozen
+  local column plans for the interior ticks) and on 4 devices with
+  ``column_skin=0`` (the masked cell planes).  The header of each
+  population file keeps the run.log lines of that run's route and its
+  frozen-plan staleness;
 * ``plummer4096_energy_seed0.txt``: the energy and momentum series of
   ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
   ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
@@ -48,8 +57,9 @@ package's ICs.  Run from the repository root on a CPU machine with JAX:
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
-``pp`` the PP run's P(k), ``plummer`` the Plummer series and ``domain``
-the four domain runs' P(k) (all four without arguments).
+``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
+the four domain runs' P(k) and ``domain_rungs`` the three domain rung
+runs (all five without arguments).
 """
 
 from __future__ import annotations
@@ -90,6 +100,14 @@ DOMAIN_RUNS = {
     "_domain4_supercell": CONFIG.replace(devices=4, shortrange="supercell"),
     "_domain4_columns": CONFIG.replace(devices=4, shortrange="columns"),
 }
+DOMAIN_RUNG_RUNS = {
+    "_domain2_rungs3": RUNG_CONFIG.replace(devices=2),
+    "_domain4_rungs3": RUNG_CONFIG.replace(devices=4),
+    "_domain4_cells_rungs3": RUNG_CONFIG.replace(devices=4, column_skin=0.0),
+}
+#: run.log lines kept beside a domain rung run's data: its route and the
+#: frozen plans' staleness
+ROUTE_WORDS = ("Domain decomposition", "staleness", "drift note")
 #: the Plummer drive: N, seed, eps, dt, steps, sample stride
 PLUMMER = dict(n=4096, seed=0, eps=0.05, dt=1e-3, steps=200, every=25)
 
@@ -174,7 +192,8 @@ def main(which) -> None:
 
     runs = dict(RUNS if "pk" in which else {},
                 **(PP_RUNS if "pp" in which else {}),
-                **(DOMAIN_RUNS if "domain" in which else {}))
+                **(DOMAIN_RUNS if "domain" in which else {}),
+                **(DOMAIN_RUNG_RUNS if "domain_rungs" in which else {}))
     for tag, cfg in runs.items():
         if cfg.devices > 1 and cfg.shortrange == "supercell":
             from nbody.driver import simulate
@@ -192,16 +211,23 @@ def main(which) -> None:
                   f"{cfg.rungs}, devices={cfg.devices}): "
                   f"{res.wall_s:.1f} s, wrote {name}")
             if cfg.rungs:
-                pops = rung_populations(os.path.join(work, "run.log"),
-                                        cfg.rungs)
+                log_path = os.path.join(work, "run.log")
+                pops = rung_populations(log_path, cfg.rungs)
                 pname = f"rung_population_n16{tag}_seed0.txt"
+                with open(log_path) as f:
+                    route = [line.rstrip() for line in f
+                             if any(w in line for w in ROUTE_WORDS)]
                 np.savetxt(os.path.join(OUT, pname), pops, fmt="%d",
-                           header="step " + " ".join(
-                               f"rung{r}" for r in range(cfg.rungs)))
+                           header="\n".join(
+                               [f"run.log: {line}" for line in route]
+                               + ["step " + " ".join(
+                                   f"rung{r}" for r in range(cfg.rungs))]))
+                for line in route:
+                    print(f"  {line}")
                 deep = int((pops[:, 2:].sum(axis=1) > 0).sum())
                 print(f"  {pname}: {len(pops)} steps, rungs >= 1 populated "
                       f"at {deep} of them")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["pk", "pp", "plummer", "domain"])
+    main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs"])

@@ -670,3 +670,124 @@ def test_tiny_domain_run_on_gpu_matches_cpu(cuda, tmp_path, shortrange):
     m = pc[:, 0] <= 0.5 * np.pi * cfg.mesh_size / cfg.box
     assert np.array_equal(pg[:, 1], pc[:, 1])
     assert np.abs(pg[m, 2] / pc[m, 2] - 1.0).max() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the rung tier's slab sites: K5 on frozen local plans, K6's two-plane form
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.99])
+def test_k5_slab_matches_plain(cuda, frac):
+    """K5 on every shard's frozen local plane (nx = ncell / D) at
+    positions drifted by frac * skin/2, the targets a random tenth."""
+    from nbody_torch.forces.p3m_columns import (
+        _frozen_buf,
+        _local_plane_from_buf,
+        active_chunk_table,
+        column_plane_plain,
+        freeze_local_column_plan,
+        plane_geometry,
+        run_column_plane_masked,
+    )
+
+    group, geom, shards = _domain_case(cuda)
+    D, box, ncell, skin = group.size, geom.box, geom.ncell, 8.0
+    # the clump's ghost demand at the skin-widened margin spills 4,096
+    ck = w = 8192
+    plans = freeze_local_column_plan(
+        [s.pos for s in shards], [s.mass for s in shards], box=box,
+        r_cut=geom.r_cut, ncell=ncell, group=group, col_capacity=ck,
+        window=w, skin=skin)
+    assert all(int(pl.ov) == 0 for pl in plans)
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, geom.r_cut, ck, w)
+    g = torch.Generator().manual_seed(8)
+    moved, act = [], []
+    for s in shards:
+        u = torch.randn(tuple(s.pos.shape), generator=g, dtype=torch.float64)
+        u = (u / u.norm(dim=1, keepdim=True)).to(s.pos)
+        moved.append(s.pos + frac * 0.5 * skin * u)
+        act.append((torch.rand(s.mass.shape[0], generator=g) < 0.1).to(cuda)
+                   & (s.mass > 0))
+    frozen = [_frozen_buf(p, s.mass, pl, box, geom.r_cut, CK, gz, stride)
+              for p, s, pl in zip(moved, shards, plans)]
+    planes = _local_plane_from_buf([b for b, _ in frozen], box=box,
+                                   r_cut=geom.r_cut, ncell=ncell, group=group,
+                                   stride=stride)
+    kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
+              chunk=chunk, eps=0.5, r_s=geom.r_s, r_cut=geom.r_cut,
+              split="spline", softening="spline", nx=ncell // D)
+    before = run_column_plane_masked.launches
+    for (plane, _), pl, a, (_, interior) in zip(planes, plans, act, frozen):
+        nch_act, cht = active_chunk_table(a, pl, interior, ncell=ncell,
+                                          CK=CK, gz=gz, maxch=maxch,
+                                          chunk=chunk, nx=ncell // D)
+        got = run_column_plane_masked(plane, pl.ws, nch_act, cht, **kw)
+        torch.cuda.synchronize()
+        ref = column_plane_plain(plane.double(), pl.ws, nch_act, cht=cht,
+                                 **kw)
+        assert float(ref.norm()) > 0
+        assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    assert run_column_plane_masked.launches == before + D
+
+
+def test_k6_masked_slab_matches_plain(cuda):
+    """K6's two-plane form on every shard's slab: a plane of a random
+    fifth of the particles against the slab's cell plane (nx = ncell /
+    D)."""
+    from nbody_torch.distributed import domain as td
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    group, geom, shards = _domain_case(cuda)
+    g = torch.Generator().manual_seed(9)
+    act = [(torch.rand(s.mass.shape[0], generator=g) < 0.2).to(cuda)
+           & (s.mass > 0) for s in shards]
+    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
+    pkw = dict(box=geom.box, r_cut=geom.r_cut, ncell=geom.ncell, group=group)
+    src = td.build_local_plane(pos, mass, capacity=8192, **pkw)
+    tgt = td.build_local_plane(pos, mass, capacity=2048, valid=act, **pkw)
+    kw = dict(nx=geom.ncell // group.size, ncell=geom.ncell, eps2=0.25,
+              r_s=geom.r_s, r_cut=geom.r_cut, split="spline",
+              softening="spline")
+    before = run_cell_plane.launches
+    for (pj, ovj, K_j, _, cj), (pi, ovi, K_i, _, ci) in zip(src, tgt):
+        assert int(ovj) == 0 and int(ovi) == 0
+        got = run_cell_plane(pi, ci, K=K_i, plane_j=pj, K_j=K_j, counts_j=cj,
+                             **kw)
+        torch.cuda.synchronize()
+        ref = cell_plane_plain(pi.double(), ci, K=K_i, plane_j=pj.double(),
+                               K_j=K_j, counts_j=cj, **kw)
+        assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    assert run_cell_plane.launches == before + group.size
+
+
+@pytest.mark.parametrize("skin", [-1.0, 0.0])
+def test_tiny_domain_rung_run_on_gpu_matches_cpu(cuda, tmp_path, skin):
+    """The 16^3 rung run (a = 0.3 to 1 in 6 steps) on four shards on the
+    card, on frozen local plans (auto skin) or the masked cell planes
+    (skin 0), against the same run on the CPU: K5's launches = 4 x the
+    frozen-plan interior evaluations of run.log, K6's = 4 x its boundary
+    and masked interior evaluations."""
+    import re
+
+    from nbody_torch.forces.p3m import run_cell_plane
+    from nbody_torch.forces.p3m_columns import run_column_plane_masked
+
+    cfg = SimulationConfig(n_side=16, devices=4, rungs=3, n_steps=6,
+                           a_begin=0.3, column_skin=skin,
+                           output=OutputConfig(snapshot=False))
+    before = (run_column_plane_masked.launches, run_cell_plane.launches)
+    gpu = run_simulation(cfg, 0, str(tmp_path / "gpu"))
+    log = (tmp_path / "gpu" / "run.log").read_text()
+    B, F, M = (int(x) for x in re.search(
+        r"Domain rung stepping: (\d+) boundary, (\d+) frozen-plan interior "
+        r"and (\d+) masked interior", log).groups())
+    assert (F > 0) == (skin < 0) and (M > 0) == (skin == 0)
+    assert (run_column_plane_masked.launches - before[0],
+            run_cell_plane.launches - before[1]) == (4 * F, 4 * (B + M))
+    cpu = run_simulation(cfg, 0, str(tmp_path / "cpu"), device="cpu")
+    assert bool(torch.isfinite(gpu.state.pos).all())
+    pg, pc = (np.loadtxt(r.powerspecs[-1]) for r in (gpu, cpu))
+    m = pc[:, 0] <= 0.5 * np.pi * cfg.mesh_size / cfg.box
+    assert np.array_equal(pg[:, 1], pc[:, 1])
+    assert np.abs(pg[m, 2] / pc[m, 2] - 1.0).max() < 1e-3

@@ -694,8 +694,14 @@ def test_domain_force_parts_add_up(dom4, tier):
     for b, x, y in zip(both, gl, gs):
         assert _rel((x + y).numpy(), b.numpy()) < TIGHT
     assert [int(o) for o in ov] == [int(o) for o in ov2]
-    with pytest.raises(NotImplementedError, match="short_masked"):
-        td.make_domain_p3m_local(tc, tgeom, EPS, part="short_masked", **kw)
+    if tier == "cells":
+        # the rung tier's masked form with every row active is the cells
+        # tier's short-range force
+        g_all, _, _, _ = td.make_domain_p3m_local(
+            tc, tgeom, EPS, part="short_masked", target_capacity=512,
+            **kw)(pos, mass, [m > 0 for m in mass], 0.5)
+        for x, y in zip(g_all, gs):
+            assert _rel(x.numpy(), y.numpy()) < TIGHT
 
 
 @pytest.mark.parametrize("tier,split", [("cells", "spline"),
@@ -772,7 +778,8 @@ PORT_DATA = __import__("os").path.join(
 
 @pytest.mark.parametrize("change,missing", [
     (dict(solver="pp"), "solver='pp'"),
-    (dict(rungs=3), "rungs >= 2"),
+    pytest.param(dict(rungs=3, time_stepping="adaptive"),
+                 "time_stepping='adaptive'", id="change1-rungs >= 2"),
     (dict(subcycles=2), "subcycles > 1"),
     (dict(time_stepping="adaptive"), "time_stepping='adaptive'"),
     (dict(ic_realization="domain"), "ic_realization='domain'"),
