@@ -112,13 +112,31 @@ script exits non-zero:
     rung runs (2 and 4 shards on frozen plans, 4 on the cell planes)
     from the committed white noise against the JAX package's P(k) and
     rung populations.
+21. the ring and replicated-grid forces of ``nbody_torch.distributed.
+    sharding``, four shards on the one card: (a) K7's ring site: the ring
+    force of plummer(262,144) against the single-device K7 and float64,
+    one ring launch against its plain version, and 100 steps of [17]'s
+    drive through the ring (K7 launches = 16 x 101, [17]'s energy and
+    momentum limits); (b) K6's replicated-grid site: every shard's x-slab
+    of the whole cell plane at the cfg64 ICs against the plain version,
+    the sharded P3M against one device's cells tier (at the ICs to
+    TIER_TOL, per particle on random positions) and at the JAX package's
+    16^3 ICs against its committed output; cfg64's 142 steps through
+    ``run_cosmological_checked`` with the checked force,
+    healing by doubling the capacity (K6 launches = 4 x evaluations, P(k)
+    at a = 1 within DOMAIN_PK_BANDS of one device's cells run); (c)
+    ``solver='pp'`` with ``devices=4`` through ``run_simulation`` with no
+    device argument (the ring Ewald force against one device's at the
+    32^3 ICs, P(k) against [16]'s run, no kernel launched) and the 16^3
+    run against the JAX package's P(k); (d) a planted capacity of 8 must
+    report dropped particles.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 18, 19 and 20, and each kernel's bound: the larger of
-the bytes the function needs over the card's memory rate and its
-operations over its float32 rate, for K8 its rsqrts over the SFU's rate
+from phases 3, 7, 11, 15, 18, 19, 20 and 21, and each kernel's bound:
+the larger of the bytes the function needs over the card's memory rate
+and its operations over its float32 rate, for K8 its rsqrts over the SFU's rate
 and its TF32 products over the tensor cores'); then the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  Run outputs go to
 ``output/chip_smoke/`` (git-ignored).
@@ -1503,29 +1521,15 @@ def domain_run(cfg, tag: str, single: dict) -> dict:
         K6=D * evals if tier == "cells" else 0)
     if counts != want:
         raise AssertionError(f"[19] {tag}: launches {counts}, expected {want}")
-    got_pk = np.loadtxt(res.powerspecs[0])
-    ref_pk = np.loadtxt(single["pk"])
-    k_nyq = np.pi * cfg.mesh_size / cfg.box
-    if not np.array_equal(got_pk[:, 1], ref_pk[:, 1]):
-        raise AssertionError(f"[19] {tag}: P(k) bins differ")
-    rel_pk = np.abs(got_pk[:, 2] / ref_pk[:, 2] - 1.0)
-    bands, lo = [], 0.0
-    for frac, tol in DOMAIN_PK_BANDS:
-        sel = (ref_pk[:, 0] > lo) & (ref_pk[:, 0] <= frac * k_nyq)
-        bands.append((frac, tol, int(sel.sum()), float(rel_pk[sel].max())))
-        lo = frac * k_nyq
+    bands = pk_bands(res.powerspecs[0], single["pk"], cfg, f"[19] {tag}")
     phase(f"[19] {tag} ({tier} tier, {D} shards): {cfg.n_steps} steps in "
           f"{res.wall_s:.3f} s ({cfg.n_steps / res.wall_s:.2f} steps/s), "
           f"{heals} heals, peak device memory {peak:.1f} MiB; one device: "
           f"{single['wall']:.3f} s ({cfg.n_steps / single['wall']:.2f} "
           f"steps/s), {single['mem']:.1f} MiB; launches {counts} = {D} x "
           f"{evals} evaluations; P(k) vs one device, max rel "
-          + ", ".join(f"{m:.3e} at {n} bins to k_Nyq*{f:g} (tol {t:g})"
-                      for f, t, n, m in bands))
-    for f, t, n, m in bands:
-        if not m <= t:
-            raise AssertionError(f"[19] {tag}: P(k) differs from one device "
-                                 f"by {m} up to k_Nyq*{f:g}")
+          + bands_text(bands))
+    check_bands(bands, f"[19] {tag}")
     return counts
 
 
@@ -1912,16 +1916,7 @@ def domain_rung_vs_single(cfg, tag: str, single: dict) -> tuple:
     DOMAIN_PK_BANDS and each rung's count at a = 1 within DOMAIN_POP_TOL of
     N.  Returns (result, run numbers)."""
     res, run = domain_rung_run(cfg, tag)
-    got_pk, ref_pk = np.loadtxt(res.powerspecs[0]), np.loadtxt(single["pk"])
-    if not np.array_equal(got_pk[:, 1], ref_pk[:, 1]):
-        raise AssertionError(f"[20] {tag}: P(k) bins differ")
-    rel_pk = np.abs(got_pk[:, 2] / ref_pk[:, 2] - 1.0)
-    k_nyq = np.pi * cfg.mesh_size / cfg.box
-    bands, lo = [], 0.0
-    for frac, tol in DOMAIN_PK_BANDS:
-        sel = (ref_pk[:, 0] > lo) & (ref_pk[:, 0] <= frac * k_nyq)
-        bands.append((frac, tol, int(sel.sum()), float(rel_pk[sel].max())))
-        lo = frac * k_nyq
+    bands = pk_bands(res.powerspecs[0], single["pk"], cfg, f"[20] {tag}")
     pops, ref = run["pops"][-1], single["pops"]
     n = max(len(pops), len(ref))
     dpop = max(abs(a - b) for a, b in zip(pops + [0] * (n - len(pops)),
@@ -1937,15 +1932,426 @@ def domain_rung_vs_single(cfg, tag: str, single: dict) -> tuple:
           f" launches {run['counts']}; populations at a = 1 {pops} vs one "
           f"device {ref} (largest difference {dpop}, tol "
           f"{DOMAIN_POP_TOL * cfg.n_particles:g}); P(k) vs one device, max "
-          f"rel " + ", ".join(f"{m:.3e} at {nb} bins to k_Nyq*{f:g} (tol "
-                              f"{t:g})" for f, t, nb, m in bands))
-    for f, t, nb, m in bands:
-        if not m <= t:
-            raise AssertionError(f"[20] {tag}: P(k) differs from one device "
-                                 f"by {m} up to k_Nyq*{f:g}")
+          f"rel " + bands_text(bands))
+    check_bands(bands, f"[20] {tag}")
     if not dpop <= DOMAIN_POP_TOL * cfg.n_particles:
         raise AssertionError(f"[20] {tag}: populations differ by {dpop}")
     return res, run
+
+
+# ---------------------------------------------------------------------------
+# [21] the ring and replicated-grid forces of sharding.py
+# ---------------------------------------------------------------------------
+
+#: [21](a) the float64 check of the ring force: every this-many-th target
+RING_F64_STRIDE = 64
+
+
+def pk_bands(got_path: str, ref_path: str, cfg, tag: str) -> list:
+    """(band fraction of k_Nyq, tol, bins, max rel difference) of the P(k)
+    file ``got_path`` against ``ref_path`` in each of DOMAIN_PK_BANDS;
+    raises if the bins differ (:func:`check_bands` holds the limits)."""
+    got_pk, ref_pk = np.loadtxt(got_path), np.loadtxt(ref_path)
+    if not np.array_equal(got_pk[:, 1], ref_pk[:, 1]):
+        raise AssertionError(f"{tag}: P(k) bins differ")
+    rel_pk = np.abs(got_pk[:, 2] / ref_pk[:, 2] - 1.0)
+    k_nyq = np.pi * cfg.mesh_size / cfg.box
+    bands, lo = [], 0.0
+    for frac, tol in DOMAIN_PK_BANDS:
+        sel = (ref_pk[:, 0] > lo) & (ref_pk[:, 0] <= frac * k_nyq)
+        bands.append((frac, tol, int(sel.sum()), float(rel_pk[sel].max())))
+        lo = frac * k_nyq
+    return bands
+
+
+def bands_text(bands: list) -> str:
+    return ", ".join(f"{m:.3e} at {n} bins to k_Nyq*{f:g} (tol {t:g})"
+                     for f, t, n, m in bands)
+
+
+def check_bands(bands: list, tag: str) -> None:
+    for f, t, _, m in bands:
+        if not m <= t:
+            raise AssertionError(f"{tag}: P(k) differs from one device by "
+                                 f"{m} up to k_Nyq*{f:g}")
+
+
+def ring_site_check(n: int, steps: int, k7_run: dict) -> tuple[dict, int]:
+    """[21](a) K7's ring site: the ring force of plummer(n) on
+    DOMAIN_SHARDS shards of the card at the ICs against the single-device
+    allpairs_pallas and against float64 on every RING_F64_STRIDE-th
+    target; one launch (N/D targets against a visiting block of N/D
+    sources) against its float32 plain version, timed; then ``steps``
+    steps of [17]'s drive with the ring force: |dE/E|, momentum and K7
+    launches = D^2 x (steps + 1).  Returns (the row, the launches)."""
+    from nbody_torch.distributed.sharding import device_mesh, make_ring_acc_fn
+    from nbody_torch.forces.pallas_pp import (
+        allpairs_pallas,
+        block_acc_pallas,
+        pp_block_plain,
+    )
+    from nbody_torch.ic import systems
+
+    eps, D = 0.05, DOMAIN_SHARDS
+    ring = make_ring_acc_fn(device_mesh(D), eps)
+    st = systems.plummer(n, seed=0)
+    pos, mass = st.pos, st.mass
+    acc, phi = ring(pos, mass)
+    acc1, phi1 = allpairs_pallas(pos, mass, eps)
+    torch.cuda.synchronize()
+    r1 = max(rel_l2(acc, acc1.double()), rel_l2(phi, phi1.double()))
+    sub = torch.arange(0, n, RING_F64_STRIDE, device=pos.device)
+    raw, pot = pp_block_plain(pos[sub].double(), pos.double(), mass.double(),
+                              eps)
+    phi_ref = -(pot - mass[sub].double() / eps)
+    r64 = max(rel_l2(acc[sub], raw), rel_l2(phi[sub], phi_ref))
+    phase(f"[21] ring force ({D} shards) at plummer({n}): vs one device "
+          f"rel L2 {r1:.3e}, vs float64 at {sub.numel()} targets {r64:.3e} "
+          f"(tol {FORCE_REL_L2_TOL:g})")
+    if not max(r1, r64) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[21] the ring force disagrees: {r1}, {r64}")
+
+    nl = n // D
+    blk = [(pos[d * nl:(d + 1) * nl], mass[d * nl:(d + 1) * nl])
+           for d in range(D)]
+    pi, (pj, mj) = blk[0][0], blk[D - 1]
+    got = block_acc_pallas(pi, pj, mj, eps)
+    torch.cuda.synchronize()
+    plain = pp_block_plain(pi, pj, mj, eps)
+    rel = max(rel_l2(got[0], plain[0].double()),
+              rel_l2(got[1], plain[1].double()))
+    err = max(max_abs(got[0], plain[0]), max_abs(got[1], plain[1]))
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[21] a ring launch disagrees: {rel}")
+    ms = _mean_ms([lambda d=d, h=h: block_acc_pallas(
+        blk[d][0], blk[(d - h) % D][0], blk[(d - h) % D][1], eps)
+        for d in range(D) for h in range(D)], 5)
+    plain_ms = cuda_time_ms(lambda: pp_block_plain(pi, pj, mj, eps), 1,
+                            warm=False)
+    b_ms, b_by = bound(12 * nl + 16 * nl + 16 * nl, FLOPS_PAIR_K7 * nl * nl)
+    phase(f"[21] K7 ring launch ({nl} x {nl}): rel L2 vs plain f32 "
+          f"{rel:.3e} (tol {FORCE_REL_L2_TOL:g}), max abs {err:.3e}; kernel "
+          f"{ms:.4f} ms a launch ({nl * nl / ms * 1e3:.4e} interactions/s), "
+          f"plain f32 {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    run = plummer_run(n, steps, ring)
+    phase(plummer_line("[21] ring", n, steps, run, PLUMMER_DRIFT_TOL)
+          + f"; {1e3 / run['steps_per_s']:.2f} ms a step against one "
+          f"device's {1e3 / k7_run['steps_per_s']:.2f} ([17])")
+    launches = D * D * (steps + 1)
+    want = zero_launches(K7b=launches)
+    if run["counts"] != want or not run["sound"]:
+        raise AssertionError(f"[21] ring launches {run['counts']}, expected "
+                             f"{want}; sound {run['sound']}")
+    if not (run["drift"] < PLUMMER_DRIFT_TOL and run["mom"] < MOMENTUM_TOL):
+        raise AssertionError(f"[21] ring |dE/E| {run['drift']}, |P| "
+                             f"{run['mom']}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None), launches
+
+
+def sharded_p3m_fn(cfg, group, **kw):
+    """The replicated-grid P3M force of ``cfg`` (its eps, split and
+    softening) on ``group``."""
+    from nbody_torch.distributed.sharding import make_sharded_p3m_cosmo_force
+
+    return make_sharded_p3m_cosmo_force(
+        cfg.cosmology(), cfg.box, cfg.mesh_size, group, eps=cfg.eps,
+        split=cfg.force_split, softening=cfg.softening_kernel, **kw)
+
+
+def replicated_grid_check(state, cfg) -> dict:
+    """[21](b) K6's replicated-grid site at ``state``: every shard's
+    x-slab of the whole cell plane (the default capacity, doubled until
+    the plane drops nothing) against the float32 and float64 plain
+    versions, timed; the sharded P3M force against the single-device
+    cells tier at ``state`` and on uniform positions.  Returns the row."""
+    from nbody_torch.core import units
+    from nbody_torch.distributed.sharding import (
+        device_mesh,
+        sharded_p3m_geometry,
+        slice_plane,
+    )
+    from nbody_torch.driver.simulate import prewarm_capacity
+    from nbody_torch.forces.p3m import (
+        build_padded_plane,
+        cell_plane_plain,
+        p3m_acc,
+        run_cell_plane,
+    )
+    from nbody_torch.mesh.cells import cell_capacity
+
+    D = DOMAIN_SHARDS
+    box, nmesh, n = cfg.box, cfg.mesh_size, cfg.n_particles
+    r_s, r_cut, ncell, nxl = sharded_p3m_geometry(box, nmesh, D)
+    cap = cell_capacity(n, ncell)
+    while True:
+        plane, ov, K, _, counts = build_padded_plane(
+            state.pos, state.mass, box, r_cut, ncell, cap)
+        if int(ov) == 0:
+            break
+        cap *= 2
+    kw = dict(nx=nxl, ncell=ncell, K=K, eps2=cfg.eps**2, r_s=r_s,
+              r_cut=r_cut, split=cfg.force_split,
+              softening=cfg.softening_kernel)
+    local = [slice_plane(plane, counts, d=d, nxl=nxl, ncell=ncell, K=K)
+             for d in range(D)]
+    rels, errs = [], []
+    for lp, lc in local:
+        got = run_cell_plane(lp, lc, **kw)
+        torch.cuda.synchronize()
+        ref32 = cell_plane_plain(lp, lc, **kw)
+        ref64 = cell_plane_plain(lp.double(), lc, **kw)
+        rels.append(max(rel_l2(got, ref32.double()), rel_l2(got, ref64)))
+        errs.append(max_abs(got, ref32))
+    phase(f"[21] replicated grid: {ncell}^3 cells (r_cut {r_cut:.4f} Mpc), "
+          f"{D} shards of {nxl} x-layers, capacity {cap} (K {K}); K6 rel L2 "
+          f"per shard vs plain f32 / f64 "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (tol {FORCE_REL_L2_TOL:g})")
+    if not max(rels) <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[21] K6 replicated-grid site disagrees: {rels}")
+    ms = _mean_ms([lambda b=b: run_cell_plane(b[0], b[1], **kw)
+                   for b in local], 20)
+    plain_ms = _mean_ms([lambda b=b: cell_plane_plain(b[0], b[1], **kw)
+                         for b in local], 2)
+    visits = inside = nbytes = 0
+    for lp, lc in local:
+        v, i, n_src, t = needed_work_cells(lp, lc, K, lp, lc, K, ncell=ncell,
+                                           r_cut=r_cut, nx=nxl)
+        visits, inside = visits + v, inside + i
+        nbytes += needed_bytes(n_src, t)
+    row = _slab_row(errs, ms, plain_ms, nbytes,
+                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    phase(f"[21] K6 replicated-grid launch: kernel {ms:.4f} ms, plain f32 "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
+          f"{D} shards, {inside:.4e} inside r_cut")
+
+    # the force against one device's cells tier, as [19] holds the domain
+    # force: at the ICs to TIER_TOL of the largest |g|, and per particle
+    # within the JAX package's limits on uniform positions of the same
+    # count (at the ICs a particle whose pulls cancel has a tiny |g|, and
+    # its relative error says nothing of the sum)
+    a = 0.5
+    gen = torch.Generator().manual_seed(21)
+    rnd = (torch.rand(tuple(state.pos.shape), generator=gen,
+                      dtype=torch.float64) * box).to(state.pos.device,
+                                                     torch.float32)
+    cells = cfg.replace(shortrange="cells")
+    for pos, per_particle in ((state.pos, False), (rnd, True)):
+        grown, _ = prewarm_capacity(cells, cells, pos)
+        ref, ov1 = p3m_acc(pos, state.mass, box, nmesh, G=units.COSMO.G,
+                           eps=cfg.eps, shortrange="cells",
+                           split=cfg.force_split,
+                           softening=cfg.softening_kernel,
+                           capacity=grown.cell_capacity or None,
+                           with_overflow=True)
+        g, ov = sharded_p3m_fn(cfg, device_mesh(D),
+                               capacity=grown.cell_capacity or None,
+                               checked=True)(pos, state.mass, a)
+        if int(ov) or int(ov1):
+            raise AssertionError(f"[21] overflow: {int(ov)}, {int(ov1)}")
+        ref = (ref / a).double()
+        rel = (g.double() - ref).norm(dim=1) / torch.clamp_min(
+            ref.norm(dim=1), 1e-12)
+        med, worst = float(rel.median()), float(rel.max())
+        scale = float((g.double() - ref).norm(dim=1).max()
+                      / ref.norm(dim=1).max())
+        small = float(ref.norm(dim=1)[rel.argmax()] / ref.norm(dim=1).median())
+        where = "random positions" if per_particle else "the ICs"
+        gate = (f"per particle median tol {DOMAIN_MEDIAN_TOL:g}, max tol "
+                f"{DOMAIN_MAX_TOL['cells']:g}" if per_particle
+                else f"max |diff| / max |g| tol {TIER_TOL:g}")
+        phase(f"[21] sharded P3M ({D} shards) vs one device's cells tier at "
+              f"{where}, N={n}: per particle median {med:.3e}, max "
+              f"{worst:.3e} (at |g| = {small:.3e} of the median); max "
+              f"|diff| / max |g| {scale:.3e} ({gate})")
+        ok = (med < DOMAIN_MEDIAN_TOL and worst < DOMAIN_MAX_TOL["cells"]
+              if per_particle else scale <= TIER_TOL)
+        if not ok:
+            raise AssertionError(f"[21] sharded P3M disagrees at {where}: "
+                                 f"{med}, {worst}, {scale}")
+    return row
+
+
+def sharded_p3m_vs_jax(noise) -> None:
+    """[21](b) the sharded P3M at the JAX package's 16^3 ICs against its
+    committed make_sharded_p3m_cosmo_force output, to TIER_TOL of max
+    |g|."""
+    from nbody_torch.distributed.sharding import (
+        device_mesh,
+        make_sharded_p3m_cosmo_force,
+    )
+    from nbody_torch.driver import SimulationConfig
+    from nbody_torch.driver.simulate import realize_ics
+
+    c16 = SimulationConfig(n_side=16)
+    pos, want = np.load(os.path.join(PORT_DATA,
+                                     "sharded_p3m_n16_d4_seed0.npy"))
+    mass = realize_ics(c16, 0, noise=noise).mass
+    g = make_sharded_p3m_cosmo_force(
+        c16.cosmology(), c16.box, c16.mesh_size, device_mesh(DOMAIN_SHARDS),
+        eps=c16.eps, split=c16.force_split)(
+            torch.as_tensor(pos, device=mass.device), mass, c16.a_begin)
+    want = torch.as_tensor(want, dtype=torch.float64, device=g.device)
+    err = float((g.double() - want).norm(dim=1).max()
+                / want.norm(dim=1).max())
+    phase(f"[21] sharded P3M at the JAX 16^3 ICs vs the committed JAX force: "
+          f"max |diff| / max |g| {err:.3e} (tol {TIER_TOL:g})")
+    if not err <= TIER_TOL:
+        raise AssertionError(f"[21] sharded P3M differs from JAX: {err}")
+
+
+def sharded_p3m_run(cfg, state, single_pk: str) -> int:
+    """[21](b) ``cfg``'s log-a steps from ``state`` through
+    run_cosmological_checked with the checked replicated-grid force, in
+    the driver's stretches of SAMPLE_EVERY_STEPS steps: a stretch that
+    dropped force doubles the capacity and re-runs (the driver's heal).
+    K6 launches = D x evaluations, re-runs included; a finite state at
+    a = 1 whose P(k) is within DOMAIN_PK_BANDS of the single-device cells
+    run (``single_pk``).  Returns the launches."""
+    from nbody_torch.distributed.sharding import (
+        device_mesh,
+        sharded_p3m_geometry,
+    )
+    from nbody_torch.driver.simulate import (
+        HEAL_ATTEMPTS,
+        SAMPLE_EVERY_STEPS,
+        measure_powerspec,
+    )
+    from nbody_torch.integrate.cosmo_stepping import (
+        log_a_steps,
+        run_cosmological_checked,
+    )
+    from nbody_torch.mesh.cells import cell_capacity
+
+    D = DOMAIN_SHARDS
+    group = device_mesh(D)
+    cosmo = cfg.cosmology()
+    _, _, ncell, _ = sharded_p3m_geometry(cfg.box, cfg.mesh_size, D)
+    cap = cell_capacity(cfg.n_particles, ncell)
+    a_grid = log_a_steps(cfg.a_begin, cfg.a_end, cfg.n_steps)
+    heals, evals = [], 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i0 in range(0, cfg.n_steps, SAMPLE_EVERY_STEPS):
+        a_seg = a_grid[i0:i0 + SAMPLE_EVERY_STEPS + 1]
+        for _ in range(HEAL_ATTEMPTS):
+            fn = sharded_p3m_fn(cfg, group, capacity=cap, checked=True)
+            new, ov = run_cosmological_checked(state, cosmo, a_seg, fn,
+                                               cfg.box)
+            evals += len(a_seg)
+            if ov == 0:
+                break
+            heals.append(f"a = {a_seg[0]:.4f}: {ov} particles dropped at "
+                         f"capacity {cap}, doubling to {2 * cap}")
+            cap *= 2
+        else:
+            raise AssertionError(f"[21] capacity heals exhausted: {heals}")
+        state = new
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    for line in heals:
+        phase(f"    [21] heal: {line}")
+    want = zero_launches(K6=D * evals)
+    if counts != want:
+        raise AssertionError(f"[21] sharded P3M run launches {counts}, "
+                             f"expected {want}")
+    st = state
+    if not (st.pos.shape == (cfg.n_particles, 3)
+            and all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel))
+            and abs(float(st.time) - cfg.a_end) <= 1e-6):
+        raise AssertionError("[21] the sharded P3M run is not finite at "
+                             "a = 1")
+    path = os.path.join(OUT, "cfg64_sharded_p3m", "powerspec_a=1.00")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    measure_powerspec(st.pos, cfg, cfg.a_end, path=path, seed=0)
+    tag = "[21] cfg64 sharded P3M"
+    bands = pk_bands(path, single_pk, cfg, tag)
+    phase(f"{tag} ({D} shards, {ncell}^3 cells): {cfg.n_steps} steps in "
+          f"{wall:.3f} s ({cfg.n_steps / wall:.2f} steps/s), {len(heals)} "
+          f"heals, final capacity {cap}; launches {counts} = {D} x {evals} "
+          f"evaluations; P(k) vs one device's cells run, max rel "
+          + bands_text(bands))
+    check_bands(bands, tag)
+    return counts["K6"]
+
+
+def planted_capacity_check(state, cfg) -> None:
+    """[21](d) the replicated-grid force at ``state`` with capacity 8 must
+    report dropped particles."""
+    from nbody_torch.distributed.sharding import device_mesh
+
+    _, ov = sharded_p3m_fn(cfg, device_mesh(DOMAIN_SHARDS), capacity=8,
+                           checked=True)(state.pos, state.mass, 0.5)
+    phase(f"[21] planted capacity 8 at the 64^3 ICs: overflow word {int(ov)}"
+          f" (must be > 0)")
+    if not int(ov) > 0:
+        raise AssertionError("[21] the planted overflow is not reported")
+
+
+def ring_ewald_check(noise, single_pk: str) -> None:
+    """[21](c) solver='pp' with devices=4 through run_simulation with no
+    device argument on the default 32^3 config: its force at the ICs
+    against the single-device Ewald force, its P(k) at a = 1 within
+    DOMAIN_PK_BANDS of the single-device PP run of [16] (``single_pk``),
+    no kernel launched (the ring Ewald's real-space block is torch ops,
+    as in the JAX package); the 16^3 run from the JAX noise against the
+    JAX package's P(k)."""
+    from nbody_torch.core import units
+    from nbody_torch.driver import OutputConfig, SimulationConfig
+    from nbody_torch.driver.simulate import (
+        build_cosmo_force,
+        realize_ics,
+        run_simulation,
+    )
+    from nbody_torch.forces.ewald import ewald_pp_acc
+
+    D = DOMAIN_SHARDS
+    cfg = SimulationConfig(solver="pp", devices=D,
+                           output=OutputConfig(snapshot=False))
+    ics = realize_ics(cfg, 0)
+    a = cfg.a_begin
+    ring = build_cosmo_force(cfg)
+    g = ring(ics.pos, ics.mass, a) * a
+    ref = ewald_pp_acc(ics.pos, ics.mass, cfg.box, eps=cfg.eps,
+                       G=units.COSMO.G, softening=cfg.softening_kernel)
+    rel = rel_l2(g, ref.double())
+    ring_ms = cuda_time_ms(lambda: ring(ics.pos, ics.mass, a), 3)
+    one_ms = cuda_time_ms(lambda: ewald_pp_acc(
+        ics.pos, ics.mass, cfg.box, eps=cfg.eps, G=units.COSMO.G,
+        softening=cfg.softening_kernel), 3)
+    phase(f"[21] ring Ewald ({D} shards) at the 32^3 ICs vs one device's "
+          f"ewald_pp_acc: rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}); an "
+          f"evaluation {ring_ms:.3f} ms against {one_ms:.3f} ms")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[21] the ring Ewald force disagrees: {rel}")
+
+    work = os.path.join(OUT, "default_pp_d4")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    res = run_simulation(cfg, 0, work)
+    counts = read_launches()
+    check_run_outputs(res, cfg, "[21] default PP d4")
+    tag = "[21] default PP on 4 devices"
+    bands = pk_bands(res.powerspecs[0], single_pk, cfg, tag)
+    phase(f"{tag}: {cfg.n_steps} steps in {res.wall_s:.3f} s "
+          f"({cfg.n_steps / res.wall_s:.2f} steps/s); launches {counts}; "
+          f"P(k) vs one device, max rel " + bands_text(bands))
+    check_bands(bands, tag)
+    if counts != zero_launches():
+        raise AssertionError(f"[21] the ring Ewald run launched {counts}")
+
+    c16 = SimulationConfig(n_side=16, solver="pp", devices=D,
+                           output=OutputConfig(snapshot=False))
+    work16 = os.path.join(OUT, "n16_pp_d4")
+    shutil.rmtree(work16, ignore_errors=True)
+    r16 = run_simulation(c16, 0, work16,
+                         initial_state=realize_ics(c16, 0, noise=noise))
+    pk_vs_reference(r16, c16, "powerspec_a=1.00_n16_pp_d4_seed0",
+                    "[21] 16^3 PP on 4 devices from the JAX noise")
 
 
 def _wrappers() -> dict:
@@ -2243,7 +2649,7 @@ def ewald_check(noise, n_side: int = 32) -> int:
     versions); the default solver='pp' run through run_simulation with
     K1's launches equal to the evaluations counted from run.log; the
     16^3 PP run from the JAX noise against the JAX P(k).  Returns K1's
-    launches in the default PP run."""
+    launches in the default PP run and its P(k) file."""
     from nbody_torch.core import units
     from nbody_torch.driver import OutputConfig, SimulationConfig
     from nbody_torch.driver.simulate import realize_ics, run_simulation
@@ -2309,7 +2715,7 @@ def ewald_check(noise, n_side: int = 32) -> int:
                            initial_state=realize_ics(pp16, 0, noise=noise))
     pk_vs_reference(res16, pp16, "powerspec_a=1.00_n16_pp_seed0",
                     "[16] 16^3 PP from the JAX noise")
-    return counts["K1"]
+    return counts["K1"], res.powerspecs[0]
 
 
 def plummer_run(n: int, steps: int, acc_fn) -> dict:
@@ -2843,7 +3249,7 @@ def main() -> None:
     kernels.update(pp_kernel_time(PLUMMER_N))
 
     # -- 16. the Ewald PP solver (K1 with the Gaussian split) -------------
-    ewald_check(noise)
+    _, pp_pk = ewald_check(noise)
 
     # -- 17. the Plummer drive at N = 262,144 through K7 ------------------
     k7_run = plummer_drive(PLUMMER_N, 250)
@@ -2946,6 +3352,25 @@ def main() -> None:
         if not worst <= POP_TOL * c16.n_particles:
             raise AssertionError(f"[20] {name}: populations differ by {worst}")
 
+    # -- 21. the ring and replicated-grid forces of sharding.py ---------
+    # (a) K7's ring site: the Plummer drive on four shards
+    kernels["K7r"], k7r_launches = ring_site_check(PLUMMER_N, 100, k7_run)
+    # (b) K6's replicated-grid site: cfg64 on four shards, beside one
+    # device's cells tier; (d) the planted capacity
+    kernels["K6r"] = replicated_grid_check(ics64, cfg64)
+    sharded_p3m_vs_jax(noise)
+    planted_capacity_check(ics64, cfg64)
+    work_c = os.path.join(OUT, "cfg64_cells")
+    shutil.rmtree(work_c, ignore_errors=True)
+    res_c = run_simulation(cells64, 0, work_c)
+    check_run_outputs(res_c, cells64, "[21] cfg64 cells")
+    phase(f"[21] cfg64 on one device's cells tier: {cells64.n_steps} steps "
+          f"in {res_c.wall_s:.3f} s; cell_capacity "
+          f"{res_c.config_run.cell_capacity}")
+    k6r_launches = sharded_p3m_run(cfg64, ics64, res_c.powerspecs[0])
+    # (c) solver='pp' on four devices through the driver
+    ring_ewald_check(noise, pp_pk)
+
     k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
@@ -3007,6 +3432,16 @@ def main() -> None:
                      "source": f"nbody_torch/forces/csrc/{source}",
                      "replaces": replaces, "launches": launches,
                      **kernels[key]})
+    for key, name, source, launches in (
+            ("K7r", "block_acc_pallas (ring)", "pp_allpairs.cu",
+             k7r_launches),
+            ("K6r", "run_cell_plane (replicated grid)", "p3m_cells.cu",
+             k6r_launches)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"nbody_torch/forces/csrc/{source}",
+                     "replaces": "nbody/distributed/sharding.py:"
+                                 + ("100" if key == "K7r" else "388"),
+                     "launches": launches, **kernels[key]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

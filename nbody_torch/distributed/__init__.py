@@ -1,6 +1,8 @@
-"""The slab domain decomposition of the port (one process, a list of
-shards): :mod:`collectives`, :mod:`sharding`, :mod:`fft`, :mod:`domain`
-and :mod:`measure`."""
+"""The port's multi-device layer (one process, a list of shards):
+:mod:`collectives`, :mod:`fft`, :mod:`measure`, the slab domain
+decomposition of :mod:`domain`, and :mod:`sharding`'s block-sharded
+forces (the ring all-pairs and ring Ewald forces, the sharded PM and the
+replicated-grid P3M)."""
 
 from nbody_torch.distributed.collectives import ShardGroup
 from nbody_torch.distributed.domain import (
@@ -9,12 +11,23 @@ from nbody_torch.distributed.domain import (
     make_domain_p3m_force,
     run_cosmological_domain,
 )
-from nbody_torch.distributed.sharding import device_mesh, shard_state
+from nbody_torch.distributed.sharding import (
+    device_mesh,
+    make_ring_acc_fn,
+    make_ring_ewald_acc_fn,
+    make_sharded_p3m_cosmo_force,
+    make_sharded_pm_cosmo_force,
+    shard_state,
+)
 
 __all__ = [
     "ShardGroup",
     "device_mesh",
     "shard_state",
+    "make_ring_acc_fn",
+    "make_ring_ewald_acc_fn",
+    "make_sharded_pm_cosmo_force",
+    "make_sharded_p3m_cosmo_force",
     "domain_decompose",
     "domain_gather",
     "make_domain_p3m_force",

@@ -12,10 +12,13 @@ times, in the same run.log, powerspec and snapshot formats.  The entry
 points run on the card unless the caller passes ``device="cpu"``.  Options
 outside the slice raise ``NotImplementedError`` (``subcycles > 1`` without
 rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on
-more than one device subcycles, ``ic_realization='domain'`` and the PP
-solver).  ``devices > 1`` runs the slab domain decomposition
-(:mod:`nbody_torch.distributed.domain`), with fixed steps or rungs: D
-shards driven by one process, placed round-robin over the visible cards.
+more than one device ``ic_realization='domain'``, and subcycles for pm
+and p3m).  With ``devices > 1`` (D shards driven by one process, placed
+round-robin over the visible cards) pm and p3m run the slab domain
+decomposition (:mod:`nbody_torch.distributed.domain`), with fixed steps
+or rungs, and ``solver='pp'`` stays on the single-device flow with the
+ring Ewald force over D particle blocks
+(:func:`nbody_torch.distributed.sharding.make_ring_ewald_acc_fn`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from nbody_torch.core.types import ParticleState
 from nbody_torch.diagnostics.layzer_irvine import (
     layzer_irvine_residual,
     peculiar_energies,
+)
+from nbody_torch.distributed.sharding import (
+    device_mesh,
+    make_ring_ewald_acc_fn,
 )
 from nbody_torch.driver.config import SimulationConfig
 from nbody_torch.forces.ewald import ewald_pp_acc
@@ -125,18 +132,22 @@ def check_supported(config: SimulationConfig, device=None) -> None:
     if n_dev > 1:
         missing = []
         if config.solver == "pp":
-            missing.append("solver='pp' (the ring Ewald decomposition)")
-        if config.subcycles > 1:
-            missing.append("subcycles > 1 (the subcycled domain runner)")
-        if config.time_stepping != "fixed":
-            missing.append(f"time_stepping={config.time_stepping!r} (the "
-                           f"adaptive domain runner)")
+            # the ring Ewald force on the single-device flow
+            route = "solver='pp' on the ring Ewald decomposition"
+        else:
+            route = "the slab domain decomposition"
+            if config.subcycles > 1:
+                missing.append("subcycles > 1 (the subcycled domain runner)")
+            if config.time_stepping != "fixed":
+                missing.append(f"time_stepping={config.time_stepping!r} "
+                               f"(the adaptive domain runner)")
         if config.ic_realization != "host":
             missing.append(f"ic_realization={config.ic_realization!r} "
                            f"(lpt_ic_domain)")
         if missing:
             raise NotImplementedError(
-                f"devices={n_dev}: not ported yet: " + "; ".join(missing))
+                f"devices={n_dev} ({route}): not ported yet: "
+                + "; ".join(missing))
     if config.subcycles > 1 and config.rungs < 2:
         raise NotImplementedError(
             "subcycles > 1 without rungs (subcycled KDK) is not ported yet")
@@ -202,19 +213,21 @@ def realize_ics(config: SimulationConfig, seed: int, *, device="cuda",
 def build_cosmo_force(config: SimulationConfig, *, device="cuda",
                       dtype=None, checked: bool = False) -> Callable:
     """acc_fn(pos, mass, a) -> canonical-momentum force for the config's
-    solver ('pm', 'p3m' or 'pp', the exact periodic Ewald force), the
-    Newtonian periodic force in comoving coordinates scaled by 1/a.
+    solver ('pm', 'p3m' or 'pp', the exact periodic Ewald force, on the
+    ring of D particle blocks with ``devices > 1``), the Newtonian
+    periodic force in comoving coordinates scaled by 1/a.
     ``checked=True`` returns (g, overflow) for the checked integrator:
     overflow is 0 iff no force was dropped (the column tiers'
     field-encoded word, a 0-d tensor on the device; always 0 for pm and
     pp)."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
-    if _n_devices(config, device) > 1:
+    n_dev = _n_devices(config, device)
+    if n_dev > 1 and config.solver != "pp":
         raise NotImplementedError(
-            "build_cosmo_force with devices > 1 (the sharded ring PP and "
-            "replicated-grid PM/P3M forces) is not ported yet; "
-            "run_simulation runs devices > 1 on the domain decomposition")
+            "build_cosmo_force with devices > 1 builds the ring Ewald PP "
+            "force only; run_simulation runs pm and p3m with devices > 1 on "
+            "the domain decomposition")
     box, nmesh = config.box, config.mesh_size
     if config.solver == "pm":
         pm_fn = make_pm_cosmo_force(
@@ -226,6 +239,22 @@ def build_cosmo_force(config: SimulationConfig, *, device="cuda",
         if not checked:
             return pm_fn
         return lambda pos, mass, a: (pm_fn(pos, mass, a), 0)
+    if config.solver == "pp" and n_dev > 1:
+        # the exact periodic PP force over D particle blocks (CONCEPT runs
+        # its PP under the same MPI decomposition)
+        if config.n_particles % n_dev:
+            raise ValueError(
+                f"devices={n_dev} must divide N={config.n_particles} for the "
+                f"ring PP decomposition")
+        ring = make_ring_ewald_acc_fn(
+            device_mesh(n_dev, device), box, float(config.eps),
+            G=units.COSMO.G, softening=config.softening_kernel)
+
+        def pp_fn_ring(pos, mass, a):
+            g = ring(pos, mass) / a
+            return (g, 0) if checked else g
+
+        return pp_fn_ring
     if config.solver == "pp":
         eps, softening = config.eps, config.softening_kernel
 
@@ -817,7 +846,7 @@ def run_simulation(
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     n_dev = _n_devices(config, device)
-    if n_dev > 1:
+    if n_dev > 1 and config.solver != "pp":
         return _run_simulation_domain(
             config, seed, workdir, device, dtype, initial_state,
             checkpoint_every_steps, resume, n_dev)
@@ -1277,7 +1306,6 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         run_cosmological_domain,
         slab_grid,
     )
-    from nbody_torch.distributed.sharding import device_mesh
 
     t0 = time.perf_counter()
     cosmo = config.cosmology()

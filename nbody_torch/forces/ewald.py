@@ -59,14 +59,14 @@ def _half_space_modes(n_max: int) -> np.ndarray:
 _BLOCK = 256
 
 
-def _structure_sum(mass, trig):
+def _structure_sum(mass, trig, dtype=None):
     """sum_j mass_j trig_j for each mode: (chunk,) from (N,), (N, chunk),
     N a multiple of _BLOCK; float32 partial sums over blocks of particles,
-    added in float64."""
+    added in float64, returned in ``dtype`` (default ``trig``'s)."""
     nb = mass.shape[0] // _BLOCK
     parts = torch.bmm(mass.view(nb, 1, _BLOCK),
                       trig.view(nb, _BLOCK, trig.shape[1]))
-    return parts.sum(dim=(0, 1), dtype=torch.float64).to(trig.dtype)
+    return parts.sum(dim=(0, 1), dtype=torch.float64).to(dtype or trig.dtype)
 
 
 @contextlib.contextmanager

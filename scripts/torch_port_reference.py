@@ -45,6 +45,12 @@ Writes, under ``tests/data/torch_port/``:
   ``column_skin=0`` (the masked cell planes).  The header of each
   population file keeps the run.log lines of that run's route and its
   frozen-plan staleness;
+* ``powerspec_a=1.00_n16_pp_d4_seed0``: the 16^3 PP run on 4 devices
+  (the ring Ewald force of ``nbody.distributed.sharding``), and
+  ``sharded_p3m_n16_d4_seed0.npy``: (2, 4096, 3) float32, that run's IC
+  positions and the output of ``make_sharded_p3m_cosmo_force`` on 4
+  devices there (the config's eps and force split, a = a_begin; the
+  masses are the config's particle mass);
 * ``plummer4096_energy_seed0.txt``: the energy and momentum series of
   ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
   ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
@@ -55,11 +61,13 @@ It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
+        [domain_rungs] [sharded]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
 ``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
-the four domain runs' P(k) and ``domain_rungs`` the three domain rung
-runs (all five without arguments).
+the four domain runs' P(k), ``domain_rungs`` the three domain rung
+runs and ``sharded`` the 4-device PP run's P(k) and the sharded P3M
+force (all six without arguments).
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ RUNS = {"": CONFIG, "_supercell": CONFIG.replace(shortrange="supercell"),
         "_rungs3": RUNG_CONFIG,
         "_supercell_rungs3": RUNG_CONFIG.replace(shortrange="supercell")}
 PP_RUNS = {"_pp": CONFIG.replace(solver="pp")}
+SHARDED_RUNS = {"_pp_d4": CONFIG.replace(solver="pp", devices=4)}
 DOMAIN_RUNS = {
     "_domain2": CONFIG.replace(devices=2),
     "_domain4": CONFIG.replace(devices=4),
@@ -159,6 +168,25 @@ def plummer_series() -> None:
           f"{np.abs(rows[:, 5:]).max():.3e}")
 
 
+def sharded_p3m_force(ics) -> None:
+    """make_sharded_p3m_cosmo_force on 4 devices at the 16^3 ICs."""
+    from nbody.distributed.sharding import (
+        device_mesh,
+        make_sharded_p3m_cosmo_force,
+    )
+
+    mesh = device_mesh(4)
+    fn = make_sharded_p3m_cosmo_force(
+        CONFIG.cosmology(), CONFIG.box, CONFIG.mesh_size, mesh,
+        eps=CONFIG.eps, split=CONFIG.force_split)
+    g = np.asarray(jax.jit(fn)(ics.pos, ics.mass,
+                               jnp.asarray(CONFIG.a_begin, ics.pos.dtype)))
+    name = "sharded_p3m_n16_d4_seed0.npy"
+    np.save(os.path.join(OUT, name), np.stack([np.asarray(ics.pos), g]))
+    print(f"wrote {name}: positions and force {g.shape} {g.dtype}, max |g| "
+          f"{np.linalg.norm(g, axis=1).max():.6e}")
+
+
 def main(which) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
@@ -190,7 +218,10 @@ def main(which) -> None:
     if np.abs(d).max() > 1e-3 or dv > 1e-4 * np.abs(np.asarray(ref.vel)).max():
         raise SystemExit("port ICs differ from the JAX ICs")
 
+    if "sharded" in which:
+        sharded_p3m_force(ref)
     runs = dict(RUNS if "pk" in which else {},
+                **(SHARDED_RUNS if "sharded" in which else {}),
                 **(PP_RUNS if "pp" in which else {}),
                 **(DOMAIN_RUNS if "domain" in which else {}),
                 **(DOMAIN_RUNG_RUNS if "domain_rungs" in which else {}))
@@ -230,4 +261,5 @@ def main(which) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs"])
+    main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs",
+                          "sharded"])

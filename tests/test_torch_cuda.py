@@ -791,3 +791,56 @@ def test_tiny_domain_rung_run_on_gpu_matches_cpu(cuda, tmp_path, skin):
     m = pc[:, 0] <= 0.5 * np.pi * cfg.mesh_size / cfg.box
     assert np.array_equal(pg[:, 1], pc[:, 1])
     assert np.abs(pg[m, 2] / pc[m, 2] - 1.0).max() < 1e-3
+
+
+def test_ring_site_matches_plain(cuda):
+    """make_ring_acc_fn on four shards of the card (K7's ring site, 16
+    launches) against the same ring on the CPU (the plain version,
+    float64)."""
+    from nbody_torch.distributed.sharding import device_mesh, make_ring_acc_fn
+    from nbody_torch.forces.pallas_pp import block_acc_pallas
+    from nbody_torch.ic import systems
+
+    st = systems.plummer(2048, seed=4)
+    before = block_acc_pallas.launches
+    acc, phi = make_ring_acc_fn(device_mesh(4, cuda), eps=0.05)(st.pos,
+                                                                st.mass)
+    torch.cuda.synchronize()
+    assert block_acc_pallas.launches == before + 16
+    ref = make_ring_acc_fn(device_mesh(4, "cpu"), eps=0.05)(
+        st.pos.cpu().double(), st.mass.cpu().double())
+    for got, want in zip((acc, phi), ref):
+        assert float((got.cpu().double() - want).norm() / want.norm()) \
+            <= K1_REL_L2_TOL
+
+
+def test_replicated_grid_site_matches_plain(cuda):
+    """make_sharded_p3m_cosmo_force on four shards of the card (K6's
+    replicated-grid site, 4 launches) against the same force on the CPU
+    (the plain version), float32 both, 2e-5 of max |g|; the planted
+    capacity 8 reports dropped particles on both."""
+    from nbody_torch.core.cosmology import Cosmology
+    from nbody_torch.distributed.sharding import (
+        device_mesh,
+        make_sharded_p3m_cosmo_force,
+    )
+    from nbody_torch.forces.p3m import run_cell_plane
+
+    box, nmesh = 80.0, 48
+    pos, mass = _particles(2048, box, cuda, seed=5)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        for cap in (None, 8):
+            fn = make_sharded_p3m_cosmo_force(
+                Cosmology(), box, nmesh, device_mesh(4, dev), eps=0.1,
+                capacity=cap, checked=True)
+            before = run_cell_plane.launches
+            out[dev.type, cap] = fn(pos.to(dev), mass.to(dev), 0.5)
+            assert run_cell_plane.launches == before + (
+                4 if dev.type == "cuda" else 0)
+    g, ov = out["cuda", None]
+    ref, ov_ref = out["cpu", None]
+    assert int(ov) == int(ov_ref) == 0
+    scale = float(ref.norm(dim=1).max())
+    assert float((g.cpu() - ref).norm(dim=1).max()) <= 2e-5 * scale
+    assert int(out["cuda", 8][1]) == int(out["cpu", 8][1]) > 0

@@ -777,7 +777,10 @@ PORT_DATA = __import__("os").path.join(
 
 
 @pytest.mark.parametrize("change,missing", [
-    (dict(solver="pp"), "solver='pp'"),
+    # the ring Ewald PP runs on several devices; the domain realization
+    # of its ICs is not ported
+    pytest.param(dict(solver="pp", ic_realization="domain"), "solver='pp'",
+                 id="change0-solver='pp'"),
     pytest.param(dict(rungs=3, time_stepping="adaptive"),
                  "time_stepping='adaptive'", id="change1-rungs >= 2"),
     (dict(subcycles=2), "subcycles > 1"),

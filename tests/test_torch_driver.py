@@ -105,7 +105,8 @@ def test_config_json_round_trips_across_packages(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(solver="pp", devices=2), "pp"),
+    pytest.param(dict(solver="pp", devices=2, ic_realization="domain"),
+                 "pp", id="change0-pp"),
     (dict(subcycles=2), "subcycles"),
     pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64),
                  "rungs", id="change2-rungs"),

@@ -167,8 +167,9 @@ def test_run_cosmological_matches_jax():
     want = j_run(JState.create(pos, vel, mass, 0.1, dtype=jnp.float64), jc,
                  grid, j_force(jc, 100.0, 16), 100.0)
     st = state_from_numpy(pos, vel, mass, 0.1, device="cpu", dtype=torch.float64)
-    got = t_run(st, tc, grid, t_force(tc, 100.0, 16, dtype=torch.float64), 100.0)
-    pm = t_force(tc, 100.0, 16, dtype=torch.float64)
+    got = t_run(st, tc, grid, t_force(tc, 100.0, 16, device="cpu",
+                                      dtype=torch.float64), 100.0)
+    pm = t_force(tc, 100.0, 16, device="cpu", dtype=torch.float64)
     checked, ov = t_run_checked(st, tc, grid, lambda p, m, a: (pm(p, m, a), 0),
                                 100.0)
     assert ov == 0 and torch.equal(checked.pos, got.pos)
