@@ -54,7 +54,11 @@ script exits non-zero:
     dense oracles at N = 2, 1,000 and 32,768 with and without a box, at
     3,001 targets against 5,000 sources, and its float64 form on the
     Kepler pair and through the Kepler and solar-system drives against
-    the same drives on the CPU; its time at N = 262,144;
+    the same drives on the CPU; its launch shape at N = 262,144 (R, S,
+    resident blocks) with two launches equal bit for bit, one launch
+    against K7's design before its redesign for Hopper (built in this run
+    by ``scripts/torch_k7_ablation.py`` as its ``original`` variant), and
+    its time there;
 16. the Ewald PP force (K1 with the Gaussian split plus the k-space sum)
     at the 32^3 ICs in float32 against float64, the default
     ``SimulationConfig(solver='pp')`` run through ``run_simulation`` with
@@ -115,7 +119,9 @@ script exits non-zero:
 21. the ring and replicated-grid forces of ``nbody_torch.distributed.
     sharding``, four shards on the one card: (a) K7's ring site: the ring
     force of plummer(262,144) against the single-device K7 and float64,
-    one ring launch against its plain version, and 100 steps of [17]'s
+    one ring launch against its plain version, its launch shape with two
+    launches equal bit for bit and against the design before the
+    redesign, as in [15], and 100 steps of [17]'s
     drive through the ring (K7 launches = 16 x 101, [17]'s energy and
     momentum limits); (b) K6's replicated-grid site: every shard's x-slab
     of the whole cell plane at the cfg64 ICs against the plain version,
@@ -2023,6 +2029,7 @@ def ring_site_check(n: int, steps: int, k7_run: dict) -> tuple[dict, int]:
     err = max(max_abs(got[0], plain[0]), max_abs(got[1], plain[1]))
     if not rel <= FORCE_REL_L2_TOL:
         raise AssertionError(f"[21] a ring launch disagrees: {rel}")
+    k7_shape_check("[21]", pi, pj, mj, eps)
     ms = _mean_ms([lambda d=d, h=h: block_acc_pallas(
         blk[d][0], blk[(d - h) % D][0], blk[(d - h) % D][1], eps)
         for d in range(D) for h in range(D)], 5)
@@ -2598,6 +2605,68 @@ def pp_kernel_check(sizes=(2, 1000, 32768)) -> None:
             raise AssertionError(f"K7 float64 {name} drive: {msg}")
 
 
+def _k7_original():
+    """K7's design before its redesign for Hopper (one target a thread,
+    rsqrtf, no source slices): ``scripts/torch_k7_ablation.py``'s
+    ``original`` variant, built in this run.  Returns (the ablation
+    module, the loaded library)."""
+    if not hasattr(_k7_original, "built"):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_k7_ablation",
+            os.path.join(ROOT, "scripts", "torch_k7_ablation.py"))
+        abl = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(abl)
+        so, _ = abl.build_all(["original"])[
+            abl.source_tag(abl.VARIANTS["original"][0])]
+        _k7_original.built = (abl, abl.load(so))
+    return _k7_original.built
+
+
+def k7_shape_check(tag: str, pos_i, pos_j, mass_j, eps: float) -> None:
+    """K7's launch shape for targets ``pos_i`` against sources ``pos_j``
+    (R, target blocks, slices S, resident blocks per SM); two launches on
+    the same inputs, which must be equal bit for bit; and one launch of
+    the design before the redesign on the same inputs, which must agree
+    to FORCE_REL_L2_TOL, timed beside the redesign's launch."""
+    from nbody_torch.forces.pallas_pp import (
+        _run,
+        block_acc_pallas,
+        card_geometry,
+    )
+
+    geo = card_geometry(pos_i, pos_j)
+    first = block_acc_pallas(pos_i, pos_j, mass_j, eps)
+    second = block_acc_pallas(pos_i, pos_j, mass_j, eps)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    abl, lib = _k7_original()
+    old_geo = abl.variant_geometry(lib, 1, pos_i, pos_j)
+    old = _run(lib, old_geo, pos_i, pos_j, mass_j, eps, 0.0)
+    rel = max(rel_l2(old[:, :3], first[0].double()),
+              rel_l2(old[:, 3], first[1].double()))
+    old_ms = cuda_time_ms(
+        lambda: _run(lib, old_geo, pos_i, pos_j, mass_j, eps, 0.0), 5)
+    new_ms = cuda_time_ms(
+        lambda: block_acc_pallas(pos_i, pos_j, mass_j, eps), 5)
+    phase(f"{tag} K7 launch shape {pos_i.shape[0]} x {pos_j.shape[0]}: R "
+          f"{geo.targets_per_thread} targets a thread, {geo.target_blocks} "
+          f"target blocks x S {geo.slices} slices of {geo.slice_sources} "
+          f"sources, {geo.blocks_per_sm} resident blocks per SM on "
+          f"{geo.sms} SMs; two launches equal bit for bit: {same}; the "
+          f"design before the redesign (R {old_geo.targets_per_thread}, S "
+          f"{old_geo.slices}, built in this run) {old_ms:.4f} ms a launch "
+          f"against {new_ms:.4f} ms ({old_ms / new_ms:.3f}x), rel L2 "
+          f"between them {rel:.3e} (tol {FORCE_REL_L2_TOL:g})")
+    if not same:
+        raise AssertionError(f"{tag} two K7 launches on the same inputs "
+                             f"differ")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"{tag} K7 and its design before the "
+                             f"redesign disagree: {rel}")
+
+
 def pp_kernel_time(n: int) -> dict:
     """[15] K7 at N particles (the Plummer drive's shape): each wrapper's
     time, its plain version's and the bound; returns the two rows'
@@ -2619,6 +2688,7 @@ def pp_kernel_time(n: int) -> dict:
         acc, pot = pp_block_plain(p, p, m, eps)
         return acc, -(pot - m / eps)
 
+    k7_shape_check("[15]", pos, pos, mass, eps)
     raw64 = pp_block_plain(pos.double(), pos.double(), mass.double(), eps)
     out = {}
     for key, fn, plain, ref in (

@@ -104,8 +104,9 @@ _ENTRY_POINTS = {
     "p3m_cells_f32": "ppppiiiidddiipp",
     "pm_supercell_deposit_f32": "ppiiiiiiiiiddpp",
     "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiidddiipp",
-    "pp_allpairs_f32": "pippiddpp",
-    "pp_allpairs_f64": "pippiddpp",
+    "pp_allpairs_f32": "pippiddiippp",
+    "pp_allpairs_f64": "pippiddiippp",
+    "pp_allpairs_info": "iip",
     "pp_gram_f32": "ppiiddpp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}

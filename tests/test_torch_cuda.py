@@ -370,6 +370,38 @@ def test_k7_block_acc_matches_plain(cuda):
         assert float((got.double() - want).norm() / want.norm()) <= K1_REL_L2_TOL
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("box", [0.0, 30.0])
+@pytest.mark.parametrize("ni,nj", [(3001, 5000), (700, 1), (2, 200),
+                                   (65, 70001)])
+def test_k7_sliced_launch_matches_plain(cuda, dtype, box, ni, nj):
+    """K7 where its launch cuts the sources into slices: 3,001 targets (not
+    a multiple of a block's R x 128), one source, fewer source tiles than
+    the card's slots want, and 70,001 sources (not a multiple of S x 128),
+    with and without a box, against the float64 plain version; a second
+    launch on the same inputs gives the same bits."""
+    from nbody_torch.forces.pallas_pp import (
+        block_acc_pallas,
+        card_geometry,
+        pp_block_plain,
+    )
+
+    ti, _ = _particles(ni, 100.0, cuda, seed=ni)
+    tj, mj = _particles(nj, 100.0, cuda, seed=nj + 1)
+    ti, tj, mj = ti.to(dtype), tj.to(dtype), mj.to(dtype)
+    geo = card_geometry(ti, tj, box)
+    tiles = -(-nj // geo.threads)
+    assert 1 <= geo.slices <= tiles and (geo.slices > 1) == (tiles > 1)
+    first = block_acc_pallas(ti, tj, mj, 0.3, box=box)
+    second = block_acc_pallas(ti, tj, mj, 0.3, box=box)
+    torch.cuda.synchronize()
+    ref = pp_block_plain(ti.double(), tj.double(), mj.double(), 0.3, box)
+    tol = K1_REL_L2_TOL if dtype == torch.float32 else 1e-12
+    for got, again, want in zip(first, second, ref):
+        assert got.dtype == dtype and torch.equal(got, again)
+        assert float((got.double() - want).norm() / want.norm()) <= tol
+
+
 def test_k7_wrapper_rejects(cuda):
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
 

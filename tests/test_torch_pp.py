@@ -120,3 +120,40 @@ def test_cpu_tensors_launch_nothing():
     assert (tpp.allpairs_pallas.launches,
             tpp.block_acc_pallas.launches) == before
     assert tpp.interactions_per_call(262144) == 262144**2
+
+
+@pytest.mark.parametrize("targets_per_thread", [1, 4])
+@pytest.mark.parametrize("blocks_per_sm", [8, 12])
+@pytest.mark.parametrize("nj", [1, 100, 70001, 65536])
+@pytest.mark.parametrize("ni", [0, 1, 129, 3001, 65536, 262144])
+def test_launch_geometry(ni, nj, blocks_per_sm, targets_per_thread):
+    """K7's launch shape on the H100's 132 SMs: every source in exactly one
+    slice of whole tiles, as the kernel reads them (pp_allpairs.cu: jb,
+    je), no more slices than tiles, one slice where the target blocks make
+    WAVES waves of the card's slots, and otherwise at least half that many
+    where the tiles allow it, so at least a wave (the 65,536^2 ring launch
+    among them)."""
+    geo = tpp.launch_geometry(ni, nj, 132, blocks_per_sm, targets_per_thread)
+    block = geo.threads * geo.targets_per_thread
+    assert (geo.target_blocks - 1) * block < ni <= geo.target_blocks * block
+    tiles = -(-nj // geo.threads)
+    assert 1 <= geo.slices <= tiles
+    assert geo.slice_sources > 0 and geo.slice_sources % geo.threads == 0
+    seen = np.zeros(nj, dtype=int)
+    for s in range(geo.slices):
+        jb = s * geo.slice_sources
+        je = nj if nj - jb <= geo.slice_sources else jb + geo.slice_sources
+        assert jb < je
+        seen[jb:je] += 1
+    assert (seen == 1).all()
+    slots = 132 * blocks_per_sm
+    waves = tpp.WAVES * slots
+    if geo.target_blocks == 0 or geo.target_blocks >= waves:
+        assert geo.slices == 1
+    elif geo.target_blocks * tiles >= waves:
+        assert 2 * geo.target_blocks * geo.slices >= waves
+        assert geo.target_blocks * geo.slices >= slots
+    else:
+        assert geo.slices == tiles
+    if ni == nj == 65536:
+        assert geo.target_blocks * geo.slices >= slots
