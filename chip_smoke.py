@@ -23,7 +23,14 @@ script exits non-zero:
    supercell tier's plane of the 64^3 production run, and K4 (column pair
    sum) on its columns tier's plane: on the ICs at the geometry each run
    starts from (the driver's own pre-warm and heal rules), and again on
-   the final state of each run of phase 9 at its healed geometry;
+   the final state of each run of phase 9 at its healed geometry.  Here
+   and in phases 11, 19 and 20, K3, K4 and K5 are also held per target
+   (``target_err`` within TARGET_TOL), two launches must be equal bit
+   for bit, the reach narrowed by r_cut/2 (``scripts/
+   torch_columns_ablation.py``'s planted ``narrowed`` variant, built in
+   phase 2 with its ``original``, the design before the redesign) must
+   fail the per-target gate, and the original is timed beside the
+   kernel on the same plane;
 8. the supercell, columns, cells and dense tiers of ``p3m_acc`` agree at
    the 64^3 ICs;
 9. the 64^3 production run (``cfg64``: 64^3 particles, box 500 Mpc, mesh
@@ -182,6 +189,11 @@ PORT_DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 # products (~3e-4 of each phase) would read far above the limit.
 K1_REL_L2_TOL = 1e-4
 FORCE_REL_L2_TOL = 1e-4
+# K3, K4 and K5 per target (target_err): the largest |got - ref| of an
+# output plane's slots over the RMS force of its targets, against the
+# float64 plain version.  The relative L2 over 262,144 targets cannot see
+# one dropped pair, an O(1e-2) error on one target.
+TARGET_TOL = 1e-3
 # K2 against its float32 plain version (the same coordinates, rounded op
 # by op): only the order of the float32 sums differs, the kernel's adds
 # being atomic; relative to the largest node mass
@@ -319,6 +331,99 @@ def max_abs(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max())
 
 
+def target_err(got, ref) -> float:
+    """The largest per-target error of a column kernel's output plane: the
+    largest |got - ref| over its slots (rows 0-5, the force and a split-off
+    PM force, as one vector) over the RMS of |ref| over the slots where it
+    is nonzero."""
+    d = (got[:6].double() - ref[:6].double()).norm(dim=0)
+    r = ref[:6].double().norm(dim=0)
+    return float(d.max()) / float(r[r > 0].square().mean().sqrt())
+
+
+def _columns_variants() -> dict:
+    """{name: library} of ``scripts/torch_columns_ablation.py``'s
+    ``original`` (the column kernels' design before their redesign for
+    Hopper) and ``narrowed`` (the reach cut by r_cut / 2, a planted fault)
+    variants, built in this run."""
+    if not hasattr(_columns_variants, "libs"):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_columns_ablation",
+            os.path.join(ROOT, "scripts", "torch_columns_ablation.py"))
+        abl = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(abl)
+        _columns_variants.libs = {
+            name: lib for name, (lib, _) in abl.load_variants(
+                ["original", "narrowed"]).items()}
+    return _columns_variants.libs
+
+
+def column_gates(tag: str, got: list, ref: list, again, variant) -> float:
+    """The gates of a K3/K4/K5 site beyond relative L2, on one output plane
+    a shard: the per-target error of ``got`` against the float64 plain
+    version ``ref`` within TARGET_TOL, a second launch (``again()``) equal
+    to ``got`` bit for bit, and the planted narrowed reach
+    (``variant("narrowed")``) above TARGET_TOL.  Returns the per-target
+    error."""
+    err = max(target_err(g, r) for g, r in zip(got, ref))
+    same = all(torch.equal(g, a) for g, a in zip(got, again()))
+    planted = max(target_err(n, r) for n, r in zip(variant("narrowed"), ref))
+    phase(f"{tag}: per-target error {err:.3e} (tol {TARGET_TOL:g}); two "
+          f"launches {'equal bit for bit' if same else 'DIFFERENT'}; the "
+          f"planted reach narrowed by r_cut/2 {planted:.3e} (must exceed "
+          f"the tol)")
+    if not err <= TARGET_TOL:
+        raise AssertionError(f"{tag}: a target's force is off by {err}")
+    if not same:
+        raise AssertionError(f"{tag}: two launches differ")
+    if not planted > TARGET_TOL:
+        raise AssertionError(f"{tag}: the per-target gate missed the "
+                             f"narrowed reach ({planted})")
+    return err
+
+
+def original_beside(tag: str, ms: float, ref: list, variant,
+                    reps: int) -> float:
+    """The design before the redesign (``variant("original")``) on the
+    same planes, timed beside the redesign's ``ms`` a launch; it must agree
+    with the float64 plain version ``ref`` to FORCE_REL_L2_TOL."""
+    rel = max(rel_l2(o, r) for o, r in zip(variant("original"), ref))
+    o_ms = cuda_time_ms(lambda: variant("original"), reps) / len(ref)
+    phase(f"{tag}: the design before the redesign (scripts/"
+          f"torch_columns_ablation.py's original, built in this run) "
+          f"{o_ms:.4f} ms a launch against {ms:.4f} ({o_ms / ms:.2f}x); rel "
+          f"L2 vs float64 {rel:.3e} (tol {FORCE_REL_L2_TOL:g})")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"{tag}: the design before the redesign "
+                             f"disagrees: {rel}")
+    return o_ms
+
+
+def reach_visits(plane, ws, nch, *, box: float, drift=None, cht=None,
+                 lib=None, **kw) -> tuple[int, int]:
+    """(the visits the column kernels of the library ``lib`` (the port's
+    by default) make on a plane, computed from the plain reach rule
+    ``column_reach`` with that build's targets a block and probe spacing
+    (the whole windows for a build without the search): their blocks'
+    reach times the targets a block; the visits of the whole windows, the
+    design before the redesign's)."""
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces.p3m_columns import column_info, column_reach
+
+    group, fence, search = column_info(load_library() if lib is None
+                                       else lib)
+    keys = ("ncell", "stride", "W", "maxch", "gz", "chunk", "r_cut", "nx")
+    first, lo, hi = column_reach(plane, ws, nch, box=box, drift=drift,
+                                 cht=cht, group=group, fence=fence,
+                                 **{k: kw[k] for k in keys if k in kw})
+    whole = first.numel() * 9 * kw["W"] * group
+    if not search:
+        return whole, whole
+    return int(torch.clamp_min(hi - lo, 0).sum()) * group, whole
+
+
 def count_inside_dense(pos, box: float, r_cut: float) -> int:
     """Minimum-image pairs (self pairs included) with r^2 < r_cut^2: the
     visits on which K1 evaluates the weight."""
@@ -369,12 +474,17 @@ def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
               softening="spline")
     grids = torch.zeros((3, nmesh, nmesh, nmesh), device=pos.device)
     dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz)
+    kw4 = dict(kw, box=box)
     bad.update({
         "K4 float64 plane": lambda: run_column_plane(plane.double(), ws, nch,
-                                                     **kw),
-        "K4 int64 ws": lambda: run_column_plane(plane, ws.long(), nch, **kw),
+                                                     **kw4),
+        "K4 int64 ws": lambda: run_column_plane(plane, ws.long(), nch, **kw4),
         "K4 plane shape": lambda: run_column_plane(plane[:4].contiguous(), ws,
-                                                   nch, **kw),
+                                                   nch, **kw4),
+        "K4 without the box": lambda: run_column_plane(plane, ws, nch, **kw),
+        "K4 float64 drift": lambda: run_column_plane(
+            plane, ws, nch, drift=torch.zeros((), dtype=torch.float64,
+                                              device=pos.device), **kw4),
         "K3 grids shape": lambda: run_fused_column_plane(
             plane, ws, nch, grids[:2].contiguous(), S=nmesh // ncell,
             scale=nmesh / box, **kw),
@@ -386,7 +496,7 @@ def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
         "K5 int64 chunk table": lambda: run_column_plane_masked(
             plane, ws, nch, torch.zeros(nch.numel() * maxch,
                                         dtype=torch.int64,
-                                        device=pos.device), **kw),
+                                        device=pos.device), **kw4),
     })
     cplane, _, K, _, ccounts = build_padded_plane(pos, mass, box, r_cut,
                                                   int(box / r_cut), 128)
@@ -491,9 +601,9 @@ def needed_work(plane, counts, *, ncell: int, stride: int, gz: int,
     it in z; a pair inside r_cut also has r^2 < r_cut^2 (self pairs
     included, as K1's count has them).  ``targets`` (ncol, stride) bool
     restricts the targets (K5: the active particles only).  The kernels
-    also visit the rest of each chunk's windows, and targets in the
-    padding and ghost slots of a column's last chunk (and K5 the inactive
-    targets of an active chunk); that is not counted.  ``nx``: a slab
+    also visit the rest of their blocks' reach (``reach_visits``), and
+    targets in the ghost slots of a column's last chunk (and K5 the
+    inactive targets of an active chunk); that is not counted.  ``nx``: a slab
     plane's interior x-rows (its ghost x-rows are the neighbours')."""
     P = ncell + 2
     nx = ncell if nx is None else nx
@@ -557,6 +667,7 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
         deposit_node_masses_plain,
         fold_node_masses,
         fused_column_plane_plain,
+        launch_fused,
         run_fused_column_plane,
         supercell_deposit_from_plane,
         supercell_geometry,
@@ -626,6 +737,7 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
                                       rho1=rho1).contiguous()
     p64 = plane.double()
     visits, inside, _, n_t = needed_work(plane, counts, **kw)
+    libs = _columns_variants()
     for il, so in ((False, False), (True, False), (False, True)):
         g = grids6 if il else grids3
         fkw = dict(S=S, scale=scale, split_out=so, interlaced=il, **kw)
@@ -638,11 +750,20 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
               f"{max_abs(got, ref):.3e}")
         if not rel <= FORCE_REL_L2_TOL:
             raise AssertionError(f"K3 disagrees with its plain version: {rel}")
+
+        def variant(name, g=g, fkw=fkw):
+            return [launch_fused(libs[name], plane, ws, nch, g, nx=ncell,
+                                 row0=0, box=box, drift=None, **fkw)]
+
+        column_gates(f"[7] {tag} K3 interlaced={il} split_out={so}", [got],
+                     [ref], lambda g=g, fkw=fkw: [run_fused_column_plane(
+                         plane, ws, nch, g, **fkw)], variant)
         if not il and not so:
-            k3_err = max_abs(got, ref)
+            k3_err, ref0, variant0 = max_abs(got, ref), ref, variant
     fkw = dict(S=S, scale=scale, **kw)
     k3_ms = cuda_time_ms(
         lambda: run_fused_column_plane(plane, ws, nch, grids3, **fkw), 20)
+    original_beside(f"[7] {tag} K3", k3_ms, [ref0], variant0, 5)
     k3_plain_ms = cuda_time_ms(
         lambda: fused_column_plane_plain(plane, ws, nch, grids3, **fkw), 2)
     # every stored particle is a target and reads itself: n_t sources
@@ -651,11 +772,12 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
                        + n_real * FLOPS_PM_READ)
     out["K3"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    kernel_visits = int(nch.sum()) * geo["chunk"] * 9 * geo["W"]
+    reach, whole = reach_visits(plane, ws, nch, box=box, **kw)
     phase(f"[7] {tag} K3: kernel {k3_ms:.4f} ms, plain f32 {k3_plain_ms:.3f}"
           f" ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e} visits within "
-          f"r_cut in z (the kernel makes {kernel_visits:.4e}), {inside:.4e} "
-          f"inside r_cut")
+          f"r_cut in z (the kernel's reach by column_reach {reach:.4e}, "
+          f"the whole windows "
+          f"{whole:.4e}), {inside:.4e} inside r_cut")
     return out
 
 
@@ -666,6 +788,7 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
     line."""
     from nbody_torch.forces.p3m_columns import (
         column_plane_plain,
+        launch_columns,
         run_column_plane,
     )
 
@@ -673,8 +796,9 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
                                                       cfg_run, prewarm)
     phase(f"[7] {tag}: {knobs}")
     kw = _pair_kw(config, geo)
+    box = config.box
     p64 = plane.double()
-    got = run_column_plane(plane, ws, nch, **kw)
+    got = run_column_plane(plane, ws, nch, box=box, **kw)
     torch.cuda.synchronize()
     ref = column_plane_plain(p64, ws, nch, **kw)
     rel = rel_l2(got, ref)
@@ -683,17 +807,29 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
           f"abs {k4_err:.3e}")
     if not rel <= FORCE_REL_L2_TOL:
         raise AssertionError(f"K4 disagrees with its plain version: {rel}")
-    k4_ms = cuda_time_ms(lambda: run_column_plane(plane, ws, nch, **kw), 20)
+    libs = _columns_variants()
+
+    def variant(name):
+        return [launch_columns(libs[name], plane, ws, nch, None,
+                               nx=geo["ncell"], box=box, drift=None, **kw)]
+
+    column_gates(f"[7] {tag} K4", [got], [ref],
+                 lambda: [run_column_plane(plane, ws, nch, box=box, **kw)],
+                 variant)
+    k4_ms = cuda_time_ms(lambda: run_column_plane(plane, ws, nch, box=box,
+                                                  **kw), 20)
+    original_beside(f"[7] {tag} K4", k4_ms, [ref], variant, 5)
     k4_plain_ms = cuda_time_ms(lambda: column_plane_plain(plane, ws, nch,
                                                           **kw), 2)
     visits, inside, _, n_t = needed_work(plane, counts, **kw)
     b_ms, b_by = bound(needed_bytes(n_t, n_t),
                        visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
-    kernel_visits = int(nch.sum()) * geo["chunk"] * 9 * geo["W"]
+    reach, whole = reach_visits(plane, ws, nch, box=box, **kw)
     phase(f"[7] {tag} K4: kernel {k4_ms:.4f} ms, plain f32 {k4_plain_ms:.3f}"
           f" ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e} visits within "
-          f"r_cut in z (the kernel makes {kernel_visits:.4e}), {inside:.4e} "
-          f"inside r_cut")
+          f"r_cut in z (the kernel's reach by column_reach {reach:.4e}, "
+          f"the whole windows "
+          f"{whole:.4e}), {inside:.4e} inside r_cut")
     return {"K4": dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
 
@@ -846,10 +982,12 @@ def cell_kernel_check(state, act, config, tag: str) -> dict:
     return out
 
 
-def _frozen_setup(state, cfg_run, frac: float, seed: int = 7):
+def _frozen_setup(state, cfg_run, frac: float, seed: int = 7,
+                  stale: int = 0):
     """A plan frozen at ``state`` at the driver's frozen geometry for
     ``cfg_run`` and the positions drifted by frac * skin/2 in random
-    directions: (plan, moved, geometry keywords, skin)."""
+    directions, and ``stale`` particles moved a column side down in z
+    beyond that: (plan, moved, geometry keywords, skin)."""
     from nbody_torch.driver.simulate import _frozen_geometry
     from nbody_torch.forces.p3m_columns import (
         freeze_column_plan,
@@ -866,6 +1004,9 @@ def _frozen_setup(state, cfg_run, frac: float, seed: int = 7):
     u = torch.randn(state.pos.shape, generator=g, dtype=torch.float64)
     u = (u / u.norm(dim=1, keepdim=True)).to(state.pos)
     moved = state.pos + frac * 0.5 * skin * u
+    if stale:
+        moved[torch.randperm(moved.shape[0], generator=g)[:stale], 2] -= \
+            box / ncell
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
     geo = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
                chunk=chunk)
@@ -874,45 +1015,73 @@ def _frozen_setup(state, cfg_run, frac: float, seed: int = 7):
 
 
 def masked_column_check(state, act, config, cfg_run, tag: str,
-                        frac: float) -> dict:
+                        frac: float, stale: int = 0) -> dict:
     """K5 against its float64 plain version on the plan frozen at
     ``state`` (the driver's frozen geometry), at positions drifted by frac
-    * skin/2, for the chunks that hold an ``act`` particle; and K5 with
-    every chunk listed against K4 on the same plane (equal bit for bit).
-    Returns K5's numbers for the JSON line."""
+    * skin/2 (and ``stale`` particles a column side past that, as the
+    driver keeps up to stale_tolerance of them), for the chunks that hold
+    an ``act`` particle; and K5 with every chunk listed against K4 on the
+    same plane (equal bit for bit).  Returns K5's numbers for the JSON
+    line."""
     from nbody_torch.forces.p3m_columns import (
         active_chunk_table,
         column_plane_plain,
         frozen_plane,
+        launch_columns,
         run_column_plane,
         run_column_plane_masked,
     )
 
-    plan, moved, geo, g = _frozen_setup(state, cfg_run, frac)
+    plan, moved, geo, g = _frozen_setup(state, cfg_run, frac, stale=stale)
     box = config.box
-    plane, interior = frozen_plane(moved, state.mass, plan, box, g["r_cut"],
-                                   geo["ncell"], g["CK"], geo["gz"],
-                                   geo["stride"])
+    plane, interior, drift = frozen_plane(moved, state.mass, plan, box,
+                                          g["r_cut"], geo["ncell"], g["CK"],
+                                          geo["gz"], geo["stride"])
     nch_act, cht = active_chunk_table(act, plan, interior, CK=g["CK"],
                                       ncell=geo["ncell"], gz=geo["gz"],
                                       maxch=geo["maxch"], chunk=geo["chunk"])
     kw = _pair_kw(config, geo)
-    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw)
+    # the plane's measured drift, as the frozen callers give the kernel
+    kk = dict(box=box, drift=drift, **kw)
+    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kk)
     torch.cuda.synchronize()
     ref = column_plane_plain(plane.double(), plan.ws, nch_act, cht=cht, **kw)
     rel, err = rel_l2(got, ref), max_abs(got, ref)
     if not rel <= FORCE_REL_L2_TOL:
         raise AssertionError(f"K5 disagrees with its plain version: {rel}")
+    libs = _columns_variants()
+
+    def variant(name):
+        return [launch_columns(libs[name], plane, plan.ws, nch_act, cht,
+                               nx=geo["ncell"], **kk)]
+
+    column_gates(f"[11] {tag} K5 at drift {frac:g} x skin/2"
+                 + (f" and {stale} stale" if stale else ""), [got], [ref],
+                 lambda: [run_column_plane_masked(plane, plan.ws, nch_act,
+                                                  cht, **kk)], variant)
+    if stale:
+        # the drift a plan's skin/2 allows at most, as if no particle
+        # were stale: the reach it gives can drop pairs (reported only)
+        within = torch.full((), 0.25 * (box / geo["ncell"] - g["r_cut"]),
+                            device=plane.device)
+        err_within = target_err(run_column_plane_masked(
+            plane, plan.ws, nch_act, cht, **dict(kk, drift=within)), ref)
+        phase(f"[11] {tag}: {stale} particles moved {box / geo['ncell']:.2f}"
+              f" Mpc down in z, measured drift {float(drift):.3f} Mpc; with "
+              f"the drift of a plan's largest skin/2 ({float(within):.3f} "
+              f"Mpc) in its place, the per-target error would read "
+              f"{err_within:.3e}")
     ncol, maxch = geo["ncell"] ** 2, geo["maxch"]
     every = torch.arange(maxch, device=plane.device,
                          dtype=torch.int32).repeat(ncol)
     if not torch.equal(run_column_plane_masked(plane, plan.ws, plan.nch,
-                                               every, **kw),
-                       run_column_plane(plane, plan.ws, plan.nch, **kw)):
+                                               every, **kk),
+                       run_column_plane(plane, plan.ws, plan.nch, **kk)):
         raise AssertionError("K5 with every chunk listed differs from K4")
     ms = cuda_time_ms(
-        lambda: run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw),
+        lambda: run_column_plane_masked(plane, plan.ws, nch_act, cht, **kk),
         20)
+    original_beside(f"[11] {tag} K5", ms, [ref], variant, 5)
     plain_ms = cuda_time_ms(lambda: column_plane_plain(
         plane, plan.ws, nch_act, cht=cht, **kw), 2)
     counts = torch.clamp_max(plan.counts, g["CK"]).to(torch.int32)
@@ -930,15 +1099,17 @@ def masked_column_check(state, act, config, cfg_run, tag: str,
     n_src = int(seen.sum())
     b_ms, b_by = bound(needed_bytes(n_src, n_t),
                        visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
-    kernel_visits = int(nch_act.sum()) * geo["chunk"] * 9 * geo["W"]
-    phase(f"[11] {tag}: drift {frac:g} x skin/2 (skin {g['skin']:.3f} Mpc),"
-          f" {int(act.sum())} active particles in {int(nch_act.sum())} of "
-          f"{int(plan.nch.sum())} chunks; K5 rel L2 {rel:.3e} (tol "
-          f"{FORCE_REL_L2_TOL:g}), max abs {err:.3e}; every chunk listed "
-          f"== K4; kernel {ms:.4f} ms, plain f32 {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); {visits:.4e} visits of active targets "
-          f"within r_cut in z (the kernel makes {kernel_visits:.4e}), "
-          f"{inside:.4e} inside r_cut, {n_src} sources read, {n_t} targets")
+    reach, whole = reach_visits(plane, plan.ws, nch_act, cht=cht, **kk)
+    phase(f"[11] {tag}: drift {frac:g} x skin/2 (skin {g['skin']:.3f} Mpc,"
+          f" the measured drift {float(drift):.3f}), {int(act.sum())} active "
+          f"particles in {int(nch_act.sum())} of {int(plan.nch.sum())} "
+          f"chunks; K5 rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), max abs "
+          f"{err:.3e}; every chunk listed == K4; kernel {ms:.4f} ms, plain "
+          f"f32 {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e}"
+          f" visits of active targets within r_cut in z (the kernel's reach "
+          f"by column_reach "
+          f"{reach:.4e}, the whole windows {whole:.4e}), {inside:.4e} inside "
+          f"r_cut, {n_src} sources read, {n_t} targets")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -955,6 +1126,7 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
         deposit_node_masses_plain,
         fold_node_masses,
         fused_column_plane_plain,
+        launch_fused,
         p3m_supercell_acc,
         p3m_supercell_frozen,
         run_fused_column_plane,
@@ -970,8 +1142,8 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
     box, nmesh, mass = config.box, config.mesh_size, state.mass
     ncell, stride, gz = geo["ncell"], geo["stride"], geo["gz"]
     S, ZP = supercell_geometry(nmesh, ncell)
-    plane, _ = frozen_plane(moved, mass, plan, box, g["r_cut"], ncell,
-                            g["CK"], gz, stride)
+    plane, _, drift = frozen_plane(moved, mass, plan, box, g["r_cut"], ncell,
+                                   g["CK"], gz, stride)
     counts = torch.clamp_max(plan.counts, g["CK"]).to(torch.int32)
     fresh = build_column_plane(moved, mass, box, g["r_cut"], ncell, g["CK"],
                                geo["W"], chunk=geo["chunk"])
@@ -1048,10 +1220,18 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
                                         rho1=rho1).contiguous()
         fkw = dict(S=S, scale=nmesh / box, split_out=True, interlaced=il,
                    **kw)
-        got = run_fused_column_plane(plane, plan.ws, plan.nch, grids, **fkw)
+        got = run_fused_column_plane(plane, plan.ws, plan.nch, grids,
+                                     drift=drift, **fkw)
         torch.cuda.synchronize()
         ref = fused_column_plane_plain(plane.double(), plan.ws, plan.nch,
                                        grids.double(), **fkw)
+        column_gates(
+            f"[11] {tag} K3 interlaced={il} split_out", [got], [ref],
+            lambda: [run_fused_column_plane(plane, plan.ws, plan.nch, grids,
+                                            drift=drift, **fkw)],
+            lambda name: [launch_fused(_columns_variants()[name], plane,
+                                       plan.ws, plan.nch, grids, nx=ncell,
+                                       row0=0, box=box, drift=drift, **fkw)])
         rel = rel_l2(got, ref)
         ekw = dict(G=1.0, eps=config.eps, r_s=kw["r_s"], r_cut=kw["r_cut"],
                    deconvolve_p=config.deconvolve_p, split=split,
@@ -1180,6 +1360,7 @@ def slab_supercell_check(state, config) -> dict:
         extract_local_subgrids,
         fold_slab_node_masses,
         fused_column_plane_plain,
+        launch_fused,
         run_fused_column_plane,
         slab_halo_fold,
         supercell_deposit_from_plane,
@@ -1280,15 +1461,19 @@ def slab_supercell_check(state, config) -> dict:
         halos[il] = extract_local_subgrids(
             list(torch.chunk(grids.contiguous(), D, dim=1)), group)
     k3_errs = []
+    libs = _columns_variants()
     for il, so in ((False, False), (True, False), (False, True)):
         fkw = dict(S=S, scale=nmesh / box, split_out=so, interlaced=il, **kw)
-        rels = []
-        for b, p, h, r0 in zip(built, planes, halos[il], rows0):
+        args = list(zip(built, planes, halos[il], rows0))
+        rels, gots, refs = [], [], []
+        for b, p, h, r0 in args:
             got = run_fused_column_plane(p, b[1], b[2], h, row0=r0, **fkw)
             torch.cuda.synchronize()
             ref = fused_column_plane_plain(p.double(), b[1], b[2], h.double(),
                                            row0=r0, **fkw)
             rels.append(rel_l2(got, ref))
+            gots.append(got)
+            refs.append(ref)
             if not il and not so:
                 k3_errs.append(max_abs(got, ref))
         phase(f"[19] K3 slab interlaced={il} split_out={so}: rel L2 per "
@@ -1297,10 +1482,23 @@ def slab_supercell_check(state, config) -> dict:
         if not max(rels) <= FORCE_REL_L2_TOL:
             raise AssertionError(f"K3 slab disagrees with its plain "
                                  f"version: {rels}")
+
+        def variant(name, args=args, fkw=fkw):
+            return [launch_fused(libs[name], p, b[1], b[2], h, row0=r0,
+                                 box=box, drift=None, **fkw)
+                    for b, p, h, r0 in args]
+
+        column_gates(f"[19] K3 slab interlaced={il} split_out={so}", gots,
+                     refs, lambda args=args, fkw=fkw: [run_fused_column_plane(
+                         p, b[1], b[2], h, row0=r0, **fkw)
+                         for b, p, h, r0 in args], variant)
+        if not il and not so:
+            refs0, variant0 = refs, variant
     fkw = dict(S=S, scale=nmesh / box, **kw)
     args = list(zip(built, planes, halos[False], rows0))
     k3_ms = _mean_ms([lambda b=b, p=p, h=h, r0=r0: run_fused_column_plane(
         p, b[1], b[2], h, row0=r0, **fkw) for b, p, h, r0 in args], 20)
+    original_beside("[19] K3 slab", k3_ms, refs0, variant0, 5)
     k3_plain_ms = _mean_ms([lambda b=b, p=p, h=h, r0=r0:
                             fused_column_plane_plain(p, b[1], b[2], h,
                                                      row0=r0, **fkw)
@@ -1313,12 +1511,15 @@ def slab_supercell_check(state, config) -> dict:
     k3 = _slab_row(k3_errs, k3_ms, k3_plain_ms, nbytes,
                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE
                    + n_real * FLOPS_PM_READ, D)
-    kernel_visits = sum(int(b[2].sum()) for b in built) * chunk * 9 * W
+    reach = [reach_visits(p, b[1], b[2], box=box, **kw)
+             for b, p in zip(built, planes)]
     phase(f"[19] K3 slab: kernel {k3_ms:.4f} ms a launch, plain f32 "
           f"{k3_plain_ms:.3f} ms, bound {k3['bound_ms']:.4f} ms "
           f"({k3['bound_by']}); {visits:.4e} visits within r_cut in z over "
-          f"{D} shards (the kernels make {kernel_visits:.4e}), {inside:.4e} "
-          f"inside r_cut")
+          f"{D} shards (the kernels' reach by column_reach "
+          f"{sum(r[0] for r in reach):.4e}, "
+          f"the whole windows {sum(r[1] for r in reach):.4e}), "
+          f"{inside:.4e} inside r_cut")
     return {"K2s": k2, "K3s": k3}
 
 
@@ -1330,6 +1531,7 @@ def slab_columns_check(state, config) -> dict:
     from nbody_torch.forces.p3m_columns import (
         column_plane_plain,
         column_window,
+        launch_columns,
         plane_geometry,
         run_column_plane,
     )
@@ -1349,20 +1551,32 @@ def slab_columns_check(state, config) -> dict:
           f"{chunk}" + "".join(f"; {x}" for x in lines))
     kw = _pair_kw(config, dict(ncell=geom.ncell, stride=stride, W=W,
                                maxch=maxch, gz=gz, chunk=chunk, nx=nx))
-    rels, errs = [], []
+    rels, errs, gots, refs = [], [], [], []
     for b in built:
-        got = run_column_plane(b[0], b[1], b[2], **kw)
+        got = run_column_plane(b[0], b[1], b[2], box=box, **kw)
         torch.cuda.synchronize()
         ref = column_plane_plain(b[0].double(), b[1], b[2], **kw)
         rels.append(rel_l2(got, ref))
         errs.append(max_abs(got, ref))
+        gots.append(got)
+        refs.append(ref)
     phase(f"[19] K4 slab: rel L2 per shard {', '.join(f'{r:.3e}' for r in rels)}"
           f" (tol {FORCE_REL_L2_TOL:g})")
     if not max(rels) <= FORCE_REL_L2_TOL:
         raise AssertionError(f"K4 slab disagrees with its plain version: "
                              f"{rels}")
-    ms = _mean_ms([lambda b=b: run_column_plane(b[0], b[1], b[2], **kw)
+    libs = _columns_variants()
+
+    def variant(name):
+        return [launch_columns(libs[name], b[0], b[1], b[2], None, box=box,
+                               drift=None, **kw) for b in built]
+
+    column_gates("[19] K4 slab", gots, refs, lambda: [run_column_plane(
+        b[0], b[1], b[2], box=box, **kw) for b in built], variant)
+    ms = _mean_ms([lambda b=b: run_column_plane(b[0], b[1], b[2], box=box,
+                                                **kw)
                    for b in built], 20)
+    original_beside("[19] K4 slab", ms, refs, variant, 5)
     plain_ms = _mean_ms([lambda b=b: column_plane_plain(b[0], b[1], b[2],
                                                         **kw)
                          for b in built], 1)
@@ -1645,6 +1859,7 @@ def k5_slab_check(res, cfg) -> dict:
         _local_plane_from_buf,
         active_chunk_table,
         column_plane_plain,
+        launch_columns,
         plane_geometry,
         run_column_plane_masked,
     )
@@ -1665,6 +1880,7 @@ def k5_slab_check(res, cfg) -> dict:
           + "".join(f"; {x}" for x in lines))
     kw = _pair_kw(cfg, dict(ncell=geom.ncell, stride=stride, W=W,
                             maxch=maxch, gz=gz, chunk=chunk, nx=nxl))
+    libs = _columns_variants()
     for frac in (0.0, 0.999):
         gen = torch.Generator().manual_seed(20)
         moved = []
@@ -1676,20 +1892,27 @@ def k5_slab_check(res, cfg) -> dict:
         frozen = [_frozen_buf(p, s.mass, pl, box, geom.r_cut, CK, gz, stride)
                   for p, s, pl in zip(moved, shards, plans)]
         planes = [pl for pl, _ in _local_plane_from_buf(
-            [b for b, _ in frozen], box=box, r_cut=geom.r_cut,
+            [b for b, _, _ in frozen], box=box, r_cut=geom.r_cut,
             ncell=geom.ncell, group=group, stride=stride)]
         tables = [active_chunk_table(a, pl, f[1], CK=CK, nx=nxl,
                                      ncell=geom.ncell, gz=gz, maxch=maxch,
                                      chunk=chunk)
                   for a, pl, f in zip(act, plans, frozen)]
-        rels, errs = [], []
-        for plane, pl, (nch_act, cht) in zip(planes, plans, tables):
-            got = run_column_plane_masked(plane, pl.ws, nch_act, cht, **kw)
+        # the measured drift, the largest of the shards', as the frozen
+        # caller gives the kernel
+        kks = [dict(box=box, drift=dr, **kw)
+               for dr in group.pmax([f[2] for f in frozen])]
+        rels, errs, gots, refs = [], [], [], []
+        args = list(zip(planes, plans, tables, kks))
+        for plane, pl, (nch_act, cht), kk in args:
+            got = run_column_plane_masked(plane, pl.ws, nch_act, cht, **kk)
             torch.cuda.synchronize()
             ref = column_plane_plain(plane.double(), pl.ws, nch_act, cht=cht,
                                      **kw)
             rels.append(rel_l2(got, ref))
             errs.append(max_abs(got, ref))
+            gots.append(got)
+            refs.append(ref)
         phase(f"[20] K5 slab at drift {frac:g} x skin/2: rel L2 per shard "
               f"{', '.join(f'{r:.3e}' for r in rels)} (tol "
               f"{FORCE_REL_L2_TOL:g}); {sum(int(t[0].sum()) for t in tables)}"
@@ -1697,9 +1920,19 @@ def k5_slab_check(res, cfg) -> dict:
         if not max(rels) <= FORCE_REL_L2_TOL:
             raise AssertionError(f"K5 slab disagrees with its plain version "
                                  f"at drift {frac}: {rels}")
-    launch = [lambda p=p, pl=pl, t=t: run_column_plane_masked(
-        p, pl.ws, t[0], t[1], **kw) for p, pl, t in zip(planes, plans, tables)]
+
+        def variant(name, args=args):
+            return [launch_columns(libs[name], p, pl.ws, t[0], t[1], **kk)
+                    for p, pl, t, kk in args]
+
+        column_gates(f"[20] K5 slab at drift {frac:g} x skin/2", gots, refs,
+                     lambda args=args: [run_column_plane_masked(
+                         p, pl.ws, t[0], t[1], **kk)
+                         for p, pl, t, kk in args], variant)
+    launch = [lambda p=p, pl=pl, t=t, kk=kk: run_column_plane_masked(
+        p, pl.ws, t[0], t[1], **kk) for p, pl, t, kk in args]
     ms = _mean_ms(launch, 20)
+    original_beside("[20] K5 slab", ms, refs, variant, 5)
     plain_ms = _mean_ms([lambda p=p, pl=pl, t=t: column_plane_plain(
         p, pl.ws, t[0], cht=t[1], **kw)
         for p, pl, t in zip(planes, plans, tables)], 1)
@@ -1713,10 +1946,15 @@ def k5_slab_check(res, cfg) -> dict:
         nbytes += needed_bytes(n_src, n_t)
     row = _slab_row(errs, ms, plain_ms, nbytes,
                     visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
+    reach = [reach_visits(p, pl.ws, t[0], cht=t[1], **kk)
+             for p, pl, t, kk in args]
     phase(f"[20] K5 slab: kernel {ms:.4f} ms a launch, plain f32 "
           f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}); {visits:.4e} visits of active targets "
-          f"within r_cut in z over {D} shards, {inside:.4e} inside r_cut")
+          f"within r_cut in z over {D} shards (the kernels' reach by "
+          f"column_reach "
+          f"{sum(r[0] for r in reach):.4e}, the whole windows "
+          f"{sum(r[1] for r in reach):.4e}), {inside:.4e} inside r_cut")
     return {"K5s": row}
 
 
@@ -3023,12 +3261,18 @@ def main() -> None:
         prewarm_capacity,
         realize_ics,
         run_simulation,
+        stale_tolerance,
     )
     from nbody_torch.forces.p3m import (
         p3m_acc,
         p3m_short_acc,
         p3m_short_params,
         p3m_short_plain,
+    )
+    from nbody_torch.forces.p3m_columns import (
+        REACH_FENCE,
+        REACH_TARGETS,
+        column_info,
     )
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -3044,6 +3288,16 @@ def main() -> None:
     phase(f"[2] kernel library {os.path.basename(_kernels.build_info['path'])}"
           f" {'built' if _kernels.build_info['built'] else 'loaded'} in "
           f"{time.perf_counter() - t0:.2f} s")
+    info = column_info(_kernels.load_library())
+    if info != (REACH_TARGETS, REACH_FENCE, True):
+        raise AssertionError(f"the column kernels' targets a block, probe "
+                             f"spacing and search {info} differ from "
+                             f"column_reach's {(REACH_TARGETS, REACH_FENCE)}")
+    t0 = time.perf_counter()
+    _columns_variants()
+    phase(f"[2] the column kernels' design before the redesign and the "
+          f"planted narrowed reach (scripts/torch_columns_ablation.py) built "
+          f"in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. K1 against its plain version at the main path's shape ---------
     cfg = SimulationConfig()
@@ -3281,6 +3535,9 @@ def main() -> None:
                              "64^3 ICs, K5", 0.0)
     masked_column_check(ics64, act64, r64, res64r.config_run,
                         "64^3 ICs drifted, K5", 0.999)
+    masked_column_check(ics64, act64, r64, res64r.config_run,
+                        "64^3 ICs drifted with stale particles, K5", 0.999,
+                        stale=stale_tolerance(r64))
     frozen_supercell_check(ics64, r64, res64r.config_run,
                            "64^3 ICs drifted to skin/2")
     kernels.update(K5=k5, K6=k6)

@@ -99,11 +99,12 @@ def _build(so: Path) -> None:
 # i = int, d = double; every entry point returns a CUDA error code
 _ENTRY_POINTS = {
     "p3m_short_acc_f32": "piidddddiipp",
-    "p3m_columns_f32": "pppiiiiiiidddiipp",
-    "p3m_columns_masked_f32": "ppppiiiiiiidddiipp",
+    "p3m_columns_f32": "pppiiiiiiiddddpiipp",
+    "p3m_columns_masked_f32": "ppppiiiiiiiddddpiipp",
+    "column_pairs_info": "ppp",
     "p3m_cells_f32": "ppppiiiidddiipp",
     "pm_supercell_deposit_f32": "ppiiiiiiiiiddpp",
-    "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiidddiipp",
+    "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiiddddpiipp",
     "pp_allpairs_f32": "pippiddiippp",
     "pp_allpairs_f64": "pippiddiippp",
     "pp_allpairs_info": "iip",

@@ -18,29 +18,27 @@
 // the (8, P2 * stride) output plane at the target's slot.  The wrapper
 // zeroes the output, so every other slot and row is 0.
 //
-// What bounds it: compute.  Each target visits 9 * W window slots (about
-// 4,600 at the 64^3-particle production geometry, 1.2e9 visits per call);
-// a visit is three differences, r^2 and the cutoff test, and the ~3% of
-// visits inside r_cut add the weight (~40 flops and one rsqrt).  The plane
-// (16 MB at 64^3) is read from L2 once per block.
+// What bounds it: compute.  A target has ~100 pairs inside r_cut at the
+// 64^3-particle production geometry; its 9 windows hold 9 * W slots (W
+// the plane's widest window: 9,000-26,000 a target), 3% of them inside
+// r_cut, and the reach of a block of 128 targets about 2,000.
 //
 // What the design does about it: the TPU kernel walked the 9 neighbours
 // as a sequential grid axis and carried the output column between grid
 // steps.  Blocks on the card run in no order, so here one block owns 128
-// targets of one (column, chunk) and loops over all 9 neighbours itself;
-// each output is written once, with no atomics.  The window streams
-// through shared memory in float4 tiles of 128 sources, as in K1, and the
-// weight is evaluated only under the cutoff branch.  Two blocks per
-// 256-slot chunk give ~2,500 blocks at the production geometry (K1's 256
-// blocks left most SMs idle).  Windows wider than 512 (healed clustered
-// states) only lengthen the tile loop.
+// targets of one (column, chunk), one a thread, and loops over all 9
+// neighbours itself; each output is written once, with no atomics.  It
+// visits in each window only the reach of its own targets
+// (column_pairs.cuh: the reach search and the per-warp culling of
+// sub-tiles).
 //
 // K5: the TPU kernel looped over a column's active chunks with a dynamic
 // trip count read from scalar memory.  Here the grid is K4's, a block per
-// (column, chunk-table slot, half chunk), and a block past the column's
+// (column, chunk-table slot, 128 targets), and a block past the column's
 // active count returns at once; the others read their chunk index from
-// the table and run K4's body.  Slots of chunks not in the table stay 0.
-// What bounds it: as K4, over the active chunks only.
+// the table and run K4's body over every target of the chunk.  Slots of
+// chunks not in the table stay 0.  What bounds it: as K4, over the active
+// chunks only.
 
 #include <cuda_runtime.h>
 
@@ -49,28 +47,38 @@
 namespace {
 
 using nbody_kernels::ColumnGeom;
+using nbody_kernels::ColumnTarget;
+using nbody_kernels::kColTargets;
 using nbody_kernels::kColThreads;
 using nbody_kernels::Params;
+
+// Loads this thread's target of the block at `first`, runs the pair sum
+// and writes the sums to rows 0-2 of `out`.
+template <int SPLIT, int SOFT>
+__device__ __forceinline__ void column_body(const float* __restrict__ plane,
+                                            const int* __restrict__ ws,
+                                            const ColumnGeom& g,
+                                            const Params& p, int ic, int k,
+                                            size_t first,
+                                            float* __restrict__ out) {
+  __shared__ nbody_kernels::ColumnShared sh;
+  const size_t i = nbody_kernels::target_slot(first);
+  ColumnTarget t = nbody_kernels::load_target(plane, g, i);
+  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, t, p, sh);
+  out[i] = t.ax;
+  out[g.row + i] = t.ay;
+  out[2 * g.row + i] = t.az;
+}
 
 template <int SPLIT, int SOFT>
 __global__ void __launch_bounds__(kColThreads)
 column_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
               const int* __restrict__ nch, ColumnGeom g, Params p,
               float* __restrict__ out) {
-  __shared__ float4 tile[kColThreads];
   int ic, k;
   size_t first;
   if (!nbody_kernels::column_block(g, nch, ic, k, first)) return;
-  const size_t i = first + threadIdx.x;
-  const float xi = plane[i];
-  const float yi = plane[g.row + i];
-  const float zi = plane[2 * g.row + i];
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, xi, yi, zi,
-                                              p, tile, ax, ay, az);
-  out[i] = ax;
-  out[g.row + i] = ay;
-  out[2 * g.row + i] = az;
+  column_body<SPLIT, SOFT>(plane, ws, g, p, ic, k, first, out);
 }
 
 template <int SPLIT, int SOFT>
@@ -80,21 +88,11 @@ column_kernel_masked(const float* __restrict__ plane,
                      const int* __restrict__ nch_act,
                      const int* __restrict__ cht, ColumnGeom g, Params p,
                      float* __restrict__ out) {
-  __shared__ float4 tile[kColThreads];
   int ic, k;
   size_t first;
   if (!nbody_kernels::column_block_masked(g, nch_act, cht, ic, k, first))
     return;
-  const size_t i = first + threadIdx.x;
-  const float xi = plane[i];
-  const float yi = plane[g.row + i];
-  const float zi = plane[2 * g.row + i];
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, xi, yi, zi,
-                                              p, tile, ax, ay, az);
-  out[i] = ax;
-  out[g.row + i] = ay;
-  out[2 * g.row + i] = az;
+  column_body<SPLIT, SOFT>(plane, ws, g, p, ic, k, first, out);
 }
 
 // cht == nullptr launches K4, else K5 with nch the active counts.
@@ -102,7 +100,7 @@ template <int SPLIT, int SOFT>
 void launch(const float* plane, const int* ws, const int* nch, const int* cht,
             const ColumnGeom& g, const Params& p, float* out,
             cudaStream_t stream) {
-  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColThreads));
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets));
   if (cht == nullptr)
     column_kernel<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(
         plane, ws, nch, g, p, out);
@@ -113,25 +111,18 @@ void launch(const float* plane, const int* ws, const int* nch, const int* cht,
 
 int run(const float* plane, const int* ws, const int* nch, const int* cht,
         int nx, int ncell, int stride, int W, int maxch, int gz, int chunk,
-        double eps, double r_s, double r_cut, int split, int softening,
-        float* out, void* stream) {
+        double eps, double r_s, double r_cut, double box, const float* drift,
+        int split, int softening, float* out, void* stream) {
   if (ncell < 1 || nx < 1 || nx > ncell || stride < 1 || W < 1 ||
-      W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
-      chunk % kColThreads != 0 ||
+      W > stride || maxch < 1 || gz < 0 || chunk < kColTargets ||
+      chunk % kColTargets != 0 ||
       gz + maxch * chunk > stride || split < 0 || split > 1 ||
-      softening < 0 || softening > 1 ||
-      maxch * (chunk / kColThreads) > 65535) {
+      softening < 0 || softening > 1 || !(box > 0.0) ||
+      maxch * (chunk / kColTargets) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ColumnGeom g;
-  g.nx = nx;
-  g.ncell = ncell;
-  g.stride = stride;
-  g.W = W;
-  g.maxch = maxch;
-  g.gz = gz;
-  g.chunk = chunk;
-  g.row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
+  const ColumnGeom g = nbody_kernels::make_geom(nx, ncell, stride, W, maxch,
+                                                gz, chunk, box, r_cut, drift);
   // the column tiers bake the box into the ghost coordinates
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -154,14 +145,18 @@ extern "C" {
 // (nx * ncell * 9 * maxch,) int32; nch (nx * ncell,) int32; out like
 // plane, zeroed by the caller.
 // split: 0 = Gaussian, 1 = spline.  softening: 0 = Plummer, 1 = cubic
-// spline.  Returns cudaGetLastError() after the launch (0 on success); 1
+// spline.  box: the periodic box side; drift: nullptr for a fresh plane,
+// for a frozen one a float on the card, the largest |z drift| of the
+// plane's particles since the freeze (column_pairs.cuh).  Returns
+// cudaGetLastError() after the launch (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
 int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
                     int nx, int ncell, int stride, int W, int maxch, int gz,
-                    int chunk, double eps, double r_s, double r_cut, int split,
+                    int chunk, double eps, double r_s, double r_cut,
+                    double box, const float* drift, int split,
                     int softening, float* out, void* stream) {
   return run(plane, ws, nch, nullptr, nx, ncell, stride, W, maxch, gz, chunk,
-             eps, r_s, r_cut, split, softening, out, stream);
+             eps, r_s, r_cut, box, drift, split, softening, out, stream);
 }
 
 // K5.  As p3m_columns_f32, with nch_act (nx * ncell,) int32 the active
@@ -171,10 +166,20 @@ int p3m_columns_masked_f32(const float* plane, const int* ws,
                            const int* nch_act, const int* cht, int nx,
                            int ncell, int stride, int W, int maxch, int gz,
                            int chunk, double eps, double r_s, double r_cut,
-                           int split, int softening, float* out,
-                           void* stream) {
+                           double box, const float* drift, int split,
+                           int softening, float* out, void* stream) {
   return run(plane, ws, nch_act, cht, nx, ncell, stride, W, maxch, gz, chunk,
-             eps, r_s, r_cut, split, softening, out, stream);
+             eps, r_s, r_cut, box, drift, split, softening, out, stream);
+}
+
+// The column kernels' targets a block, slots between the probes of
+// their reach search and whether they search (column_pairs.cuh), for the
+// plain reach rule p3m_columns.column_reach.  Returns 0.
+int column_pairs_info(int* targets, int* fence, int* search) {
+  *targets = nbody_kernels::kColTargets;
+  *fence = nbody_kernels::kColFence;
+  *search = nbody_kernels::kColSearch;
+  return 0;
 }
 
 }  // extern "C"

@@ -63,6 +63,8 @@
 namespace {
 
 using nbody_kernels::ColumnGeom;
+using nbody_kernels::ColumnTarget;
+using nbody_kernels::kColTargets;
 using nbody_kernels::kColThreads;
 using nbody_kernels::Params;
 
@@ -171,23 +173,20 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
              const int* __restrict__ nch, const float* __restrict__ grids,
              int nmesh, int nxg, int slab, int row0, int S, float scale,
              ColumnGeom g, Params p, float* __restrict__ out) {
-  __shared__ float4 tile[kColThreads];
+  __shared__ nbody_kernels::ColumnShared sh;
   int ic, k;
   size_t first;
   if (!nbody_kernels::column_block(g, nch, ic, k, first)) return;
-  const size_t i = first + threadIdx.x;
-  const float xi = plane[i];
-  const float yi = plane[g.row + i];
-  const float zi = plane[2 * g.row + i];
-
-  // PM force at the target (the TPU kernel's first-neighbour visit)
   const int x0 = (ic / g.ncell) * S;
   const int y0 = (ic % g.ncell) * S;
-  const float xr =
-      __fsub_rn(__fmul_rn(xi, scale), static_cast<float>(x0 + row0 * S));
-  const float yr = __fsub_rn(__fmul_rn(yi, scale), static_cast<float>(y0));
-  const float zr = __fmul_rn(zi, scale);
   const size_t n3 = static_cast<size_t>(nxg) * nmesh * nmesh;
+  const size_t i = nbody_kernels::target_slot(first);
+  ColumnTarget t = nbody_kernels::load_target(plane, g, i);
+  // PM force at the target (the TPU kernel's first-neighbour visit)
+  const float xr = __fsub_rn(__fmul_rn(t.x, scale),
+                             static_cast<float>(x0 + row0 * S));
+  const float yr = __fsub_rn(__fmul_rn(t.y, scale), static_cast<float>(y0));
+  const float zr = __fmul_rn(t.z, scale);
   float3 pm = cic_read3(grids, n3, nmesh, nxg, slab, xr, yr, zr, x0, y0);
   if (INTERLACED) {
     // the shift subtracts, as in the gather's convention
@@ -197,15 +196,15 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
     pm.y = 0.5f * (pm.y + f1.y);
     pm.z = 0.5f * (pm.z + f1.z);
   }
-
-  float ax = SPLIT_OUT ? 0.0f : pm.x;
-  float ay = SPLIT_OUT ? 0.0f : pm.y;
-  float az = SPLIT_OUT ? 0.0f : pm.z;
-  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, xi, yi, zi,
-                                              p, tile, ax, ay, az);
-  out[i] = ax;
-  out[g.row + i] = ay;
-  out[2 * g.row + i] = az;
+  if (!SPLIT_OUT) {
+    t.ax = pm.x;
+    t.ay = pm.y;
+    t.az = pm.z;
+  }
+  nbody_kernels::column_pair_sum<SPLIT, SOFT>(plane, ws, g, ic, k, t, p, sh);
+  out[i] = t.ax;
+  out[g.row + i] = t.ay;
+  out[2 * g.row + i] = t.az;
   if (SPLIT_OUT) {
     out[3 * g.row + i] = pm.x;
     out[4 * g.row + i] = pm.y;
@@ -218,7 +217,7 @@ void launch_fused(const float* plane, const int* ws, const int* nch,
                   const float* grids, int nmesh, int nxg, int slab, int row0,
                   int S, float scale, const ColumnGeom& g, const Params& p,
                   float* out, cudaStream_t stream) {
-  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColThreads));
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets));
   fused_kernel<SPLIT, SOFT, INTERLACED, SPLIT_OUT>
       <<<grid, kColThreads, 0, stream>>>(plane, ws, nch, grids, nmesh, nxg,
                                          slab, row0, S, scale, g, p, out);
@@ -282,9 +281,9 @@ int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3.  plane, ws, nch and out as p3m_columns_f32; grids (3, nxg, nmesh,
-// nmesh) float32, or (6, ...) with `interlaced` (rows 3-5 read at -0.5
-// cell): nxg = nmesh periodic (slab = 0, nx = ncell), or on a slab
+// K3.  plane, ws, nch, out, box and drift as p3m_columns_f32; grids (3,
+// nxg, nmesh, nmesh) float32, or (6, ...) with `interlaced` (rows 3-5 read
+// at -0.5 cell): nxg = nmesh periodic (slab = 0, nx = ncell), or on a slab
 // (slab = 1, its first x-row row0 of the box's grid) the haloed
 // nx * S + 4 planes.  `split_out` writes the PM force to rows 3-5 and the
 // short-range sum alone to rows 0-2.
@@ -293,26 +292,20 @@ int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
                            int split_out, int nx, int ncell, int slab,
                            int row0, int S, double scale, int stride, int W,
                            int maxch, int gz, int chunk, double eps,
-                           double r_s, double r_cut, int split,
-                           int softening, float* out, void* stream) {
+                           double r_s, double r_cut, double box,
+                           const float* drift, int split, int softening,
+                           float* out, void* stream) {
   if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
       slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
       (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S || stride < 1 ||
-      W < 1 || W > stride || maxch < 1 || gz < 0 || chunk < kColThreads ||
-      chunk % kColThreads != 0 || gz + maxch * chunk > stride ||
+      W < 1 || W > stride || maxch < 1 || gz < 0 || chunk < kColTargets ||
+      chunk % kColTargets != 0 || gz + maxch * chunk > stride ||
       split < 0 || split > 1 || softening < 0 || softening > 1 ||
-      maxch * (chunk / kColThreads) > 65535) {
+      !(box > 0.0) || maxch * (chunk / kColTargets) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ColumnGeom g;
-  g.nx = nx;
-  g.ncell = ncell;
-  g.stride = stride;
-  g.W = W;
-  g.maxch = maxch;
-  g.gz = gz;
-  g.chunk = chunk;
-  g.row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
+  const ColumnGeom g = nbody_kernels::make_geom(nx, ncell, stride, W, maxch,
+                                                gz, chunk, box, r_cut, drift);
   const int nxg = slab ? nx * S + 4 : nmesh;
   // the column tiers bake the box into the ghost coordinates
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);

@@ -27,7 +27,9 @@ The plane build is PyTorch.  The pair sum is K4, a CUDA kernel
 (``forces/csrc/p3m_columns.cu``) on a CUDA tensor, and its plain PyTorch
 version :func:`column_plane_plain` on a CPU tensor; K5, in the same
 source, is K4 restricted to a table of active chunks
-(:func:`run_column_plane_masked`).
+(:func:`run_column_plane_masked`).  Each block of the kernels visits only
+the slots of its chunk's windows that its targets can reach, by the rule
+that :func:`column_reach` states in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -399,6 +401,90 @@ def column_plane_plain(plane, ws, nch, *, ncell: int, stride: int, W: int,
     return out
 
 
+# The column kernels' block of targets and the spacing of their reach
+# search's probes (kColTargets and kColFence in csrc/column_pairs.cuh;
+# :func:`column_info` reads them from a built library).
+REACH_TARGETS = 128
+REACH_FENCE = 32
+
+
+def column_info(lib) -> tuple[int, int, bool]:
+    """(targets a block, slots between probes, whether they search) of the
+    column kernels in the kernel library ``lib``: the ``group`` and
+    ``fence`` of :func:`column_reach` for that build, and False for a
+    build that visits the whole windows."""
+    import ctypes
+
+    out = [ctypes.c_int() for _ in range(3)]
+    lib.column_pairs_info(*map(ctypes.byref, out))
+    return out[0].value, out[1].value, bool(out[2].value)
+
+
+def column_reach(plane, ws, nch, *, ncell: int, stride: int, W: int,
+                 maxch: int, gz: int, chunk: int, r_cut: float, box: float,
+                 drift=None, cht=None, nx: int | None = None,
+                 group: int = REACH_TARGETS, fence: int = REACH_FENCE):
+    """The reach rule of the column kernels (K3, K4, K5), plain: for each
+    block of ``group`` targets of each occupied (with ``cht``: listed)
+    chunk, the slots [lo, hi) of each of its 9 neighbour windows that it
+    visits, as offsets into the window.  Returns (first (B,) the block's
+    first target slot, lo (B, 9), hi (B, 9)); lo >= hi visits nothing.
+
+    The block's targets, less the sentinels (z < -box: invalid front
+    ghosts; z > box + 2 r_cut: padding and invalid back ghosts), span
+    [tmin, tmax]; every ``fence``-th slot of a window is a probe.  The
+    start moves up to the last probe whose z lies below tmin - reach -
+    slack (a front sentinel counts as z = -1.0001 r_cut), the end down to
+    the first probe above tmax + reach + slack (a back sentinel counts as
+    z = box + 1.0001 r_cut); reach is r_cut (1 + 1e-5) and slack twice
+    the ``drift`` (None for a fresh plane; for a frozen one the largest
+    |z drift| of its particles since the freeze, :func:`frozen_plane`'s),
+    each plus 4 quanta of the sort key (box / 2^21).  So every source of
+    nonzero mass within r_cut of a target lies inside (the kernel's
+    comment in csrc/column_pairs.cuh says why).  Thresholds are taken in
+    the plane's dtype, as the kernel does in float32."""
+    dev, dt = plane.device, plane.dtype
+    P = ncell + 2
+    ic, k, cfirst = interior_slots(ncell, stride, gz, chunk, nch, dev,
+                                   cht=cht, maxch=maxch, nx=nx)
+    per = chunk // group
+    first = (cfirst[:, None] + group * torch.arange(per, device=dev)
+             ).reshape(-1)
+    ic, k = ic.repeat_interleave(per), k.repeat_interleave(per)
+    quantum = box / (1 << 21)
+    c = {key: torch.tensor(v, dtype=dt, device=dev) for key, v in dict(
+        reach=r_cut * (1.0 + 1e-5) + 4.0 * quantum, slack=4.0 * quantum,
+        zlow=-box, zhigh=box + 2.0 * r_cut, key_lo=-1.0001 * r_cut,
+        key_hi=box + 1.0001 * r_cut).items()}
+    if drift is not None:
+        c["slack"] = c["slack"] + 2.0 * torch.as_tensor(
+            drift, device=dev).to(dt).reshape(())
+    tz = plane[2][first[:, None] + torch.arange(group, device=dev)]
+    real = (tz >= c["zlow"]) & (tz <= c["zhigh"])
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    tmin = torch.where(real, tz, inf).amin(1)
+    tmax = torch.where(real, tz, -inf).amax(1)
+    below = (tmin - c["reach"]) - c["slack"]
+    above = (tmax + c["reach"]) + c["slack"]
+    nf = -(-W // fence)
+    f = torch.arange(nf, device=dev)
+    ws64 = ws.to(torch.int64).reshape(-1, 9, maxch)
+    lo, hi = [], []
+    for o2 in range(9):
+        jcol = (ic // ncell + o2 // 3) * P + (ic % ncell + o2 % 3)
+        z = plane[2][(jcol * stride + ws64[ic, o2, k])[:, None]
+                     + fence * f[None, :]]
+        low, high = z < c["zlow"], z > c["zhigh"]
+        up = ~high & (torch.where(low, c["key_lo"], z) < below[:, None])
+        down = ~low & (torch.where(high, c["key_hi"], z) > above[:, None])
+        lo.append(torch.where(up, f, 0).amax(1) * fence)
+        hi.append(torch.clamp_max(torch.where(down, f, nf).amin(1) * fence,
+                                  W))
+    lo, hi = torch.stack(lo, 1), torch.stack(hi, 1)
+    empty = ~real.any(1)[:, None]
+    return first, torch.where(empty, 0, lo), torch.where(empty, 0, hi)
+
+
 def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
                      ncell: int, stride: int, nx: int | None = None):
     """Raise on what the column kernels do not take: a float32 contiguous
@@ -426,16 +512,63 @@ def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
                              f"({sizes[key]},) tensor on {plane.device}")
 
 
+def launch_columns(lib, plane, ws, nch, cht, *, ncell: int, stride: int,
+                   W: int, maxch: int, gz: int, chunk: int, eps: float,
+                   r_s: float, r_cut: float, split: str, softening: str,
+                   nx: int, box: float, drift):
+    """One launch of K4 (``cht`` None) or K5 from the kernel library
+    ``lib`` on checked arguments -> the output plane; raises if the launch
+    fails.  The wrappers call it with the port's library, the ablation
+    with its variants'."""
+    out = torch.zeros_like(plane)
+    stream = torch.cuda.current_stream(plane.device).cuda_stream
+    head = (plane.data_ptr(), ws.data_ptr(), nch.data_ptr())
+    if cht is not None:
+        head = head + (cht.data_ptr(),)
+    fn = lib.p3m_columns_f32 if cht is None else lib.p3m_columns_masked_f32
+    with torch.cuda.device(plane.device):
+        err = fn(*head, nx, ncell, stride, W, maxch, gz, chunk, float(eps),
+                 float(r_s), float(r_cut), float(box),
+                 None if drift is None else drift.data_ptr(),
+                 _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(),
+                 stream)
+    if err != 0:
+        name = "run_column_plane" + ("" if cht is None else "_masked")
+        raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
+    return out
+
+
+def reach_args(name: str, plane, box, drift) -> dict:
+    """The box and drift the column kernels' reach search takes, checked:
+    a positive box (the plane's sentinels and its sort key's quantum) and
+    a frozen plane's drift, one float32 on the plane's device
+    (:func:`frozen_plane`), or None for a fresh plane."""
+    if box is None or not float(box) > 0.0:
+        raise ValueError(f"{name}: the kernel needs the box (> 0), got "
+                         f"{box}")
+    if drift is not None and (
+            not isinstance(drift, torch.Tensor)
+            or drift.dtype != torch.float32 or drift.numel() != 1
+            or drift.device != plane.device):
+        raise ValueError(f"{name}: drift must be one float32 on "
+                         f"{plane.device} (frozen_plane's), got {drift!r}")
+    return dict(box=float(box), drift=drift)
+
+
 def run_column_plane(plane, ws, nch, *, ncell: int, stride: int, W: int,
                      maxch: int, gz: int, chunk: int, eps: float, r_s: float,
                      r_cut: float, split: str, softening: str,
-                     nx: int | None = None):
+                     nx: int | None = None, box: float | None = None,
+                     drift=None):
     """K4: the short-range column pair sum over a plane from
     :func:`build_column_plane` (or, with ``nx`` = ncell / D, a slab's plane
     from :func:`build_local_column_plane`) -> the output plane (see
     :func:`column_plane_plain`).  A CUDA plane launches the kernel or
-    raises; a CPU plane takes the plain version.  ``run_column_plane.
-    launches`` counts kernel launches."""
+    raises; a CPU plane takes the plain version.  The kernel takes the
+    ``box`` and, for a frozen plane, its ``drift`` (:func:`frozen_plane`):
+    each block visits only the slots of its targets' reach
+    (:func:`column_reach`).  ``run_column_plane.launches`` counts kernel
+    launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
     nx = ncell if nx is None else nx
@@ -450,18 +583,9 @@ def run_column_plane(plane, ws, nch, *, ncell: int, stride: int, W: int,
                      maxch=maxch, ncell=ncell, stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
-    lib = load_library()
-    out = torch.zeros_like(plane)
-    with torch.cuda.device(plane.device):
-        err = lib.p3m_columns_f32(
-            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(), nx, ncell, stride,
-            W, maxch, gz, chunk, float(eps), float(r_s), float(r_cut),
-            _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"run_column_plane: CUDA launch failed (error "
-                           f"{err})")
+    out = launch_columns(load_library(), plane, ws, nch, None,
+                         **reach_args("run_column_plane", plane, box, drift),
+                         **kw)
     run_column_plane.launches += 1
     return out
 
@@ -473,15 +597,16 @@ def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
                             stride: int, W: int, maxch: int, gz: int,
                             chunk: int, eps: float, r_s: float, r_cut: float,
                             split: str, softening: str,
-                            nx: int | None = None):
+                            nx: int | None = None, box: float | None = None,
+                            drift=None):
     """K5: K4 restricted to the active chunks, ``nch_act[ic]`` of them in
     column ic, their indices the first entries of row ic of the chunk
     table ``cht`` (ncol * maxch) -> the output plane, zeros at the slots
     of chunks not listed; ``nx`` = ncell / D for a slab's frozen plane
-    (:func:`p3m_local_columns_frozen_masked`).  A CUDA plane launches the
-    kernel or raises; a CPU plane takes :func:`column_plane_plain` with
-    the table.  ``run_column_plane_masked.launches`` counts kernel
-    launches."""
+    (:func:`p3m_local_columns_frozen_masked`); ``box`` and ``drift`` as in
+    :func:`run_column_plane`.  A CUDA plane launches the kernel or raises;
+    a CPU plane takes :func:`column_plane_plain` with the table.
+    ``run_column_plane_masked.launches`` counts kernel launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
     nx = ncell if nx is None else nx
@@ -498,18 +623,9 @@ def run_column_plane_masked(plane, ws, nch_act, cht, *, ncell: int,
                      ncell=ncell, stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
-    lib = load_library()
-    out = torch.zeros_like(plane)
-    with torch.cuda.device(plane.device):
-        err = lib.p3m_columns_masked_f32(
-            plane.data_ptr(), ws.data_ptr(), nch_act.data_ptr(),
-            cht.data_ptr(), nx, ncell, stride, W, maxch, gz, chunk, float(eps),
-            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"run_column_plane_masked: CUDA launch failed "
-                           f"(error {err})")
+    out = launch_columns(load_library(), plane, ws, nch_act, cht,
+                         **reach_args("run_column_plane_masked", plane, box,
+                                      drift), **kw)
     run_column_plane_masked.launches += 1
     return out
 
@@ -559,7 +675,7 @@ def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
     out = run_column_plane(
         plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
         chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-        softening=softening)
+        softening=softening, box=box)
     acc = read_back(out, gidx, 3)
     return G * acc.to(pos.dtype), encode_overflow(ov_b, ov_w)
 
@@ -608,26 +724,31 @@ def _frozen_buf(pos, mass, plan, box: float, r_cut: float, CK: int,
     slab) at the current positions: one row gather by ``plan.src_g`` of
     the positions unwrapped against the freeze positions (within skin/2 of
     them, so possibly just outside [0, box)).  Returns (buf, is_interior
-    (ncol, stride))."""
+    (ncol, stride), drift): ``drift`` is the largest |z drift| of the
+    particles from their freeze positions, a 0-d float32 tensor (the
+    column kernels widen their reach search by it; no host sync)."""
     posw = torch.remainder(pos, box).to(torch.float32)
     d = posw - plan.pos0
     d = d - box * torch.round(d * (1.0 / box))
+    drift = (torch.amax(torch.abs(d[:, 2])) if d.shape[0]
+             else d.new_zeros(()))
     rows = torch.cat([plan.pos0 + d, mass.to(torch.float32)[:, None]],
                      dim=1)[plan.src_g]
     _, src_ok, is_front, is_interior, is_back = _slot_sources(
         plan.starts, plan.counts, CK, gz, stride)
     buf, _ = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back, box,
                           r_cut, 1.0001 * r_cut)
-    return buf, is_interior
+    return buf, is_interior, drift
 
 
 def frozen_plane(pos, mass, plan: ColumnPlan, box: float, r_cut: float,
                  ncell: int, CK: int, gz: int, stride: int):
     """The plan's plane at the current positions (:func:`_frozen_buf`).
-    Returns (plane, is_interior (ncol, stride))."""
-    buf, is_interior = _frozen_buf(pos, mass, plan, box, r_cut, CK, gz,
-                                   stride)
-    return _plane_from_buf(buf, box, ncell, stride), is_interior
+    Returns (plane, is_interior (ncol, stride), drift): the column
+    kernels take ``drift`` with the plane."""
+    buf, is_interior, drift = _frozen_buf(pos, mass, plan, box, r_cut, CK,
+                                          gz, stride)
+    return _plane_from_buf(buf, box, ncell, stride), is_interior, drift
 
 
 def p3m_short_columns_frozen(pos, mass, plan: ColumnPlan, box: float,
@@ -640,12 +761,12 @@ def p3m_short_columns_frozen(pos, mass, plan: ColumnPlan, box: float,
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
                                                      col_capacity, window,
                                                      chunk)
-    plane, _ = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK, gz,
-                            stride)
+    plane, _, drift = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK,
+                                   gz, stride)
     out = run_column_plane(
         plane, plan.ws, plan.nch, ncell=ncell, stride=stride, W=W,
         maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
-        split=split, softening=softening)
+        split=split, softening=softening, box=box, drift=drift)
     return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov
 
 
@@ -682,14 +803,14 @@ def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
                                                      col_capacity, window,
                                                      chunk)
-    plane, is_interior = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK,
-                                      gz, stride)
+    plane, is_interior, drift = frozen_plane(pos, mass, plan, box, r_cut,
+                                             ncell, CK, gz, stride)
     nch_act, cht = active_chunk_table(act, plan, is_interior, ncell=ncell,
                                       CK=CK, gz=gz, maxch=maxch, chunk=chunk)
     out = run_column_plane_masked(
         plane, plan.ws, nch_act, cht, ncell=ncell, stride=stride, W=W,
         maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
-        split=split, softening=softening)
+        split=split, softening=softening, box=box, drift=drift)
     return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov
 
 
@@ -924,7 +1045,7 @@ def p3m_short_columns_local(pos: list, mass: list, *, box: float, eps: float,
         out = run_column_plane(
             plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch,
             gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
-            softening=softening, nx=nxl)
+            softening=softening, nx=nxl, box=box)
         accs.append(G * read_back(out, gidx, 3).to(p.dtype))
         ovs.append(encode_overflow(ov_b, ov_w))
     return accs, ovs
@@ -1036,18 +1157,21 @@ def p3m_local_columns_frozen_masked(pos: list, mass: list, act: list,
     nxl = ncell // group.size
     frozen = [_frozen_buf(p, m, plan, box, float(r_cut), CK, gz, stride)
               for p, m, plan in zip(pos, mass, plans)]
-    planes = _local_plane_from_buf([b for b, _ in frozen], box=box,
+    planes = _local_plane_from_buf([b for b, _, _ in frozen], box=box,
                                    r_cut=float(r_cut), ncell=ncell,
                                    group=group, stride=stride)
+    # a slab's plane holds its neighbours' edge rows: the largest drift
+    # of the shards
+    drifts = group.pmax([dr for _, _, dr in frozen])
     accs = []
-    for p, a, plan, (_, interior), (plane, _) in zip(pos, act, plans, frozen,
-                                                      planes):
+    for p, a, plan, (_, interior, _), (plane, _), drift in zip(
+            pos, act, plans, frozen, planes, drifts):
         nch_act, cht = active_chunk_table(a, plan, interior, ncell=ncell,
                                           CK=CK, gz=gz, maxch=maxch,
                                           chunk=chunk, nx=nxl)
         out = run_column_plane_masked(
             plane, plan.ws, nch_act, cht, ncell=ncell, stride=stride, W=W,
             maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
-            split=split, softening=softening, nx=nxl)
+            split=split, softening=softening, nx=nxl, box=box, drift=drift)
         accs.append(G * read_back(out, plan.gidx, 3).to(p.dtype))
     return accs, [plan.ov for plan in plans]

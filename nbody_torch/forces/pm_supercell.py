@@ -40,6 +40,7 @@ from nbody_torch.forces.p3m_columns import (
     frozen_plane,
     interior_slots,
     plane_geometry,
+    reach_args,
     read_back,
 )
 from nbody_torch.forces.pm import pm_module
@@ -325,20 +326,48 @@ def fused_column_plane_plain(plane, ws, nch, grids, *, ncell: int,
     return out
 
 
+def launch_fused(lib, plane, ws, nch, grids, *, ncell: int, stride: int,
+                 W: int, maxch: int, gz: int, chunk: int, eps: float,
+                 r_s: float, r_cut: float, split: str, softening: str,
+                 S: int, scale: float, split_out: bool, interlaced: bool,
+                 nx: int, row0: int, box: float, drift):
+    """One launch of K3 from the kernel library ``lib`` on checked
+    arguments -> the output plane; raises if the launch fails.  The
+    wrapper calls it with the port's library, the ablation with its
+    variants'."""
+    out = torch.zeros_like(plane)
+    stream = torch.cuda.current_stream(plane.device).cuda_stream
+    with torch.cuda.device(plane.device):
+        err = lib.pm_supercell_fused_f32(
+            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(),
+            grids.data_ptr(), grids.shape[-1], int(interlaced),
+            int(split_out), nx, ncell, int(nx != ncell), row0, S,
+            float(scale), stride, W, maxch, gz, chunk, float(eps),
+            float(r_s), float(r_cut), float(box),
+            None if drift is None else drift.data_ptr(), _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"run_fused_column_plane: CUDA launch failed "
+                           f"(error {err})")
+    return out
+
+
 def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
                            W: int, maxch: int, gz: int, chunk: int,
                            eps: float, r_s: float, r_cut: float, split: str,
                            softening: str, S: int, scale: float,
                            split_out: bool = False,
                            interlaced: bool = False,
-                           nx: int | None = None, row0: int = 0):
+                           nx: int | None = None, row0: int = 0,
+                           drift=None):
     """K3: the PM readback from the (3 or 6, N, N, N) force ``grids``
     fused with the short-range column pair sum -> the output plane of
     :func:`fused_column_plane_plain`.  With ``nx`` < ncell the plane is a
     slab's (from the box's x-row ``row0``, box coordinates) and ``grids``
     the slab's haloed (3 or 6, nx * S + 4, N, N) grids
     (:func:`extract_local_subgrids`).  A CUDA plane launches the
-    kernel or raises; a CPU plane takes the plain version.
+    kernel or raises; a CPU plane takes the plain version.  The kernel
+    takes the box from ``scale`` (N / box) and, for a frozen plane, its
+    ``drift`` (:func:`~nbody_torch.forces.p3m_columns.frozen_plane`).
     ``run_fused_column_plane.launches`` counts kernel launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
@@ -355,9 +384,8 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
     check_plane_args("run_fused_column_plane", plane, {"ws": ws, "nch": nch},
                      maxch=maxch, ncell=ncell, stride=stride, nx=nx)
     nmesh = grids.shape[-1]
-    slab = nx != ncell
     nc = 6 if interlaced else 3
-    nxg = nx * S + 4 if slab else nmesh
+    nxg = nx * S + 4 if nx != ncell else nmesh
     if (grids.dtype != torch.float32 or grids.device != plane.device
             or tuple(grids.shape) != (nc, nxg, nmesh, nmesh)
             or not grids.is_contiguous()):
@@ -366,19 +394,9 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
                          f"{grids.dtype} {tuple(grids.shape)}")
     from nbody_torch._kernels import load_library
 
-    lib = load_library()
-    out = torch.zeros_like(plane)
-    with torch.cuda.device(plane.device):
-        err = lib.pm_supercell_fused_f32(
-            plane.data_ptr(), ws.data_ptr(), nch.data_ptr(),
-            grids.data_ptr(), nmesh, int(interlaced), int(split_out), nx,
-            ncell, int(slab), row0, S, float(scale), stride, W, maxch, gz, chunk, float(eps),
-            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"run_fused_column_plane: CUDA launch failed "
-                           f"(error {err})")
+    out = launch_fused(load_library(), plane, ws, nch, grids,
+                       **reach_args("run_fused_column_plane", plane,
+                                    nmesh / float(scale), drift), **kw)
     run_fused_column_plane.launches += 1
     return out
 
@@ -461,9 +479,10 @@ def _supercell_eval(plane, ws, nch, gidx, counts, pos, mass, box: float,
                     r_cut: float, deconvolve_p: int, split: str,
                     softening: str, ncell: int, stride: int, W: int,
                     maxch: int, gz: int, chunk: int, grad_order: str,
-                    part_split: bool, interlace: bool, ov):
+                    part_split: bool, interlace: bool, ov, drift=None):
     """K2, the FFT solve, K3 and the per-particle read of one column
-    plane: (acc, ov) or (acc_long, acc_short, ov)."""
+    plane (a frozen one with its ``drift``): (acc, ov) or (acc_long,
+    acc_short, ov)."""
     S, _ = supercell_geometry(nmesh, ncell)
     dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
                chunk=chunk)
@@ -484,7 +503,7 @@ def _supercell_eval(plane, ws, nch, gidx, counts, pos, mass, box: float,
         maxch=maxch, gz=gz, chunk=chunk, eps=float(eps), r_s=float(r_s),
         r_cut=float(r_cut), split=split, softening=softening, S=S,
         scale=float(nmesh / box), split_out=part_split,
-        interlaced=interlace)
+        interlaced=interlace, drift=drift)
     if part_split:
         both = read_back(out, gidx, 6).to(pos.dtype)
         return G * both[:, 3:6], G * both[:, 0:3], ov
@@ -511,15 +530,15 @@ def p3m_supercell_frozen(pos, mass, plan: ColumnPlan, box: float, nmesh: int,
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
                                                      col_capacity, window,
                                                      chunk)
-    plane, _ = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK, gz,
-                            stride)
+    plane, _, drift = frozen_plane(pos, mass, plan, box, r_cut, ncell, CK,
+                                   gz, stride)
     counts = torch.clamp_max(plan.counts, CK).to(torch.int32)
     return _supercell_eval(
         plane, plan.ws, plan.nch, plan.gidx, counts, pos, mass, box, nmesh,
         G=G, eps=eps, r_s=r_s, r_cut=r_cut, deconvolve_p=deconvolve_p,
         split=split, softening=softening, ncell=ncell, stride=stride, W=W,
         maxch=maxch, gz=gz, chunk=chunk, grad_order=grad_order,
-        part_split=part_split, interlace=interlace, ov=plan.ov)
+        part_split=part_split, interlace=interlace, ov=plan.ov, drift=drift)
 
 
 # ---------------------------------------------------------------------------

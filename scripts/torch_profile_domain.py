@@ -136,7 +136,7 @@ def stage_times(shards, group, geom, cfg, tier: str) -> dict:
             for d, (b, h) in enumerate(zip(built, halo))]
     else:
         stages["K4 (all shards)"] = lambda: [run_column_plane(
-            b[0], b[1], b[2], **kw) for b in built]
+            b[0], b[1], b[2], box=box, **kw) for b in built]
     stages["whole evaluation"] = lambda: acc_fn(pos, mass, 1.0)
     return {name: median_ms(fn) for name, fn in stages.items()}
 

@@ -101,10 +101,10 @@ def _column_case(cuda, n=6000, box=100.0, nmesh=32, seed=2):
 def test_k4_matches_plain(cuda, split, softening):
     from nbody_torch.forces.p3m_columns import column_plane_plain, run_column_plane
 
-    plane, ws, nch, _, kw, _, _, _ = _column_case(cuda)
+    plane, ws, nch, _, kw, _, box, _ = _column_case(cuda)
     kw.update(split=split, softening=softening)
     before = run_column_plane.launches
-    got = run_column_plane(plane, ws, nch, **kw)
+    got = run_column_plane(plane, ws, nch, box=box, **kw)
     torch.cuda.synchronize()
     assert run_column_plane.launches == before + 1
     ref = column_plane_plain(plane.double(), ws, nch, **kw)
@@ -166,11 +166,17 @@ def test_column_wrappers_reject(cuda):
     plane, ws, nch, _, kw, S, box, nmesh = _column_case(cuda, n=2000)
     kw.update(split="spline", softening="spline")
     with pytest.raises(TypeError):
-        run_column_plane(plane.double(), ws, nch, **kw)
+        run_column_plane(plane.double(), ws, nch, box=box, **kw)
     with pytest.raises(TypeError):
-        run_column_plane(plane, ws.long(), nch, **kw)
+        run_column_plane(plane, ws.long(), nch, box=box, **kw)
     with pytest.raises(ValueError):
-        run_column_plane(plane[:4].contiguous(), ws, nch, **kw)
+        run_column_plane(plane[:4].contiguous(), ws, nch, box=box, **kw)
+    with pytest.raises(ValueError):  # the reach search needs the box
+        run_column_plane(plane, ws, nch, **kw)
+    with pytest.raises(ValueError):  # the drift is one float32 on the card
+        run_column_plane(plane, ws, nch, box=box,
+                         drift=torch.zeros((), dtype=torch.float64,
+                                           device=cuda), **kw)
     with pytest.raises(ValueError):
         run_fused_column_plane(plane, ws, nch,
                                torch.zeros((2, nmesh, nmesh, nmesh), device=cuda),
@@ -247,9 +253,10 @@ def test_cell_wrapper_rejects(cuda):
         run_cell_plane(plane, counts, K=K, plane_j=plane, **kw)
 
 
-def _frozen_case(cuda, frac, n=6000, box=100.0, nmesh=32, seed=5):
+def _frozen_case(cuda, frac, n=6000, box=100.0, nmesh=32, seed=5, stale=0):
     """A frozen plan of a uniform state, the plane at positions drifted by
-    frac * skin/2, and its active-chunk table (2% of the particles)."""
+    frac * skin/2 (and ``stale`` particles moved a column side down in z),
+    and its active-chunk table (2% of the particles)."""
     from nbody_torch.forces.p3m_columns import (
         active_chunk_table,
         freeze_column_plan,
@@ -266,16 +273,18 @@ def _frozen_case(cuda, frac, n=6000, box=100.0, nmesh=32, seed=5):
     u = torch.randn((n, 3), generator=g, dtype=torch.float64)
     u = (u / u.norm(dim=1, keepdim=True)).to(cuda, torch.float32)
     moved = pos + frac * 0.5 * skin * u
+    if stale:  # particles far past skin/2 in z
+        moved[torch.randperm(n, generator=g)[:stale], 2] -= box / ncell
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
-    plane, interior = frozen_plane(moved, mass, plan, box, r_cut, ncell, CK,
-                                   gz, stride)
+    plane, interior, drift = frozen_plane(moved, mass, plan, box, r_cut,
+                                          ncell, CK, gz, stride)
     act = (torch.rand(n, generator=g) < 0.02).to(cuda)
     nch_act, cht = active_chunk_table(act, plan, interior, ncell=ncell, CK=CK,
                                       gz=gz, maxch=maxch, chunk=chunk)
     kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
               chunk=chunk, eps=0.1, r_s=r_s, r_cut=r_cut, split="spline",
               softening="spline")
-    return plane, plan, nch_act, cht, kw
+    return plane, plan, nch_act, cht, kw, dict(box=box, drift=drift)
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.99])
@@ -285,10 +294,10 @@ def test_k5_matches_plain(cuda, frac):
         run_column_plane_masked,
     )
 
-    plane, plan, nch_act, cht, kw = _frozen_case(cuda, frac)
+    plane, plan, nch_act, cht, kw, kk = _frozen_case(cuda, frac)
     assert 0 < int(nch_act.sum()) < int(plan.nch.sum())
     before = run_column_plane_masked.launches
-    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kw)
+    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kk, **kw)
     torch.cuda.synchronize()
     assert run_column_plane_masked.launches == before + 1
     ref = column_plane_plain(plane.double(), plan.ws, nch_act, cht=cht, **kw)
@@ -301,11 +310,47 @@ def test_k5_with_every_chunk_is_k4(cuda):
         run_column_plane_masked,
     )
 
-    plane, plan, _, _, kw = _frozen_case(cuda, 0.5)
+    plane, plan, _, _, kw, kk = _frozen_case(cuda, 0.5)
     ncol, maxch = kw["ncell"] ** 2, kw["maxch"]
     cht = torch.arange(maxch, device=cuda, dtype=torch.int32).repeat(ncol)
-    got = run_column_plane_masked(plane, plan.ws, plan.nch, cht, **kw)
-    assert torch.equal(got, run_column_plane(plane, plan.ws, plan.nch, **kw))
+    got = run_column_plane_masked(plane, plan.ws, plan.nch, cht, **kk, **kw)
+    assert torch.equal(got, run_column_plane(plane, plan.ws, plan.nch, **kk,
+                                             **kw))
+
+
+def _target_err(got, ref):
+    """The largest per-slot |got - ref| over the RMS of |ref| over the
+    slots where it is nonzero (chip_smoke.target_err)."""
+    d = (got[:6].double() - ref[:6].double()).norm(dim=0)
+    r = ref[:6].double().norm(dim=0)
+    return float(d.max()) / float(r[r > 0].square().mean().sqrt())
+
+
+@pytest.mark.parametrize("frac,stale", [(0.0, 0), (0.99, 0), (0.99, 16)])
+def test_column_kernels_hold_every_target(cuda, frac, stale):
+    """K4 on the fresh plane and K5 on the frozen one (drifted by frac *
+    skin/2, with ``stale`` particles a column side past it) hold every
+    target to 1e-3 of the RMS force against float64 (one pair dropped from
+    a target reads 1e-2 or more) and give the same bits twice: each block
+    visits only its targets' reach, widened by the measured drift."""
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        run_column_plane,
+        run_column_plane_masked,
+    )
+
+    plane, ws, nch, _, kw4, _, box, _ = _column_case(cuda)
+    kw4.update(split="spline", softening="spline")
+    got = run_column_plane(plane, ws, nch, box=box, **kw4)
+    assert torch.equal(got, run_column_plane(plane, ws, nch, box=box, **kw4))
+    ref = column_plane_plain(plane.double(), ws, nch, **kw4)
+    assert _target_err(got, ref) <= 1e-3
+    plane, plan, nch_act, cht, kw, kk = _frozen_case(cuda, frac, stale=stale)
+    got = run_column_plane_masked(plane, plan.ws, nch_act, cht, **kk, **kw)
+    assert torch.equal(got, run_column_plane_masked(plane, plan.ws, nch_act,
+                                                    cht, **kk, **kw))
+    ref = column_plane_plain(plane.double(), plan.ws, nch_act, cht=cht, **kw)
+    assert _target_err(got, ref) <= 1e-3
 
 
 def test_tiny_rung_run_on_gpu_matches_cpu(cuda, tmp_path):
@@ -577,7 +622,7 @@ def test_k4_slab_matches_plain(cuda):
     group, geom, built, kw = _slab_column_planes(cuda, 8)
     before = run_column_plane.launches
     for plane, ws, nch, *_ in built:
-        got = run_column_plane(plane, ws, nch, **kw)
+        got = run_column_plane(plane, ws, nch, box=geom.box, **kw)
         torch.cuda.synchronize()
         ref = column_plane_plain(plane.double(), ws, nch, **kw)
         assert float(ref.norm()) > 0
@@ -743,18 +788,21 @@ def test_k5_slab_matches_plain(cuda, frac):
                    & (s.mass > 0))
     frozen = [_frozen_buf(p, s.mass, pl, box, geom.r_cut, CK, gz, stride)
               for p, s, pl in zip(moved, shards, plans)]
-    planes = _local_plane_from_buf([b for b, _ in frozen], box=box,
+    planes = _local_plane_from_buf([b for b, _, _ in frozen], box=box,
                                    r_cut=geom.r_cut, ncell=ncell, group=group,
                                    stride=stride)
+    drifts = group.pmax([dr for _, _, dr in frozen])
     kw = dict(ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
               chunk=chunk, eps=0.5, r_s=geom.r_s, r_cut=geom.r_cut,
               split="spline", softening="spline", nx=ncell // D)
     before = run_column_plane_masked.launches
-    for (plane, _), pl, a, (_, interior) in zip(planes, plans, act, frozen):
+    for (plane, _), pl, a, (_, interior, _), drift in zip(planes, plans, act,
+                                                           frozen, drifts):
         nch_act, cht = active_chunk_table(a, pl, interior, ncell=ncell,
                                           CK=CK, gz=gz, maxch=maxch,
                                           chunk=chunk, nx=ncell // D)
-        got = run_column_plane_masked(plane, pl.ws, nch_act, cht, **kw)
+        got = run_column_plane_masked(plane, pl.ws, nch_act, cht, box=box,
+                                      drift=drift, **kw)
         torch.cuda.synchronize()
         ref = column_plane_plain(plane.double(), pl.ws, nch_act, cht=cht,
                                  **kw)

@@ -304,7 +304,7 @@ def test_k5_slab_plain_matches_jax_kernel(frac):
     mass = [s.mass for s in dom["ts"]]
     frozen = [tc._frozen_buf(p, m, pl, BOX, geom.r_cut, CKq, gz, stride)
               for p, m, pl in zip(moved, mass, plans)]
-    planes = tc._local_plane_from_buf([b for b, _ in frozen], box=BOX,
+    planes = tc._local_plane_from_buf([b for b, _, _ in frozen], box=BOX,
                                       r_cut=geom.r_cut, ncell=geom.ncell,
                                       group=dom["group"], stride=stride)
     kw = dict(ncell=geom.ncell, stride=stride, W=W, maxch=maxch, gz=gz,
@@ -316,7 +316,7 @@ def test_k5_slab_plain_matches_jax_kernel(frac):
     slots = (pcol[:, None] * stride + torch.arange(stride)).reshape(-1)
     listed = 0
     # the two shards whose halos wrap around the box
-    for d, (a, pl, (_, interior), (plane, _)) in enumerate(zip(
+    for d, (a, pl, (_, interior, _), (plane, _)) in enumerate(zip(
             _active(dom["ts"], 0.05), plans, frozen, planes)):
         if d not in (0, 3):
             continue

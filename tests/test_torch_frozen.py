@@ -114,9 +114,9 @@ def test_masked_pair_sum_matches_jax_kernel(frozen_case, frac):
     restricted to the active chunks."""
     pos, mass, jplan, plan, act = frozen_case
     CKq, gz, stride, Wq, maxch, chunk = tc.plane_geometry(BOX, R_CUT, CK, W)
-    plane, interior = tc.frozen_plane(torch.tensor(_drifted(pos, frac)),
-                                      torch.tensor(mass), plan, BOX, R_CUT,
-                                      NCELL, CKq, gz, stride)
+    plane, interior, _ = tc.frozen_plane(torch.tensor(_drifted(pos, frac)),
+                                         torch.tensor(mass), plan, BOX, R_CUT,
+                                         NCELL, CKq, gz, stride)
     nch_act, cht = tc.active_chunk_table(
         torch.tensor(act), plan, interior, ncell=NCELL, CK=CKq, gz=gz,
         maxch=maxch, chunk=chunk)
