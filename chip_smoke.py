@@ -7,15 +7,22 @@ script exits non-zero:
 
 1. a CUDA card is present; print its name and power limit;
 2. build the CUDA kernel library from the sources in this checkout;
-3. K1 (the dense short-range P3M kernel) against its plain PyTorch
-   version in float64, on the card, at the default run's shape
-   (N = 32,768, box 500 Mpc, mesh 64), for all four split x softening
-   variants, with both times;
+3. K1 (the short-range P3M pair sum: a Hilbert sort, a tile cull)
+   against its plain PyTorch version in float64, on the card, at the
+   default run's shape (N = 32,768 uniform, box 500 Mpc, mesh 64), for
+   all four split x softening variants: relative L2 and per target
+   (``target_err`` within TARGET_TOL), two launches equal bit for bit,
+   the cull narrowed by r_cut/2 (``scripts/torch_k1_ablation.py``'s
+   planted ``narrowed`` variant, built in phase 2 with its ``original``,
+   the kernel before its redesign) above the per-target limit, the
+   original timed beside it, the visits the cull leaves against the
+   dense count, with both times;
 4. the wrappers' argument checks raise on the card (K1-K4);
 5. the default ``SimulationConfig()`` run (32^3 particles, P3M dense tier,
    142 steps) through ``nbody_torch.driver.simulate.run_simulation`` on
    the card, with K1's launch count, wall time and steps/s (no snapshot:
-   it needs h5py);
+   it needs h5py); then K1 on the run's final (clustered) state with
+   [3]'s gates;
 6. the 16^3 run from the JAX package's committed white noise, whose P(k)
    at a = 1 must match the JAX package's committed P(k);
 7. K2 (supercell deposit) and K3 (fused PM readback + column pair sum,
@@ -67,7 +74,8 @@ script exits non-zero:
     by ``scripts/torch_k7_ablation.py`` as its ``original`` variant), and
     its time there;
 16. the Ewald PP force (K1 with the Gaussian split plus the k-space sum)
-    at the 32^3 ICs in float32 against float64, the default
+    at the 32^3 ICs in float32 against float64, K1 alone there with
+    [3]'s gates (r_cut 0.4999 box: the sources in slices), the default
     ``SimulationConfig(solver='pp')`` run through ``run_simulation`` with
     K1's launch count, and the 16^3 PP run from the committed white noise
     against the JAX package's P(k);
@@ -147,7 +155,7 @@ script exits non-zero:
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 18, 19, 20 and 21, and each kernel's bound:
+from phases 3, 7, 11, 15, 16, 18, 19, 20 and 21, and each kernel's bound:
 the larger of the bytes the function needs over the card's memory rate
 and its operations over its float32 rate, for K8 its rsqrts over the SFU's rate
 and its TF32 products over the tensor cores'); then the card's name and
@@ -268,12 +276,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 RSQRT_PER_CLOCK_SM = 16
-# float32 operations per source visit, as the kernels are written (an FMA
-# counts 2): K1 3 differences + 3 minimum images (multiply, round, FMA)
-# + r^2 (5) + the cutoff test (2); the column kernels the same without
-# the minimum image; and the weight of a visit inside r_cut (rsqrt, the
-# split and softening polynomials, the mass and three FMAs).
-FLOPS_VISIT_K1 = 22
+# float32 operations per source visit (an FMA counts 2): 3 differences +
+# r^2 (5) + the cutoff test (2), the minimum image taken once a column (the
+# column kernels) or a tile (K1) and not a pair; and the weight of a visit
+# inside r_cut (rsqrt, the split and softening polynomials, the mass and
+# three FMAs).
 FLOPS_VISIT_COLUMNS = 10
 FLOPS_INSIDE = 40
 # K7: the JAX package's cost estimate for one pair (pallas_pp.py:136)
@@ -358,6 +365,106 @@ def _columns_variants() -> dict:
             name: lib for name, (lib, _) in abl.load_variants(
                 ["original", "narrowed"]).items()}
     return _columns_variants.libs
+
+
+def _k1_variants():
+    """``scripts/torch_k1_ablation.py`` (the module) and {name: library} of
+    its ``original`` (K1 before its redesign for Hopper) and ``narrowed``
+    (the cull's reach cut by r_cut / 2, a planted fault) variants, built
+    in this run."""
+    if not hasattr(_k1_variants, "libs"):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_k1_ablation",
+            os.path.join(ROOT, "scripts", "torch_k1_ablation.py"))
+        abl = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(abl)
+        _k1_variants.abl = abl
+        _k1_variants.libs = {name: lib for name, (lib, _) in
+                             abl.load_variants(["original",
+                                                "narrowed"]).items()}
+    return _k1_variants.abl, _k1_variants.libs
+
+
+def k1_check(tag: str, pos, mass, args, reps: int) -> dict:
+    """K1 at one site: relative L2 (K1_REL_L2_TOL) and per-target error
+    (TARGET_TOL) against the float64 plain version, two launches equal bit
+    for bit, the planted narrowed cull above TARGET_TOL, the design before
+    the redesign within K1_REL_L2_TOL and timed beside it; the visits of
+    the cull (``k1_plan`` at the launch's targets a thread and tile)
+    against the dense N x npad, and the bound of the work these inputs
+    need: the pairs inside r_cut x (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE)
+    operations (a pair's visit without a minimum image, which the kernel
+    takes once a tile), 16 bytes a source and 12 a target.  Checks that
+    the kernel library's cull reach is ``k1_reach``'s, the CPU model of
+    the plan.  Returns the numbers of the kernels line."""
+    import ctypes
+
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces.p3m import (
+        k1_card_geometry,
+        k1_plan,
+        k1_reach,
+        k1_visits,
+        p3m_short_acc,
+        p3m_short_plain,
+    )
+
+    box, eps, r_s, r_cut, G, split, soft = args
+    abl, libs = _k1_variants()
+    got = p3m_short_acc(pos, mass, *args)
+    again = p3m_short_acc(pos, mass, *args)
+    torch.cuda.synchronize()
+    ref = p3m_short_plain(pos.double(), mass.double(), *args)
+    rel, err = rel_l2(got, ref), target_err(got.T, ref.T)
+    same = torch.equal(got, again)
+    planted = target_err(abl.variant_acc("narrowed", libs["narrowed"], pos,
+                                         mass, *args).T, ref.T)
+    orig = lambda: abl.variant_acc("original", libs["original"], pos, mass,
+                                   *args)
+    orig_rel = rel_l2(orig(), ref)
+    ms = cuda_time_ms(lambda: p3m_short_acc(pos, mass, *args), reps)
+    o_ms = cuda_time_ms(orig, max(2, reps // 10))
+    plain_ms = cuda_time_ms(lambda: p3m_short_plain(pos, mass, *args), 2)
+    geo = k1_card_geometry(pos, box, r_cut, split, soft)
+    plan = k1_plan(pos, mass, box, r_cut)
+    reach = (ctypes.c_double * 1)()
+    if load_library().p3m_short_reach(box, r_cut, reach) != 0 or \
+            reach[0] != k1_reach(box, r_cut):
+        raise AssertionError(f"{tag}: the library's cull reach {reach[0]} "
+                             f"is not k1_reach's {k1_reach(box, r_cut)}")
+    n = pos.shape[0]
+    dense = n * (-(-n // 128) * 128)
+    visits = k1_visits(plan)
+    inside = count_inside_dense(pos, box, r_cut)
+    b_ms, b_by = bound(16 * n + 12 * n,
+                       inside * (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE))
+    phase(f"{tag}: rel L2 {rel:.3e} (tol {K1_REL_L2_TOL:g}), per-target "
+          f"error {err:.3e} (tol {TARGET_TOL:g}); two launches "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}; the planted cull "
+          f"narrowed by r_cut/2 {planted:.3e} (must exceed the tol); kernel "
+          f"{ms:.4f} ms ({geo.groups} x {geo.slices} blocks), plain f32 {plain_ms:.3f} "
+          f"ms; the design before the redesign (scripts/"
+          f"torch_k1_ablation.py's original, built in this run) {o_ms:.4f} "
+          f"ms ({o_ms / ms:.2f}x), rel L2 {orig_rel:.3e}; visits "
+          f"{visits:.4e} of the dense {dense:.4e} ({visits / dense:.4f}), "
+          f"{inside:.4e} pairs inside r_cut; bound {b_ms:.4f} ms ({b_by}) "
+          f"from the pairs inside")
+    if not rel <= K1_REL_L2_TOL:
+        raise AssertionError(f"{tag}: K1 disagrees: {rel}")
+    if not err <= TARGET_TOL:
+        raise AssertionError(f"{tag}: a target's force is off by {err}")
+    if not same:
+        raise AssertionError(f"{tag}: two launches differ")
+    if not planted > TARGET_TOL:
+        raise AssertionError(f"{tag}: the per-target gate missed the "
+                             f"narrowed cull ({planted})")
+    if not orig_rel <= K1_REL_L2_TOL:
+        raise AssertionError(f"{tag}: the design before the redesign "
+                             f"disagrees: {orig_rel}")
+    return dict(max_abs_err=max_abs(got, ref), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def column_gates(tag: str, got: list, ref: list, again, variant) -> float:
@@ -2956,13 +3063,14 @@ def ewald_check(noise, n_side: int = 32) -> int:
     against float64 on the card (K1's and the k-space half's plain
     versions); the default solver='pp' run through run_simulation with
     K1's launches equal to the evaluations counted from run.log; the
-    16^3 PP run from the JAX noise against the JAX P(k).  Returns K1's
-    launches in the default PP run and its P(k) file."""
+    16^3 PP run from the JAX noise against the JAX P(k), and K1 alone at
+    the ICs (``k1_check``).  Returns K1's launches in the default PP run,
+    its P(k) file and K1's numbers at the ICs for the kernels line."""
     from nbody_torch.core import units
     from nbody_torch.driver import OutputConfig, SimulationConfig
     from nbody_torch.driver.simulate import realize_ics, run_simulation
     from nbody_torch.forces.ewald import ewald_kspace_acc, ewald_pp_acc
-    from nbody_torch.forces.p3m import p3m_short_acc, p3m_short_plain
+    from nbody_torch.forces.p3m import p3m_short_plain
 
     cfg = SimulationConfig(n_side=n_side, solver="pp",
                            output=OutputConfig(snapshot=False))
@@ -2978,25 +3086,17 @@ def ewald_check(noise, n_side: int = 32) -> int:
     lr = ewald_kspace_acc(p64, m64, box, G=G)
     rel, rel_lr = rel_l2(got, sr + lr), rel_l2(
         ewald_kspace_acc(pos, mass, box, G=G), lr)
-    sr_args = (pos, mass, box, eps, box / 16.0, 0.4999 * box, G,
-               "gaussian", soft)
-    sr_ms = cuda_time_ms(lambda: p3m_short_acc(*sr_args), 20)
-    sr_plain_ms = cuda_time_ms(lambda: p3m_short_plain(*sr_args), 2)
     lr_ms = cuda_time_ms(lambda: ewald_kspace_acc(pos, mass, box, G=G), 20)
-    n = pos.shape[0]
-    npad = -(-n // 128) * 128
-    inside = count_inside_dense(pos, box, 0.4999 * box)
-    b_ms, b_by = bound(4 * npad * 4 + n * 12,
-                       n * npad * FLOPS_VISIT_K1 + inside * FLOPS_INSIDE)
     phase(f"[16] ewald_pp_acc at the {n_side}^3 ICs, float32 vs float64: "
           f"rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), k-space half alone "
           f"{rel_lr:.3e}; |acc| real-space {float(sr.norm()):.4e}, k-space "
-          f"{float(lr.norm()):.4e}; K1 (Gaussian split, r_cut 0.4999 box) "
-          f"{sr_ms:.4f} ms, plain f32 {sr_plain_ms:.3f} ms, bound {b_ms:.4f} "
-          f"ms ({b_by}; {inside / (n * n):.3f} of the pairs inside r_cut); "
-          f"k-space half {lr_ms:.4f} ms")
+          f"{float(lr.norm()):.4e}; k-space half {lr_ms:.4f} ms")
     if not rel <= FORCE_REL_L2_TOL:
         raise AssertionError(f"[16] ewald_pp_acc float32 disagrees: {rel}")
+    k1_pp = k1_check("[16] K1 (Gaussian split, r_cut 0.4999 box) at the "
+                     f"{n_side}^3 ICs", pos, mass,
+                     (box, eps, box / 16.0, 0.4999 * box, G, "gaussian",
+                      soft), 20)
 
     work = os.path.join(OUT, "default_pp")
     shutil.rmtree(work, ignore_errors=True)
@@ -3023,7 +3123,7 @@ def ewald_check(noise, n_side: int = 32) -> int:
                            initial_state=realize_ics(pp16, 0, noise=noise))
     pk_vs_reference(res16, pp16, "powerspec_a=1.00_n16_pp_seed0",
                     "[16] 16^3 PP from the JAX noise")
-    return counts["K1"], res.powerspecs[0]
+    return counts["K1"], res.powerspecs[0], k1_pp
 
 
 def plummer_run(n: int, steps: int, acc_fn) -> dict:
@@ -3263,12 +3363,7 @@ def main() -> None:
         run_simulation,
         stale_tolerance,
     )
-    from nbody_torch.forces.p3m import (
-        p3m_acc,
-        p3m_short_acc,
-        p3m_short_params,
-        p3m_short_plain,
-    )
+    from nbody_torch.forces.p3m import p3m_acc, p3m_short_params
     from nbody_torch.forces.p3m_columns import (
         REACH_FENCE,
         REACH_TARGETS,
@@ -3298,6 +3393,11 @@ def main() -> None:
     phase(f"[2] the column kernels' design before the redesign and the "
           f"planted narrowed reach (scripts/torch_columns_ablation.py) built "
           f"in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _k1_variants()
+    phase(f"[2] K1's design before the redesign and the planted narrowed "
+          f"cull (scripts/torch_k1_ablation.py) built in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. K1 against its plain version at the main path's shape ---------
     cfg = SimulationConfig()
@@ -3314,27 +3414,9 @@ def main() -> None:
     k1 = {}
     for split in ("gaussian", "spline"):
         for soft in ("plummer", "spline"):
-            args = (box, cfg.eps, r_s, r_cut, G, split, soft)
-            got = p3m_short_acc(pos, mass, *args)
-            torch.cuda.synchronize()
-            ref = p3m_short_plain(pos.double(), mass.double(), *args)
-            rel = rel_l2(got, ref)
-            err = max_abs(got, ref)
-            ms = cuda_time_ms(lambda: p3m_short_acc(pos, mass, *args), 50)
-            plain_ms = cuda_time_ms(
-                lambda: p3m_short_plain(pos, mass, *args), 3)
-            phase(f"[3] K1 {split}/{soft}: rel L2 {rel:.3e} (tol "
-                  f"{K1_REL_L2_TOL:g}), max abs {err:.3e}; kernel "
-                  f"{ms:.4f} ms, plain float32 {plain_ms:.3f} ms")
-            if not rel <= K1_REL_L2_TOL:
-                raise AssertionError(f"K1 {split}/{soft} disagrees: {rel}")
-            k1[(split, soft)] = (err, ms, plain_ms)
-    npad = -(-n // 128) * 128
-    inside = count_inside_dense(pos, box, r_cut)
-    k1_bound = bound(4 * npad * 4 + n * 12,
-                     n * npad * FLOPS_VISIT_K1 + inside * FLOPS_INSIDE)
-    phase(f"[3] K1 bound {k1_bound[0]:.4f} ms ({k1_bound[1]}): "
-          f"{n * npad:.4e} visits, {inside:.4e} inside r_cut")
+            k1[(split, soft)] = k1_check(
+                f"[3] K1 {split}/{soft}", pos, mass,
+                (box, cfg.eps, r_s, r_cut, G, split, soft), 50)
 
     # -- 4. the wrappers refuse what the kernels do not take --------------
     checked = check_wrappers_raise(pos, mass, box, cfg.eps, r_s, r_cut, G)
@@ -3362,6 +3444,9 @@ def main() -> None:
     want = zero_launches(K1=run_cfg.n_steps + 1)
     if counts != want:
         raise AssertionError(f"[5] launches {counts}, expected {want}")
+    k1_check("[5] K1 on the run's final state", res.state.pos.contiguous(),
+             res.state.mass.contiguous(),
+             (box, cfg.eps, r_s, r_cut, G, *main_variant), 50)
 
     # -- 6. parity with the JAX package through committed data ------------
     noise = np.load(os.path.join(PORT_DATA, "white_noise_n16_seed0.npy"))
@@ -3576,7 +3661,7 @@ def main() -> None:
     kernels.update(pp_kernel_time(PLUMMER_N))
 
     # -- 16. the Ewald PP solver (K1 with the Gaussian split) -------------
-    _, pp_pk = ewald_check(noise)
+    k1_pp_launches, pp_pk, k1_pp = ewald_check(noise)
 
     # -- 17. the Plummer drive at N = 262,144 through K7 ------------------
     k7_run = plummer_drive(PLUMMER_N, 250)
@@ -3698,13 +3783,16 @@ def main() -> None:
     # (c) solver='pp' on four devices through the driver
     ring_ewald_check(noise, pp_pk)
 
-    k1_err, k1_ms, k1_plain_ms = k1[main_variant]
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
         "replaces": "nbody/forces/p3m.py:194", "launches": k1_launches,
-        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+        **k1[main_variant],
+    }, {
+        "name": "p3m_short_acc (Ewald real space)", "route": "cuda",
+        "source": "nbody_torch/forces/csrc/p3m_short.cu",
+        "replaces": "nbody/forces/ewald.py:123", "launches": k1_pp_launches,
+        **k1_pp,
     }]
     launch_counts["rungs"] = zero_launches(K5=k5_launches, K6=k6_launches)
     for key, name, source, replaces, path in (

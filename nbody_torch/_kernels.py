@@ -98,7 +98,10 @@ def _build(so: Path) -> None:
 # argument types of the C entry points: p = pointer (and the stream),
 # i = int, d = double; every entry point returns a CUDA error code
 _ENTRY_POINTS = {
-    "p3m_short_acc_f32": "piidddddiipp",
+    "p3m_short_keys": "pidpp",
+    "p3m_short_f32": "pppidddddiiiippppp",
+    "p3m_short_info": "iip",
+    "p3m_short_reach": "ddp",
     "p3m_columns_f32": "pppiiiiiiiddddpiipp",
     "p3m_columns_masked_f32": "ppppiiiiiiiddddpiipp",
     "column_pairs_info": "ppp",
@@ -124,8 +127,6 @@ def load_library() -> ctypes.CDLL:
     else:
         _build(so)
     lib = ctypes.CDLL(str(so))
-    lib.p3m_short_tile.argtypes = []
-    lib.p3m_short_tile.restype = ctypes.c_int
     for name, sig in _ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = [_CTYPES[c] for c in sig]

@@ -20,8 +20,10 @@ algebra and constants exactly.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -146,16 +148,283 @@ def p3m_short_plain(pos, mass, box: float, eps: float, r_s: float,
     return out * G
 
 
+# ---------------------------------------------------------------------------
+# K1: the spatial order, the cull and the launch shape
+# ---------------------------------------------------------------------------
+
+#: K1's Hilbert grid: 2^K1_KEY_BITS cells a side of the box, and its
+#: sources a tile (the kernel library's; ``p3m_short_info`` reports the
+#: tile).  A target group is 32 sorted particles, one a thread.
+K1_KEY_BITS = 5
+K1_TILE = 32
+#: r_cut / box from which K1 cuts its sources into slices: there a target
+#: group's reach covers most tiles, so each group's work is the same and
+#: the groups alone make too few blocks to fill the card (below it a
+#: group's visited tiles lie near it in the sorted order, and slicing the
+#: tiles by index would leave most slices idle)
+K1_SLICE_RCUT = 0.25
+#: the waves of the card's resident blocks K1's source slices aim for
+K1_WAVES = 8
+
+
+def k1_wrap(pos, box: float):
+    """Positions wrapped into [0, box] as K1's kernels wrap them, in the
+    tensor's type: x - box floor(x / box) with 1 / box rounded to it,
+    clamped (x / box rounds up to 1 within an ulp below box)."""
+    inv_box = torch.tensor(1.0 / box, dtype=pos.dtype, device=pos.device)
+    return torch.clamp(pos - box * torch.floor(pos * inv_box), 0.0, box)
+
+
+def hilbert_keys(pos, box: float, bits: int = K1_KEY_BITS):
+    """The Hilbert index (int64) of each particle's cell on the
+    2^bits-a-side grid of the box: K1's sort key (``p3m_short_keys``) at
+    the default bits, with the device code's arithmetic (Skilling's
+    transpose, three bits a level with x's highest)."""
+    w = k1_wrap(pos, box)
+    scale = torch.tensor((1 << bits) / box, dtype=pos.dtype,
+                         device=pos.device)
+    cells = torch.clamp(torch.trunc(w * scale), 0, (1 << bits) - 1).long()
+    X = [cells[:, 0], cells[:, 1], cells[:, 2]]
+    Q = 1 << (bits - 1)
+    while Q > 1:
+        P = Q - 1
+        for i in range(3):
+            hit = (X[i] & Q) != 0
+            t = torch.where(hit, torch.zeros_like(X[0]), (X[0] ^ X[i]) & P)
+            x0 = torch.where(hit, X[0] ^ P, X[0] ^ t)
+            if i:
+                X[i] = X[i] ^ t
+            X[0] = x0
+        Q >>= 1
+    X[1] = X[1] ^ X[0]
+    X[2] = X[2] ^ X[1]
+    t = torch.zeros_like(X[0])
+    Q = 1 << (bits - 1)
+    while Q > 1:
+        t = torch.where((X[2] & Q) != 0, t ^ (Q - 1), t)
+        Q >>= 1
+    key = torch.zeros_like(X[0])
+    for b in range(bits - 1, -1, -1):
+        for i in range(3):
+            key = (key << 1) | (((X[i] ^ t) >> b) & 1)
+    return key
+
+
+class K1Plan(NamedTuple):
+    """K1's order and cull, as its kernels compute them (:func:`k1_plan`):
+    ``perm`` the sorted order; ``pos`` (npad, 3) and ``mass`` (npad,) in
+    it, wrapped, the padding repeating the last particle at mass 0; the
+    low and high corners of each source tile's and each target group's
+    real particles; ``visit`` (groups, tiles): the tile pairs the kernel
+    sums; ``rint`` (groups, tiles): the pairs of a visited tile take rint
+    minimum images; else ``image`` (groups, tiles, 3): the image k of the
+    tile's sources (x + k box) on each axis."""
+
+    perm: torch.Tensor
+    pos: torch.Tensor
+    mass: torch.Tensor
+    tile_lo: torch.Tensor
+    tile_hi: torch.Tensor
+    group_lo: torch.Tensor
+    group_hi: torch.Tensor
+    visit: torch.Tensor
+    rint: torch.Tensor
+    image: torch.Tensor
+
+
+def k1_reach(box: float, r_cut: float) -> float:
+    """The reach of K1's cull: r_cut, its float32 rounding and that of the
+    coordinates (4 box / 2^21); the kernel library's ``p3m_short_reach``
+    (a card test holds the two equal)."""
+    return r_cut * (1.0 + 1e-5) + 4.0 * box / (1 << 21)
+
+
+def _corners(pos, n: int, size: int):
+    """Low and high corners of each run of ``size`` rows of the first n."""
+    m = -(-pos.shape[0] // size) * size
+    real = torch.arange(m, device=pos.device) < n
+    inf = torch.tensor(float("inf"), dtype=pos.dtype, device=pos.device)
+    p = torch.zeros((m, 3), dtype=pos.dtype, device=pos.device)
+    p[:pos.shape[0]] = pos
+    lo = torch.where(real[:, None], p, inf).view(-1, size, 3).amin(dim=1)
+    hi = torch.where(real[:, None], p, -inf).view(-1, size, 3).amax(dim=1)
+    return lo, hi
+
+
+def k1_plan(pos, mass, box: float, r_cut: float,
+            reach: float | None = None) -> K1Plan:
+    """K1's spatial order, tile boxes and visit mask, in the tensor's type
+    with the device code's arithmetic (float32 on the card; the card may
+    contract a multiply-add, a rounding far inside the reach's margin).
+    ``reach`` replaces :func:`k1_reach` (a planted narrowed cull in the
+    tests)."""
+    n = pos.shape[0]
+    npad = max(K1_TILE, -(-n // K1_TILE) * K1_TILE)
+    perm = torch.argsort(hilbert_keys(pos, box), stable=True)
+    idx = torch.cat([perm, perm[-1:].expand(npad - n)])
+    ps = k1_wrap(pos[idx], box)
+    ms = torch.cat([mass[perm], mass.new_zeros(npad - n)])
+    t_lo, t_hi = _corners(ps, n, K1_TILE)
+    g_lo, g_hi = _corners(ps[:n], n, 32)
+    r = k1_reach(box, r_cut) if reach is None else reach
+    f = lambda v: torch.tensor(v, dtype=pos.dtype, device=pos.device)
+    box_t, zero = f(box), f(0.0)
+    a0, a1 = g_lo[:, None, :], g_hi[:, None, :]
+    b0, b1 = t_lo[None, :, :], t_hi[None, :, :]
+    g0 = torch.maximum(torch.maximum(b0 - a1, a0 - b1), zero)
+    gp = torch.maximum((b0 + box_t) - a1, zero)  # sources + box
+    gm = torch.maximum((a0 + box_t) - b1, zero)  # sources - box
+    g = torch.minimum(g0, torch.minimum(gp, gm))
+    g2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]
+          + g[..., 2] * g[..., 2])
+    near = torch.stack([g0 < f(r), gp < f(r), gm < f(r)])
+    visit = g2 < f(r * r)
+    rint = (near.sum(dim=0) != 1).any(dim=-1) & visit
+    image = torch.where(near[1], 1, torch.where(near[2], -1, 0)).to(
+        torch.int8)
+    return K1Plan(perm, ps, ms, t_lo, t_hi, g_lo, g_hi, visit, rint, image)
+
+
+def k1_visits(plan: K1Plan) -> int:
+    """The pair visits K1's kernel makes on this plan: the 32 target slots
+    of each group against the source slots of each visited tile."""
+    return int(plan.visit.sum()) * 32 * K1_TILE
+
+
+def p3m_short_culled_plain(pos, mass, box: float, eps: float, r_s: float,
+                           r_cut: float, plan: K1Plan, G: float = 1.0,
+                           split: str = "gaussian",
+                           softening: str = "plummer"):
+    """K1's sum over the tile pairs ``plan`` lists only, in the type of
+    ``pos`` (minimum images by rint, in the input order): equal to
+    :func:`p3m_short_plain` exactly when the cull drops no pair inside
+    r_cut."""
+    weight = _weight_fn(split, softening)
+    n = pos.shape[0]
+    perm = plan.perm
+    ps = torch.remainder(pos, box)[perm]
+    ms = mass[perm]
+    group = torch.arange(n, device=pos.device) // 32
+    src_tile = torch.arange(n, device=pos.device) // K1_TILE
+    acc = torch.empty_like(pos)
+    step = max(1, (1 << 22) // max(n, 1))
+    for i0 in range(0, n, step):
+        d = _min_image(ps[None, :, :] - ps[i0:i0 + step, None, :], box)
+        r2 = torch.sum(d * d, dim=-1)
+        keep = plan.visit[group[i0:i0 + step]][:, src_tile]
+        w = torch.where(keep, ms[None, :] * weight(r2, eps * eps, r_s, r_cut),
+                        torch.zeros_like(r2))
+        acc[i0:i0 + step] = torch.einsum("ij,ijk->ik", w, d)
+    out = torch.empty_like(pos)
+    out[perm] = acc
+    return out * G
+
+
+class K1Geometry(NamedTuple):
+    """One K1 launch: ``groups`` x ``slices`` blocks of ``warps`` warps;
+    block (g, s) takes the 32 sorted targets of group g against the source
+    tiles [s slice_tiles, (s + 1) slice_tiles) of ``tile`` sources.
+    ``sms`` and ``blocks_per_sm`` are the card's, as the kernel library
+    reports them."""
+
+    groups: int
+    slices: int
+    slice_tiles: int
+    tile: int
+    warps: int
+    sms: int
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=64)
+def k1_geometry(n: int, box: float, r_cut: float, info) -> K1Geometry:
+    """K1's launch shape for n particles with this r_cut / box on a card
+    whose kernel library reports ``info`` (``p3m_short_info``: tile, warps
+    a block, tiles a chunk, resident blocks per SM, SMs).
+
+    One slice below :data:`K1_SLICE_RCUT`; from it the sources are cut into
+    slices of whole tiles where the target groups make fewer than
+    :data:`K1_WAVES` waves of the card's resident blocks, then evened out
+    over the tiles."""
+    tile, warps, _, bps, sms = info
+    groups = -(-n // 32)
+    tiles = max(1, -(-n // tile))
+    per = tiles
+    if r_cut >= K1_SLICE_RCUT * box and groups:
+        want = -(-K1_WAVES * sms * bps // groups)
+        per = -(-tiles // min(want, tiles))
+    return K1Geometry(groups, -(-tiles // per), per, tile, warps, sms, bps)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_info(lib, device: int, split: int, softening: int) -> tuple:
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.p3m_short_info(split, softening, info)
+    if err != 0 or info[3] < 1:
+        raise RuntimeError(f"p3m_short_info failed (error {err}, "
+                           f"{list(info)})")
+    return tuple(info)
+
+
+def k1_card_geometry(pos, box: float, r_cut: float, split: str = "gaussian",
+                     softening: str = "plummer", lib=None) -> K1Geometry:
+    """The launch shape K1 takes for ``pos`` (a CUDA tensor) on its card."""
+    if lib is None:
+        from nbody_torch._kernels import load_library
+
+        lib = load_library()
+    info = _k1_info(lib, pos.device.index, _SPLITS[split],
+                    _SOFTENINGS[softening])
+    return k1_geometry(pos.shape[0], float(box), float(r_cut), info)
+
+
+def _k1_run(lib, geo: K1Geometry, pos, mass, box: float, eps: float,
+            r_s: float, r_cut: float, G: float, split: str, softening: str):
+    """K1 from the kernel library ``lib`` in the launch shape ``geo``, on
+    tensors :func:`p3m_short_acc` has checked: the keys, their stable
+    argsort, the pack and the pair sum, all on the current stream.  The
+    pack's sources and tile boxes and the slices' partial sums share one
+    scratch tensor."""
+    n, dev = pos.shape[0], pos.device
+    npad = -(-n // geo.tile) * geo.tile
+    n_packed, n_boxes = 4 * npad, 8 * (npad // geo.tile)
+    n_part = 3 * npad * geo.slices if geo.slices > 1 else 0
+    keys = torch.empty((n,), device=dev, dtype=torch.int16)
+    out = torch.empty((n, 3), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.p3m_short_keys(pos.data_ptr(), n, float(box),
+                                 keys.data_ptr(), stream)
+        if err == 0:
+            perm = torch.argsort(keys, stable=True)
+            scratch = torch.empty((n_packed + n_boxes + n_part,),
+                                  device=dev, dtype=torch.float32)
+            base = scratch.data_ptr()
+            err = lib.p3m_short_f32(
+                pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n,
+                float(box), float(eps), float(r_s), float(r_cut), float(G),
+                _SPLITS[split], _SOFTENINGS[softening], geo.slice_tiles,
+                geo.slices, base, base + 4 * n_packed,
+                base + 4 * (n_packed + n_boxes) if n_part else None,
+                out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"p3m_short_acc: CUDA launch failed (error {err})")
+    return out
+
+
 def p3m_short_acc(pos, mass, box: float, eps: float, r_s: float,
                   r_cut: float, G: float = 1.0, split: str = "gaussian",
                   softening: str = "plummer"):
     """Short-range P3M correction force, minimum-image periodic (valid for
-    r_cut < box/2), summed over all pairs with the cutoff as a mask.
+    r_cut < box/2), summed over the pairs inside r_cut.
 
     A CUDA tensor launches K1 (float32, contiguous (N, 3) positions and
-    (N,) masses on one device) or raises; a CPU tensor takes
-    :func:`p3m_short_plain`.  ``p3m_short_acc.launches`` counts kernel
-    launches."""
+    (N,) masses on one device; the particles sorted on the card along a
+    Hilbert curve, the source tiles out of reach culled, the launch shape
+    from :func:`k1_geometry`) or raises; a CPU tensor takes
+    :func:`p3m_short_plain`.  ``p3m_short_acc.launches`` counts calls that
+    launched K1."""
     if split not in _SPLITS:
         raise ValueError(f"unknown split {split!r}")
     if softening not in _SOFTENINGS:
@@ -180,26 +449,14 @@ def p3m_short_acc(pos, mass, box: float, eps: float, r_s: float,
         raise ValueError("p3m_short_acc: pos and mass on different devices")
     if not (pos.is_contiguous() and mass.is_contiguous()):
         raise ValueError("p3m_short_acc: pos and mass must be contiguous")
+    if not box > 0:
+        raise ValueError(f"p3m_short_acc: box must be > 0, got {box}")
     from nbody_torch._kernels import load_library
 
     lib = load_library()
-    tile = lib.p3m_short_tile()
-    npad = max(tile, -(-n // tile) * tile)
-    # SoA [x; y; z; m] with positions wrapped into [0, box); padding
-    # columns are zero-mass sources
-    packed = torch.zeros((4, npad), device=pos.device, dtype=torch.float32)
-    packed[:3, :n] = torch.remainder(pos, box).T
-    packed[3, :n] = mass
-    out = torch.empty((n, 3), device=pos.device, dtype=torch.float32)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.p3m_short_acc_f32(
-            packed.data_ptr(), n, npad, float(box), float(eps), float(r_s),
-            float(r_cut), float(G), _SPLITS[split], _SOFTENINGS[softening],
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"p3m_short_acc: CUDA launch failed (error {err})")
+    geo = k1_card_geometry(pos, box, r_cut, split, softening, lib)
+    out = _k1_run(lib, geo, pos, mass, box, eps, r_s, r_cut, G, split,
+                  softening)
     p3m_short_acc.launches += 1
     return out
 

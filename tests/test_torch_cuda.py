@@ -50,6 +50,73 @@ def test_k1_matches_plain(cuda, split, softening, n):
     assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
 
 
+def _k1_set(kind, n, box, cuda, seed=0):
+    """Clustered (Plummer spheres of scale 0.02 box around 6 centres) or
+    edge-straddling (a slab and a clump across the periodic edges, and
+    particles at the box side) positions, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        c = rng.uniform(0.0, box, (6, 3))
+        u = rng.uniform(1e-3, 0.999, n)
+        r = np.minimum(0.02 * box / np.sqrt(u ** (-2.0 / 3.0) - 1.0),
+                       0.3 * box)
+        v = rng.normal(size=(n, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        pos = (c[rng.integers(0, 6, n)] + r[:, None] * v) % box
+    else:
+        pos = rng.uniform(0.0, box, (n, 3))
+        pos[: n // 2, 0] = rng.normal(0.0, 0.02 * box, n // 2) % box
+        pos[n // 2:] = rng.normal(0.0, 0.05 * box, (n - n // 2, 3)) % box
+        pos[:8] = box * np.array([1.0, 0.0, 1.0 - 1e-7])
+    mass = rng.uniform(0.5, 1.5, n)
+    return (torch.tensor(pos, dtype=torch.float32, device=cuda),
+            torch.tensor(mass, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.parametrize("split,softening", VARIANTS)
+@pytest.mark.parametrize("kind", ["clustered", "edge"])
+@pytest.mark.parametrize("r_frac", [0.088, 0.4999])
+def test_k1_culled_sets_match_plain(cuda, split, softening, kind, r_frac):
+    """K1's sort and cull on clustered and edge-straddling sets, at the P3M
+    site's r_cut / box (the culled form) and the Ewald site's (the dense
+    form): relative L2 and each target (1e-3 of the RMS force, where one
+    dropped pair reads O(1e-2)) against float64, two launches equal bit
+    for bit."""
+    n, box, eps = 3001, 100.0, 0.3
+    r_cut = r_frac * box
+    r_s = r_cut / 4.5
+    pos, mass = _k1_set(kind, n, box, cuda)
+    args = (box, eps, r_s, r_cut, 2.0, split, softening)
+    got = p3m_short_acc(pos, mass, *args)
+    again = p3m_short_acc(pos, mass, *args)
+    torch.cuda.synchronize()
+    ref = p3m_short_plain(pos.double(), mass.double(), *args)
+    assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    per_target = ((got.double() - ref).norm(dim=1).max()
+                  / ref.norm(dim=1).square().mean().sqrt())
+    assert float(per_target) <= 1e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("box,r_cut", [(500.0, 43.9453125), (500.0, 249.95),
+                                       (1.0, 0.0)])
+def test_k1_reach_and_tile_are_the_library_s(cuda, box, r_cut):
+    """The CPU model of K1's cull (``k1_reach``, ``K1_TILE``, what
+    ``k1_plan`` and the CPU tests use) is the kernel library's."""
+    import ctypes
+
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces import p3m
+
+    lib = load_library()
+    reach = (ctypes.c_double * 1)()
+    assert lib.p3m_short_reach(box, r_cut, reach) == 0
+    assert reach[0] == p3m.k1_reach(box, r_cut)
+    pos = torch.zeros((1, 3), device=cuda)
+    assert p3m.k1_card_geometry(pos, box, max(r_cut, 1e-3)).tile \
+        == p3m.K1_TILE
+
+
 def test_k1_wrapper_rejects(cuda):
     pos, mass = _particles(64, 50.0, cuda)
     args = (50.0, 0.1, 2.0, 9.0)
