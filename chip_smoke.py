@@ -47,10 +47,17 @@ script exits non-zero:
    columns tier (``shortrange='columns'``), which launches K4;
 10. the 16^3 supercell run from the committed white noise against the
     JAX package's committed supercell P(k);
-11. K6 (the cell-pair sum, one-plane and two-plane) against its plain
-    version on the 32^3 ICs, a late 32^3 state and the 64^3 ICs, the
-    targets of the two-plane form the particles above rung 0 at the rung
-    runs' final states; K5 (the masked column pair sum) on the cfg64 plan
+11. K6 (the cell-pair sum, one-plane and two-plane) against its float64
+    plain version on the 32^3 ICs, a late 32^3 state and the 64^3 ICs,
+    the targets of the two-plane form the particles above rung 0 at the
+    rung runs' final states; at each K6 site here and in [19]-[21]
+    (``k6_check``): relative L2, per target (``target_err`` within
+    TARGET_TOL), two launches equal bit for bit, the neighbourhood with a
+    neighbour cell left out (``scripts/torch_k6_ablation.py``'s planted
+    ``narrowed`` variant, built in phase 2 with its ``original``, the
+    kernel before its redesign) above the per-target limit, and at the
+    timed launches the call, the kernel alone, the original beside them,
+    the dense visits, lane slots and pairs inside r_cut; K5 (the masked column pair sum) on the cfg64 plan
     frozen at the ICs, at the ICs and at drift skin/2, and with every
     chunk listed against K4; K2 and K3 on the frozen plane at skin/2
     against their plain versions and a fresh evaluation, and a planted
@@ -96,8 +103,8 @@ script exits non-zero:
     slab sites of K2 (its haloed slab after the halo exchange, with a
     planted unsent halo plane that must fail the check), K3 (plain,
     interlaced, split_out) and K4 on every shard's plane of the cfg64
-    ICs, and K6 on the 32^3 ICs, each at the domain driver's geometry,
-    against their plain versions; (b) the domain force of the supercell,
+    ICs, and K6 on the 32^3 ICs and the default run's final state, each
+    at the domain driver's geometry, against their plain versions; (b) the domain force of the supercell,
     columns and cells tiers against the single-device force of the same
     tier, per particle within the JAX package's limits; (c) cfg64 (the
     supercell tier), cfg64 with ``shortrange='columns'`` and the default
@@ -124,7 +131,8 @@ script exits non-zero:
     every shard's frozen plan of the cfg64 run's final state (undrifted
     and at 0.999 skin/2) and (b) K6's masked slab site on the 32^3 cell
     run's final state, each at the driver's geometry against its float64
-    plain version; (c) the two hazards planted: a massive particle
+    plain version, and K6's on the 32^3 ICs with that state's active
+    set; (c) the two hazards planted: a massive particle
     outside its shard's slab raises its plan's word and the rung
     runner's plan channel, a drift past skin/2 is counted by
     local_plan_stale, and both read 0 when sound; (e) the 16^3 domain
@@ -139,7 +147,8 @@ script exits non-zero:
     redesign, as in [15], and 100 steps of [17]'s
     drive through the ring (K7 launches = 16 x 101, [17]'s energy and
     momentum limits); (b) K6's replicated-grid site: every shard's x-slab
-    of the whole cell plane at the cfg64 ICs against the plain version,
+    of the whole cell plane at the cfg64 ICs (and at the final state of
+    one device's cfg64 cells run) against the plain version,
     the sharded P3M against one device's cells tier (at the ICs to
     TIER_TOL, per particle on random positions) and at the JAX package's
     16^3 ICs against its committed output; cfg64's 142 steps through
@@ -616,6 +625,11 @@ def check_wrappers_raise(pos, mass, box, eps, r_s, r_cut, G):
                                                   **ckw),
         "K6 plane_j without K_j": lambda: run_cell_plane(
             cplane, ccounts, plane_j=cplane, **ckw),
+        "K6 short counts": lambda: run_cell_plane(
+            cplane, ccounts[:-1].contiguous(), **ckw),
+        "K6 short source counts": lambda: run_cell_plane(
+            cplane, ccounts, plane_j=cplane, K_j=K,
+            counts_j=ccounts[:-1].contiguous(), **ckw),
     })
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
 
@@ -943,15 +957,13 @@ def columns_kernel_check(state, config, cfg_run, tag: str,
 
 def needed_work_cells(plane, counts, K: int, plane_j, counts_j, K_j: int, *,
                       ncell: int, r_cut: float, nx: int | None = None, **_):
-    """The work the cell pair sum needs, counted on the planes as
-    :func:`needed_work` counts it: (the stored sources of a stored
-    target's 27 neighbour cells within +-r_cut of it in z, the pairs among
-    them inside r_cut, the distinct particles those visits read (a ghost
-    slot is its periodic image's particle), the number of targets).  The
-    kernel also visits the sources of the neighbour cells farther than
-    r_cut in z; that is not counted.  ``nx``: a slab plane's real
-    x-layers (its ghost x-layers hold the neighbours' particles, no
-    images)."""
+    """The work of the cell pair sum on the planes: (the dense visits,
+    every stored source of a stored target's 27 neighbour cells, which the
+    kernel makes; the pairs among them inside r_cut, the work the function
+    needs; the distinct particles those pairs read (a ghost slot is its
+    periodic image's particle); the number of targets).  ``nx``: a slab
+    plane's real x-layers (its ghost x-layers hold the neighbours'
+    particles, no images)."""
     from nbody_torch.forces.p3m import _real_cells
 
     dev = plane.device
@@ -984,12 +996,37 @@ def needed_work_cells(plane, counts, K: int, plane_j, counts_j, K_j: int, *,
                     live = jr[None, :] < counts_j[sc][:, None]
                     src = torch.where(live, sc[:, None] * K_j + jr[None, :], 0)
                     d = plane_j[0:3, src] - xt[:, t0:t0 + step, None]
-                    near = live & (d[2].abs() <= r_cut)
-                    visits += int(near.sum())
-                    read[(image[sc][:, None] * kmax + jr[None, :])[near]] = True
+                    visits += int(live.sum())
                     r2 = torch.clamp_min((d * d).sum(0), 1e-30)
-                    inside += int((near & (r2 < rc2)).sum())
+                    near = live & (r2 < rc2)
+                    inside += int(near.sum())
+                    read[(image[sc][:, None] * kmax + jr[None, :])[near]] = True
     return visits, inside, int(read.sum()), tslot.numel()
+
+
+def k6_lane_slots(counts, counts_j, *, nx: int, ncell: int,
+                  warps: int) -> int:
+    """The lane slots K6 issues on a plane (32 for each step of a warp
+    through a tile, idle lanes included), from the kernel's deal
+    (``k6_work``): a target cell's neighbourhood in tiles of K6_TILE
+    sources of one cell, tile q to share q mod S, each of its G groups'
+    warps stepping ceil(n / L) times through a tile of n sources."""
+    from nbody_torch.forces.p3m import K6_TILE, _real_cells, k6_work
+
+    M = ncell + 2
+    counts, counts_j = counts.tolist(), counts_j.tolist()
+    offsets = [(ox * M + oy) * M + oz for ox in (-1, 0, 1)
+               for oy in (-1, 0, 1) for oz in (-1, 0, 1)]
+    slots = 0
+    for tcell in _real_cells(nx, ncell, "cpu").tolist():
+        c = counts[tcell]
+        if c == 0:
+            continue
+        work = k6_work(c, warps)
+        tiles = [min(K6_TILE, counts_j[tcell + o] - u) for o in offsets
+                 for u in range(0, counts_j[tcell + o], K6_TILE)]
+        slots += 32 * work.groups * sum(-(-n // work.lanes) for n in tiles)
+    return slots
 
 
 def rung_mask(state, cfg):
@@ -1019,19 +1056,14 @@ def rung_mask(state, cfg):
     return rung >= 1
 
 
-def cell_kernel_check(state, act, config, tag: str) -> dict:
-    """K6 in its one-plane and two-plane forms against the float64 plain
-    version on the cell planes of ``state`` (the driver's pre-warmed cell
-    capacity; the target plane holds the ``act`` particles at the
-    pre-warmed target capacity); returns the two-plane form's numbers for
-    the JSON line."""
+def k6_one_device_launches(state, act, config) -> dict:
+    """[11]'s K6 launches at ``state``: {"one-plane": [kw], "two-plane":
+    [kw]}, the keywords of ``run_cell_plane`` (planes included) on the
+    cell planes of ``state`` at the driver's pre-warmed cell capacity, the
+    two-plane form's targets the ``act`` particles at the pre-warmed
+    target capacity."""
     from nbody_torch.driver.simulate import _cell_knobs, prewarm_capacity
-    from nbody_torch.forces.p3m import (
-        build_padded_plane,
-        cell_ids,
-        cell_plane_plain,
-        run_cell_plane,
-    )
+    from nbody_torch.forces.p3m import build_padded_plane, cell_ids
 
     cells_cfg = config.replace(shortrange="cells")
     ncell = _cell_knobs(cells_cfg, cells_cfg)[2]
@@ -1047,45 +1079,234 @@ def cell_kernel_check(state, act, config, tag: str) -> dict:
     plane_i, ov_i, K_i, _, counts_i = build_padded_plane(
         pos, mass, config.box, r_cut, ncell, tcap, valid=act)
     if int(ov) or int(ov_i):
-        raise AssertionError(f"[11] {tag}: cell planes spill ({int(ov)}, "
+        raise AssertionError(f"[11] cell planes spill ({int(ov)}, "
                              f"{int(ov_i)})")
     kw = dict(nx=ncell, ncell=ncell, eps2=config.eps**2, r_s=r_s,
               r_cut=r_cut, split=config.force_split,
               softening=config.softening_kernel)
-    phase(f"[11] {tag}: cell grid {ncell}^3, K {K} (capacity {cap}), "
-          f"target plane K {K_i} ({int(act.sum())} active particles)")
+    return {"one-plane": [dict(plane=plane, counts=counts, K=K, **kw)],
+            "two-plane": [dict(plane=plane_i, counts=counts_i, K=K_i,
+                               plane_j=plane, K_j=K, counts_j=counts, **kw)]}
+
+
+def k6_slab_launches(state, config) -> tuple[list, str]:
+    """[19]'s K6 launches: every shard's cell slab plane of ``state`` at
+    the domain geometry's bucket capacity, healed by the driver's rule.
+    Returns (the launches' keywords, a line on the geometry)."""
+    from nbody_torch.distributed import domain as td
+
+    group, geom, shards, _, _, lines = domain_setup(state, config, "cells")
+    nx = geom.ncell // group.size
+    built = td.build_local_plane(
+        [s.pos for s in shards], [s.mass for s in shards], box=config.box,
+        r_cut=geom.r_cut, ncell=geom.ncell, group=group,
+        capacity=geom.bucket_capacity)
+    K = built[0][2]
+    kw = dict(nx=nx, ncell=geom.ncell, K=K, eps2=config.eps**2,
+              r_s=geom.r_s, r_cut=geom.r_cut, split=config.force_split,
+              softening=config.softening_kernel)
+    return ([dict(plane=b[0], counts=b[4], **kw) for b in built],
+            f"{group.size} shards of {nx} x {geom.ncell}^2 cells, K {K} "
+            f"(capacity {geom.bucket_capacity})"
+            + "".join(f"; {x}" for x in lines))
+
+
+def k6_masked_slab_launches(state, act, cfg, tcap: int) -> tuple[list, str]:
+    """[20]'s K6 launches: on every shard, the plane of the ``act``
+    particles of ``state`` (capacity ``tcap``, doubled by the driver's
+    rule while it spills) against the slab's cell plane (the domain
+    geometry's bucket capacity, healed as in [19]).  Returns (the
+    launches' keywords, a line on the geometry)."""
+    from nbody_torch.distributed import domain as td
+
+    group, geom, shards, _, _, lines = domain_setup(state, cfg, "cells")
+    D, box = group.size, cfg.box
+    nxl = geom.ncell // D
+    act = shard_rows(act, state, box, geom.ncell, shards)
+    act = [a & (s.mass > 0) for a, s in zip(act, shards)]
+    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
+    pkw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group)
+    src = td.build_local_plane(pos, mass, capacity=geom.bucket_capacity,
+                               **pkw)
+    while True:
+        tgt = td.build_local_plane(pos, mass, capacity=tcap, valid=act, **pkw)
+        if max(int(t[1]) for t in tgt) == 0:
+            break
+        tcap *= 2
+    K_j, K_i = src[0][2], tgt[0][2]
+    kw = dict(nx=nxl, ncell=geom.ncell, eps2=cfg.eps**2, r_s=geom.r_s,
+              r_cut=geom.r_cut, split=cfg.force_split,
+              softening=cfg.softening_kernel)
+    return ([dict(plane=t[0], counts=t[4], K=K_i, plane_j=s[0], K_j=K_j,
+                  counts_j=s[4], **kw) for s, t in zip(src, tgt)],
+            f"{D} shards of {nxl} x {geom.ncell}^2 cells, source K {K_j}, "
+            f"target K {K_i}; {sum(int(a.sum()) for a in act)} active "
+            f"particles" + "".join(f"; {x}" for x in lines))
+
+
+def k6_replicated_launches(state, cfg) -> tuple[list, str]:
+    """[21]'s K6 launches: every shard's x-slab of the whole cell plane of
+    ``state`` (the default capacity, doubled until the plane drops
+    nothing).  Returns (the launches' keywords, a line on the geometry)."""
+    from nbody_torch.distributed.sharding import (
+        sharded_p3m_geometry,
+        slice_plane,
+    )
+    from nbody_torch.forces.p3m import build_padded_plane
+    from nbody_torch.mesh.cells import cell_capacity
+
+    box, nmesh, n = cfg.box, cfg.mesh_size, cfg.n_particles
+    r_s, r_cut, ncell, nxl = sharded_p3m_geometry(box, nmesh, DOMAIN_SHARDS)
+    cap = cell_capacity(n, ncell)
+    while True:
+        plane, ov, K, _, counts = build_padded_plane(
+            state.pos, state.mass, box, r_cut, ncell, cap)
+        if int(ov) == 0:
+            break
+        cap *= 2
+    kw = dict(nx=nxl, ncell=ncell, K=K, eps2=cfg.eps**2, r_s=r_s,
+              r_cut=r_cut, split=cfg.force_split,
+              softening=cfg.softening_kernel)
+    return ([dict(plane=lp, counts=lc, **kw) for lp, lc in (
+                slice_plane(plane, counts, d=d, nxl=nxl, ncell=ncell, K=K)
+                for d in range(DOMAIN_SHARDS))],
+            f"{ncell}^3 cells (r_cut {r_cut:.4f} Mpc), {DOMAIN_SHARDS} shards"
+            f" of {nxl} x-layers, capacity {cap} (K {K})")
+
+
+def _k6_variants():
+    """``scripts/torch_k6_ablation.py`` (the module) and {name: library}
+    of its ``original`` (K6 before its redesign for Hopper) and
+    ``narrowed`` (a neighbour cell left out, a planted fault) variants,
+    built in this run."""
+    if not hasattr(_k6_variants, "libs"):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "torch_k6_ablation",
+            os.path.join(ROOT, "scripts", "torch_k6_ablation.py"))
+        abl = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(abl)
+        _k6_variants.abl = abl
+        _k6_variants.libs = {name: lib for name, (lib, _) in
+                             abl.load_variants(["original",
+                                                "narrowed"]).items()}
+    return _k6_variants.abl, _k6_variants.libs
+
+
+def _plain64(kw: dict) -> dict:
+    """``run_cell_plane``'s keywords with float64 copies of the planes."""
+    out = dict(kw, plane=kw["plane"].double())
+    if "plane_j" in kw:
+        out["plane_j"] = kw["plane_j"].double()
+    return out
+
+
+def k6_check(tag: str, launches: list, timed: bool = True) -> dict:
+    """K6 at one site (``launches``: ``run_cell_plane``'s keywords, one a
+    shard): relative L2 (FORCE_REL_L2_TOL) and per target (``target_err``
+    within TARGET_TOL) against the float64 plain version, two launches
+    equal bit for bit, the planted narrowed neighbourhood
+    (``scripts/torch_k6_ablation.py``'s ``narrowed``: a neighbour cell left
+    out) above TARGET_TOL.  With ``timed``: the whole call (CUDA events
+    around back-to-back ``run_cell_plane`` calls, the wrapper's host work
+    included), the kernel alone (back-to-back library calls on prepared
+    planes: the device's time), the float32 plain version and the design
+    before the redesign (the ablation's ``original``, through its own
+    wrapper), a launch each, means over the shards; the dense visits (the
+    kernel's) and its lane slots beside the pairs inside r_cut, and the
+    bound of the work these inputs need: the pairs inside r_cut x
+    (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE) operations, or the bytes of
+    ``needed_bytes``.  Returns the numbers of the kernels line."""
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
+
+    abl, libs = _k6_variants()
+    got = [run_cell_plane(**kw) for kw in launches]
+    again = [run_cell_plane(**kw) for kw in launches]
+    torch.cuda.synchronize()
+    ref = [cell_plane_plain(**_plain64(kw)) for kw in launches]
+    rel = max(rel_l2(g, r) for g, r in zip(got, ref))
+    err = max(target_err(g, r) for g, r in zip(got, ref))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    planted = max(target_err(abl.variant_call("narrowed", libs["narrowed"],
+                                              kw), r)
+                  for kw, r in zip(launches, ref))
+    phase(f"{tag}: rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), per-target "
+          f"error {err:.3e} (tol {TARGET_TOL:g}); two launches "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}; the planted "
+          f"neighbourhood with a neighbour cell left out {planted:.3e} (must "
+          f"exceed the tol)")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"{tag}: K6 disagrees with its plain version: "
+                             f"{rel}")
+    if not err <= TARGET_TOL:
+        raise AssertionError(f"{tag}: a target's force is off by {err}")
+    if not same:
+        raise AssertionError(f"{tag}: two launches differ")
+    if not planted > TARGET_TOL:
+        raise AssertionError(f"{tag}: the per-target gate missed the "
+                             f"narrowed neighbourhood ({planted})")
+    row = dict(max_abs_err=max(max_abs(g, r) for g, r in zip(got, ref)))
+    if not timed:
+        return row
+    ms = _mean_ms([lambda kw=kw: run_cell_plane(**kw) for kw in launches],
+                  20)
+    kernel = [abl.kernel_launch("redesign", load_library(), kw)
+              for kw in launches]
+    dev_ms = _mean_ms([k[0] for k in kernel], 20)
+    o_ms = _mean_ms([lambda kw=kw: abl.variant_call(
+        "original", libs["original"], kw) for kw in launches], 20)
+    orig_rel = max(rel_l2(abl.variant_call("original", libs["original"],
+                                           kw), r)
+                   for kw, r in zip(launches, ref))
+    plain_ms = _mean_ms([lambda kw=kw: cell_plane_plain(**kw)
+                         for kw in launches], 2)
+    dense = inside = nbytes = slots = targets = 0
+    for kw, (_, geo, _) in zip(launches, kernel):
+        pj = kw.get("plane_j", kw["plane"])
+        cj = kw.get("counts_j", kw["counts"])
+        v, i, n_src, n_t = needed_work_cells(
+            kw["plane"], kw["counts"], kw["K"], pj, cj,
+            kw.get("K_j", kw["K"]), ncell=kw["ncell"], r_cut=kw["r_cut"],
+            nx=kw["nx"])
+        dense, inside, targets = dense + v, inside + i, targets + n_t
+        nbytes += needed_bytes(n_src, n_t, "plane_j" in kw)
+        slots += k6_lane_slots(kw["counts"].cpu(), cj.cpu(), nx=kw["nx"],
+                               ncell=kw["ncell"], warps=geo.warps)
+    D = len(launches)
+    b_ms, b_by = bound(nbytes / D, inside * (FLOPS_VISIT_COLUMNS
+                                             + FLOPS_INSIDE) / D)
+    geo = kernel[0][1]
+    phase(f"{tag}: kernel {dev_ms:.4f} ms a launch alone (the device), "
+          f"{ms:.4f} ms a call (the wrapper's host work included), plain "
+          f"f32 {plain_ms:.3f} ms; the design before the redesign "
+          f"(scripts/torch_k6_ablation.py's original, built in this run) "
+          f"{o_ms:.4f} ms a call ({o_ms / ms:.2f}x), rel L2 {orig_rel:.3e}; "
+          f"{geo.blocks} blocks of {geo.warps} warps, {geo.blocks_per_sm} "
+          f"resident an SM; {targets} targets, {dense:.4e} visits (dense: "
+          f"every stored source of the 27 cells, the kernel's), {slots:.4e} "
+          f"lane slots ({dense / max(slots, 1):.3f} live), {inside:.4e} "
+          f"pairs inside r_cut, over {D} launch(es); bound {b_ms:.5f} ms "
+          f"({b_by}) from the pairs inside")
+    if not orig_rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"{tag}: the design before the redesign "
+                             f"disagrees: {orig_rel}")
+    return dict(row, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def cell_kernel_check(state, act, config, tag: str) -> dict:
+    """[11] K6 in its one-plane and two-plane forms (``k6_check``) on the
+    cell planes of ``state``; returns the two-plane form's numbers for the
+    JSON line."""
     out = {}
-    for form, args, jkw in (
-            ("one-plane", (plane, counts), dict(K=K)),
-            ("two-plane", (plane_i, counts_i),
-             dict(K=K_i, plane_j=plane, K_j=K, counts_j=counts))):
-        got = run_cell_plane(*args, **jkw, **kw)
-        torch.cuda.synchronize()
-        jkw64 = dict(jkw, plane_j=plane.double()) if "plane_j" in jkw else jkw
-        ref = cell_plane_plain(args[0].double(), args[1], **jkw64, **kw)
-        rel = rel_l2(got, ref)
-        err = max_abs(got, ref)
-        if not rel <= FORCE_REL_L2_TOL:
-            raise AssertionError(f"K6 {form} disagrees with its plain "
-                                 f"version: {rel}")
-        ms = cuda_time_ms(lambda: run_cell_plane(*args, **jkw, **kw), 20)
-        plain_ms = cuda_time_ms(
-            lambda: cell_plane_plain(*args, **jkw, **kw), 2)
-        pj, cj, kj = (plane, counts, K) if "plane_j" in jkw else (
-            args[0], args[1], jkw["K"])
-        visits, inside, n_src, n_t = needed_work_cells(
-            args[0], args[1], jkw["K"], pj, cj, kj, ncell=ncell, r_cut=r_cut)
-        b_ms, b_by = bound(needed_bytes(n_src, n_t, "plane_j" in jkw),
-                           visits * FLOPS_VISIT_COLUMNS
-                           + inside * FLOPS_INSIDE)
-        phase(f"[11] {tag} K6 {form}: rel L2 {rel:.3e} (tol "
-              f"{FORCE_REL_L2_TOL:g}), max abs {err:.3e}; kernel {ms:.4f} "
-              f"ms, plain f32 {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}); {visits:.4e} visits within r_cut in z, "
-              f"{inside:.4e} inside r_cut, {n_src} sources read, {n_t} "
-              f"targets")
-        out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
+    for form, launches in k6_one_device_launches(state, act,
+                                                 config).items():
+        kw = launches[0]
+        phase(f"[11] {tag} K6 {form}: cell grid {kw['ncell']}^3, K {kw['K']}"
+              + (f" against source K {kw['K_j']}" if "K_j" in kw else ""))
+        out = k6_check(f"[11] {tag} K6 {form}", launches)
     return out
 
 
@@ -1701,57 +1922,14 @@ def slab_columns_check(state, config) -> dict:
     return {"K4s": row}
 
 
-def slab_cells_check(state, config) -> dict:
-    """[19](a) K6's slab site on every shard's cell plane (the domain
-    geometry's bucket capacity, healed by the driver's rule) against its
-    float64 plain version."""
-    from nbody_torch.distributed import domain as td
-    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
-
-    group, geom, shards, _, _, lines = domain_setup(state, config, "cells")
-    D = group.size
-    nx = geom.ncell // D
-    built = td.build_local_plane(
-        [s.pos for s in shards], [s.mass for s in shards], box=config.box,
-        r_cut=geom.r_cut, ncell=geom.ncell, group=group,
-        capacity=geom.bucket_capacity)
-    K = built[0][2]
-    phase(f"[19] cell slab planes: {D} shards of {nx} x {geom.ncell}^2 "
-          f"cells, K {K} (capacity {geom.bucket_capacity})"
-          + "".join(f"; {x}" for x in lines))
-    kw = dict(nx=nx, ncell=geom.ncell, K=K, eps2=config.eps**2,
-              r_s=geom.r_s, r_cut=geom.r_cut, split=config.force_split,
-              softening=config.softening_kernel)
-    rels, errs = [], []
-    for plane, _, _, _, counts in built:
-        got = run_cell_plane(plane, counts, **kw)
-        torch.cuda.synchronize()
-        ref = cell_plane_plain(plane.double(), counts, **kw)
-        rels.append(rel_l2(got, ref))
-        errs.append(max_abs(got, ref))
-    phase(f"[19] K6 slab: rel L2 per shard {', '.join(f'{r:.3e}' for r in rels)}"
-          f" (tol {FORCE_REL_L2_TOL:g})")
-    if not max(rels) <= FORCE_REL_L2_TOL:
-        raise AssertionError(f"K6 slab disagrees with its plain version: "
-                             f"{rels}")
-    ms = _mean_ms([lambda b=b: run_cell_plane(b[0], b[4], **kw)
-                   for b in built], 20)
-    plain_ms = _mean_ms([lambda b=b: cell_plane_plain(b[0], b[4], **kw)
-                         for b in built], 2)
-    visits = inside = nbytes = 0
-    for plane, _, _, _, counts in built:
-        v, i, n_src, t = needed_work_cells(plane, counts, K, plane, counts,
-                                           K, ncell=geom.ncell,
-                                           r_cut=geom.r_cut, nx=nx)
-        visits, inside, nbytes = visits + v, inside + i, \
-            nbytes + needed_bytes(n_src, t)
-    row = _slab_row(errs, ms, plain_ms, nbytes,
-                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
-    phase(f"[19] K6 slab: kernel {ms:.4f} ms a launch, plain f32 "
-          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
-          f"{D} shards, {inside:.4e} inside r_cut")
-    return {"K6s": row}
+def slab_cells_check(state, config, tag: str = "[19] K6 slab",
+                     timed: bool = True) -> dict:
+    """[19](a) K6's slab site on every shard's cell plane of ``state``
+    (the domain geometry's bucket capacity, healed by the driver's rule),
+    with ``k6_check``'s gates."""
+    launches, geo = k6_slab_launches(state, config)
+    phase(f"{tag}: cell slab planes: {geo}")
+    return {"K6s": k6_check(tag, launches, timed=timed)}
 
 
 def domain_force_check(state, config, tier: str, single_knobs: dict,
@@ -2065,74 +2243,14 @@ def k5_slab_check(res, cfg) -> dict:
     return {"K5s": row}
 
 
-def k6_masked_slab_check(res, cfg) -> dict:
-    """[20](b) K6's two-plane slab site on every shard of the 32^3 rung
-    run's final state (column_skin=0): the active particles' plane (the
-    run's rung capacity, doubled by the driver's rule while it spills)
-    against the slab's cell plane (the domain geometry's bucket capacity,
-    healed as in [19]), against the float64 plain version."""
-    from nbody_torch.distributed import domain as td
-    from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
-
-    group, geom, shards, _, _, lines = domain_setup(res.state, cfg, "cells")
-    D, box = group.size, cfg.box
-    nxl = geom.ncell // D
-    act = shard_rows(rung_mask(res.state, cfg.replace(devices=1)),
-                     res.state, box, geom.ncell, shards)
-    act = [a & (s.mass > 0) for a, s in zip(act, shards)]
-    pos, mass = [s.pos for s in shards], [s.mass for s in shards]
-    pkw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group)
-    src = td.build_local_plane(pos, mass, capacity=geom.bucket_capacity,
-                               **pkw)
-    tcap = res.config_run.rung_capacity or 128
-    while True:
-        tgt = td.build_local_plane(pos, mass, capacity=tcap, valid=act, **pkw)
-        if max(int(t[1]) for t in tgt) == 0:
-            break
-        tcap *= 2
-    K_j, K_i = src[0][2], tgt[0][2]
-    phase(f"[20] masked cell slab planes of the 32^3 rung run's final "
-          f"state: {D} shards of {nxl} x {geom.ncell}^2 cells, source K "
-          f"{K_j}, target K {K_i}; {sum(int(a.sum()) for a in act)} active "
-          f"particles" + "".join(f"; {x}" for x in lines))
-    kw = dict(nx=nxl, ncell=geom.ncell, eps2=cfg.eps**2, r_s=geom.r_s,
-              r_cut=geom.r_cut, split=cfg.force_split,
-              softening=cfg.softening_kernel)
-    rels, errs = [], []
-    for (pj, _, _, _, cj), (pi, _, _, _, ci) in zip(src, tgt):
-        got = run_cell_plane(pi, ci, K=K_i, plane_j=pj, K_j=K_j, counts_j=cj,
-                             **kw)
-        torch.cuda.synchronize()
-        ref = cell_plane_plain(pi.double(), ci, K=K_i, plane_j=pj.double(),
-                               K_j=K_j, counts_j=cj, **kw)
-        rels.append(rel_l2(got, ref))
-        errs.append(max_abs(got, ref))
-    phase(f"[20] K6 masked slab: rel L2 per shard "
-          f"{', '.join(f'{r:.3e}' for r in rels)} (tol {FORCE_REL_L2_TOL:g})")
-    if not max(rels) <= FORCE_REL_L2_TOL:
-        raise AssertionError(f"K6 masked slab disagrees with its plain "
-                             f"version: {rels}")
-    pairs = list(zip(src, tgt))
-    ms = _mean_ms([lambda s=s, t=t: run_cell_plane(
-        t[0], t[4], K=K_i, plane_j=s[0], K_j=K_j, counts_j=s[4], **kw)
-        for s, t in pairs], 20)
-    plain_ms = _mean_ms([lambda s=s, t=t: cell_plane_plain(
-        t[0], t[4], K=K_i, plane_j=s[0], K_j=K_j, counts_j=s[4], **kw)
-        for s, t in pairs], 2)
-    visits = inside = nbytes = 0
-    for s, t in pairs:
-        v, i, n_src, n_t = needed_work_cells(t[0], t[4], K_i, s[0], s[4], K_j,
-                                             ncell=geom.ncell,
-                                             r_cut=geom.r_cut, nx=nxl)
-        visits, inside = visits + v, inside + i
-        nbytes += needed_bytes(n_src, n_t, True)
-    row = _slab_row(errs, ms, plain_ms, nbytes,
-                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
-    phase(f"[20] K6 masked slab: kernel {ms:.4f} ms a launch, plain f32 "
-          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
-          f"{D} shards, {inside:.4e} inside r_cut")
-    return {"K6ms": row}
+def k6_masked_slab_check(state, act, cfg, tcap: int, tag: str,
+                         timed: bool = True) -> dict:
+    """[20](b) K6's two-plane slab site on every shard of ``state``: the
+    plane of the ``act`` particles (capacity ``tcap``, the run's rung
+    capacity) against the slab's cell plane, with ``k6_check``'s gates."""
+    launches, geo = k6_masked_slab_launches(state, act, cfg, tcap)
+    phase(f"{tag}: masked cell slab planes: {geo}")
+    return {"K6ms": k6_check(tag, launches, timed=timed)}
 
 
 def planted_hazards_check(res, cfg) -> None:
@@ -2415,69 +2533,19 @@ def sharded_p3m_fn(cfg, group, **kw):
 def replicated_grid_check(state, cfg) -> dict:
     """[21](b) K6's replicated-grid site at ``state``: every shard's
     x-slab of the whole cell plane (the default capacity, doubled until
-    the plane drops nothing) against the float32 and float64 plain
-    versions, timed; the sharded P3M force against the single-device
-    cells tier at ``state`` and on uniform positions.  Returns the row."""
+    the plane drops nothing) with ``k6_check``'s gates, timed; the sharded
+    P3M force against the single-device cells tier at ``state`` and on
+    uniform positions.  Returns the row."""
     from nbody_torch.core import units
-    from nbody_torch.distributed.sharding import (
-        device_mesh,
-        sharded_p3m_geometry,
-        slice_plane,
-    )
+    from nbody_torch.distributed.sharding import device_mesh
     from nbody_torch.driver.simulate import prewarm_capacity
-    from nbody_torch.forces.p3m import (
-        build_padded_plane,
-        cell_plane_plain,
-        p3m_acc,
-        run_cell_plane,
-    )
-    from nbody_torch.mesh.cells import cell_capacity
+    from nbody_torch.forces.p3m import p3m_acc
 
     D = DOMAIN_SHARDS
     box, nmesh, n = cfg.box, cfg.mesh_size, cfg.n_particles
-    r_s, r_cut, ncell, nxl = sharded_p3m_geometry(box, nmesh, D)
-    cap = cell_capacity(n, ncell)
-    while True:
-        plane, ov, K, _, counts = build_padded_plane(
-            state.pos, state.mass, box, r_cut, ncell, cap)
-        if int(ov) == 0:
-            break
-        cap *= 2
-    kw = dict(nx=nxl, ncell=ncell, K=K, eps2=cfg.eps**2, r_s=r_s,
-              r_cut=r_cut, split=cfg.force_split,
-              softening=cfg.softening_kernel)
-    local = [slice_plane(plane, counts, d=d, nxl=nxl, ncell=ncell, K=K)
-             for d in range(D)]
-    rels, errs = [], []
-    for lp, lc in local:
-        got = run_cell_plane(lp, lc, **kw)
-        torch.cuda.synchronize()
-        ref32 = cell_plane_plain(lp, lc, **kw)
-        ref64 = cell_plane_plain(lp.double(), lc, **kw)
-        rels.append(max(rel_l2(got, ref32.double()), rel_l2(got, ref64)))
-        errs.append(max_abs(got, ref32))
-    phase(f"[21] replicated grid: {ncell}^3 cells (r_cut {r_cut:.4f} Mpc), "
-          f"{D} shards of {nxl} x-layers, capacity {cap} (K {K}); K6 rel L2 "
-          f"per shard vs plain f32 / f64 "
-          f"{', '.join(f'{r:.3e}' for r in rels)} (tol {FORCE_REL_L2_TOL:g})")
-    if not max(rels) <= FORCE_REL_L2_TOL:
-        raise AssertionError(f"[21] K6 replicated-grid site disagrees: {rels}")
-    ms = _mean_ms([lambda b=b: run_cell_plane(b[0], b[1], **kw)
-                   for b in local], 20)
-    plain_ms = _mean_ms([lambda b=b: cell_plane_plain(b[0], b[1], **kw)
-                         for b in local], 2)
-    visits = inside = nbytes = 0
-    for lp, lc in local:
-        v, i, n_src, t = needed_work_cells(lp, lc, K, lp, lc, K, ncell=ncell,
-                                           r_cut=r_cut, nx=nxl)
-        visits, inside = visits + v, inside + i
-        nbytes += needed_bytes(n_src, t)
-    row = _slab_row(errs, ms, plain_ms, nbytes,
-                    visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE, D)
-    phase(f"[21] K6 replicated-grid launch: kernel {ms:.4f} ms, plain f32 "
-          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); {visits:.4e} visits within r_cut in z over "
-          f"{D} shards, {inside:.4e} inside r_cut")
+    launches, geo = k6_replicated_launches(state, cfg)
+    phase(f"[21] replicated grid: {geo}")
+    row = k6_check("[21] K6 replicated-grid site at the ICs", launches)
 
     # the force against one device's cells tier, as [19] holds the domain
     # force: at the ICs to TIER_TOL of the largest |g|, and per particle
@@ -3398,6 +3466,11 @@ def main() -> None:
     phase(f"[2] K1's design before the redesign and the planted narrowed "
           f"cull (scripts/torch_k1_ablation.py) built in "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _k6_variants()
+    phase(f"[2] K6's design before the redesign and the planted narrowed "
+          f"neighbourhood (scripts/torch_k6_ablation.py) built in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. K1 against its plain version at the main path's shape ---------
     cfg = SimulationConfig()
@@ -3677,7 +3750,10 @@ def main() -> None:
     # driver's geometry on every shard's plane
     kernels.update(slab_supercell_check(ics64, cfg64))
     kernels.update(slab_columns_check(ics64, col64))
-    kernels.update(slab_cells_check(ics32, run_cfg))
+    kernels.update(slab_cells_check(ics32, run_cfg, "[19] K6 slab at the "
+                                    "32^3 ICs"))
+    slab_cells_check(res.state, run_cfg, "[19] K6 slab at the default run's "
+                     "final state", timed=False)
     # (b) the domain force against the single-device force of its tier,
     # at the ICs and on uniform random positions of the same count
     for ics, tcfg, tier in ((ics64, cfg64, "supercell"),
@@ -3737,8 +3813,15 @@ def main() -> None:
     # (a) K5's slab site and (b) K6's masked slab site at the runs'
     # geometries; (c) the two hazards, planted
     kernels.update(k5_slab_check(r64d, r64.replace(devices=DOMAIN_SHARDS)))
+    c32c = r32.replace(devices=DOMAIN_SHARDS, column_skin=0.0)
+    act32c = rung_mask(r32c.state, c32c.replace(devices=1))
+    tcap32c = r32c.config_run.rung_capacity or 128
     kernels.update(k6_masked_slab_check(
-        r32c, r32.replace(devices=DOMAIN_SHARDS, column_skin=0.0)))
+        r32c.state, act32c, c32c, tcap32c, "[20] K6 masked slab at the 32^3 "
+        "rung run's final state"))
+    k6_masked_slab_check(ics32, act32c, c32c, tcap32c, "[20] K6 masked slab "
+                         "at the 32^3 ICs (the final state's active set)",
+                         timed=False)
     planted_hazards_check(r64d, r64.replace(devices=DOMAIN_SHARDS))
     # (e) the 16^3 domain rung runs against the JAX package's committed
     # runs (the same route: every JAX run kept its stale particles, at
@@ -3776,6 +3859,11 @@ def main() -> None:
     shutil.rmtree(work_c, ignore_errors=True)
     res_c = run_simulation(cells64, 0, work_c)
     check_run_outputs(res_c, cells64, "[21] cfg64 cells")
+    launches, geo = k6_replicated_launches(res_c.state, cfg64)
+    phase(f"[21] replicated grid at the cfg64 cells run's final state: {geo}")
+    k6_check("[21] K6 replicated-grid site at the final state", launches,
+             timed=False)
+    del launches
     phase(f"[21] cfg64 on one device's cells tier: {cells64.n_steps} steps "
           f"in {res_c.wall_s:.3f} s; cell_capacity "
           f"{res_c.config_run.cell_capacity}")

@@ -105,7 +105,8 @@ _ENTRY_POINTS = {
     "p3m_columns_f32": "pppiiiiiiiddddpiipp",
     "p3m_columns_masked_f32": "ppppiiiiiiiddddpiipp",
     "column_pairs_info": "ppp",
-    "p3m_cells_f32": "ppppiiiidddiipp",
+    "p3m_cells_f32": "ppppiiiidddiiipp",
+    "p3m_cells_info": "iip",
     "pm_supercell_deposit_f32": "ppiiiiiiiiiddpp",
     "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiiddddpiipp",
     "pp_allpairs_f32": "pippiddiippp",

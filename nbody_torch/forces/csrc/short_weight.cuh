@@ -1,6 +1,6 @@
 // The short-range P3M pair weight, float32 device code shared by the pair
-// kernels: K1 (p3m_short.cu), K3 (pm_supercell.cu) and K4
-// (p3m_columns.cu).
+// kernels: K1 (p3m_short.cu), K3 (pm_supercell.cu), K4 and K5
+// (p3m_columns.cu) and K6 (p3m_cells.cu).
 //
 // w(r^2) is the force split (SPLIT 0: Gaussian / Ewald erfc, nbody
 // _short_weight; SPLIT 1: polynomial spline, nbody _spline_short_weight)
@@ -9,7 +9,7 @@
 // the order of operations of nbody/forces/p3m.py.  The caller applies the
 // cutoff mask max(r^2, 1e-30) < r_cut^2.
 //
-// APPROX (K1 only; K3-K6 take the default, false, and compile as before)
+// APPROX (K1 and K6; K3-K5 take the default, false, and compile as before)
 // swaps three library calls for one instruction each: rsqrtf for
 // rsqrt.approx.ftz.f32 (the same MUFU.RSQ without rsqrtf's three-instruction
 // denormal guard; every argument is at least 1e-30, a normal float, so the

@@ -20,6 +20,7 @@ algebra and constants exactly.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -780,15 +781,183 @@ def cell_plane_plain(plane, counts, *, nx: int, ncell: int, K: int,
     return out
 
 
-def _check_cell_plane(name: str, plane, counts, rows: int):
+#: K6's sources a tile and warps a block, as the kernel library builds
+#: them (``p3m_cells_info`` reports both)
+K6_TILE = 32
+K6_WARPS = (1, 2, 4, 8, 16)
+#: the waves of the card's resident blocks up to which K6 takes more warps
+#: a block: more warps split a cell's neighbourhood finer (the slab sites'
+#: 128 blocks fill the card only so, and a clustered cell's block ends
+#: sooner), fewer make more blocks resident at once
+K6_WAVES = 5
+
+
+class K6Geometry(NamedTuple):
+    """One K6 launch: ``blocks`` blocks (a real target cell each) of
+    ``warps`` warps; ``sms`` and ``blocks_per_sm`` (at ``warps``) are the
+    card's, as the kernel library reports them."""
+
+    blocks: int
+    warps: int
+    sms: int
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=64)
+def k6_geometry(nx: int, ncell: int, info) -> K6Geometry:
+    """K6's launch shape for a plane of ``nx`` x ``ncell``^2 real cells on
+    a card whose kernel library reports ``info`` (``p3m_cells_info``: the
+    tile, the SMs, then the resident blocks an SM at each of
+    :data:`K6_WARPS`): the most warps a block whose blocks make at most
+    :data:`K6_WAVES` waves of the card's resident blocks, else one."""
+    _, sms, *bps = info
+    blocks = nx * ncell * ncell
+    for w, b in reversed(list(zip(K6_WARPS, bps))):
+        if blocks <= K6_WAVES * sms * b:
+            return K6Geometry(blocks, w, sms, b)
+    return K6Geometry(blocks, K6_WARPS[0], sms, bps[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_info(lib, device: int, split: int, softening: int) -> tuple:
+    info = (ctypes.c_int * (2 + len(K6_WARPS)))()
+    with torch.cuda.device(device):
+        err = lib.p3m_cells_info(split, softening, info)
+    if err != 0 or min(info) < 1 or info[0] != K6_TILE:
+        raise RuntimeError(f"p3m_cells_info failed (error {err}, "
+                           f"{list(info)})")
+    return tuple(info)
+
+
+class K6Work(NamedTuple):
+    """How K6 deals out one real target cell (:func:`k6_work`): ``lanes``
+    lanes a target, ``groups`` groups of targets, ``shares`` shares of the
+    neighbourhood's source tiles a group."""
+
+    lanes: int
+    groups: int
+    shares: int
+
+
+def k6_work(count: int, warps: int) -> K6Work:
+    """The kernel's rule for a target cell of ``count`` targets in a block
+    of ``warps`` warps: up to 32 targets take 32 // count lanes each (one
+    group, a share a warp); more are cut into groups of 32, one a lane,
+    and the warps into warps // groups shares (at least 1) of each."""
+    if count <= 32:
+        return K6Work(32 // count if count else 32, 1, warps)
+    groups = -(-count // 32)
+    return K6Work(1, groups, max(1, warps // groups))
+
+
+def k6_items(count: int, warps: int):
+    """The kernel's deal of one target cell of ``count`` targets over a
+    block of ``warps`` warps (:func:`k6_work`), item by item (warp w takes
+    items w, w + warps, ...): (target (items, 32) the target index each
+    lane holds, -1 for none; sub (items, 32) the lane's place among its
+    target's lanes; share (items,) the share of the source tiles the item
+    sums)."""
+    work = k6_work(count, warps)
+    n = work.groups * work.shares if count else 0
+    q = torch.arange(n)
+    g, share = q % work.groups, q // work.groups
+    lane = torch.arange(32)
+    if count <= 32:
+        t = (lane // work.lanes).expand(n, 32)
+        sub = (lane % work.lanes).expand(n, 32)
+    else:
+        t = g[:, None] * 32 + lane[None, :]
+        sub = torch.zeros((n, 32), dtype=torch.int64)
+    return torch.where(t < count, t, -1), sub, share
+
+
+def cell_plane_ordered(plane, counts, *, nx: int, ncell: int, K: int,
+                       eps2: float, r_s: float, r_cut: float, warps: int,
+                       split: str = "gaussian", softening: str = "plummer",
+                       plane_j=None, K_j: int = 0, counts_j=None):
+    """K6's sum dealt out as the kernel deals it, in the plane's dtype (a
+    plain model of the device code, for the tests): each real target
+    cell's 27 neighbour cells in order, cut into tiles of
+    :data:`K6_TILE` stored sources of one cell, tile q going to share
+    q mod S; the lanes of :func:`k6_items` take the sources l, l + L, ...
+    of each tile of their item's share; each lane's sum, then the lanes of
+    a target in lane order, then the shares in share order.  Returns the
+    output plane as :func:`cell_plane_plain` does."""
+    if plane_j is None:
+        plane_j, K_j, counts_j = plane, K, counts
+    wfn = _weight_fn(split, softening)
+    M = ncell + 2
+    dev = plane.device
+    out = torch.zeros_like(plane)
+    offsets = [(ox * M + oy) * M + oz for ox in (-1, 0, 1)
+               for oy in (-1, 0, 1) for oz in (-1, 0, 1)]
+    for tcell in _real_cells(nx, ncell, dev).tolist():
+        c = int(counts[tcell])
+        if c == 0:
+            continue
+        work = k6_work(c, warps)
+        target, sub, share = k6_items(c, warps)
+        cnt = [int(counts_j[tcell + o]) for o in offsets]
+        src = torch.cat([torch.arange(cj, device=dev) + (tcell + o) * K_j
+                         for o, cj in zip(offsets, cnt)])
+        pos_in = torch.cat([torch.arange(cj, device=dev) for cj in cnt])
+        ntiles = [-(-cj // K6_TILE) for cj in cnt]
+        tile = torch.cat([torch.arange(cj, device=dev) // K6_TILE + sum(
+            ntiles[:i]) for i, cj in enumerate(cnt)])
+        xt = plane[0:3, tcell * K:tcell * K + c]
+        d = plane_j[0:3, src][:, None, :] - xt[:, :, None]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        f = plane_j[3, src][None, :] * wfn(r2, eps2, r_s, r_cut) * d
+        total = torch.zeros_like(xt)
+        for s in range(work.shares):
+            held, lanes = target[share == s], sub[share == s]
+            part = torch.zeros_like(xt)
+            for lane in range(work.lanes):
+                mine = ((tile % work.shares == s)
+                        & (pos_in % K6_TILE % work.lanes == lane))
+                who = held[(lanes == lane) & (held >= 0)]
+                part[:, who] += f[:, who][:, :, mine].sum(-1)
+            total += part
+        out[0:3, tcell * K:tcell * K + c] = total
+    return out
+
+
+def _check_cell_plane(name: str, plane, counts, ncells: int, k: int,
+                      device):
     if plane.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, got "
                         f"{plane.dtype}")
-    if tuple(plane.shape) != (8, rows) or not plane.is_contiguous():
+    if tuple(plane.shape) != (8, ncells * k) or not plane.is_contiguous():
         raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
-                         f"contiguous (8, {rows})")
+                         f"contiguous (8, {ncells * k})")
     if counts.dtype != torch.int32:
         raise TypeError(f"{name}: counts must be int32, got {counts.dtype}")
+    if (counts.device != device or plane.device != device
+            or counts.numel() != ncells or not counts.is_contiguous()):
+        raise ValueError(f"{name}: the plane and its counts must be "
+                         f"contiguous, on {device}, with {ncells} cells")
+
+
+def _k6_run(lib, geo: K6Geometry, plane, counts, plane_j, counts_j, *,
+            nx: int, ncell: int, K: int, K_j: int, eps2: float, r_s: float,
+            r_cut: float, split: str, softening: str):
+    """K6 from the kernel library ``lib`` in the launch shape ``geo``, on
+    planes :func:`run_cell_plane` has checked, on the current stream: one
+    launch, which writes the whole output plane."""
+    out = torch.empty_like(plane)
+    dev = plane.device
+    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+           else torch.cuda.device(dev))
+    with ctx:
+        err = lib.p3m_cells_f32(
+            plane.data_ptr(), plane_j.data_ptr(), counts.data_ptr(),
+            counts_j.data_ptr(), nx, ncell, K, K_j, math.sqrt(float(eps2)),
+            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
+            geo.warps, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"run_cell_plane: CUDA launch failed (error {err})")
+    return out
 
 
 def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
@@ -802,45 +971,40 @@ def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
     ``counts`` its (nx + 2) M^2 per-cell counts; ``plane_j``/``K_j``/
     ``counts_j`` an optional SOURCE plane of the same cell geometry with
     its own bucket width (the rung tier's active-target plane against the
-    full plane).  A CUDA plane launches the kernel or raises; a CPU plane
-    takes the plain version.  ``run_cell_plane.launches`` counts kernel
-    launches."""
+    full plane).  A CUDA plane launches the kernel (a block a real cell,
+    the warps a block from :func:`k6_geometry`; K a multiple of 4) or
+    raises; a CPU plane takes the plain version.
+    ``run_cell_plane.launches`` counts kernel launches."""
     if split not in _SPLITS or softening not in _SOFTENINGS:
         raise ValueError(f"unknown split/softening {split!r}/{softening!r}")
-    kw = dict(nx=nx, ncell=ncell, K=K, eps2=eps2, r_s=r_s, r_cut=r_cut,
-              split=split, softening=softening, plane_j=plane_j, K_j=K_j,
-              counts_j=counts_j)
     if plane.device.type == "cpu":
-        return cell_plane_plain(plane, counts, **kw)
+        return cell_plane_plain(plane, counts, nx=nx, ncell=ncell, K=K,
+                                eps2=eps2, r_s=r_s, r_cut=r_cut, split=split,
+                                softening=softening, plane_j=plane_j,
+                                K_j=K_j, counts_j=counts_j)
     if plane.device.type != "cuda":
         raise ValueError(f"run_cell_plane: no kernel for {plane.device}")
+    ncells = (nx + 2) * (ncell + 2) ** 2
+    _check_cell_plane("run_cell_plane plane", plane, counts, ncells, K,
+                      plane.device)
+    if K % 4:
+        raise ValueError(f"run_cell_plane: K {K} is not a multiple of 4")
     if plane_j is None:
         plane_j, K_j, counts_j = plane, K, counts
     elif K_j <= 0 or counts_j is None:
         raise ValueError("plane_j requires its bucket width K_j and counts_j")
-    M = ncell + 2
-    ncells = (nx + 2) * M * M
-    for name, p, c, k in (("plane", plane, counts, K),
-                          ("plane_j", plane_j, counts_j, K_j)):
-        _check_cell_plane(f"run_cell_plane {name}", p, c, ncells * k)
-        if (c.device != plane.device or p.device != plane.device
-                or c.numel() != ncells or not c.is_contiguous()):
-            raise ValueError(f"run_cell_plane: {name} and its counts must be"
-                             f" contiguous, on {plane.device}, with "
-                             f"{ncells} cells")
+    else:
+        _check_cell_plane("run_cell_plane plane_j", plane_j, counts_j,
+                          ncells, K_j, plane.device)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
-    out = torch.zeros_like(plane)
-    with torch.cuda.device(plane.device):
-        err = lib.p3m_cells_f32(
-            plane.data_ptr(), plane_j.data_ptr(), counts.data_ptr(),
-            counts_j.data_ptr(), nx, ncell, K, K_j, math.sqrt(float(eps2)),
-            float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"run_cell_plane: CUDA launch failed (error {err})")
+    geo = k6_geometry(nx, ncell, _k6_info(lib, plane.device.index,
+                                          _SPLITS[split],
+                                          _SOFTENINGS[softening]))
+    out = _k6_run(lib, geo, plane, counts, plane_j, counts_j, nx=nx,
+                  ncell=ncell, K=K, K_j=K_j, eps2=eps2, r_s=r_s, r_cut=r_cut,
+                  split=split, softening=softening)
     run_cell_plane.launches += 1
     return out
 

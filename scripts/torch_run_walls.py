@@ -1,4 +1,4 @@
-"""Wall time of the runs that K1 and the column kernels carry, for one
+"""Wall time of the runs that K1, the column kernels and K6 carry, for one
 checkout of the port: two checkouts timed in one call can be set side by
 side.
 
@@ -13,12 +13,17 @@ device argument and no snapshot: the default ``SimulationConfig()``
 [16]); and the runs of [9], [13], [19](c) and [20](d) that launch K3 and
 K5: cfg64 (64^3 particles, box 500 Mpc, mesh 128, 142 steps, spline
 softening; the supercell tier), cfg64 with ``rungs=3``, and both with
-``devices=4`` (four slab shards on the card).  ``--runs`` picks some of
-them (default: all), each run ``--repeat`` times in turn (the first round
-also pays the process's warm-up: cuFFT plans, the allocator).  Prints each
-run's wall (the result's ``wall_s``), steps/s and the K1, K3 and K5
-launches, and appends one JSON line to ``--out`` (default
-``output/run_walls.jsonl``).
+``devices=4`` (four slab shards on the card); and the runs that launch K6:
+the default config with ``rungs=3`` ([12], the two-plane form), with
+``devices=4`` ([19](c), the slab site), with ``devices=4, rungs=3,
+column_skin=0`` ([20](d), the masked slab site) and cfg64 through the
+replicated-grid P3M on four shards ([21](b): ``run_cosmological_checked``
+in the driver's stretches, the capacity doubled on overflow; its ICs made
+before the wall).  ``--runs`` picks some of them (default: all), each run
+``--repeat`` times in turn (the first round also pays the process's
+warm-up: cuFFT plans, the allocator).  Prints each run's wall (the
+result's ``wall_s``), steps/s and the K1, K3, K5 and K6 launches, and
+appends one JSON line to ``--out`` (default ``output/run_walls.jsonl``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,50 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def sharded_p3m_run(cfg, state):
+    """``cfg``'s steps from ``state`` through the replicated-grid P3M on
+    four shards of the card, in the driver's stretches, a stretch that
+    drops force re-run at twice the capacity.  Returns (the final state,
+    its wall in seconds)."""
+    import time
+
+    import torch
+    from nbody_torch.distributed.sharding import (
+        device_mesh,
+        make_sharded_p3m_cosmo_force,
+        sharded_p3m_geometry,
+    )
+    from nbody_torch.driver.simulate import HEAL_ATTEMPTS, SAMPLE_EVERY_STEPS
+    from nbody_torch.integrate.cosmo_stepping import (
+        log_a_steps,
+        run_cosmological_checked,
+    )
+    from nbody_torch.mesh.cells import cell_capacity
+
+    group = device_mesh(4)
+    cosmo = cfg.cosmology()
+    cap = cell_capacity(cfg.n_particles,
+                        sharded_p3m_geometry(cfg.box, cfg.mesh_size, 4)[2])
+    a_grid = log_a_steps(cfg.a_begin, cfg.a_end, cfg.n_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i0 in range(0, cfg.n_steps, SAMPLE_EVERY_STEPS):
+        a_seg = a_grid[i0:i0 + SAMPLE_EVERY_STEPS + 1]
+        for _ in range(HEAL_ATTEMPTS):
+            fn = make_sharded_p3m_cosmo_force(
+                cosmo, cfg.box, cfg.mesh_size, group, eps=cfg.eps,
+                split=cfg.force_split, softening=cfg.softening_kernel,
+                capacity=cap, checked=True)
+            new, ov = run_cosmological_checked(state, cosmo, a_seg, fn,
+                                               cfg.box)
+            if ov == 0:
+                break
+            cap *= 2
+        state = new
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
 
 
 def main() -> None:
@@ -51,8 +100,8 @@ def main() -> None:
     import nbody_torch
     from nbody_torch._kernels import load_library
     from nbody_torch.driver import OutputConfig, SimulationConfig
-    from nbody_torch.driver.simulate import run_simulation
-    from nbody_torch.forces.p3m import p3m_short_acc
+    from nbody_torch.driver.simulate import realize_ics, run_simulation
+    from nbody_torch.forces.p3m import p3m_short_acc, run_cell_plane
     from nbody_torch.forces.p3m_columns import run_column_plane_masked
     from nbody_torch.forces.pm_supercell import run_fused_column_plane
 
@@ -69,7 +118,12 @@ def main() -> None:
     runs = {"default": default, "default-pp": default.replace(solver="pp"),
             "cfg64": cfg64, "cfg64-rungs3": cfg64.replace(rungs=3),
             "cfg64-d4": cfg64.replace(devices=4),
-            "cfg64-d4-rungs3": cfg64.replace(devices=4, rungs=3)}
+            "cfg64-d4-rungs3": cfg64.replace(devices=4, rungs=3),
+            "default-rungs3": default.replace(rungs=3),
+            "default-d4": default.replace(devices=4),
+            "default-d4-rungs3-cells": default.replace(devices=4, rungs=3,
+                                                       column_skin=0.0),
+            "cfg64-sharded-p3m4": cfg64}
     if args.runs:
         runs = {name: runs[name] for name in args.runs.split(",")}
     work = os.path.join(ROOT, "output", "run_walls")
@@ -80,14 +134,18 @@ def main() -> None:
             p3m_short_acc.launches = 0
             run_fused_column_plane.launches = 0
             run_column_plane_masked.launches = 0
-            res = run_simulation(cfg, 0, work)
-            walls[name].append(res.wall_s)
+            run_cell_plane.launches = 0
+            if name == "cfg64-sharded-p3m4":
+                wall = sharded_p3m_run(cfg, realize_ics(cfg, 0))[1]
+            else:
+                wall = run_simulation(cfg, 0, work).wall_s
+            walls[name].append(wall)
             print(f"{args.tag} {name} (round {rep + 1}): {cfg.n_steps} steps "
-                  f"in {res.wall_s:.3f} s ({cfg.n_steps / res.wall_s:.2f} "
-                  f"steps/s); K1 launches {p3m_short_acc.launches}, K3 "
-                  f"launches {run_fused_column_plane.launches},"
-                  f" K5 launches {run_column_plane_masked.launches}",
-                  flush=True)
+                  f"in {wall:.3f} s ({cfg.n_steps / wall:.2f} steps/s); K1 "
+                  f"launches {p3m_short_acc.launches}, K3 launches "
+                  f"{run_fused_column_plane.launches}, K5 launches "
+                  f"{run_column_plane_masked.launches}, K6 launches "
+                  f"{run_cell_plane.launches}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as f:
         f.write(json.dumps({"tag": args.tag, "root": args.root, "card": card,

@@ -271,39 +271,83 @@ def test_tiny_column_tier_run_on_gpu_matches_cpu(cuda, tmp_path, shortrange):
     assert gpu.config_run == cpu.config_run
 
 
-def _cell_case(cuda, n=6000, box=100.0, seed=4):
+def _cell_case(cuda, n=6000, box=100.0, seed=4, kind="uniform"):
     """A full cell plane (4^3 cells) and an active-target plane of one
-    uniform state on the card."""
+    state on the card: uniform; clustered (half the particles in a clump
+    of 3 box / 100 around one point); a cell filled to its capacity K (256
+    particles in cell (0, 0, 0), the rest outside it); or sparse (uniform,
+    9 active particles scattered over the cells)."""
     from nbody_torch.forces.p3m import build_padded_plane
 
     pos, mass = _particles(n, box, cuda, seed=seed)
-    act = torch.rand(n, generator=torch.Generator().manual_seed(seed)) < 0.1
+    gen = torch.Generator().manual_seed(seed)
+    act = torch.rand(n, generator=gen) < 0.1
+    cap, tcap = 256, 64
+    c = box / 4
+    if kind == "clustered":
+        pos[: n // 2] = (0.6 * box + 0.03 * box * torch.randn(
+            (n // 2, 3), generator=gen)).to(cuda, torch.float32)
+        cap = tcap = 3072
+    elif kind == "full":
+        pos[(pos < c).all(dim=1), 0] += c
+        pos[:cap] = (c * (0.3 + 0.4 * torch.rand((cap, 3), generator=gen))
+                     ).to(cuda, torch.float32)
+    elif kind == "sparse":
+        act = torch.zeros(n, dtype=torch.bool)
+        act[torch.randperm(n, generator=gen)[:9]] = True
     r_cut = 0.999 * box / 4
-    full = build_padded_plane(pos, mass, box, r_cut, 4, 256)
-    tgt = build_padded_plane(pos, mass, box, r_cut, 4, 64, valid=act.to(cuda))
+    full = build_padded_plane(pos, mass, box, r_cut, 4, cap)
+    tgt = build_padded_plane(pos, mass, box, r_cut, 4, tcap,
+                             valid=act.to(cuda))
     assert int(full[1]) == int(tgt[1]) == 0
+    if kind == "full":
+        assert int(full[4].max()) == full[2] == cap
     return full, tgt, dict(nx=4, ncell=4, eps2=0.01, r_s=4.0, r_cut=r_cut)
 
 
 @pytest.mark.parametrize("split,softening", VARIANTS)
-@pytest.mark.parametrize("two_plane", [False, True])
-def test_k6_matches_plain(cuda, split, softening, two_plane):
+@pytest.mark.parametrize("kind,two_plane", [
+    ("uniform", False), ("uniform", True), ("clustered", False),
+    ("clustered", True), ("full", False), ("sparse", True)])
+def test_k6_matches_plain(cuda, split, softening, kind, two_plane):
+    """Relative L2 and per target (1e-3 of the RMS force) against the
+    float64 plain version, two launches equal bit for bit."""
     from nbody_torch.forces.p3m import cell_plane_plain, run_cell_plane
 
     (plane, _, K, _, counts), (plane_i, _, K_i, _, counts_i), kw = \
-        _cell_case(cuda)
+        _cell_case(cuda, kind=kind)
     kw.update(split=split, softening=softening)
     if two_plane:
         kw.update(plane_j=plane, K_j=K, counts_j=counts)
         plane, K, counts = plane_i, K_i, counts_i
     before = run_cell_plane.launches
     got = run_cell_plane(plane, counts, K=K, **kw)
+    again = run_cell_plane(plane, counts, K=K, **kw)
     torch.cuda.synchronize()
-    assert run_cell_plane.launches == before + 1
+    assert run_cell_plane.launches == before + 2
+    assert torch.equal(got, again)
     if two_plane:
         kw["plane_j"] = kw["plane_j"].double()
     ref = cell_plane_plain(plane.double(), counts, K=K, **kw)
     assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+    d = (got[:3].double() - ref[:3]).norm(dim=0)
+    r = ref[:3].norm(dim=0)
+    assert float(d.max() / r[r > 0].square().mean().sqrt()) <= 1e-3
+    assert float(got[3:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nx,ncell", [(2, 8), (5, 20), (11, 11), (22, 22)])
+def test_k6_geometry_on_the_card(cuda, nx, ncell):
+    """The library's tile is K6_TILE and the launch shape at the four
+    sites' shapes follows k6_geometry's rule on this card's numbers."""
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces.p3m import K6_TILE, K6_WARPS, _k6_info, \
+        k6_geometry
+
+    info = _k6_info(load_library(), torch.cuda.current_device(), 1, 1)
+    assert info[0] == K6_TILE and info[1] > 0 and min(info[2:]) >= 1
+    geo = k6_geometry(nx, ncell, info)
+    assert geo.warps in K6_WARPS and geo.blocks == nx * ncell * ncell
 
 
 def test_cell_wrapper_rejects(cuda):
