@@ -174,6 +174,7 @@ power limit; the last line is ``{"ok": true, "device": {...}}``.  Run outputs go
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -363,13 +364,7 @@ def _columns_variants() -> dict:
     Hopper) and ``narrowed`` (the reach cut by r_cut / 2, a planted fault)
     variants, built in this run."""
     if not hasattr(_columns_variants, "libs"):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "torch_columns_ablation",
-            os.path.join(ROOT, "scripts", "torch_columns_ablation.py"))
-        abl = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(abl)
+        abl = _ablation("torch_columns_ablation")
         _columns_variants.libs = {
             name: lib for name, (lib, _) in abl.load_variants(
                 ["original", "narrowed"]).items()}
@@ -382,13 +377,7 @@ def _k1_variants():
     (the cull's reach cut by r_cut / 2, a planted fault) variants, built
     in this run."""
     if not hasattr(_k1_variants, "libs"):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "torch_k1_ablation",
-            os.path.join(ROOT, "scripts", "torch_k1_ablation.py"))
-        abl = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(abl)
+        abl = _ablation("torch_k1_ablation")
         _k1_variants.abl = abl
         _k1_variants.libs = {name: lib for name, (lib, _) in
                              abl.load_variants(["original",
@@ -829,18 +818,19 @@ def supercell_kernels_check(state, config, cfg_run, tag: str,
         if shift == 0.0:
             rho, k2_err = got, max_abs(got, ref32)
     n_real = int(counts.sum())
-    k2_ms = cuda_time_ms(
-        lambda: supercell_deposit_from_plane(plane, counts, **dkw), 50)
+    times = k2_timing(f"[7] {tag} K2", [dict(
+        plane=plane, counts=counts, nx=ncell, shift=0.0, row0=0, **dkw)])
+    k2_ms = times["ms"]
     k2_plain_ms = cuda_time_ms(lambda: k2_plain(plane), 3)
     lib_ms = cuda_time_ms(lambda: cic_deposit(pos, box, nmesh, weights=mass),
                           50)
     b_ms, b_by = bound(n_real * 16 + counts.numel() * 4 + nmesh**3 * 4,
                        n_real * FLOPS_DEPOSIT)
-    out["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    phase(f"[7] {tag} K2: kernel {k2_ms:.4f} ms, plain f32 {k2_plain_ms:.3f}"
-          f" ms, cic_deposit (index_add_) {lib_ms:.4f} ms, bound {b_ms:.4f} "
-          f"ms ({b_by}); {n_real} particles")
+    out["K2"] = dict(max_abs_err=k2_err, plain_ms=k2_plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, **times)
+    phase(f"[7] {tag} K2: the call {k2_ms:.4f} ms, plain f32 "
+          f"{k2_plain_ms:.3f} ms, cic_deposit (index_add_) {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}); {n_real} particles")
 
     # -- the real force grids, then K3 ------------------------------------
     mass_sum = torch.sum(mass)
@@ -1180,18 +1170,108 @@ def _k6_variants():
     ``narrowed`` (a neighbour cell left out, a planted fault) variants,
     built in this run."""
     if not hasattr(_k6_variants, "libs"):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "torch_k6_ablation",
-            os.path.join(ROOT, "scripts", "torch_k6_ablation.py"))
-        abl = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(abl)
+        abl = _ablation("torch_k6_ablation")
         _k6_variants.abl = abl
         _k6_variants.libs = {name: lib for name, (lib, _) in
                              abl.load_variants(["original",
                                                 "narrowed"]).items()}
     return _k6_variants.abl, _k6_variants.libs
+
+
+def _ablation(name: str):
+    """``scripts/<name>.py``, the module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _k2_variants():
+    """``scripts/torch_k2_ablation.py`` (the module) and {name: library}
+    of its ``original`` (K2 before its redesign for Hopper), built in this
+    run."""
+    if not hasattr(_k2_variants, "libs"):
+        abl = _ablation("torch_k2_ablation")
+        _k2_variants.abl = abl
+        _k2_variants.libs = {name: lib for name, (lib, _) in
+                             abl.load_variants(["original"]).items()}
+    return _k2_variants.abl, _k2_variants.libs
+
+
+def _k8_original():
+    """``scripts/torch_k8_ablation.py`` (the module) and the library of
+    its ``original`` (K8 before its redesign for Hopper), built in this
+    run."""
+    if not hasattr(_k8_original, "lib"):
+        abl = _ablation("torch_k8_ablation")
+        _k8_original.abl = abl
+        _k8_original.lib = abl.build_all(["original"])["original"][0]
+    return _k8_original.abl, _k8_original.lib
+
+
+def enqueue_ms(fn, calls: int = 50) -> float:
+    """The host's time to enqueue one call of ``fn`` (no synchronisation
+    inside a run of ``calls`` calls, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def k2_timing(tag: str, kws: list, reps: int = 50) -> dict:
+    """K2 at one site (``kws``: ``scripts/torch_k2_ablation.py``'s call
+    keywords, one a shard): the call (CUDA events around back-to-back
+    ``supercell_deposit_from_plane`` calls, the wrapper's host work
+    included), the kernel alone (the memset and the kernel by one library
+    call on prepared buffers: the device's time), the host's enqueue of a
+    call,
+    and K2 before its redesign (the ablation's ``original``: its call
+    through its own wrapper, the mesh fill included, and its kernel alone),
+    means over the shards; the original's deposit must agree with the
+    float32 plain version to NODE_MASS_TOL.  Returns the times."""
+    from nbody_torch._kernels import load_library
+    from nbody_torch.forces.pm_supercell import supercell_deposit_from_plane
+
+    abl, libs = _k2_variants()
+
+    def call(kw):
+        return supercell_deposit_from_plane(
+            kw["plane"], kw["counts"], box=kw["box"], nmesh=kw["nmesh"],
+            ncell=kw["ncell"], stride=kw["stride"], gz=kw["gz"],
+            shift=kw["shift"], nx=kw["nx"], row0=kw["row0"])
+
+    ms = _mean_ms([lambda kw=kw: call(kw) for kw in kws], reps)
+    kern = [abl.kernel_launch("redesign", load_library(), kw) for kw in kws]
+    kernel_ms = _mean_ms([k[0] for k in kern], reps)
+    host = enqueue_ms(lambda: [call(kw) for kw in kws], reps) / len(kws)
+    orig = libs["original"]
+    o_ms = _mean_ms([lambda kw=kw: abl.variant_call("original", orig, kw)
+                     for kw in kws], reps)
+    o_kern = [abl.kernel_launch("original", orig, kw) for kw in kws]
+    o_kernel_ms = _mean_ms([k[0] for k in o_kern], reps)
+    o_err = 0.0
+    for kw in kws:
+        ref = abl.plain(kw)
+        o_err = max(o_err, max_abs(abl.variant_call("original", orig, kw),
+                                   ref) / float(ref.abs().max()))
+    phase(f"{tag}: the call {ms:.4f} ms, the kernel alone {kernel_ms:.4f} ms"
+          f" (the memset and the kernel), the host's enqueue {host:.4f} ms a "
+          f"call; K2 before the redesign (scripts/"
+          f"torch_k2_ablation.py's original, built in this run): the call "
+          f"{o_ms:.4f} ms ({o_ms / ms:.2f}x), its kernel alone "
+          f"{o_kernel_ms:.4f} ms, max |node - plain f32| / max {o_err:.3e}")
+    if not o_err <= NODE_MASS_TOL:
+        raise AssertionError(f"{tag}: K2 before the redesign disagrees: "
+                             f"{o_err}")
+    return dict(ms=ms, kernel_ms=kernel_ms, enqueue_ms=host,
+                original_ms=o_ms, original_kernel_ms=o_kernel_ms)
 
 
 def _plain64(kw: dict) -> dict:
@@ -1508,6 +1588,8 @@ def frozen_supercell_check(state, config, cfg_run, tag: str) -> None:
               f"{outside} particles' plane coordinates outside [0, box)")
         if not (err <= NODE_MASS_TOL and err_f <= FROZEN_NODE_TOL):
             raise AssertionError(f"K2 on the frozen plane: {err}, {err_f}")
+    k2_timing(f"[11] {tag} K2", [dict(plane=plane, counts=counts, nx=ncell,
+                                      shift=0.0, row0=0, **dkw)])
     # planted wrong wraps: the frozen plane with the masses of particles
     # whose plane coordinates lie past the box's upper edge zeroed, as a
     # deposit that left their corners off the mesh reads; the particle
@@ -1753,8 +1835,11 @@ def slab_supercell_check(state, config) -> dict:
             rho = got
         k2_errs.append(max_abs(got, ref))
     n_real = sum(int(c.sum()) for c in counts)
-    k2_ms = _mean_ms([lambda p=p, c=c, r0=r0: supercell_deposit_from_plane(
-        p, c, row0=r0, **dkw) for p, c, r0 in zip(planes, counts, rows0)], 50)
+    times = k2_timing("[19] K2 slab", [
+        dict(plane=p, counts=c, row0=r0, shift=0.0,
+             **{k: v for k, v in dkw.items() if k != "chunk"})
+        for p, c, r0 in zip(planes, counts, rows0)])
+    k2_ms = times["ms"]
     k2_plain_ms = _mean_ms([lambda p=p, c=c, r0=r0: plain_ext(p, c, r0, 0.0)
                             for p, c, r0 in zip(planes, counts, rows0)], 2)
     lib_ms = cuda_time_ms(lambda: td.slab_deposit(
@@ -1764,7 +1849,8 @@ def slab_supercell_check(state, config) -> dict:
                    n_real * 16 + sum(c.numel() for c in counts) * 4
                    + D * (nml + 3) * nmesh**2 * 4, n_real * FLOPS_DEPOSIT, D,
                    lib_ms)
-    phase(f"[19] K2 slab: kernel {k2_ms:.4f} ms a launch, plain f32 "
+    k2.update(times)
+    phase(f"[19] K2 slab: the call {k2_ms:.4f} ms a shard, plain f32 "
           f"{k2_plain_ms:.3f} ms, slab_deposit (index_add_) {lib_ms:.4f} ms "
           f"a shard, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}); "
           f"{n_real} particles over {D} shards")
@@ -3024,13 +3110,7 @@ def _k7_original():
     ``original`` variant, built in this run.  Returns (the ablation
     module, the loaded library)."""
     if not hasattr(_k7_original, "built"):
-        import importlib.util
-
-        spec = importlib.util.spec_from_file_location(
-            "torch_k7_ablation",
-            os.path.join(ROOT, "scripts", "torch_k7_ablation.py"))
-        abl = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(abl)
+        abl = _ablation("torch_k7_ablation")
         so, _ = abl.build_all(["original"])[
             abl.source_tag(abl.VARIANTS["original"][0])]
         _k7_original.built = (abl, abl.load(so))
@@ -3361,13 +3441,34 @@ def mxu_bench(n: int) -> dict:
         phase(f"{tag} vs K7 float64: "
               + k8_gate(tag, *k8_errors(acc, phi, pm, ref, ref_phi)))
     err = max(max_abs(acc, ref), max_abs(phi, ref_phi))
-    del ref, ref_phi
-
-    _, pos_s, mass_s, ctr = mx._sorted_tiles(pos, mass, 256, 1024, True, 6)
+    again = mx.allpairs_pallas_mxu(pos, mass, eps)
+    same = torch.equal(acc, again[0]) and torch.equal(phi, again[1])
+    # K8 before its redesign on the same sorted particles
+    abl, orig = _k8_original()
+    perm, pos_s, mass_s, ctr = mx._sorted_tiles(pos, mass, 256, 1024, True, 6)
     pos4 = torch.cat([pos_s, mass_s[:, None]], dim=1)
+    o_launch, o_out = abl.launcher("original", orig, dict(pos4=pos4, ctr=ctr),
+                                   eps)
+    o_launch()
+    o_acc, o_phi = mx._unsort(perm, o_out[:n, :3], -o_out[:n, 3])
+    o_err = k8_errors(o_acc, o_phi, mass, ref, ref_phi)
+    phase(f"[18] K8 at N={n}: two launches "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}; K8 before the "
+          f"redesign (scripts/torch_k8_ablation.py's original, built in this "
+          f"run) vs K7 float64: " + k8_gate("[18] K8 original", *o_err))
+    if not same:
+        raise AssertionError("[18] two K8 launches differ")
+    del ref, ref_phi, o_acc, o_phi
+
     ms = cuda_time_ms(lambda: mx._launch(pos4, ctr, 256, eps), 10)
+    o_ms = cuda_time_ms(o_launch, 10)
     fn_ms = cuda_time_ms(lambda: mx.allpairs_pallas_mxu(pos, mass, eps), 10)
+    host = enqueue_ms(lambda: mx.allpairs_pallas_mxu(pos, mass, eps), 3)
     k7_ms = cuda_time_ms(lambda: allpairs_pallas(pos, mass, eps), 10)
+    info = (ctypes.c_int * 4)()
+    from nbody_torch._kernels import load_library
+
+    load_library().pp_gram_info(info)
     plain_ms = cuda_time_ms(lambda: mx.gram_allpairs_plain(pos, mass, eps), 1,
                             warm=False)
     clock_mhz = float(subprocess.run(
@@ -3383,14 +3484,19 @@ def mxu_bench(n: int) -> dict:
     b_ms = max(t_sfu, t_tc, t_bytes)
     b_by = "bytes" if b_ms == t_bytes else "operations"
     phase(f"[18] K8 at N={n} (exp_mxu, eps {eps:g}): launch {ms:.4f} ms "
-          f"({n * n / ms * 1e3:.4e} interactions/s), the function "
-          f"{fn_ms:.4f} ms ({n * n / fn_ms * 1e3:.4e}/s); K7 {k7_ms:.4f} ms "
-          f"({n * n / k7_ms * 1e3:.4e}/s); plain f32 {plain_ms:.3f} ms; "
+          f"({n * n / ms * 1e3:.4e} interactions/s; blocks of {info[0]} "
+          f"targets, {info[2]} warps, tiles of {info[1]} sources, {info[3]} "
+          f"resident an SM), the function {fn_ms:.4f} ms "
+          f"({n * n / fn_ms * 1e3:.4e}/s), its host enqueue {host:.4f} ms; "
+          f"K7 {k7_ms:.4f} ms ({n * n / k7_ms * 1e3:.4e}/s; K8/K7 "
+          f"{ms / k7_ms:.3f}); K8 before the redesign {o_ms:.4f} ms "
+          f"({o_ms / ms:.3f}x); plain f32 {plain_ms:.3f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}: rsqrt on the SFU {t_sfu:.4f} ms at "
           f"{clock_mhz:g} MHz x {sms} SMs, TF32 products {t_tc:.4f} ms, "
           f"bytes {t_bytes:.4f} ms); max abs error vs float64 {err:.3e}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, function_ms=fn_ms,
+                enqueue_ms=host, k7_ms=k7_ms, original_ms=o_ms)
 
 
 def mxu_drive(n: int, steps: int, k7_run: dict) -> int:
@@ -3471,6 +3577,12 @@ def main() -> None:
     phase(f"[2] K6's design before the redesign and the planted narrowed "
           f"neighbourhood (scripts/torch_k6_ablation.py) built in "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _k2_variants()
+    _k8_original()
+    phase(f"[2] K2's and K8's designs before the redesign "
+          f"(scripts/torch_k2_ablation.py, scripts/torch_k8_ablation.py) "
+          f"built in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. K1 against its plain version at the main path's shape ---------
     cfg = SimulationConfig()

@@ -112,7 +112,8 @@ _ENTRY_POINTS = {
     "pp_allpairs_f32": "pippiddiippp",
     "pp_allpairs_f64": "pippiddiippp",
     "pp_allpairs_info": "iip",
-    "pp_gram_f32": "ppiiddpp",
+    "pp_gram_f32": "ppiiddppp",
+    "pp_gram_info": "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 

@@ -14,15 +14,23 @@
 // ghost columns excluded), with coordinates in mesh cells minus `shift`.
 // The TPU kernel built each column's haloed 16 x 16 x ZP node grid with
 // two matrix products (its MXU has no scatter) and left the overlap-add
-// of the halos to XLA.  That output block is 256 KB at ZP = 256, more
-// than a block's 227 KB of shared memory, and the card has fast atomics:
-// so here one thread per real slot adds its 8 corner masses straight into
-// the periodic mesh with atomicAdd, which also does the halo fold.  The
-// order of the adds changes from run to run, so the mesh agrees with the
-// plain version to float32 summation order.  What bounds it: bytes, 16 B
-// read per particle and the 4 B per node of the mesh (8.4 MB at 128^3);
-// the adds of neighbouring slots (z-sorted within a column) spread over a
-// few mesh cells, so contention stays low on uniform states.
+// of the halos to XLA.  What bounds it on the card: bytes, 16 B read a
+// particle and 4 B written a mesh node (8.4 MB at 128^3).
+//
+// The design: one thread a real slot, its 8 corner masses added straight
+// into the mesh with global atomics, as before the redesign: the adds
+// bound it (2.1 M at cfg64, ~80 G a second from L2 on an H100), so
+// the two corners of a node line, adjacent in z, go as one float4 atomic
+// (red.global.add.v4.f32) on the aligned four nodes that hold both,
+// unless the pair straddles four: 5 atomics a slot on average, not 8.
+// The mesh is zeroed by a memset in the same library call.  The order of
+// the adds changes from run to run, so the mesh agrees with the plain
+// version to float32 summation order and is not equal bit for bit across
+// launches.  A shared-memory tile a column and z range (the TPU kernel's
+// node subgrid), with its ring added by a second kernel, ran slower
+// (scripts/torch_k2_tile.cu, scripts/torch_k2_ablation.py); so does a
+// float atomicAdd to shared memory, which on this card is a
+// compare-and-swap loop.
 //
 // On a slab of the domain decomposition (`slab` = 1) both kernels run
 // over the slab's nx = ncell / D interior x-rows, the first of which is
@@ -68,6 +76,7 @@ using nbody_kernels::kColTargets;
 using nbody_kernels::kColThreads;
 using nbody_kernels::Params;
 
+// K2: threads a block
 constexpr int kDepositThreads = 256;
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -80,6 +89,27 @@ __device__ __forceinline__ int wrap(int i, int n) {
 __device__ __forceinline__ int x_plane(int ix, int nmesh, int nxg, int slab) {
   if (!slab) return wrap(ix, nmesh);
   return (ix + 1 >= 0 && ix + 1 < nxg) ? ix + 1 : -1;
+}
+
+// Adds the z pair (w0 at node iz, w1 at iz + 1, periodic) of one node
+// line: a float4 atomic on the aligned four nodes that hold both, or,
+// where the pair straddles four (or the rows are not aligned to four
+// floats), two scalar atomics.
+__device__ __forceinline__ void add_pair(float* __restrict__ line, int iz,
+                                         int nmesh, bool vec, float w0,
+                                         float w1) {
+  const int z = wrap(iz, nmesh);
+  const int k = z & 3;
+  if (vec && k != 3) {
+    const float4 v = make_float4(k == 0 ? w0 : 0.0f,
+                                 k == 0 ? w1 : (k == 1 ? w0 : 0.0f),
+                                 k == 1 ? w1 : (k == 2 ? w0 : 0.0f),
+                                 k == 2 ? w1 : 0.0f);
+    atomicAdd(reinterpret_cast<float4*>(line + (z - k)), v);
+  } else {
+    atomicAdd(line + z, w0);
+    atomicAdd(line + wrap(iz + 1, nmesh), w1);
+  }
 }
 
 __global__ void __launch_bounds__(kDepositThreads)
@@ -111,7 +141,7 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
   const int iz = static_cast<int>(fz0);
   const float wx[2] = {1.0f - fx, fx};
   const float wy[2] = {1.0f - fy, fy};
-  const float wz[2] = {1.0f - fz, fz};
+  const bool vec = (nmesh & 3) == 0;
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const int px = x_plane(ix + a, nmesh, nxg, slab);
@@ -119,12 +149,9 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
     const size_t gx = static_cast<size_t>(px) * nmesh;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
-      const size_t gxy = (gx + wrap(iy + b, nmesh)) * nmesh;
       const float wxy = wx[a] * wy[b] * m;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        atomicAdd(rho + gxy + wrap(iz + c, nmesh), wxy * wz[c]);
-      }
+      add_pair(rho + (gx + wrap(iy + b, nmesh)) * nmesh, iz, nmesh, vec,
+               wxy * (1.0f - fz), wxy * fz);
     }
   }
 }
@@ -255,10 +282,10 @@ void dispatch_fused(bool interlaced, bool split_out, const float* plane,
 extern "C" {
 
 // K2.  plane (8, (nx + 2) * (ncell + 2) * stride) float32; counts
-// (nx * ncell,) int32 (real slots per column, <= CK); rho, zeroed by the
-// caller, receives the masses: (nmesh^3,) with nx = ncell and slab = 0,
-// or on a slab (slab = 1, nx = ncell / D, its first x-row row0 of the
-// box's grid) the haloed (nx * S + 3, nmesh, nmesh).  Returns
+// (nx * ncell,) int32 (real slots per column, <= CK); rho receives the
+// masses (zeroed here first, on `stream`): (nmesh^3,) with nx = ncell and
+// slab = 0, or on a slab (slab = 1, nx = ncell / D, its first x-row row0
+// of the box's grid) the haloed (nx * S + 3, nmesh, nmesh).  Returns
 // cudaGetLastError() after the launch (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
 int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
@@ -273,9 +300,12 @@ int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
   }
   const size_t row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
   const int nxg = slab ? nx * S + 3 : nmesh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(
+      rho, 0, static_cast<size_t>(nxg) * nmesh * nmesh * sizeof(float), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(nx * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
-  deposit_kernel<<<grid, kDepositThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  deposit_kernel<<<grid, kDepositThreads, 0, s>>>(
       plane, counts, ncell, S, nmesh, nxg, slab, row0, stride, gz, row,
       static_cast<float>(scale), static_cast<float>(shift), rho);
   return static_cast<int>(cudaGetLastError());

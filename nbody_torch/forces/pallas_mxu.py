@@ -27,8 +27,10 @@ its relative r^2 error at ~1.1e-3 and its share of the cancellation at
 at eps^2: no Gram r^2 below eps^2 reaches rsqrt.
 
 A CUDA tensor launches K8 (``forces/csrc/pp_gram.cu``: r^2 on the tensor
-cores in the 3xTF32 split, the weights and the force sums in registers)
-or raises; a CPU tensor takes the plain version,
+cores in the 3xTF32 split, the weights and the force sums in registers;
+a vote on the boxes of each warp's targets and each source tile,
+:func:`k8_unsafe_tiles`, spares the per-pair threshold test on the warp
+tiles it clears) or raises; a CPU tensor takes the plain version,
 :func:`gram_allpairs_plain`.  The Morton codes, the sort, the padding,
 the centroids and the scatter back are torch ops around the one launch.
 Periodic minimum images are not supported (the wrap depends on the pair,
@@ -165,19 +167,72 @@ def gram_allpairs_plain(pos, mass, eps: float, G: float = 1.0, *,
     return _unsort(perm, G * out[:n, :3], -G * out[:n, 3])
 
 
+#: the CUDA kernel's warp tile: targets a warp and sources a shared tile
+K8_WARP_TARGETS = 32
+K8_TILE = 128
+#: the kernel's bound on the float32 error of a Gram r^2, as a share of
+#: (|xic| + |xjc|)^2 + eps^2 (``csrc/pp_gram.cu`` kGramSlack)
+K8_GRAM_SLACK = 2.0**-14
+
+
+def k8_unsafe_tiles(pos_s, ctr, ti: int, eps: float,
+                    refine_k: float = REFINE_K):
+    """K8's vote, warp tile by warp tile, in float32 as the kernel takes
+    it (``unsafe_vote``): (npad // K8_WARP_TARGETS, npad // K8_TILE) bool,
+    False where the boxes rule out a pair of the tile whose Gram r^2
+    falls below its target's lambda_i, so the warp adds the tile's Gram
+    sums with no per-pair test; True where they cannot: the least r^2 +
+    eps^2 that the boxes of the tile's sources and of the warp's targets
+    (both centred on the targets' centroid) allow, less K8_GRAM_SLACK
+    ((Rt + Rs)^2 + eps^2), falls below the warp's largest lambda_i (Rt
+    and Rs bound |xic| and |xjc|).  The kernel runs the per-pair test on
+    those tiles, and takes the tile of a warp's own targets (``own``: the
+    tile of index warp * K8_WARP_TARGETS // K8_TILE) from its separations
+    in any case.  ``pos_s`` (npad, 3) and ``ctr`` as
+    :func:`_sorted_tiles` gives them."""
+    f32 = torch.float32
+    pos = pos_s.to(f32)
+    c = ctr.to(f32).repeat_interleave(ti, dim=0)
+    xic = pos - c
+    q = xic[:, 2] * xic[:, 2] + (xic[:, 1] * xic[:, 1]
+                                 + xic[:, 0] * xic[:, 0])
+    wq = q.view(-1, K8_WARP_TARGETS).amax(1)
+    eps2 = torch.tensor(float(eps) ** 2, dtype=f32)
+    lam = torch.clamp(torch.tensor(refine_k, dtype=f32) * wq, min=eps2)
+    rt = torch.sqrt(wq)
+    tlo = xic.view(-1, K8_WARP_TARGETS, 3).amin(1)
+    thi = xic.view(-1, K8_WARP_TARGETS, 3).amax(1)
+    lo = pos.view(-1, K8_TILE, 3).amin(1)
+    hi = pos.view(-1, K8_TILE, 3).amax(1)
+    # each warp's centroid against each tile's box
+    wc = c[::K8_WARP_TARGETS][:, None, :]
+    slo, shi = lo[None] - wc, hi[None] - wc
+    gap = torch.clamp(torch.maximum(slo - thi[:, None], tlo[:, None] - shi),
+                      min=0.0)
+    gap2 = (gap * gap).sum(-1)
+    far = torch.maximum(slo.abs(), shi.abs())
+    span = rt[:, None] + torch.sqrt((far * far).sum(-1))
+    slack = K8_GRAM_SLACK * (span * span + eps2)
+    return gap2 * (1.0 - 2.0**-20) + (eps2 - slack) < lam[:, None]
+
+
 def _launch(pos4, ctr, ti: int, eps: float):
-    """One K8 launch (counted in ``allpairs_pallas_mxu.launches``) on the
+    """One K8 call (counted in ``allpairs_pallas_mxu.launches``; the
+    library's two launches: the source tiles' boxes, then the sums) on the
     sorted, padded particles pos4 (npad, 4) [x, y, z, m] with their
     centroids ctr (npad // ti, 3): its (npad, 4) output [ax, ay, az, pot]
     without G."""
     from nbody_torch._kernels import load_library
 
+    lib = load_library()
     out = torch.empty_like(pos4)
+    boxes = pos4.new_empty(pos4.shape[0] // 16)
     with torch.cuda.device(pos4.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = load_library().pp_gram_f32(
+        err = lib.pp_gram_f32(
             pos4.data_ptr(), ctr.data_ptr(), pos4.shape[0], ti,
-            float(eps) ** 2, REFINE_K, out.data_ptr(), stream)
+            float(eps) ** 2, REFINE_K, boxes.data_ptr(), out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"allpairs_pallas_mxu: CUDA launch failed "
                            f"(error {err})")

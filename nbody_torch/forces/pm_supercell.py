@@ -23,6 +23,7 @@ node masses, then :func:`fold_node_masses`) and
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 
@@ -176,6 +177,60 @@ def slab_halo_fold(exts: list, group) -> list:
     return out
 
 
+def deposit_atomics(plane, counts, *, ncell: int, S: int, nmesh: int,
+                    stride: int, gz: int, scale: float, shift: float = 0.0,
+                    nx: int | None = None, row0: int = 0):
+    """K2's atomics, in plain PyTorch as the kernel issues them (a model
+    of the device code, for the tests): for each real slot and each of its
+    4 node lines (a, b) = (k // 2, k % 2), with coordinates rounded op by
+    op as the kernel's: (line (ncol, CK, 4) int64, the line's mesh offset,
+    -1 outside a slab's halo or past counts; z (ncol, CK, 4), the pair's
+    lower node, periodic; vector (ncol, CK, 4) bool, whether the pair goes
+    as one float4 atomic on nodes z - z % 4 .. + 3 (else as two scalar
+    atomics at z and (z + 1) % nmesh); w (2, ncol, CK, 4) float32, the
+    weights of the pair's two nodes)."""
+    nx = ncell if nx is None else nx
+    ncol = nx * ncell
+    P = ncell + 2
+    CK = stride - 2 * gz
+    dev = plane.device
+    c = torch.arange(ncol, device=dev)
+    r = torch.arange(CK, device=dev)
+    slots = (((c // ncell + 1) * P + c % ncell + 1) * stride + gz)[:, None] \
+        + r[None, :]
+    live = r[None, :] < counts.to(torch.int64)[:, None]
+    f32 = torch.float32
+    p32 = plane.to(f32)
+    sc = torch.tensor(scale, dtype=f32)
+    sh = torch.tensor(shift, dtype=f32)
+    x = p32[0][slots] * sc - ((c // ncell + row0) * S).to(f32)[:, None] - sh
+    y = p32[1][slots] * sc - ((c % ncell) * S).to(f32)[:, None] - sh
+    z = p32[2][slots] * sc - sh
+    m = p32[3][slots]
+    fx0, fy0, fz0 = torch.floor(x), torch.floor(y), torch.floor(z)
+    fx, fy, fz = x - fx0, y - fy0, z - fz0
+    ix = fx0.to(torch.int64) + (c // ncell * S)[:, None]
+    iy = fy0.to(torch.int64) + (c % ncell * S)[:, None]
+    iz = torch.remainder(fz0.to(torch.int64), nmesh)
+    slab = nx != ncell
+    lines, ws = [], []
+    for k in range(4):
+        a, b = k // 2, k % 2
+        if slab:
+            px = ix + a + 1
+            ok = (px >= 0) & (px < nx * S + 3) & live
+        else:
+            px = torch.remainder(ix + a, nmesh)
+            ok = live
+        line = (px * nmesh + torch.remainder(iy + b, nmesh)) * nmesh
+        lines.append(torch.where(ok, line, -1))
+        wxy = (fx if a else 1.0 - fx) * (fy if b else 1.0 - fy) * m
+        ws.append(torch.stack([wxy * (1.0 - fz), wxy * fz]))
+    vector = (iz % 4 != 3) & (nmesh % 4 == 0)
+    return (torch.stack(lines, dim=-1), iz[..., None].expand(-1, -1, 4),
+            vector[..., None].expand(-1, -1, 4), torch.stack(ws, dim=-1))
+
+
 def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
                                  ncell: int, stride: int, gz: int,
                                  chunk: int = 256, shift: float = 0.0,
@@ -189,11 +244,12 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     (nx * S + 3, nmesh, nmesh) slab (:func:`fold_slab_node_masses`;
     :func:`supercell_deposit_local` sends the halo planes on).
 
-    A CUDA plane launches the kernel (which adds each particle's 8 corner
-    masses straight into the mesh) or raises; a CPU plane takes
-    :func:`deposit_node_masses_plain` + :func:`fold_node_masses` (or
-    :func:`fold_slab_node_masses`).  ``supercell_deposit_from_plane.
-    launches`` counts kernel launches."""
+    A CUDA plane launches the kernel (a thread a real slot, each node
+    line's z pair of corner masses as one vector atomic where it can,
+    :func:`deposit_atomics`; the mesh zeroed in the same library call) or
+    raises; a CPU plane takes :func:`deposit_node_masses_plain` +
+    :func:`fold_node_masses` (or :func:`fold_slab_node_masses`).
+    ``supercell_deposit_from_plane.launches`` counts kernel launches."""
     geom = supercell_geometry(nmesh, ncell)
     if geom is None:
         raise ValueError(
@@ -221,14 +277,16 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     from nbody_torch._kernels import load_library
 
     lib = load_library()
-    rho = torch.zeros((nx * S + 3 if slab else nmesh, nmesh, nmesh),
-                      dtype=torch.float32, device=plane.device)
-    with torch.cuda.device(plane.device):
+    dev = plane.device
+    rho = torch.empty((nx * S + 3 if slab else nmesh, nmesh, nmesh),
+                      dtype=torch.float32, device=dev)
+    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+           else torch.cuda.device(dev))
+    with ctx:
         err = lib.pm_supercell_deposit_f32(
             plane.data_ptr(), counts.data_ptr(), nx, ncell, int(slab), row0,
             S, nmesh, stride, gz, CK, scale, float(shift), rho.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"supercell_deposit_from_plane: CUDA launch "
                            f"failed (error {err})")

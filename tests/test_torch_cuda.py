@@ -226,6 +226,44 @@ def test_k2_matches_plain(cuda, shift):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("shift", [0.0, 0.5])
+def test_k2_slots_far_outside_their_column(cuda, shift):
+    """Real slots moved 2.5 and 3 cells out of their column in x, y and z
+    and by several columns: the deposit matches the CIC deposit of the
+    plane's real slots in float64 (the plain version's node grid reaches
+    one node past a column, so it cannot hold these), conserves the mass
+    and leaves no node unwritten (the output starts unfilled)."""
+    from nbody_torch.forces.pm_supercell import supercell_deposit_from_plane
+    from nbody_torch.mesh.cic import cic_deposit
+
+    plane, _, _, counts, kw, _, box, nmesh = _column_case(cuda)
+    ncell, stride, gz = kw["ncell"], kw["stride"], kw["gz"]
+    P = ncell + 2
+    cell = box / nmesh
+    c = torch.arange(ncell * ncell, device=cuda)
+    first = ((c // ncell + 1) * P + c % ncell + 1) * stride + gz
+    moved = plane.clone()
+    for k, (row, d) in enumerate([(0, 2.5), (0, -3.0), (1, 2.5), (1, -3.0),
+                                  (2, 2.5), (2, -3.0), (0, 11.0),
+                                  (2, -23.0)]):
+        moved[row, first[(3 * k + 1) % first.numel()] + k % 3] += d * cell
+    garbage = torch.full((nmesh**3,), float("nan"), device=cuda)
+    del garbage
+    got = supercell_deposit_from_plane(moved, counts, box=box, nmesh=nmesh,
+                                       ncell=ncell, stride=stride, gz=gz,
+                                       shift=shift)
+    torch.cuda.synchronize()
+    slots = torch.cat([first[i] + torch.arange(int(counts[i]), device=cuda)
+                       for i in range(ncell * ncell)])
+    pos = moved[0:3, slots].T.double()
+    ref = cic_deposit(pos, box, nmesh, weights=moved[3, slots].double(),
+                      shift=shift)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert float(got.sum()) == pytest.approx(float(moved[3, slots].sum()),
+                                             rel=1e-5)
+
+
 def test_column_wrappers_reject(cuda):
     from nbody_torch.forces.p3m_columns import run_column_plane
     from nbody_torch.forces.pm_supercell import run_fused_column_plane
@@ -660,6 +698,44 @@ def test_k8_matches_plain(cuda, n, sort):
     assert float(err.max()) < K8_MAX_TOL
     e_pot, e_ref = float(torch.sum(phi.double())), float(torch.sum(ref_phi))
     assert abs(e_pot / e_ref - 1.0) <= K8_EPOT_TOL
+
+
+@pytest.mark.parametrize("n", [1000, 70001])
+def test_k8_ragged_and_close_pairs(cuda, n):
+    """allpairs_pallas_mxu at an N that is not a multiple of 128, with
+    close pairs planted across the edges of the 128-source tiles (each
+    pair's two particles a few ulp apart: a pair far closer together than
+    to its tile centre, which must be taken from its separation), against
+    the float64 oracle; two launches equal bit for bit."""
+    from nbody_torch.forces.allpairs import direct_acc_chunked
+    from nbody_torch.forces.pallas_mxu import (
+        _sorted_tiles,
+        allpairs_pallas_mxu,
+        morton_codes,
+    )
+
+    rng = np.random.default_rng(n)
+    pos = torch.tensor(rng.uniform(0, 500.0, (n, 3)), dtype=torch.float32,
+                       device=cuda)
+    mass = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
+                        device=cuda)
+    # the sorted order's tile edges: each pair's second particle put next
+    # to the first, so that the sort keeps them on both sides of an edge
+    order = torch.argsort(morton_codes(pos), stable=True)
+    for e in range(128, n - 1, 128 * 7):
+        a, b = order[e - 1], order[e]
+        pos[b] = pos[a] + torch.tensor([1e-3, -2e-3, 5e-4], device=cuda)
+    eps = 1e-3
+    acc, phi = allpairs_pallas_mxu(pos, mass, eps)
+    again = allpairs_pallas_mxu(pos, mass, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, again[0]) and torch.equal(phi, again[1])
+    perm, pos_s, _, _ = _sorted_tiles(pos, mass, 256, 1024, True, 6)
+    assert pos_s.shape[0] % 1024 == 0 and n % 128
+    ref = direct_acc_chunked(pos.double(), mass.double(), eps)[0]
+    err = (acc.double() - ref).norm(dim=1) / ref.norm(dim=1)
+    assert float(err.median()) < K8_MEDIAN_TOL
+    assert float(err.max()) < K8_MAX_TOL
 
 
 def test_k8_wrapper_rejects(cuda):
