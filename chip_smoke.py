@@ -160,11 +160,31 @@ script exits non-zero:
     32^3 ICs, P(k) against [16]'s run, no kernel launched) and the 16^3
     run against the JAX package's P(k); (d) a planted capacity of 8 must
     report dropped particles.
+22. the subcycled KDK and the slab-resident ICs: (a) ``lpt_ic_domain``
+    on four shards of the card from the JAX package's committed per-slab
+    noise (16^3, orders 1 and 2) against its committed ICs row for row,
+    and ``realized_spectrum_domain`` of the same noise against its
+    committed table; (b) ``scripts/parity_study.py``'s cfg64 with
+    ``subcycles=4`` (its measurement options, the default transfer
+    function) and the default 32^3 config with ``subcycles=4`` through
+    ``run_simulation`` with no device argument: launches equal to the
+    evaluations counted from run.log (cfg64: K2 = K3 = the fused boundary
+    evaluations on the carried plan, K4 = the interior subcycles on it;
+    32^3: K1 = both), the plan refreezes and host reads of the drift
+    predicate; (c) K4 at its frozen site on the plan the driver carries,
+    at the cfg64-sub4 ICs and final state drifted to 0.999 skin/2, with
+    [7]'s gates; (d) cfg64-sub4 with ``devices=4, ic_realization=
+    'domain'``: no IC exchange overflow, the slab sites' launches (K2 =
+    K3 = 4 x the fused evaluations, K4 = 4 x the short ones) equal to the
+    evaluations counted; (e) the 16^3 subcycled runs (dense, supercell,
+    supercell on four shards) from the committed noise against the JAX
+    package's committed P(k).
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 16, 18, 19, 20 and 21, and each kernel's bound:
+from phases 3, 7, 11, 15, 16, 18, 19, 20, 21 and 22, and each kernel's
+bound:
 the larger of the bytes the function needs over the card's memory rate
 and its operations over its float32 rate, for K8 its rsqrts over the SFU's rate
 and its TF32 products over the tensor cores'); then the card's name and
@@ -2860,6 +2880,286 @@ def ring_ewald_check(noise, single_pk: str) -> None:
                     "[21] 16^3 PP on 4 devices from the JAX noise")
 
 
+# ---------------------------------------------------------------------------
+# [22] the subcycled KDK and the slab-resident ICs
+# ---------------------------------------------------------------------------
+
+# [22](a) the domain ICs on the card against the JAX package's from the
+# same float32 noise: float32 arithmetic in both, other FFTs, so positions
+# and momenta within 1e-5 of their largest magnitude (a few ulp of a
+# 500 Mpc position); the realized spectrum per bin to 1e-5 (measured on
+# the CPU: 6e-7)
+DOMAIN_IC_TOL = 1e-5
+
+
+def domain_ic_check() -> None:
+    """[22](a) ``lpt_ic_domain`` and ``realized_spectrum_domain`` on four
+    shards of the card from the JAX package's per-slab noise, against its
+    committed ICs (orders 1 and 2) and table."""
+    from nbody_torch.distributed.ic import lpt_ic_domain
+    from nbody_torch.distributed.measure import realized_spectrum_domain
+    from nbody_torch.distributed.sharding import device_mesh
+    from nbody_torch.driver import SimulationConfig
+    from nbody_torch.driver.simulate import (
+        _linear_power_fn,
+        _measurement_options,
+    )
+    from nbody_torch.ic.gaussian import GRFSpec
+
+    D = DOMAIN_SHARDS
+    cfg = SimulationConfig(n_side=16)
+    noise = np.load(os.path.join(PORT_DATA,
+                                 f"white_noise_n16_domain{D}_seed0.npy"))
+    group = device_mesh(D)
+    spec = GRFSpec(nmesh=cfg.n_side, box=cfg.box)
+    cosmo = cfg.cosmology()
+    power = _linear_power_fn(cosmo, cfg.transfer)
+    for order in (1, 2):
+        ref = np.load(os.path.join(
+            PORT_DATA, f"lpt_ic_domain_n16_domain{D}_order{order}_seed0.npz"))
+        t0 = time.perf_counter()
+        shards, ov = lpt_ic_domain(0, spec, power, cosmo, cfg.a_begin, group,
+                                   order=order, noise=list(noise))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [int((s.mass > 0).sum()) for s in shards]
+        if ov or counts != ref["counts"].tolist() or \
+                shards[0].pos.shape[0] != int(ref["capacity"]):
+            raise AssertionError(f"[22] domain ICs order {order}: overflow "
+                                 f"{ov}, shard counts {counts} against "
+                                 f"{ref['counts'].tolist()}")
+        pos = torch.cat([s.pos[:c] for s, c in zip(shards, counts)])
+        vel = torch.cat([s.vel[:c] for s, c in zip(shards, counts)])
+        d = pos.double().cpu().numpy() - ref["pos"]
+        d -= cfg.box * np.round(d / cfg.box)
+        ep = float(np.abs(d).max()) / float(np.abs(ref["pos"]).max())
+        ev = float(np.abs(vel.double().cpu().numpy() - ref["vel"]).max()) \
+            / float(np.abs(ref["vel"]).max())
+        mass_ok = all(bool((s.mass[:c] == float(ref["mass"])).all())
+                      and bool((s.mass[c:] == 0).all())
+                      for s, c in zip(shards, counts))
+        phase(f"[22] lpt_ic_domain order {order} on {D} shards of the card "
+              f"from the JAX noise: {wall:.3f} s; shard counts {counts} of "
+              f"{shards[0].pos.shape[0]} rows; max |dpos| / max |pos| "
+              f"{ep:.3e}, max |dvel| / max |vel| {ev:.3e} (tol "
+              f"{DOMAIN_IC_TOL:g}); masses {'exact' if mass_ok else 'DIFFER'};"
+              f" exchange overflow {ov}")
+        if not (ep <= DOMAIN_IC_TOL and ev <= DOMAIN_IC_TOL and mass_ok):
+            raise AssertionError(f"[22] domain ICs order {order} differ "
+                                 f"from the JAX package's")
+    table = np.loadtxt(os.path.join(PORT_DATA,
+                                    f"realized_spectrum_n16_domain{D}"
+                                    f"_seed0.txt"))
+    got = realized_spectrum_domain(0, spec, power, group,
+                                   _measurement_options(cfg)[0],
+                                   noise=list(noise))
+    same = np.array_equal(got.n_modes.cpu().numpy(), table[:, 1])
+    m = table[:, 1] > 0
+    rel = float(np.abs(got.power.cpu().numpy()[m] / table[m, 2] - 1).max())
+    phase(f"[22] realized_spectrum_domain from the JAX noise: {int(m.sum())}"
+          f" populated bins, modes {'equal' if same else 'DIFFER'}, max rel "
+          f"{rel:.3e} (tol {DOMAIN_IC_TOL:g})")
+    if not (same and rel <= DOMAIN_IC_TOL):
+        raise AssertionError("[22] the realized spectrum differs from JAX's")
+
+
+def subcycled_counts(lines: list[str]) -> dict:
+    """run.log's "Subcycled stepping" counts: long, short, frozen, both,
+    refreezes, reads."""
+    line = next(x for x in lines if x.startswith("Subcycled stepping"))
+    m = re.search(r"(\d+) long, (\d+) short, (\d+) frozen-plan short and "
+                  r"(\d+) fused force evaluations, (\d+) plan refreezes, "
+                  r"(\d+) host reads", line)
+    keys = ("long", "short", "frozen", "both", "refreezes", "reads")
+    return dict(zip(keys, (int(x) for x in m.groups())))
+
+
+def subcycled_run(cfg, tag: str) -> tuple:
+    """[22](b) ``run_simulation(cfg)`` with subcycles, every launch count
+    reset before and read after: the evaluations the run must have made,
+    counted from run.log's stretches and heals (a fused or long evaluation
+    a step and one at each attempt of a stretch, n_sub - 1 short ones a
+    step on the plan or fresh, a drift read before each evaluation on the
+    plan), held to the run's own counts, and the launches held to those:
+    K2 = K3 = the fused evaluations and K4 = the short ones on the
+    supercell tier (its fused tick on the carried plan), K1 = both kinds
+    on the dense tier.  Returns (result, launches, run.log counts)."""
+    from nbody_torch.driver.simulate import (
+        _resolved_shortrange,
+        run_simulation,
+    )
+
+    work = os.path.join(OUT, tag)
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_simulation(cfg, 0, work)
+    counts = read_launches()
+    lines = run_log(work)
+    c = subcycled_counts(lines)
+    n_sub = cfg.subcycles
+    stretches = sum(1 for x in lines if x.startswith("Time step"))
+    heals = sum(1 for x in lines if "re-running" in x)
+    steps_run = c["both"] - stretches - heals
+    tier = _resolved_shortrange(cfg)
+    frozen = tier in ("columns", "supercell")
+    want_c = dict(long=0, both=cfg.n_steps + stretches + rerun_evals(lines),
+                  short=0 if frozen else (n_sub - 1) * steps_run,
+                  frozen=(n_sub - 1) * steps_run if frozen else 0,
+                  reads=n_sub * steps_run if frozen else 0)
+    if any(c[k] != v for k, v in want_c.items()):
+        raise AssertionError(f"[22] {tag}: run.log counts {c}, expected "
+                             f"{want_c}")
+    if tier == "supercell":
+        want = zero_launches(K2=c["both"], K3=c["both"],
+                             K4=c["short"] + c["frozen"])
+    elif tier == "allpairs":
+        want = zero_launches(K1=c["short"] + c["both"])
+    else:
+        raise AssertionError(f"[22] {tag}: unexpected tier {tier}")
+    if counts != want:
+        raise AssertionError(f"[22] {tag}: launches {counts}, expected "
+                             f"{want}")
+    check_run_outputs(res, cfg, f"[22] {tag}")
+    for line in lines:
+        if ("pre-warming" in line or "re-running" in line
+                or "Capacity heals" in line or "Subcycled" in line):
+            phase(f"    {tag} run.log: {line}")
+    pre = sum(1 for x in lines if "pre-warming" in x)
+    phase(f"[22] {tag} ({tier} tier, subcycles={n_sub}): N="
+          f"{cfg.n_particles} mesh {cfg.mesh_size} {cfg.n_steps} steps in "
+          f"{res.wall_s:.3f} s ({cfg.n_steps / res.wall_s:.2f} steps/s), "
+          f"{stretches} stretches, {pre} pre-warms, {heals} heals, "
+          f"{c['refreezes']} plan refreezes, {c['reads']} host reads of the "
+          f"drift predicate, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
+          f"{counts} = the evaluations counted; column_capacity "
+          f"{res.config_run.column_capacity}, column_window "
+          f"{res.config_run.column_window}")
+    return res, counts, c
+
+
+def frozen_columns_check(state, config, cfg_run, tag: str,
+                         frac: float) -> dict:
+    """[22](c) K4 at its frozen site (``p3m_short_columns_frozen``) against
+    its float64 plain version, on the plan frozen at ``state`` at the
+    driver's frozen geometry for ``cfg_run`` (the interior subcycles'
+    plan, ``build_cosmo_force_frozen``) with the positions drifted by frac
+    x skin/2, through :func:`column_gates`; the design before the redesign
+    timed beside it.  Returns its numbers for the JSON line."""
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        frozen_plane,
+        launch_columns,
+        run_column_plane,
+    )
+
+    plan, moved, geo, g = _frozen_setup(state, cfg_run, frac)
+    box = config.box
+    plane, _, drift = frozen_plane(moved, state.mass, plan, box, g["r_cut"],
+                                   geo["ncell"], g["CK"], geo["gz"],
+                                   geo["stride"])
+    kw = _pair_kw(config, geo)
+    kk = dict(box=box, drift=drift, **kw)
+    got = run_column_plane(plane, plan.ws, plan.nch, **kk)
+    torch.cuda.synchronize()
+    ref = column_plane_plain(plane.double(), plan.ws, plan.nch, **kw)
+    rel, err = rel_l2(got, ref), max_abs(got, ref)
+    phase(f"[22] {tag} K4 frozen at drift {frac:g} x skin/2 (skin "
+          f"{g['skin']:.3f} Mpc, the measured drift {float(drift):.3f}; "
+          f"column grid {geo['ncell']}^2, capacity {g['CK']}, window "
+          f"{geo['W']}): rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), max "
+          f"abs {err:.3e}")
+    if not rel <= FORCE_REL_L2_TOL:
+        raise AssertionError(f"[22] K4 frozen disagrees with its plain "
+                             f"version: {rel}")
+    libs = _columns_variants()
+
+    def variant(name):
+        return [launch_columns(libs[name], plane, plan.ws, plan.nch, None,
+                               nx=geo["ncell"], **kk)]
+
+    column_gates(f"[22] {tag} K4 frozen", [got], [ref],
+                 lambda: [run_column_plane(plane, plan.ws, plan.nch, **kk)],
+                 variant)
+    ms = cuda_time_ms(lambda: run_column_plane(plane, plan.ws, plan.nch,
+                                               **kk), 20)
+    original_beside(f"[22] {tag} K4 frozen", ms, [ref], variant, 5)
+    plain_ms = cuda_time_ms(lambda: column_plane_plain(plane, plan.ws,
+                                                       plan.nch, **kw), 2)
+    counts = torch.clamp_max(plan.counts, g["CK"]).to(torch.int32)
+    visits, inside, _, n_t = needed_work(plane, counts, **kw)
+    b_ms, b_by = bound(needed_bytes(n_t, n_t),
+                       visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE)
+    reach, whole = reach_visits(plane, plan.ws, plan.nch, **kk)
+    phase(f"[22] {tag} K4 frozen: kernel {ms:.4f} ms, plain f32 "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {visits:.4e} "
+          f"visits within r_cut in z (the kernel's reach by column_reach "
+          f"{reach:.4e}, the whole windows {whole:.4e}), {inside:.4e} inside "
+          f"r_cut")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def domain_subcycled_run(cfg, tag: str) -> tuple:
+    """[22](d) ``run_simulation(cfg)`` with subcycles on DOMAIN_SHARDS
+    shards: the evaluations counted from run.log (a far-field evaluation
+    a step and one at each attempt of a segment, the fused ones all but
+    the attempts' first; a short one at each attempt's start and n_sub - 1
+    a step) held to the run's own counts, the slab sites' launches (K2 =
+    K3 = D x the fused, K4 = D x the short) to those; no exchange
+    overflow, neither in the ICs (the driver raises on it) nor in a
+    step.  Returns (result, launches)."""
+    from nbody_torch.driver.simulate import _domain_tier, run_simulation
+
+    work = os.path.join(OUT, f"domain_{tag}")
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_simulation(cfg, 0, work)
+    counts = read_launches()
+    lines = run_log(work)
+    m = next(re.search(r"(\d+) far-field \((\d+) of them fused with the "
+                       r"last subcycle's short force\) and (\d+) short-range",
+                       x) for x in lines
+             if x.startswith("Domain subcycled stepping"))
+    total, fused, short = (int(x) for x in m.groups())
+    segments = sum(1 for x in lines if x.startswith("Time step"))
+    heals = sum(1 for x in lines if "re-running" in x)
+    attempts = segments + heals
+    n_sub = cfg.subcycles
+    tier = _domain_tier(cfg, cfg.devices)
+    if tier != "supercell":
+        raise AssertionError(f"[22] {tag}: tier {tier}")
+    steps_run = total - attempts
+    want_c = (cfg.n_steps + segments + rerun_evals(lines), steps_run,
+              attempts + (n_sub - 1) * steps_run)
+    if (total, fused, short) != want_c:
+        raise AssertionError(f"[22] {tag}: run.log counts "
+                             f"{(total, fused, short)}, expected {want_c}")
+    D = cfg.devices
+    want = zero_launches(K2=D * fused, K3=D * fused, K4=D * short)
+    if counts != want:
+        raise AssertionError(f"[22] {tag}: launches {counts}, expected "
+                             f"{want}")
+    exchange_heals = sum(1 for x in lines if "slab-exchange overflow" in x)
+    if exchange_heals:
+        raise AssertionError(f"[22] {tag}: {exchange_heals} exchange "
+                             f"overflows")
+    check_run_outputs(res, cfg, f"[22] {tag}")
+    for line in lines:
+        if ("Domain" in line or "re-running" in line or "Capacity" in line
+                or "Initial" in line):
+            phase(f"    {tag} run.log: {line}")
+    phase(f"[22] {tag} ({tier} tier, {D} shards, subcycles={n_sub}, ICs "
+          f"{cfg.ic_realization}): {cfg.n_steps} steps in {res.wall_s:.3f} s"
+          f" ({cfg.n_steps / res.wall_s:.2f} steps/s), {heals} heals, "
+          f"exchange overflow 0, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
+          f"{counts} = {D} x ({fused} fused, {short} short) evaluations")
+    return res, counts
+
+
 def _wrappers() -> dict:
     from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
@@ -3983,6 +4283,52 @@ def main() -> None:
     # (c) solver='pp' on four devices through the driver
     ring_ewald_check(noise, pp_pk)
 
+    # -- 22. the subcycled KDK and the slab-resident ICs ----------------
+    # (a) the domain ICs and their realized spectrum from the JAX noise
+    domain_ic_check()
+    # (b) scripts/parity_study.py's cfg64 with subcycles=4 and its
+    # measurement options (the default transfer function), and the
+    # default 32^3 config with subcycles=4
+    sub64 = cfg64.replace(subcycles=4, output=OutputConfig(
+        snapshot=False, powerspec_bins=48, powerspec_binning="concept",
+        realization_correction=True))
+    res_s64, counts_s64, _ = subcycled_run(sub64, "cfg64_sub4")
+    subcycled_run(run_cfg.replace(subcycles=4), "default_sub4")
+    # (c) K4 at its frozen site on the plan the driver carries: at the
+    # ICs (the knobs of the stretch's start) and at the final state (the
+    # run's healed knobs), drifted to the edge of skin/2
+    start, _ = driver_knobs(ics64, sub64, sub64, True)
+    kernels["K4f"] = frozen_columns_check(ics64, sub64, start,
+                                          "cfg64-sub4 ICs", 0.999)
+    frozen_columns_check(res_s64.state, sub64, res_s64.config_run,
+                         "cfg64-sub4 final state", 0.999)
+    del res_s64
+    # (d) the same run on four shards of the card from the domain ICs
+    domain_subcycled_run(sub64.replace(devices=DOMAIN_SHARDS,
+                                       ic_realization="domain"),
+                         "cfg64_d4_sub4_icdomain")
+    # (e) the 16^3 subcycled runs against the JAX package's P(k)
+    for name, kw in (("sub4", {}),
+                     ("supercell_sub4", dict(shortrange="supercell")),
+                     ("domain4_supercell_sub4",
+                      dict(shortrange="supercell", devices=DOMAIN_SHARDS))):
+        c16 = SimulationConfig(n_side=16, subcycles=4,
+                               output=OutputConfig(snapshot=False), **kw)
+        work16s = os.path.join(OUT, f"n16_{name}")
+        shutil.rmtree(work16s, ignore_errors=True)
+        r16 = run_simulation(c16, 0, work16s,
+                             initial_state=realize_ics(c16, 0, noise=noise))
+        ref_name = f"powerspec_a=1.00_n16_{name}_seed0"
+        tag16 = f"[22] 16^3 {name} from the JAX noise"
+        if c16.devices > 1:
+            bands = pk_bands(r16.powerspecs[0],
+                             os.path.join(PORT_DATA, ref_name), c16, tag16)
+            phase(f"{tag16}: P(k) vs JAX, max rel {bands_text(bands)}; run "
+                  f"{r16.wall_s:.3f} s")
+            check_bands(bands, tag16)
+        else:
+            pk_vs_reference(r16, c16, ref_name, tag16)
+
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
@@ -4057,6 +4403,10 @@ def main() -> None:
                      "replaces": "nbody/distributed/sharding.py:"
                                  + ("100" if key == "K7r" else "388"),
                      "launches": launches, **kernels[key]})
+    rows.append({"name": "p3m_short_columns_frozen", "route": "cuda",
+                 "source": "nbody_torch/forces/csrc/p3m_columns.cu",
+                 "replaces": "nbody/forces/p3m_columns.py:774",
+                 "launches": counts_s64["K4"], **kernels["K4f"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The port's multi-device layer (one process, a list of shards):
-:mod:`collectives`, :mod:`fft`, :mod:`measure`, the slab domain
-decomposition of :mod:`domain`, and :mod:`sharding`'s block-sharded
-forces (the ring all-pairs and ring Ewald forces, the sharded PM and the
-replicated-grid P3M)."""
+:mod:`collectives`, :mod:`fft`, :mod:`measure` (the sharded P(k) and the
+domain ICs' realized spectrum), the slab domain decomposition of
+:mod:`domain`, its slab-resident ICs (:mod:`ic`), and :mod:`sharding`'s
+block-sharded forces (the ring all-pairs and ring Ewald forces, the
+sharded PM and the replicated-grid P3M)."""
 
 from nbody_torch.distributed.collectives import ShardGroup
 from nbody_torch.distributed.domain import (
@@ -11,6 +12,8 @@ from nbody_torch.distributed.domain import (
     make_domain_p3m_force,
     run_cosmological_domain,
 )
+from nbody_torch.distributed.ic import lpt_ic_domain
+from nbody_torch.distributed.measure import realized_spectrum_domain
 from nbody_torch.distributed.sharding import (
     device_mesh,
     make_ring_acc_fn,
@@ -32,4 +35,6 @@ __all__ = [
     "domain_gather",
     "make_domain_p3m_force",
     "run_cosmological_domain",
+    "lpt_ic_domain",
+    "realized_spectrum_domain",
 ]

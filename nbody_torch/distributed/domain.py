@@ -15,7 +15,11 @@ neighbour), solves Poisson through the transpose-decomposed FFT
 slab plus one halo plane from each side.  With rungs, the interior
 sub-ticks kick the active rungs only: on frozen local column plans (K5's
 slab site) or on a compact plane of the active targets against the
-slab's cell plane (K6's two-plane slab site).
+slab's cell plane (K6's two-plane slab site).  With subcycles, the
+short-range force drives several KDKs inside each global step, every
+subcycle's drift migrating; on the supercell tier the last subcycle's
+short force and the closing far field come from one fused evaluation
+(K2 + K3).
 
 One process drives every shard (:class:`ShardGroup`): a shard's arrays
 are the entries of Python lists, on the shard's device, and each
@@ -834,7 +838,9 @@ class DomainRunResult(NamedTuple):
     #                              (field word); rungs: the sum over shards
     #                              of each's max, as the JAX package reduces
     force_evals: int             # force evaluations of this call (with
-    #                              rungs: the boundary evaluations)
+    #                              rungs: the boundary evaluations; with
+    #                              subcycles: the far-field evaluations,
+    #                              the fused ones among them)
     # the rung tier only (None otherwise), reduced as the JAX package
     # does: the active-target plane's spills (sum over shards), the
     # densest active cell seen (max), the per-step rung populations
@@ -847,9 +853,14 @@ class DomainRunResult(NamedTuple):
     plan_overflow: int | None = None
     plan_stale: int | None = None
     # the rung tier's interior evaluations (K5 or K6 two-plane, one
-    # launch a shard each) and plan freezes of this call
+    # launch a shard each) and plan freezes of this call; the subcycled
+    # tier's short-range evaluations (the first one and those of every
+    # subcycle not fused with the far field)
     interior_evals: int = 0
     plan_freezes: int = 0
+    # the subcycled tier's fused evaluations (the supercell tier's last
+    # subcycle and far field at once: K2 + K3, one launch a shard each)
+    fused_evals: int = 0
 
 
 def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
@@ -884,7 +895,12 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
     ``target_capacity``) or, with ``rung_frozen``, on each step's frozen
     local column plans (K5's slab site; needs ``col_capacity`` and
     ``column_skin > 0``); the boundary ticks take the cells tier's full
-    short force.  Subcycles are not ported yet."""
+    short force.
+
+    ``subcycles > 1`` (with a force split and no rungs) runs the
+    split-Hamiltonian KDK instead (:func:`_run_domain_subcycled`): the far
+    field at the global step and ``subcycles`` short-range KDKs inside it,
+    on the ``shortrange`` tier's short force."""
     from nbody_torch.integrate.cosmo_stepping import cosmo_kick_drift_factors
 
     rung_mode = int(rungs) >= 2
@@ -892,9 +908,6 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
         raise ValueError(
             "rungs require a force split (split='none' is a pure PM solver "
             "with no short-range pass to subdivide)")
-    if int(subcycles) > 1 and split != "none" and not rung_mode:
-        raise NotImplementedError(
-            "subcycles > 1 on the domain decomposition is not ported yet")
     D = group.size
     if geom is None:
         geom = domain_p3m_geometry(box, nmesh, D, n_global)
@@ -909,6 +922,11 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
             eta_acc=eta_acc, target_capacity=target_capacity,
             col_capacity=col_capacity, col_window=col_window,
             rung_frozen=rung_frozen, column_skin=column_skin, fkw=fkw)
+    if int(subcycles) > 1 and split != "none":
+        return _run_domain_subcycled(
+            shards, cosmo, a_grid, group, eps=eps, geom=geom, E=E,
+            n_sub=int(subcycles), shortrange=shortrange,
+            col_capacity=col_capacity, col_window=col_window, fkw=fkw)
     xgrid = slab_grid(geom, shortrange)
     local_acc = make_domain_p3m_local(
         cosmo, geom, eps, group=group, shortrange=shortrange,
@@ -938,6 +956,85 @@ def run_cosmological_domain(shards: list, cosmo, a_grid, group: ShardGroup,
         exchange_overflow=int(group.psum(ov_ex)[0]),
         bucket_overflow=int(group.pmax(ov_bk)[0]),
         force_evals=len(a_grid))
+
+
+def _run_domain_subcycled(shards: list, cosmo, a_grid, group: ShardGroup, *,
+                          eps: float, geom: DomainP3M, E: int, n_sub: int,
+                          shortrange: str, col_capacity: int | None,
+                          col_window: int | None,
+                          fkw: dict) -> DomainRunResult:
+    """The split-Hamiltonian KDK on the slab decomposition (the JAX
+    package's ``run_cosmological_domain(subcycles=...)``): per global step
+    a long half-kick, ``n_sub`` short-range KDKs and the closing long
+    half-kick.  Every subcycle's drift migrates (:func:`slab_exchange`)
+    before its short force.  The far field of the opening half-kick is
+    not used again before the step's new one is evaluated, so it does
+    not ride the exchanges (the JAX scan carries it through them only
+    because its carry has a fixed shape).  On the supercell tier one
+    fused evaluation (K2 + K3, ``part='split'``) gives the last
+    subcycle's short force and the new far field; elsewhere the far
+    field is evaluated after the last subcycle.  The run starts with the far field and the short force at
+    the shards' positions.  The exchange counts are added over the
+    shards, the short-range words reduced with their max (field-encoded
+    on the column tiers)."""
+    from nbody_torch.integrate.cosmo_stepping import (
+        cosmo_kick_drift_factors,
+        subcycle_tables,
+    )
+
+    box = geom.box
+    skw = dict(shortrange=shortrange, col_capacity=col_capacity,
+               col_window=col_window, **fkw)
+    long_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                     part="long", **fkw)
+    short_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                      part="short", **skw)
+    both_acc = (make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                      part="split", **skw)
+                if shortrange == "supercell" else None)
+    xgrid = slab_grid(geom, shortrange)
+    a_grid = np.asarray(a_grid, dtype=np.float64)
+    KL1, _, KL2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
+    Ks1, Drs, Ks2, A_sub = subcycle_tables(cosmo, a_grid, n_sub)
+    pos = [s.pos for s in shards]
+    vel = [s.vel for s in shards]
+    mass = [s.mass for s in shards]
+    ekw = dict(box=box, ncell=xgrid, group=group, exchange_capacity=E)
+
+    t0 = float(shards[0].time)
+    gl = long_acc(pos, mass, t0)
+    gs, ovs = short_acc(pos, mass, t0)
+    ov_bk = _chan_max(group, _zeros(group), ovs)
+    ov_ex = _zeros(group)
+    n_long, n_short, n_fused = 1, 1, 0
+    for i in range(len(a_grid) - 1):
+        a1 = float(a_grid[i + 1])
+        p = [v + x * float(KL1[i]) for v, x in zip(vel, gl)]
+        for j in range(n_sub):
+            p = [q + x * float(Ks1[i, j]) for q, x in zip(p, gs)]
+            pos = [torch.remainder(x + q * float(Drs[i, j]), box)
+                   for x, q in zip(pos, p)]
+            a_s = float(A_sub[i, j])
+            pos, p, mass, ov_e = slab_exchange(pos, p, mass, **ekw)
+            if both_acc is not None and j == n_sub - 1:
+                gs, gl, ovs = both_acc(pos, mass, a_s, a1)
+                n_fused += 1
+                n_long += 1
+            else:
+                gs, ovs = short_acc(pos, mass, a_s)
+                n_short += 1
+            ov_ex = _chan_max(group, ov_ex, ov_e)
+            ov_bk = _chan_max(group, ov_bk, ovs)
+            p = [q + x * float(Ks2[i, j]) for q, x in zip(p, gs)]
+        if both_acc is None:
+            gl = long_acc(pos, mass, a1)
+            n_long += 1
+        vel = [q + x * float(KL2[i]) for q, x in zip(p, gl)]
+    return DomainRunResult(
+        state=_states(pos, vel, mass, float(a_grid[-1])),
+        exchange_overflow=int(group.psum(ov_ex)[0]),
+        bucket_overflow=int(group.pmax(ov_bk)[0]),
+        force_evals=n_long, interior_evals=n_short, fused_evals=n_fused)
 
 
 def _zeros(group: ShardGroup) -> list:

@@ -1,23 +1,28 @@
 """Single simulation runs: config -> ICs -> KDK -> outputs.
 
 Counterpart of :func:`nbody.driver.simulate.run_simulation` for the
-single-device, fixed-step slice: LPT ICs, the comoving KDK with the PM,
-P3M (dense, cells, supercell or columns short-range tier) or exact
-periodic PP force (Ewald: K1 with the Gaussian split plus the k-space
-sum), or the per-particle rung KDK (``rungs >= 2``: dense or cell-plane
-boundary ticks with two-plane cell interior ticks, or frozen column plans
-on the supercell tier), the capacity pre-warm and self-heal, the
-Layzer-Irvine energy samples, and P(k) and snapshot outputs at the output
-times, in the same run.log, powerspec and snapshot formats.  The entry
-points run on the card unless the caller passes ``device="cpu"``.  Options
-outside the slice raise ``NotImplementedError`` (``subcycles > 1`` without
-rungs, ``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on
-more than one device ``ic_realization='domain'``, and subcycles for pm
-and p3m).  With ``devices > 1`` (D shards driven by one process, placed
-round-robin over the visible cards) pm and p3m run the slab domain
-decomposition (:mod:`nbody_torch.distributed.domain`), with fixed steps
-or rungs, and ``solver='pp'`` stays on the single-device flow with the
-ring Ewald force over D particle blocks
+fixed-step slice: LPT ICs, the comoving KDK with the PM, P3M (dense,
+cells, supercell or columns short-range tier) or exact periodic PP force
+(Ewald: K1 with the Gaussian split plus the k-space sum), the
+split-Hamiltonian subcycled KDK (P3M with ``subcycles > 1``: the far
+field at the global step, the short-range force subcycled inside it, on
+frozen column plans on the column tiers and with the fused boundary
+evaluation), or the per-particle rung KDK (``rungs >= 2``: dense or
+cell-plane boundary ticks with two-plane cell interior ticks, or frozen
+column plans on the supercell tier), the capacity pre-warm and self-heal,
+the Layzer-Irvine energy samples, and P(k) and snapshot outputs at the
+output times, in the same run.log, powerspec and snapshot formats.  The
+entry points run on the card unless the caller passes ``device="cpu"``.
+Options outside the slice raise ``NotImplementedError``
+(``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on more
+than one device ``ic_realization='domain'`` with ``solver='pp'``).  With
+``devices > 1`` (D shards driven by one process, placed round-robin over
+the visible cards) pm and p3m run the slab domain decomposition
+(:mod:`nbody_torch.distributed.domain`), with fixed steps, subcycles or
+rungs, from ICs realized on one device or slab by slab
+(``ic_realization='domain'``, :mod:`nbody_torch.distributed.ic`), and
+``solver='pp'`` stays on the single-device flow with the ring Ewald force
+over D particle blocks
 (:func:`nbody_torch.distributed.sharding.make_ring_ewald_acc_fn`).
 """
 
@@ -57,6 +62,7 @@ from nbody_torch.forces.p3m_columns import (
     _ceil128,
     column_window,
     freeze_column_plan,
+    p3m_short_columns_frozen,
     p3m_short_columns_frozen_masked,
     plan_drift,
     plan_drift_ok,
@@ -72,6 +78,7 @@ from nbody_torch.integrate.cosmo_stepping import (
     kdk_steps,
     log_a_steps,
     run_cosmological_rungs,
+    run_cosmological_subcycled,
 )
 from nbody_torch.io.checkpoint import (
     CHECKPOINT_NAME,
@@ -129,36 +136,50 @@ def check_supported(config: SimulationConfig, device=None) -> None:
     if config.rungs >= 2 and config.solver != "p3m":
         raise ValueError("rungs requires the p3m solver")
     n_dev = _n_devices(config, device)
+    # subcycles apply to the P3M split without rungs (rungs override them)
+    sub = " with subcycles > 1" if _n_sub_eff(config) > 1 and \
+        config.rungs < 2 else ""
     if n_dev > 1:
         missing = []
         if config.solver == "pp":
             # the ring Ewald force on the single-device flow
             route = "solver='pp' on the ring Ewald decomposition"
+            if config.ic_realization != "host":
+                missing.append(f"ic_realization={config.ic_realization!r} "
+                               f"(the ring PP realizes its ICs on one "
+                               f"device)")
         else:
             route = "the slab domain decomposition"
-            if config.subcycles > 1:
-                missing.append("subcycles > 1 (the subcycled domain runner)")
             if config.time_stepping != "fixed":
-                missing.append(f"time_stepping={config.time_stepping!r} "
-                               f"(the adaptive domain runner)")
-        if config.ic_realization != "host":
-            missing.append(f"ic_realization={config.ic_realization!r} "
-                           f"(lpt_ic_domain)")
+                missing.append(f"time_stepping={config.time_stepping!r}"
+                               f"{sub} (the adaptive domain runner)")
         if missing:
             raise NotImplementedError(
                 f"devices={n_dev} ({route}): not ported yet: "
                 + "; ".join(missing))
-    if config.subcycles > 1 and config.rungs < 2:
-        raise NotImplementedError(
-            "subcycles > 1 without rungs (subcycled KDK) is not ported yet")
     if config.rungs >= 2 and config.rung_active_capacity > 0:
         raise NotImplementedError(
             "rungs with rung_active_capacity > 0 (the compact active-row "
             "kicks) are not ported yet")
     if config.time_stepping != "fixed":
         raise NotImplementedError(
-            f"time_stepping={config.time_stepping!r} is not ported yet"
+            f"time_stepping={config.time_stepping!r}{sub} is not ported yet"
         )
+
+
+def _n_sub_eff(config: SimulationConfig) -> int:
+    """Sub-steps a global step: 2^(rungs - 1) with rungs, else the
+    subcycles (the JAX driver cuts its stretches of steps by it)."""
+    if config.rungs >= 2:
+        return 2 ** (int(config.rungs) - 1)
+    return max(1, int(config.subcycles))
+
+
+def _subcycled(config: SimulationConfig) -> bool:
+    """The run takes the split-Hamiltonian subcycled KDK: P3M with
+    ``subcycles > 1`` and no rungs (elsewhere subcycles change nothing)."""
+    return (config.solver == "p3m" and config.subcycles > 1
+            and config.rungs < 2)
 
 
 def _resolved_shortrange(config: SimulationConfig) -> str:
@@ -301,6 +322,27 @@ def build_cosmo_force_both(config: SimulationConfig):
     return both_fn
 
 
+def build_cosmo_force_split(config: SimulationConfig):
+    """(long_fn, short_fn): the halves of the P3M canonical-momentum force
+    for the subcycled KDK, ``long_fn(pos, mass, a) -> g`` (the mesh far
+    field) and ``short_fn(pos, mass, a) -> (g, overflow)`` (the pair
+    correction on the config's tier; the supercell tier's short half is
+    K4 on its chaining grid)."""
+    if config.solver != "p3m":
+        raise ValueError("subcycling applies to the p3m solver only")
+    box, nmesh, kw = config.box, config.mesh_size, _p3m_kw(config)
+
+    def long_fn(pos, mass, a):
+        return p3m_acc(pos, mass, box, nmesh, part="long", **kw) / a
+
+    def short_fn(pos, mass, a):
+        acc, ov = p3m_acc(pos, mass, box, nmesh, part="short",
+                          with_overflow=True, **kw)
+        return acc / a, ov
+
+    return long_fn, short_fn
+
+
 def _frozen_geometry(config: SimulationConfig):
     """(tier, r_s, r_cut, ncell, ck, w, skin) of the config's frozen
     column-plan geometry, or None when the resolved tier has no column
@@ -356,6 +398,38 @@ def _grow_skin(config: SimulationConfig):
     if skin >= 0.999 * smax:
         return None
     return min(1.5 * skin, smax)
+
+
+def build_cosmo_force_frozen(config: SimulationConfig):
+    """(freeze_fn, short_frozen_fn, drift_ok_fn) for the subcycled KDK's
+    short-range evaluations on a frozen column plan (K4,
+    ``p3m_short_columns_frozen``), or None when the resolved tier has no
+    column geometry or the skin is off.  ``drift_ok_fn`` holds while every
+    particle is within skin/2 of its freeze position.  The plan geometry
+    is :func:`_frozen_geometry`'s, which
+    :func:`build_cosmo_force_frozen_both` shares, so one plan serves the
+    interior subcycles and the fused boundary evaluation."""
+    geom = _frozen_geometry(config)
+    if geom is None:
+        return None
+    _, r_s, r_cut, ncell, ck, w, skin = geom
+    box, G, eps = config.box, units.COSMO.G, float(config.eps)
+
+    def freeze_fn(pos, mass):
+        return freeze_column_plan(pos, mass, box, r_cut, ncell, ck, w,
+                                  skin=skin)
+
+    def short_frozen_fn(pos, mass, a, plan):
+        acc, ov = p3m_short_columns_frozen(
+            pos, mass, plan, box, eps, r_s, r_cut, G=G, ncell=ncell,
+            col_capacity=ck, window=w, split=config.force_split,
+            softening=config.softening_kernel)
+        return acc / a, ov
+
+    def drift_ok_fn(pos, plan):
+        return plan_drift_ok(pos, plan, box, skin)
+
+    return freeze_fn, short_frozen_fn, drift_ok_fn
 
 
 def build_cosmo_force_frozen_both(config: SimulationConfig):
@@ -518,9 +592,13 @@ def measure_powerspec(pos, config: SimulationConfig, a: float,
 
 def _finish_powerspec(raw, corr, config: SimulationConfig, a: float, *,
                       edges, path: str | None = None,
-                      seed: int | None = None):
+                      seed: int | None = None, realized=None):
     """Linear column, realization correction, sigma8 headers and the
-    CONCEPT-format write, shared tail of the P(k) measurement."""
+    CONCEPT-format write, shared tail of the P(k) measurement.
+    ``realized``: the binned spectrum of the run's own IC realization on
+    ``edges`` (the sharded path passes the domain draw's,
+    :func:`~nbody_torch.distributed.measure.realized_spectrum_domain`);
+    None re-draws the single-device realization of ``seed``."""
     nmesh = config.mesh_size
     k = raw.k.cpu().numpy()
     modes = raw.n_modes.cpu().numpy()
@@ -539,14 +617,16 @@ def _finish_powerspec(raw, corr, config: SimulationConfig, a: float, *,
     if config.output.realization_correction and seed is not None:
         # divide the drawn realization's own linear spectrum out of the
         # corrected column (CONCEPT's 'realization correction'): the same
-        # seeded draw as realize_ics
+        # seeded draw as realize_ics, unless the caller has the run's own
         power1 = _linear_power_fn(config.cosmology(), config.transfer)
-        dk = gaussian_delta_k(
-            GRFSpec(nmesh=config.n_side, box=config.box), power1,
-            generator=torch.Generator().manual_seed(seed),
-            device=raw.k.device, dtype=raw.k.dtype,
-        )
-        realized = power_spectrum(dk, config.box, is_fourier=True, edges=edges)
+        if realized is None:
+            dk = gaussian_delta_k(
+                GRFSpec(nmesh=config.n_side, box=config.box), power1,
+                generator=torch.Generator().manual_seed(seed),
+                device=raw.k.device, dtype=raw.k.dtype,
+            )
+            realized = power_spectrum(dk, config.box, is_fourier=True,
+                                      edges=edges)
         Pr = realized.power.cpu().numpy()[keep].astype(np.float64)
         P_th = np.asarray(power1(k), dtype=np.float64)
         Pc = Pc * np.where(Pr > 0, P_th / np.where(Pr > 0, Pr, 1.0), 1.0)
@@ -822,13 +902,15 @@ def run_simulation(
     Output times (``config.output.snapshot_times``) are snapped onto the
     step grid; P(k) files and snapshots are written there under
     ``workdir`` (default ``config.output.dir``), with a CONCEPT-style
-    run.log.  ``initial_state`` replaces the realized ICs.  Without rungs
-    the force is evaluated once per step plus once at the start (the last
-    force of one stretch of steps is the first of the next).  With
-    ``rungs >= 2`` each stretch of steps (``SAMPLE_EVERY_STEPS //
-    2^(rungs - 1)`` of them, at least 4, as the JAX driver cuts them)
-    starts with its own evaluation, and run.log gets a "Rung population"
-    line per step.
+    run.log.  ``initial_state`` replaces the realized ICs.  The stretches of
+    steps are ``SAMPLE_EVERY_STEPS // n_sub`` steps long (at least 4, as
+    the JAX driver cuts them; n_sub the subcycles, or 2^(rungs - 1)).
+    Without rungs or subcycles the force is evaluated once per step plus
+    once at the start (the last force of one stretch of steps is the first
+    of the next).  With ``rungs >= 2`` or the subcycled KDK (P3M with
+    ``subcycles > 1``) each stretch starts with its own evaluation; with
+    rungs run.log gets a "Rung population" line per step, and with
+    subcycles a line of the evaluations made by kind.
 
     ``checkpoint_every_steps`` writes an atomic autosave checkpoint every
     k steps; ``resume=True`` continues from the workdir's autosave if
@@ -854,14 +936,19 @@ def run_simulation(
     cosmo = config.cosmology()
     cfg_run = _apply_capacity_memory(config)
     rungs = int(config.rungs) if config.rungs >= 2 else 0
+    subcycled = _subcycled(config)
 
     def build_forces(cfg):
         """The force closures of the run at the knobs of ``cfg``."""
-        if not rungs:
-            return build_cosmo_force(cfg, device=device, dtype=dtype,
-                                     checked=True)
-        return (build_cosmo_force_rungs(cfg), build_cosmo_force_both(cfg),
-                build_cosmo_force_frozen_both(cfg))
+        if rungs:
+            return (build_cosmo_force_rungs(cfg), build_cosmo_force_both(cfg),
+                    build_cosmo_force_frozen_both(cfg))
+        if subcycled:
+            return (build_cosmo_force_split(cfg), build_cosmo_force_both(cfg),
+                    build_cosmo_force_frozen(cfg),
+                    build_cosmo_force_frozen_both(cfg))
+        return build_cosmo_force(cfg, device=device, dtype=dtype,
+                                 checked=True)
 
     forces = build_forces(cfg_run)
 
@@ -886,9 +973,8 @@ def run_simulation(
     if resume and ckpt_path and os.path.exists(ckpt_path):
         state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
         start_idx = int(extra["grid_index"])
-    # the JAX driver's stretches: 32 steps, or 32 global steps of the
-    # rung tier's sub-ticks (at least 4)
-    seg_steps = max(4, SAMPLE_EVERY_STEPS // 2 ** max(rungs - 1, 0))
+    # the JAX driver's stretches: 32 sub-steps (at least 4 steps)
+    seg_steps = max(4, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
     bounds = set(out_idx) | {last} | set(
         range(start_idx + seg_steps, last, seg_steps))
     if checkpoint_every_steps:
@@ -911,6 +997,8 @@ def run_simulation(
     rerun_evals = rerun_masked = 0
     rung_occ_seen = stale_max = 0
     totals = dict(boundary_evals=0, interior_evals=0, refreezes=0)
+    sub_totals = dict(long_evals=0, short_evals=0, frozen_evals=0,
+                      both_evals=0, refreezes=0, drift_reads=0)
 
     def fixed_attempt(acc_fn, st, g, a_seg):
         """One try of a stretch of fixed steps from ``st`` (``g`` its
@@ -921,6 +1009,28 @@ def run_simulation(
         if overflow == 0:
             return (new, g_new), None
         rerun_evals += len(a_seg) - 1 + (g is None)
+        grown, line = heal_capacity(config, cfg_run, overflow)
+        log(line)
+        return None, grown
+
+    def sub_attempt(fns, st, a_seg):
+        """One try of a stretch of subcycled steps from ``st``: (state,
+        None), or (None, the healed config).  The evaluations of every
+        try count in ``sub_totals``."""
+        nonlocal rerun_evals
+        split_fns, both_fn, frozen_fns, frozen_both = fns
+        stats = {}
+        new, overflow = run_cosmological_subcycled(
+            st, cosmo, a_seg, split_fns[0], split_fns[1], config.box,
+            config.subcycles, acc_both_fn=both_fn, frozen_fns=frozen_fns,
+            frozen_both_fn=(frozen_both[1] if frozen_both is not None
+                            and frozen_fns is not None else None),
+            stats=stats)
+        for key in sub_totals:
+            sub_totals[key] += stats[key]
+        if overflow == 0:
+            return new, None
+        rerun_evals += stats["long_evals"] + stats["both_evals"]
         grown, line = heal_capacity(config, cfg_run, overflow)
         log(line)
         return None, grown
@@ -1043,6 +1153,8 @@ def run_simulation(
                                              rung_occ=rung_occ_seen)
             for line in _rung_population_lines(a_grid, prev, hists):
                 log(line)
+        elif subcycled:
+            state = segment_with_heal(sub_attempt, state, a_seg)
         else:
             state, g = segment_with_heal(fixed_attempt, state, g, a_seg)
         sync()
@@ -1066,6 +1178,14 @@ def run_simulation(
     if rerun_masked:
         log(f"Capacity heals repeated {rerun_masked} masked interior "
             f"evaluations")
+    if subcycled:
+        t = sub_totals
+        log(f"Subcycled stepping ({config.subcycles} subcycles, heals' "
+            f"repeats included): {t['long_evals']} long, {t['short_evals']} "
+            f"short, {t['frozen_evals']} frozen-plan short and "
+            f"{t['both_evals']} fused force evaluations, {t['refreezes']} "
+            f"plan refreezes, {t['drift_reads']} host reads of the drift "
+            f"predicate")
     if rungs:
         log(f"Rung stepping: {totals['boundary_evals']} boundary and "
             f"{totals['interior_evals']} masked interior force evaluations, "
@@ -1120,15 +1240,27 @@ def measure_powerspec_sharded(shards: list, group, config: SimulationConfig,
     (:func:`nbody_torch.distributed.measure.measure_powerspec_domain`):
     the same columns and file, with nothing larger than nmesh^3 / D on a
     shard.  Returns (k, modes, P, P_corrected, P_linear) as numpy."""
-    from nbody_torch.distributed.measure import measure_powerspec_domain
+    from nbody_torch.distributed.measure import (
+        measure_powerspec_domain,
+        realized_spectrum_domain,
+    )
 
     edges, order, interlace = _measurement_options(config)
     raw, corr = measure_powerspec_domain(
         shards, group, box=config.box, nmesh=config.mesh_size,
         n_global=config.n_particles, edges=edges, deconvolve_p=1,
         window_order=order, interlace=interlace)
+    realized = None
+    if (config.output.realization_correction and seed is not None
+            and config.ic_realization == "domain"):
+        # the domain draw is another sample than the single-device one:
+        # correct by its own realization, slab by slab
+        realized = realized_spectrum_domain(
+            seed, GRFSpec(nmesh=config.n_side, box=config.box),
+            _linear_power_fn(config.cosmology(), config.transfer), group,
+            edges, dtype=raw.k.dtype)
     return _finish_powerspec(raw, corr, config, a, edges=edges, path=path,
-                             seed=seed)
+                             seed=seed, realized=realized)
 
 
 def domain_column_knobs(config: SimulationConfig, tier: str,
@@ -1278,13 +1410,18 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     """The ``devices > 1`` branch of :func:`run_simulation`: the ICs are
     realized on one device and decomposed once into slab-resident shards
     (:func:`~nbody_torch.distributed.domain.domain_decompose`, shards
-    round-robin over the visible cards), then the domain runner
+    round-robin over the visible cards), or with ``ic_realization=
+    'domain'`` realized slab by slab
+    (:func:`~nbody_torch.distributed.ic.lpt_ic_domain`, amplitude 1; an
+    exchange overflow raises), then the domain runner
     (:func:`~nbody_torch.distributed.domain.run_cosmological_domain`) runs
-    stretches of at most 32 steps (32 // 2^(rungs - 1) with rungs), each
-    re-run from its start after a heal; P(k) at the output times comes
-    from the sharded estimator, snapshots and checkpoints from
-    :func:`~nbody_torch.distributed.domain.domain_gather`.  The run.log
-    lines are the JAX driver's, plus the counts of force evaluations.
+    stretches of at most 32 steps (32 // n_sub with subcycles or rungs),
+    each re-run from its start after a heal; P(k) at the output times
+    comes from the sharded estimator (its realization correction from
+    the domain draw where the ICs came from it), snapshots and checkpoints
+    from :func:`~nbody_torch.distributed.domain.domain_gather`.  The
+    run.log lines are the JAX driver's, plus the counts of force
+    evaluations.
 
     With rungs the interior ticks ride frozen local column plans when the
     skin fits the column side (:func:`domain_frozen_knobs`), else the
@@ -1306,6 +1443,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         run_cosmological_domain,
         slab_grid,
     )
+    from nbody_torch.distributed.ic import lpt_ic_domain
 
     t0 = time.perf_counter()
     cosmo = config.cosmology()
@@ -1341,18 +1479,33 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     if resume and ckpt_path and os.path.exists(ckpt_path):
         state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
         start_idx = int(extra["grid_index"])
-    if state is None:
-        state = (initial_state.to(device=device, dtype=dtype)
-                 if initial_state is not None
-                 else realize_ics(config, seed, device=device, dtype=dtype))
     tier = _domain_tier(config, n_dev, rungs=bool(rungs))
-    dstate = domain_decompose(state, group, config.box,
-                              ncell=slab_grid(geom, tier))
-    del state
+    xgrid = slab_grid(geom, tier)
+    if (state is None and initial_state is None
+            and config.ic_realization == "domain"):
+        # slab-resident realization: about N / D on a shard throughout,
+        # another sample of the ensemble than the single-device draw
+        cosmo_ic = config.cosmology()
+        dstate, ov_ic = lpt_ic_domain(
+            seed, GRFSpec(nmesh=config.n_side, box=config.box),
+            _linear_power_fn(cosmo_ic, config.transfer), cosmo_ic,
+            config.a_begin, group, order=config.lpt_order, ncell=xgrid,
+            dtype=dtype)
+        if ov_ic:
+            raise RuntimeError(
+                f"slab IC exchange overflow ({ov_ic} particles)")
+    else:
+        if state is None:
+            state = (initial_state.to(device=device, dtype=dtype)
+                     if initial_state is not None
+                     else realize_ics(config, seed, device=device,
+                                      dtype=dtype))
+        dstate = domain_decompose(state, group, config.box, ncell=xgrid)
+        del state
     C = dstate[0].pos.shape[0]
     E = max(64, C // 8)
 
-    seg_steps = max(2, SAMPLE_EVERY_STEPS // 2 ** max(rungs - 1, 0))
+    seg_steps = max(2, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
     bounds = set(out_idx) | {last}
     if checkpoint_every_steps:
         bounds |= set(range(checkpoint_every_steps, last,
@@ -1378,7 +1531,9 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     rcap = config.rung_capacity or max(128, mem.get("rung_capacity", 0))
     skin0, stale_max = skin, 0
     evals = dict(total=0, repeated=0, frozen=0, masked=0, freezes=0,
-                 repeated_frozen=0, repeated_masked=0)
+                 repeated_frozen=0, repeated_masked=0, short=0, fused=0,
+                 repeated_short=0)
+    subcycled = _subcycled(config)
 
     def run_segment(dst, lo, hi):
         nonlocal geom, E, rcap, ck, cw, skin, stale_max
@@ -1396,9 +1551,11 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
                 shortrange=tier, col_capacity=ck or None,
                 col_window=cw or None, rung_frozen=frozen,
                 column_skin=skin)
-            route = "frozen" if frozen else "masked"
+            route = ("short" if subcycled else "frozen" if frozen
+                     else "masked")
             evals["total"] += res.force_evals
             evals[route] += res.interior_evals
+            evals["fused"] += res.fused_evals
             evals["freezes"] += res.plan_freezes
             lines = []
             if frozen:
@@ -1491,11 +1648,18 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     if evals["repeated"]:
         log(f"Capacity heals repeated {evals['repeated']} force evaluations")
     for route, what in (("masked", "masked interior"),
-                        ("frozen", "frozen-plan interior")):
+                        ("frozen", "frozen-plan interior"),
+                        ("short", "short-range")):
         if evals[f"repeated_{route}"]:
             log(f"Capacity heals repeated {evals[f'repeated_{route}']} "
                 f"{what} evaluations")
     log(f"Domain force evaluations: {evals['total']} on {n_dev} shards")
+    if subcycled:
+        log(f"Domain subcycled stepping ({config.subcycles} subcycles, "
+            f"heals' repeats included): {evals['total']} far-field "
+            f"({evals['fused']} of them fused with the last subcycle's "
+            f"short force) and {evals['short']} short-range force "
+            f"evaluations")
     if rungs:
         log(f"Domain rung stepping: {evals['total']} boundary, "
             f"{evals['frozen']} frozen-plan interior and {evals['masked']} "

@@ -1,9 +1,10 @@
 """Comoving-coordinate KDK stepping in the scale factor a.
 
-Counterpart of the fixed-step part of :mod:`nbody.integrate.cosmo_stepping`.
-The exact kick/drift factors are pre-integrated on the host (the same
-numpy) and the steps run as a Python loop in place of ``lax.scan``, with
-the same KDK order and ``mod(box)`` wrap.
+Counterpart of the fixed-step part of :mod:`nbody.integrate.cosmo_stepping`
+(the plain KDK, the split-Hamiltonian subcycled KDK and the per-particle
+rungs).  The exact kick/drift factors are pre-integrated on the host (the
+same numpy) and the steps run as a Python loop in place of ``lax.scan``,
+with the same KDK order and ``mod(box)`` wrap.
 
 Conventions: x comoving, p = a^2 dx/dt,
   dx/da = p / (a^3 H(a)),   dp/da = g(x, a) / (a H(a)),
@@ -111,6 +112,124 @@ def run_cosmological(state: ParticleState, cosmo: Cosmology, a_grid,
     final, _, _ = kdk_steps(state, cosmo, a_grid,
                             lambda p, m, a: (acc_fn(p, m, a), 0), box)
     return final
+
+
+# ---------------------------------------------------------------------------
+# Split-Hamiltonian subcycling (far field at the global step)
+# ---------------------------------------------------------------------------
+
+
+def subcycle_tables(cosmo: Cosmology, a_grid, n_sub: int):
+    """Host-side factors of the short-range KDKs inside each global step
+    of ``a_grid``: the step cut into n_sub log-uniform subcycles.  Returns
+    (Ks1, Drs, Ks2, A_sub), each (n_steps, n_sub): the subcycles' kick,
+    drift and kick factors and the scale factor at each one's end."""
+    a_grid = np.asarray(a_grid, dtype=np.float64)
+    n_steps = len(a_grid) - 1
+    Ks1, Drs, Ks2, A_sub = (np.empty((n_steps, n_sub)) for _ in range(4))
+    for i in range(n_steps):
+        sub = np.geomspace(a_grid[i], a_grid[i + 1], n_sub + 1)
+        Ks1[i], Drs[i], Ks2[i], _ = cosmo_kick_drift_factors(cosmo, sub)
+        A_sub[i] = sub[1:]
+    return Ks1, Drs, Ks2, A_sub
+
+
+def run_cosmological_subcycled(state: ParticleState, cosmo: Cosmology,
+                               a_grid, acc_long_fn, acc_short_fn, box: float,
+                               n_sub: int, acc_both_fn=None, frozen_fns=None,
+                               frozen_both_fn=None,
+                               stats: dict | None = None):
+    """Split-Hamiltonian KDK over ``a_grid``: the far field kicks at the
+    global step's half-steps, and the short-range force drives ``n_sub``
+    KDKs inside it (counterpart of the JAX package's
+    ``run_cosmological_subcycled``).  Each global step evaluates one long
+    and ``n_sub`` short forces: the last subcycle's short force is the
+    next step's first, and the long kicks move no particle, so no force is
+    evaluated twice at one position.  The run starts with one evaluation
+    at the state's positions.
+
+    ``acc_long_fn(pos, mass, a) -> g``; ``acc_short_fn(pos, mass, a) ->
+    (g, overflow)``.  ``acc_both_fn(pos, mass, a_s, a_l) -> (gs, gl,
+    overflow)`` gives the last subcycle's short force and the closing
+    long force from one evaluation at the same positions (and the first
+    evaluation).  ``frozen_fns = (freeze_fn, short_frozen_fn,
+    drift_ok_fn)`` evaluates the subcycles' short force on a column plan
+    frozen at the start and refrozen when ``drift_ok_fn`` fails
+    (``short_frozen_fn(pos, mass, a, plan) -> (g, overflow)``);
+    ``frozen_both_fn(pos, mass, a_s, a_l, plan) -> (gs, gl, overflow)``
+    puts the fused boundary evaluation on the same plan.  The port reads
+    ``drift_ok_fn`` on the host once before each evaluation on the plan
+    (the JAX package's ``lax.cond``).
+
+    Returns (final_state, the max overflow of every evaluation, read on
+    the host once, at the end).  ``stats``, when given, receives the
+    counts of long, short, frozen-plan and fused evaluations, plan
+    refreezes and host reads of the drift predicate."""
+    a_grid = np.asarray(a_grid, dtype=np.float64)
+    n_sub = int(n_sub)
+    KL1, _, KL2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
+    Ks1, Drs, Ks2, A_sub = subcycle_tables(cosmo, a_grid, n_sub)
+    pos, vel, mass = state.pos, state.vel, state.mass
+    n = dict(long_evals=0, short_evals=0, frozen_evals=0, both_evals=0,
+             refreezes=0, drift_reads=0)
+    overflow = None
+    a0 = float(state.time)
+    if acc_both_fn is not None:
+        gs, gl, ov = acc_both_fn(pos, mass, a0, a0)
+        n["both_evals"] += 1
+    else:
+        gl = acc_long_fn(pos, mass, a0)
+        gs, ov = acc_short_fn(pos, mass, a0)
+        n["long_evals"] += 1
+        n["short_evals"] += 1
+    overflow = _max_overflow(overflow, ov)
+    plan = None
+    if frozen_fns is not None:
+        freeze_fn, short_frozen_fn, drift_ok_fn = frozen_fns
+        plan = freeze_fn(pos, mass)
+
+    def current_plan(p):
+        """The carried plan, refrozen at ``p`` when it has gone stale."""
+        nonlocal plan
+        n["drift_reads"] += 1
+        if not bool(drift_ok_fn(p, plan)):
+            plan = freeze_fn(p, mass)
+            n["refreezes"] += 1
+        return plan
+
+    fused = acc_both_fn is not None
+    for i in range(len(a_grid) - 1):
+        p = vel + gl * float(KL1[i])
+        for j in range(n_sub):
+            p = p + gs * float(Ks1[i, j])
+            pos = torch.remainder(pos + p * float(Drs[i, j]), box)
+            a_s = float(A_sub[i, j])
+            if fused and j == n_sub - 1:
+                a1 = float(a_grid[i + 1])
+                if frozen_both_fn is not None and plan is not None:
+                    gs, gl, ov = frozen_both_fn(pos, mass, a_s, a1,
+                                                current_plan(pos))
+                else:
+                    gs, gl, ov = acc_both_fn(pos, mass, a_s, a1)
+                n["both_evals"] += 1
+            elif plan is not None:
+                gs, ov = short_frozen_fn(pos, mass, a_s, current_plan(pos))
+                n["frozen_evals"] += 1
+            else:
+                gs, ov = acc_short_fn(pos, mass, a_s)
+                n["short_evals"] += 1
+            overflow = _max_overflow(overflow, ov)
+            p = p + gs * float(Ks2[i, j])
+        if not fused:
+            gl = acc_long_fn(pos, mass, float(a_grid[i + 1]))
+            n["long_evals"] += 1
+        vel = p + gl * float(KL2[i])
+    if stats is not None:
+        stats.update(n)
+    time = torch.as_tensor(float(a_grid[-1]), device=pos.device,
+                           dtype=pos.dtype)
+    return (state.replace(pos=pos, vel=vel, time=time),
+            0 if overflow is None else int(overflow))
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,23 @@ Writes, under ``tests/data/torch_port/``:
   positions and the output of ``make_sharded_p3m_cosmo_force`` on 4
   devices there (the config's eps and force split, a = a_begin; the
   masses are the config's particle mass);
+* ``powerspec_a=1.00_n16_sub4_seed0``,
+  ``..._n16_supercell_sub4_seed0`` and
+  ``..._n16_domain4_supercell_sub4_seed0``: the same 16^3 run with
+  ``subcycles=4`` (the split-Hamiltonian KDK: the dense tier; the
+  supercell tier with frozen column plans for the interior subcycles and
+  the fused boundary tick; the supercell tier on 4 devices of the slab
+  domain decomposition);
+* ``white_noise_n16_domain4_seed0.npy``: (4, 4, 16, 16) float32, the
+  per-slab white noise ``nbody.distributed.ic.lpt_ic_domain`` draws for
+  ``SimulationConfig(n_side=16)``, seed 0 and 4 devices (one key a slab,
+  ``jax.random.split(key, 4)``);
+  ``lpt_ic_domain_n16_domain4_order{1,2}_seed0.npz``: the slab-resident ICs of that draw (``counts``: each shard's particles,
+  which lead its rows; ``pos``, ``vel``: those rows in shard order,
+  float32; ``mass``, ``capacity``: the particle mass and the rows a
+  shard); ``realized_spectrum_n16_domain4_seed0.txt``:
+  ``nbody.distributed.measure.realized_spectrum_domain`` of the same
+  draw on the config's 48 P(k) bins (columns: k, modes, P);
 * ``plummer4096_energy_seed0.txt``: the energy and momentum series of
   ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
   ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
@@ -61,13 +78,16 @@ It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
-        [domain_rungs] [sharded]
+        [domain_rungs] [sharded] [sub] [domain_ic] [_TAG ...]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
 ``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
 the four domain runs' P(k), ``domain_rungs`` the three domain rung
-runs and ``sharded`` the 4-device PP run's P(k) and the sharded P3M
-force (all six without arguments).
+runs, ``sharded`` the 4-device PP run's P(k) and the sharded P3M
+force, ``sub`` the three subcycled runs' P(k) and ``domain_ic`` the
+domain draw, its ICs and its realized spectrum (all eight without
+arguments); an argument ``_TAG`` runs the one run of that file-name tag
+(e.g. ``_sub4``), so that the runs can go in parallel processes.
 """
 
 from __future__ import annotations
@@ -109,6 +129,17 @@ DOMAIN_RUNS = {
     "_domain4_supercell": CONFIG.replace(devices=4, shortrange="supercell"),
     "_domain4_columns": CONFIG.replace(devices=4, shortrange="columns"),
 }
+#: the split-Hamiltonian KDK (scripts/parity_study.py's default subcycles)
+SUB_RUNS = {
+    "_sub4": CONFIG.replace(subcycles=4),
+    "_supercell_sub4": CONFIG.replace(shortrange="supercell", subcycles=4),
+    "_domain4_supercell_sub4": CONFIG.replace(devices=4,
+                                              shortrange="supercell",
+                                              subcycles=4),
+}
+#: the slab-resident ICs: shards and LPT orders
+DOMAIN_IC_DEVICES = 4
+DOMAIN_IC_ORDERS = (1, 2)
 DOMAIN_RUNG_RUNS = {
     "_domain2_rungs3": RUNG_CONFIG.replace(devices=2),
     "_domain4_rungs3": RUNG_CONFIG.replace(devices=4),
@@ -187,6 +218,92 @@ def sharded_p3m_force(ics) -> None:
           f"{np.linalg.norm(g, axis=1).max():.6e}")
 
 
+def domain_ics() -> None:
+    """The per-slab draw of ``lpt_ic_domain`` on 4 devices, its ICs at
+    both LPT orders and ``realized_spectrum_domain`` of it; checks the
+    port's ``lpt_ic_domain`` and ``realized_spectrum_domain`` from the
+    saved draw against them."""
+    import torch
+
+    from nbody.distributed.ic import lpt_ic_domain
+    from nbody.distributed.measure import realized_spectrum_domain
+    from nbody.distributed.sharding import device_mesh
+    from nbody.driver.simulate import _linear_power_fn, _measurement_options
+    from nbody.ic.gaussian import GRFSpec
+    from nbody_torch.distributed.ic import lpt_ic_domain as t_lpt_ic_domain
+    from nbody_torch.distributed.measure import (
+        realized_spectrum_domain as t_realized,
+    )
+    from nbody_torch.distributed.sharding import device_mesh as t_mesh
+    from nbody_torch.driver import SimulationConfig as TorchConfig
+    from nbody_torch.driver.simulate import _linear_power_fn as t_power_fn
+    from nbody_torch.ic.gaussian import GRFSpec as TSpec
+
+    D, n = DOMAIN_IC_DEVICES, CONFIG.n_side
+    key = jax.random.key(SEED)
+    keys = jax.random.split(key, D)
+    noise = np.stack([np.asarray(jax.random.normal(
+        k, (n // D, n, n), jnp.float32)) for k in keys])
+    np.save(os.path.join(OUT, f"white_noise_n16_domain{D}_seed0.npy"), noise)
+    mesh = device_mesh(D)
+    cosmo = CONFIG.cosmology()
+    power = _linear_power_fn(cosmo, CONFIG.transfer)
+    spec = GRFSpec(nmesh=n, box=CONFIG.box)
+    tcfg = TorchConfig.from_dict(CONFIG.to_dict())
+    tcosmo = tcfg.cosmology()
+    group = t_mesh(D, device="cpu")
+    for order in DOMAIN_IC_ORDERS:
+        st, ov = lpt_ic_domain(key, spec, power, cosmo, CONFIG.a_begin, mesh,
+                               order=order)
+        C = st.pos.shape[0] // D
+        rows = [np.asarray(x).reshape(D, C, -1)
+                for x in (st.pos, st.vel, st.mass)]
+        counts = (rows[2][..., 0] > 0).sum(axis=1)
+        for d in range(D):
+            if not (rows[2][d, :counts[d], 0] > 0).all():
+                raise SystemExit("a shard's particles do not lead its rows")
+        pos = np.concatenate([rows[0][d, :counts[d]] for d in range(D)])
+        vel = np.concatenate([rows[1][d, :counts[d]] for d in range(D)])
+        mass = float(rows[2][0, 0, 0])
+        name = f"lpt_ic_domain_n16_domain{D}_order{order}_seed0.npz"
+        np.savez(os.path.join(OUT, name), counts=counts.astype(np.int64),
+                 pos=pos.astype(np.float32), vel=vel.astype(np.float32),
+                 mass=np.float32(mass), capacity=np.int64(C))
+        shards, tov = t_lpt_ic_domain(
+            SEED, TSpec(nmesh=n, box=CONFIG.box),
+            t_power_fn(tcosmo, tcfg.transfer), tcosmo, CONFIG.a_begin, group,
+            order=order, noise=list(noise))
+        tpos = torch.cat([s.pos for s in shards]).numpy()
+        tvel = torch.cat([s.vel for s in shards]).numpy()
+        dp = tpos - np.asarray(st.pos)
+        dp -= CONFIG.box * np.round(dp / CONFIG.box)
+        dv = np.abs(tvel - np.asarray(st.vel)).max()
+        print(f"wrote {name}: overflow {int(ov)}, shard counts "
+              f"{counts.tolist()} of C = {C}; the port from the saved draw: "
+              f"max |dpos| {np.abs(dp).max():.3e} Mpc, max |dvel| / max |vel| "
+              f"{dv / np.abs(np.asarray(st.vel)).max():.3e}, overflow {tov}")
+        if int(ov) or tov or np.abs(dp).max() > 1e-5 * CONFIG.box:
+            raise SystemExit("port domain ICs differ from the JAX ICs")
+    edges = _measurement_options(CONFIG)[0]
+    res = realized_spectrum_domain(key, spec, power, mesh, edges)
+    table = np.stack([np.asarray(res.k), np.asarray(res.n_modes),
+                      np.asarray(res.power)], axis=1)
+    name = f"realized_spectrum_n16_domain{D}_seed0.txt"
+    np.savetxt(os.path.join(OUT, name), table, fmt="%.9e",
+               header=f"realized_spectrum_domain of white_noise_n16_domain{D}"
+                      f"_seed0.npy on SimulationConfig(n_side=16)'s "
+                      f"{len(edges) - 1} P(k) bins\nk modes P")
+    got = t_realized(SEED, TSpec(nmesh=n, box=CONFIG.box),
+                     t_power_fn(tcosmo, tcfg.transfer), group, edges,
+                     noise=list(noise))
+    m = table[:, 1] > 0
+    rel = np.abs(got.power.numpy()[m] / table[m, 2] - 1.0).max()
+    print(f"wrote {name}: {int(m.sum())} populated bins; the port from the "
+          f"saved draw: max rel {rel:.3e}")
+    if rel > 1e-4:
+        raise SystemExit("port realized spectrum differs from JAX's")
+
+
 def main(which) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
@@ -220,7 +337,13 @@ def main(which) -> None:
 
     if "sharded" in which:
         sharded_p3m_force(ref)
+    if "domain_ic" in which:
+        domain_ics()
+    every = dict(RUNS, **SHARDED_RUNS, **PP_RUNS, **DOMAIN_RUNS,
+                 **DOMAIN_RUNG_RUNS, **SUB_RUNS)
     runs = dict(RUNS if "pk" in which else {},
+                **{tag: every[tag] for tag in which if tag.startswith("_")},
+                **(SUB_RUNS if "sub" in which else {}),
                 **(SHARDED_RUNS if "sharded" in which else {}),
                 **(PP_RUNS if "pp" in which else {}),
                 **(DOMAIN_RUNS if "domain" in which else {}),
@@ -262,4 +385,4 @@ def main(which) -> None:
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs",
-                          "sharded"])
+                          "sharded", "sub", "domain_ic"])

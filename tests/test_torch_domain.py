@@ -733,6 +733,67 @@ def test_run_cosmological_domain_matches_jax(dom4, tier, split):
     assert _rel(tvel, np.asarray(jres.state.vel)) < vtol
 
 
+# the subcycled runs' system: tests/test_domain.py's uniform 2048
+# particles in an 80 Mpc box with the cosmology's particle mass, so that
+# gravity, not the initial velocities, sets the velocities after four
+# steps (a kick factor 1% off in one subcycle moves them by ~1e-3 of the
+# largest; the float32 planes leave ~1e-6)
+SUB_N, SUB_BOX, SUB_NMESH = 2048, 80.0, 32
+
+
+def _sub_dom(tier):
+    """The subcycled runs' system decomposed in both packages on four
+    shards, on the tier's own slab grid."""
+    from nbody.core import units as ju
+
+    rng = np.random.default_rng(21)
+    pos = rng.uniform(0.0, SUB_BOX, (SUB_N, 3))
+    rho_crit = 3.0 * JCFG.cosmology().H0**2 / (8.0 * np.pi * ju.COSMO.G)
+    pmass = rho_crit * JCFG.cosmology().Omega_m * SUB_BOX**3 / SUB_N
+    arrs = (pos, rng.normal(0.0, 0.004 * SUB_BOX, (SUB_N, 3)),
+            np.full(SUB_N, pmass), 0.5)
+    group = t_mesh(4, device="cpu")
+    xgrid = td.slab_grid(td.domain_p3m_geometry(SUB_BOX, SUB_NMESH, 4,
+                                                SUB_N), tier)
+    js = jd.domain_decompose(_jstate(arrs), j_mesh(4), SUB_BOX, ncell=xgrid)
+    ts = td.domain_decompose(state_from_numpy(*arrs, device="cpu",
+                                              dtype=F64), group, SUB_BOX,
+                             ncell=xgrid)
+    return js, ts, group
+
+
+@pytest.mark.parametrize("tier,n_sub,capacity", [("cells", 3, None),
+                                                 ("supercell", 2, 256)])
+def test_run_cosmological_domain_subcycled_matches_jax(tier, n_sub,
+                                                       capacity):
+    """The subcycled domain runner, four steps on four shards: every
+    subcycle drift migrating, and on the supercell tier the last subcycle
+    fused with the far field (part='split').  Slot for slot the JAX runner's particles: masses
+    exact, positions to 1e-6 of the box, velocities to 2e-5 of the
+    largest (float32 short-range planes in both packages), the same
+    overflow words; the evaluations by kind."""
+    jc, tc = _cosmos()
+    js, ts, group = _sub_dom(tier)
+    a_grid = np.geomspace(0.5, 0.6, 5)
+    kw = dict(box=SUB_BOX, nmesh=SUB_NMESH, eps=0.1, n_global=SUB_N,
+              split="spline", softening="spline", shortrange=tier,
+              subcycles=n_sub, col_capacity=capacity)
+    jres = jd.run_cosmological_domain(js, jc, a_grid, j_mesh(4), **kw)
+    tres = td.run_cosmological_domain(ts, tc, a_grid, group, **kw)
+    steps = len(a_grid) - 1
+    fused = steps if tier == "supercell" else 0
+    assert (tres.force_evals, tres.interior_evals, tres.fused_evals) == \
+        (steps + 1, 1 + steps * n_sub - fused, fused)
+    assert tres.exchange_overflow == int(jres.exchange_overflow) == 0
+    assert tres.bucket_overflow == int(jres.bucket_overflow) == 0
+    tpos, tvel, tmass, _ = domain_state_to_numpy(tres.state)
+    np.testing.assert_array_equal(tmass, np.asarray(jres.state.mass))
+    d = tpos - np.asarray(jres.state.pos)
+    d -= SUB_BOX * np.round(d / SUB_BOX)
+    assert np.abs(d).max() < 1e-6 * SUB_BOX
+    assert _rel(tvel, np.asarray(jres.state.vel)) < F32_TOL
+
+
 @pytest.mark.parametrize("D,order,interlace", [(2, 2, False), (4, 3, False),
                                                (4, 4, True)])
 def test_measure_powerspec_domain_matches_jax(D, order, interlace):
@@ -783,15 +844,30 @@ PORT_DATA = __import__("os").path.join(
                  id="change0-solver='pp'"),
     pytest.param(dict(rungs=3, time_stepping="adaptive"),
                  "time_stepping='adaptive'", id="change1-rungs >= 2"),
-    (dict(subcycles=2), "subcycles > 1"),
+    # subcycles and the domain ICs are ported: the run completes
+    pytest.param(dict(subcycles=2), None, id="change2-subcycles > 1"),
     (dict(time_stepping="adaptive"), "time_stepping='adaptive'"),
-    (dict(ic_realization="domain"), "ic_realization='domain'"),
+    pytest.param(dict(ic_realization="domain"), None,
+                 id="change4-ic_realization='domain'"),
 ])
 def test_domain_refusals_name_what_is_missing(change, missing, tmp_path):
+    """What the domain branch refuses names what is missing; what it now
+    runs (``missing`` None) completes a step at 16^3 on two shards."""
+    from nbody_torch.driver import OutputConfig
     from nbody_torch.driver import SimulationConfig as TConfig
     from nbody_torch.driver.simulate import check_supported, run_simulation
 
     cfg = TConfig(n_side=16, devices=2).replace(**change)
+    if missing is None:
+        check_supported(cfg, "cpu")
+        cfg = cfg.replace(a_begin=0.5, n_steps=1, output=OutputConfig(
+            snapshot=False, energy_log=False, realization_correction=True))
+        res = run_simulation(cfg, 0, str(tmp_path), device="cpu")
+        assert res.state.pos.shape == (cfg.n_particles, 3)
+        assert bool(torch.isfinite(res.state.vel).all())
+        assert float(res.state.time) == pytest.approx(1.0)
+        assert len(res.powerspecs) == 1
+        return
     with pytest.raises(NotImplementedError, match="devices=2") as err:
         run_simulation(cfg, 0, str(tmp_path), device="cpu")
     assert missing in str(err.value)

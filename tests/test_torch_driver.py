@@ -107,14 +107,20 @@ def test_config_json_round_trips_across_packages(tmp_path):
 @pytest.mark.parametrize("change,match", [
     pytest.param(dict(solver="pp", devices=2, ic_realization="domain"),
                  "pp", id="change0-pp"),
-    (dict(subcycles=2), "subcycles"),
+    # subcycles and the domain ICs run (tests/test_torch_subcycle.py);
+    # adaptive stepping with subcycles does not
+    pytest.param(dict(solver="p3m", subcycles=2, time_stepping="adaptive"),
+                 "subcycles", id="change1-subcycles"),
     pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64),
                  "rungs", id="change2-rungs"),
     (dict(time_stepping="adaptive"), "adaptive"),
-    (dict(devices=2, ic_realization="domain"), "devices"),
+    pytest.param(dict(devices=2, subcycles=2, time_stepping="adaptive"),
+                 "devices", id="change4-devices"),
     (dict(solver="p3m", rungs=3, time_stepping="adaptive"), "adaptive"),
-    (dict(solver="p3m", box=500.0, pm_grid=64, shortrange="supercell",
-          subcycles=2), "subcycles"),
+    pytest.param(dict(solver="p3m", box=500.0, pm_grid=64,
+                      shortrange="supercell", subcycles=2,
+                      time_stepping="adaptive"), "subcycles",
+                 id="change6-subcycles"),
 ])
 def test_unported_paths_raise(change, match, tmp_path):
     cfg = _tconfig(TINY).replace(**change)
