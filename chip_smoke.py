@@ -179,6 +179,28 @@ script exits non-zero:
     evaluations counted; (e) the 16^3 subcycled runs (dense, supercell,
     supercell on four shards) from the committed noise against the JAX
     package's committed P(k).
+23. adaptive time stepping, after the deterministic CIC deposit: (0)
+    ``cic_deposit`` (the fixed-point ``scatter_sum``) bit for bit over two
+    calls and against its float64 form to DEPOSIT_TOL at the default
+    32^3 ICs (mesh 64) and the cfg64 ICs (mesh 128), timed beside the
+    ``index_add_`` form it replaced; (a) the 16^3 adaptive runs (plain,
+    ``subcycles=4``, ``rungs=3``, ``rungs=2`` on four shards) from the
+    committed noise through ``run_simulation`` with no device argument,
+    against the JAX package's committed P(k) (PK_REL_TOL) and its total
+    adaptive steps (equal) and "dln(a)" lines; (b) the committed adaptive
+    64^3 config (``tests/data/parity/adaptive/config.json``, the default
+    transfer function) plain, with ``rungs=3`` and with ``subcycles=4``:
+    the final time a_end itself, the step trace, the wall, and launches
+    equal to the evaluations of run.log's summary, which must equal the
+    counts from its stretches, steps and heals; (c) the rung run with the
+    compact active-row kicks (``rung_active_capacity=COMPACT_CAPACITY``,
+    N / 8) beside (b)'s, both walls: one rung step from the same state and forces with the
+    compact and the full-N kicks gives the same positions bit for bit,
+    and the two runs' P(k) at a = 1 agree within DOMAIN_PK_BANDS (the
+    runs cannot agree bit for bit: K2's float atomics add in another
+    order in every call); (d) (b)'s rung run on four shards of the card:
+    K6 = 4 x the boundary and masked evaluations, P(k) within
+    DOMAIN_PK_BANDS of (b)'s rung run.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
@@ -3160,6 +3182,321 @@ def domain_subcycled_run(cfg, tag: str) -> tuple:
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# [23] adaptive time stepping, after the deterministic CIC deposit
+# ---------------------------------------------------------------------------
+
+#: [23](0) the float32 deposit against the float64 deposit of the same
+#: positions: the largest node difference over the largest node.  The
+#: float32 cell coordinate x nmesh / box rounds by up to 7.6e-6 at mesh
+#: 128 (half an ulp of 64-128), and every corner weight carries it
+DEPOSIT_TOL = 3e-5
+#: [23](c) the compact kicks' capacity: N / 8, above cfg64's rows on
+#: rungs >= 1 at every step (22,878 at a = 1), so that the run heals
+#: nothing and its wall compares with the full-N run's (the doubling heal
+#: is tests/test_torch_adaptive.py's)
+COMPACT_CAPACITY = 32768
+#: [23](a) the JAX package's committed adaptive 16^3 runs: tag -> the
+#: change to the 16^3 config (the rung runs start at a = 0.3, as [14])
+ADAPTIVE_16 = {
+    "adaptive": {},
+    "adaptive_sub4": dict(subcycles=4),
+    "adaptive_rungs3": dict(rungs=3, a_begin=0.3, n_steps=6),
+    "domain4_adaptive_rungs2": dict(rungs=2, a_begin=0.3, n_steps=6,
+                                    devices=4),
+}
+
+
+def deposit_check(tag: str, pos, mass, box: float, nmesh: int) -> dict:
+    """[23](0) the CIC deposit at a run's shape: two calls equal bit for
+    bit, the float32 grid against the float64 one, and its time beside
+    the ``index_add_`` form it replaced (in turns: old, new, new, old),
+    with whether two calls of that form are equal."""
+    from nbody_torch.mesh.cic import _cic_corners, cic_deposit
+
+    def new():
+        return cic_deposit(pos, box, nmesh, weights=mass)
+
+    def old():
+        lin, w = _cic_corners(pos, box, nmesh)
+        flat = torch.zeros(nmesh**3, device=pos.device, dtype=pos.dtype)
+        flat.index_add_(0, lin.reshape(-1), (w * mass).reshape(-1))
+        return flat.reshape(nmesh, nmesh, nmesh)
+
+    a, b = new(), new()
+    same = bool(torch.equal(a, b))
+    ref = cic_deposit(pos.double(), box, nmesh, weights=mass.double())
+    err = float((a.double() - ref).abs().max() / ref.abs().max())
+    old_same = bool(torch.equal(old(), old()))
+    reps = 20
+    t_old = [cuda_time_ms(old, reps)]
+    t_new = [cuda_time_ms(new, reps), cuda_time_ms(new, reps)]
+    t_old.append(cuda_time_ms(old, reps))
+    out = dict(new_ms=float(np.mean(t_new)), old_ms=float(np.mean(t_old)),
+               err=err, same=same, old_same=old_same)
+    phase(f"[23] deposit {tag} (N={pos.shape[0]}, mesh {nmesh}): two calls "
+          f"equal bit for bit: {same}; max |f32 - f64| / max {err:.3e} (tol "
+          f"{DEPOSIT_TOL:g}); fixed-point scatter_sum {t_new[0]:.4f} / "
+          f"{t_new[1]:.4f} ms, index_add_ {t_old[0]:.4f} / {t_old[1]:.4f} "
+          f"ms (its two calls equal bit for bit: {old_same})")
+    if not same or not err <= DEPOSIT_TOL:
+        raise AssertionError(f"[23] deposit {tag}: bit for bit {same}, "
+                             f"error {err}")
+    return out
+
+
+def adaptive_trace(lines: list[str]) -> tuple[list, int]:
+    """run.log's stretch lines as (step count, a, dln(a)) and its total
+    adaptive steps."""
+    trace = []
+    for line in lines:
+        m = re.match(r"Time step\s+(\d+)\s+a = (\S+)\s+dln\(a\) = (\S+)",
+                     line)
+        if m:
+            trace.append((int(m.group(1)), float(m.group(2)),
+                          float(m.group(3))))
+    total = next(int(x.split(":")[1]) for x in lines
+                 if x.startswith("Total adaptive steps"))
+    return trace, total
+
+
+def adaptive_run(cfg, tag: str, **kw):
+    """[23] ``run_simulation(cfg)`` with adaptive steps and no device
+    argument, every launch count reset before and read after: the final
+    time a_end itself and a finite state; the evaluations of run.log's
+    summary line against those its stretches, steps and heals give (an
+    evaluation at each stretch's start and one a step; with subcycles
+    n_sub - 1 short ones a step; with rungs the masked interior ones of
+    the summary), and the launches against those (supercell tier: K2 = K3
+    = the boundary, plain or fused evaluations, K4 = the short ones, K5 =
+    the interior ones; dense tier: K1 and K6; four shards: K6 = 4 x the
+    boundary and masked ones).  Returns (result, launches, dict of the
+    run's numbers)."""
+    from nbody_torch.driver.simulate import (
+        _resolved_shortrange,
+        run_simulation,
+    )
+
+    work = os.path.join(OUT, tag)
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_simulation(cfg, 0, work, **kw)
+    counts = read_launches()
+    lines = run_log(work)
+    trace, total = adaptive_trace(lines)
+    stretches, heals = len(trace), sum(1 for x in lines if "re-running" in x)
+    rr, rm = rerun_evals(lines), rerun_evals(lines, "masked interior")
+    D = cfg.devices if cfg.devices > 1 else 1
+    tier = "cells" if D > 1 else _resolved_shortrange(cfg)
+    if D > 1:
+        B = int(re.search(r"Domain force evaluations: (\d+)",
+                          "\n".join(lines)).group(1))
+        m = re.search(r"Domain rung stepping: \d+ boundary, (\d+) "
+                      r"frozen-plan interior and (\d+) masked interior",
+                      "\n".join(lines))
+        F, M = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+        ok = B == total + stretches + rr and F == 0
+        want = zero_launches(K6=D * (B + M))
+        what = f"{B} boundary and {M} masked interior evaluations"
+    elif cfg.rungs >= 2:
+        m = re.search(r"Rung stepping: (\d+) boundary and (\d+) masked "
+                      r"interior", "\n".join(lines))
+        B, M = int(m.group(1)), int(m.group(2))
+        ok = B == total + stretches
+        want = (zero_launches(K2=B + rr, K3=B + rr, K5=M + rm)
+                if tier == "supercell" else zero_launches(K1=B + rr,
+                                                          K6=M + rm))
+        what = (f"{B} boundary and {M} masked interior evaluations (+ {rr} "
+                f"and {rm} repeated)")
+    else:
+        m = re.search(r"(\d+) plain, (\d+) long, (\d+) short and (\d+) fused",
+                      "\n".join(lines))
+        P, L, S, F = (int(x) for x in m.groups())
+        if cfg.subcycles > 1:
+            ok = (L + F == stretches + total + rr and S == stretches
+                  + (cfg.subcycles - 1) * total
+                  + rerun_evals(lines, "short-range"))
+            want = (zero_launches(K2=F, K3=F, K4=S) if tier == "supercell"
+                    else zero_launches(K1=S + F))
+        else:
+            ok = P == stretches + total + rr
+            want = (zero_launches(K2=P, K3=P) if tier == "supercell"
+                    else zero_launches(K1=P))
+        what = f"{P} plain, {L} long, {S} short and {F} fused evaluations"
+    if not ok:
+        raise AssertionError(f"[23] {tag}: run.log's {what} differ from its "
+                             f"{stretches} stretches, {total} steps and "
+                             f"heals")
+    if counts != want:
+        raise AssertionError(f"[23] {tag}: launches {counts}, expected "
+                             f"{want}")
+    st = res.state
+    if float(st.time) != float(np.float32(cfg.a_end)):
+        raise AssertionError(f"[23] {tag}: ended at a = {float(st.time)!r}, "
+                             f"not a_end")
+    check_run_outputs(res, cfg, f"[23] {tag}")
+    for line in lines:
+        if ("pre-warming" in line or "re-running" in line
+                or "Capacity heals" in line or "stepping" in line):
+            phase(f"    {tag} run.log: {line}")
+    dlas = [d for _, _, d in trace]
+    phase(f"[23] {tag} ({tier} tier{f', {D} shards' if D > 1 else ''}, "
+          f"rungs={cfg.rungs}, subcycles={cfg.subcycles}): N="
+          f"{cfg.n_particles} mesh {cfg.mesh_size}, {total} adaptive steps "
+          f"in {res.wall_s:.3f} s ({total / res.wall_s:.2f} steps/s), "
+          f"{stretches} stretches, {heals} heals, a = {float(st.time)!r}; "
+          f"dln(a) at the stretches' ends {dlas}; {what}; launches {counts} "
+          f"= the evaluations counted; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return res, counts, dict(total=total, trace=trace, heals=heals,
+                             stretches=stretches, wall=res.wall_s)
+
+
+def adaptive_16_runs(noise) -> None:
+    """[23](a) the 16^3 adaptive runs from the committed noise against the
+    JAX package's: P(k) at a = 1 to PK_REL_TOL, the total adaptive steps
+    equal (every step but the last takes dla_max in both runs, so the
+    count is ceil(ln(a_end / a_begin) / dla_max), which no float32
+    rounding moves: 130.4 and 40.1 here), and each stretch line's step
+    count, a and dln(a) to their printed digits."""
+    from nbody_torch.driver import OutputConfig, SimulationConfig
+    from nbody_torch.driver.simulate import realize_ics
+
+    for tag, change in ADAPTIVE_16.items():
+        cfg = SimulationConfig(n_side=16, time_stepping="adaptive",
+                               output=OutputConfig(snapshot=False), **change)
+        res, _, run = adaptive_run(
+            cfg, f"n16_{tag}", initial_state=realize_ics(cfg, 0, noise=noise))
+        with open(os.path.join(PORT_DATA,
+                               f"adaptive_steps_n16_{tag}_seed0.txt")) as f:
+            ref_trace, ref_total = adaptive_trace(f.read().splitlines())
+        worst = max(max(abs(a - b), abs(d - e) * 10.0)
+                    for (_, a, d), (_, b, e) in zip(run["trace"], ref_trace))
+        same = ([s for s, _, _ in run["trace"]]
+                == [s for s, _, _ in ref_trace]) and worst <= 1.5e-4
+        phase(f"[23] 16^3 {tag}: {run['total']} adaptive steps (JAX "
+              f"{ref_total}), stretch lines equal to JAX's to their digits: "
+              f"{same}")
+        if run["total"] != ref_total or not same:
+            raise AssertionError(f"[23] 16^3 {tag}: steps {run['trace']} vs "
+                                 f"JAX {ref_trace}")
+        pk_vs_reference(res, cfg, f"powerspec_a=1.00_n16_{tag}_seed0",
+                        f"[23] 16^3 {tag} from the JAX noise")
+
+
+def compact_step_check(state, cfg_run) -> None:
+    """[23](c) one rung step of cfg64 from ``state`` with the driver's
+    frozen-plan forces, the compact active-row kicks against the full-N
+    kicks: the same positions bit for bit (the interior kicks are K5's
+    output gathered at the same rows and added the same way; the drift
+    that follows them sets the positions), and the velocities, which take
+    the boundary force after the drift (K2's float atomics add in another
+    order in each call), close."""
+    from nbody_torch.driver.simulate import (
+        build_cosmo_force_both,
+        build_cosmo_force_frozen_both,
+        build_cosmo_force_rungs,
+    )
+    from nbody_torch.integrate import cosmo_stepping as cs
+
+    fns = build_cosmo_force_frozen_both(cfg_run)
+    cosmo = cfg_run.cosmology()
+    H0, Om, OL = (float(cosmo.H0), float(cosmo.Omega_m),
+                  float(cosmo.Omega_L))
+    pos, vel, mass = state.pos, state.vel, state.mass
+    t = state.time.to(pos.device, pos.dtype)
+    gs, gl, _, plan = fns[5](pos, mass, float(t), float(t))
+
+    def f32(x):
+        return torch.full((), float(x), dtype=pos.dtype, device=pos.device)
+
+    dla_i = cs._rung_demand(vel, gl, gs, t, f32(cfg_run.box
+                                                 / cfg_run.mesh_size),
+                            f32(cfg_run.step_eta_disp),
+                            f32(2.0 * cfg_run.step_eta_acc * cfg_run.eps),
+                            H0, Om, OL)
+    dla = torch.minimum(f32(cfg_run.step_dla_max), 4.0 * torch.min(dla_i))
+    a1 = torch.exp(torch.log(t) + dla)
+    kl1, kl2, Fk, Dr, A_sub = cs._rung_tables_device(t, a1, 3, H0, Om, OL)
+    rung = cs._assign_rungs(dla_i, dla, 3)
+    hist = torch.bincount(rung, minlength=3).tolist()
+    tables = (float(a1), float(kl1), float(kl2), Fk, Dr.tolist(),
+              A_sub.tolist())
+    outs = []
+    for cap in (0, cfg_run.n_particles):
+        n = cs._rung_counts()
+        outs.append(cs._rung_block_step(
+            pos, vel, mass, gl, gs, rung, hist, tables, box=cfg_run.box,
+            n_rungs=3, acc_both_fn=build_cosmo_force_both(cfg_run),
+            acc_short_masked_fn=build_cosmo_force_rungs(cfg_run),
+            frozen_both_fns=fns, plan=plan, active_capacity=cap,
+            chans=cs._rung_chans(pos.device), n=n)[:2])
+        if n["interior_evals"] == 0:
+            raise AssertionError("[23] the compact step has no interior tick")
+    same = bool(torch.equal(outs[0][0], outs[1][0]))
+    dv = float((outs[0][1] - outs[1][1]).abs().max()
+               / outs[0][1].abs().max())
+    phase(f"[23] one rung step of cfg64 at a = {float(t):.4f} (populations "
+          f"{hist}, {n['interior_evals']} interior ticks), compact kicks "
+          f"against full-N: positions equal bit for bit: {same}; velocities "
+          f"max |diff| / max {dv:.3e} (the boundary's K2 atomics)")
+    if not same or not dv <= 1e-5:
+        raise AssertionError(f"[23] compact step: positions equal {same}, "
+                             f"velocities {dv}")
+
+
+def adaptive_64_runs() -> dict:
+    """[23](b)-(d) the committed adaptive 64^3 config at full width."""
+    from nbody_torch.driver import OutputConfig, SimulationConfig
+
+    with open(os.path.join(ROOT, "tests", "data", "parity", "adaptive",
+                           "config.json")) as f:
+        d = json.load(f)
+    # the reference's transfer table is not in the repository
+    d.update(transfer="eh")
+    d.pop("output")
+    base = SimulationConfig.from_dict(d).replace(
+        output=OutputConfig(snapshot=False))
+    out = {}
+    # (b) plain, rungs=3, subcycles=4
+    for tag, cfg in (("cfg64_adaptive", base),
+                     ("cfg64_adaptive_rungs3", base.replace(rungs=3)),
+                     ("cfg64_adaptive_sub4", base.replace(subcycles=4))):
+        res, counts, run = adaptive_run(cfg, tag)
+        out[tag] = dict(run, counts=counts, pk=res.powerspecs[0])
+        if tag == "cfg64_adaptive_rungs3":
+            rung_res = res
+        del res
+    # (c) the compact kicks: one step bit for bit, the run beside (b)'s
+    compact_step_check(rung_res.state, rung_res.config_run)
+    del rung_res
+    ccfg = base.replace(rungs=3, rung_active_capacity=COMPACT_CAPACITY)
+    res, counts, run = adaptive_run(ccfg, "cfg64_adaptive_rungs3_compact")
+    full = out["cfg64_adaptive_rungs3"]
+    bands = pk_bands(res.powerspecs[0], full["pk"], ccfg, "[23] compact")
+    phase(f"[23] compact active-row kicks (rung_active_capacity "
+          f"{COMPACT_CAPACITY}, {run['heals']} heals): {run['total']} steps "
+          f"in {run['wall']:.3f} s against the full-N kicks' "
+          f"{full['total']} in {full['wall']:.3f} s; P(k) vs the full-N "
+          f"run, max rel "
+          + bands_text(bands))
+    check_bands(bands, "[23] compact")
+    out["cfg64_adaptive_rungs3_compact"] = dict(run, counts=counts)
+    del res
+    # (d) four shards of the card
+    dcfg = base.replace(rungs=3, devices=DOMAIN_SHARDS)
+    res, counts, run = adaptive_run(dcfg, "cfg64_adaptive_rungs3_d4")
+    bands = pk_bands(res.powerspecs[0], full["pk"], dcfg, "[23] d4")
+    phase(f"[23] cfg64 adaptive rungs=3 on {DOMAIN_SHARDS} shards: "
+          f"{run['total']} steps in {run['wall']:.3f} s (one device "
+          f"{full['total']} in {full['wall']:.3f} s); P(k) vs one device's "
+          f"rung run, max rel " + bands_text(bands))
+    check_bands(bands, "[23] d4")
+    out["cfg64_adaptive_rungs3_d4"] = dict(run, counts=counts)
+    return out
+
+
 def _wrappers() -> dict:
     from nbody_torch.forces.pallas_mxu import allpairs_pallas_mxu
     from nbody_torch.forces.pallas_pp import allpairs_pallas, block_acc_pallas
@@ -4328,6 +4665,16 @@ def main() -> None:
             check_bands(bands, tag16)
         else:
             pk_vs_reference(r16, c16, ref_name, tag16)
+
+    # -- 23. adaptive time stepping, after the deterministic deposit ------
+    # (0) the CIC deposit at the default run's and cfg64's PM shapes
+    deposit_check("32^3 ICs", ics32.pos, ics32.mass, cfg.box, cfg.mesh_size)
+    deposit_check("64^3 ICs", ics64.pos, ics64.mass, cfg64.box,
+                  cfg64.mesh_size)
+    # (a) the 16^3 runs against the JAX package's
+    adaptive_16_runs(noise)
+    # (b)-(d) the committed adaptive 64^3 config at full width
+    adaptive_64_runs()
 
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",

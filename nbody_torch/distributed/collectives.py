@@ -1,10 +1,10 @@
 """The collectives of a slab decomposition, on a list of shards.
 
 Counterpart of ``shard_map`` with ``jax.lax.axis_index``, ``ppermute``,
-``psum``, ``pmax``, ``all_gather`` and ``all_to_all`` over a 1-D mesh
-axis.  One process drives every shard: a shard's data is one tensor of a
-Python list, indexed by the shard's position d on the axis, and lives on
-``group.devices[d]``.  A collective takes the list of per-shard tensors
+``psum``, ``pmax``, ``pmin``, ``all_gather`` and ``all_to_all`` over a 1-D
+mesh axis.  One process drives every shard: a shard's data is one tensor
+of a Python list, indexed by the shard's position d on the axis, and
+lives on ``group.devices[d]``.  A collective takes the list of per-shard tensors
 and returns the list of results, each moved to its shard's device with
 ``.to(device)``.  Several shards may share one device (four shards on one
 card run the arithmetic of four cards); then a move is no copy, and a
@@ -59,6 +59,10 @@ class ShardGroup:
     def pmax(self, xs) -> list:
         """Every shard receives the elementwise maximum."""
         return self._reduce(xs, torch.maximum)
+
+    def pmin(self, xs) -> list:
+        """Every shard receives the elementwise minimum."""
+        return self._reduce(xs, torch.minimum)
 
     def all_gather(self, xs, dim: int = 0) -> list:
         """Every shard receives the shards' tensors concatenated along

@@ -1,6 +1,7 @@
 """Slab domain decomposition: each shard owns the particles of one x-slab.
 
-Counterpart of the fixed-step part of :mod:`nbody.distributed.domain`.
+Counterpart of :mod:`nbody.distributed.domain`, fixed and adaptive
+steps.
 The box is cut into D x-slabs aligned with the P3M chaining-cell grid
 (shard d owns cell layers [d ncell / D, (d + 1) ncell / D)).  Each shard
 holds a fixed-capacity block of C particle slots; empty slots carry mass 0
@@ -19,7 +20,9 @@ slab's cell plane (K6's two-plane slab site).  With subcycles, the
 short-range force drives several KDKs inside each global step, every
 subcycle's drift migrating; on the supercell tier the last subcycle's
 short force and the closing far field come from one fused evaluation
-(K2 + K3).
+(K2 + K3).  With adaptive steps the shards choose one step together (the
+least demand over them) and take the rung step of the fixed grid on the
+masked cell planes.
 
 One process drives every shard (:class:`ShardGroup`): a shard's arrays
 are the entries of Python lists, on the shard's device, and each
@@ -62,6 +65,7 @@ from nbody_torch.forces.pm_supercell import (
     supercell_geometry,
 )
 from nbody_torch.mesh.cells import cell_capacity
+from nbody_torch.mesh.cic import scatter_sum
 
 
 # ---------------------------------------------------------------------------
@@ -358,16 +362,17 @@ def slab_deposit(pos: list, mass: list, *, box: float, nmesh: int,
         i0 = i0f.to(torch.int64)
         # planes 1..Xl are the slab's own, 0 and Xl + 1 the spills
         il = torch.clamp(i0[:, 0] - d * Xl + 1, 0, Xl + 1)
-        flat = torch.zeros(((Xl + 2) * nmesh * nmesh,), dtype=p.dtype,
-                           device=p.device)
+        lins, ws = [], []
         for dx, dy, dz in itertools.product((0, 1), repeat=3):
-            w = ((f[:, 0] if dx else 1.0 - f[:, 0])
-                 * (f[:, 1] if dy else 1.0 - f[:, 1])
-                 * (f[:, 2] if dz else 1.0 - f[:, 2]) * m)
+            ws.append((f[:, 0] if dx else 1.0 - f[:, 0])
+                      * (f[:, 1] if dy else 1.0 - f[:, 1])
+                      * (f[:, 2] if dz else 1.0 - f[:, 2]) * m)
             ix = torch.clamp(il + dx, 0, Xl + 1)
             iy = torch.remainder(i0[:, 1] + dy, nmesh)
             iz = torch.remainder(i0[:, 2] + dz, nmesh)
-            flat.index_add_(0, (ix * nmesh + iy) * nmesh + iz, w)
+            lins.append((ix * nmesh + iy) * nmesh + iz)
+        flat = scatter_sum((Xl + 2) * nmesh * nmesh, torch.cat(lins),
+                           torch.cat(ws))
         bufs.append(flat.reshape(Xl + 2, nmesh, nmesh))
     spill_r = group.ppermute([b[Xl + 1] for b in bufs], +1)
     spill_l = group.ppermute([b[0] for b in bufs], -1)
@@ -422,14 +427,15 @@ def slab_bspline_deposit(pos: list, mass: list, *, box: float, nmesh: int,
         wx = {o: W(s[:, 0] - (ic[:, 0] + o)) * m for o in offsets}
         wy = {o: W(s[:, 1] - (ic[:, 1] + o)) for o in offsets}
         wz = {o: W(s[:, 2] - (ic[:, 2] + o)) for o in offsets}
-        flat = torch.zeros(((Xl + 4) * nmesh * nmesh,), dtype=p.dtype,
-                           device=p.device)
+        lins, ws = [], []
         for ox, oy, oz in itertools.product(offsets, repeat=3):
             ix = torch.clamp(il + ox, 0, Xl + 3)
             iy = torch.remainder(ic[:, 1] + oy, nmesh)
             iz = torch.remainder(ic[:, 2] + oz, nmesh)
-            flat.index_add_(0, (ix * nmesh + iy) * nmesh + iz,
-                            wx[ox] * wy[oy] * wz[oz])
+            lins.append((ix * nmesh + iy) * nmesh + iz)
+            ws.append(wx[ox] * wy[oy] * wz[oz])
+        flat = scatter_sum((Xl + 4) * nmesh * nmesh, torch.cat(lins),
+                           torch.cat(ws))
         bufs.append(flat.reshape(Xl + 4, nmesh, nmesh))
     spill_r = group.ppermute([b[Xl + 2: Xl + 4] for b in bufs], +1)
     spill_l = group.ppermute([b[0:2] for b in bufs], -1)
@@ -1057,51 +1063,23 @@ def _states(pos: list, vel: list, mass: list, time: float) -> list:
             for p, v, m in zip(pos, vel, mass)]
 
 
-def _run_domain_rungs(shards: list, cosmo, a_grid, group: ShardGroup, *,
-                      box: float, nmesh: int, eps: float, geom: DomainP3M,
-                      E: int, n_rungs: int, eta_disp: float, eta_acc: float,
-                      target_capacity: int, col_capacity: int | None,
-                      col_window: int | None, rung_frozen: bool,
-                      column_skin: float, fkw: dict) -> DomainRunResult:
-    """The domain rung tier (CONCEPT's block steps on the slab
-    decomposition; the JAX package's ``run_cosmological_domain(rungs=...)``
-    and ``_rung_ticks``).  Each global step assigns rungs from the
-    displacement and acceleration demand of the carried force, kicks the
-    far field at the half-steps and kicks rung r at every 2^(R - 1 - r)-th
-    of the n_sub = 2^(R - 1) sub-ticks.  Every sub-tick drifts every
-    shard; the boundary tick migrates (:func:`slab_exchange`, with the
-    carried forces and the rungs riding along) and takes the full short
-    force of the cells tier.  Interior ticks kick the active rungs:
-
-    * masked route: every sub-tick migrates too, and K6's two-plane slab
-      site evaluates the force on the active rows;
-    * frozen route (``rung_frozen``): each step's local column plans are
-      frozen at its start, right after the last boundary's exchange, and
-      the particles stay on their shard until the next boundary; K5's
-      slab site evaluates the force on the chunks with an active row,
-      and the plans' staleness (drift beyond skin/2) is counted.
-
-    The step's global rung histogram is read on the host once per step
-    (the only read before the end): a tick whose lowest active rung is
-    above the deepest populated rung is skipped on every shard (its kick
-    would add 0), and a step without an active interior tick freezes no
-    plan (a plan no tick uses drops no force).  The overflow channels
-    stay on the device until the end."""
-    from nbody_torch.integrate.cosmo_stepping import (
-        _assign_rungs,
-        _rung_demand,
-        cosmo_kick_drift_factors,
-        rung_active_min,
-        rung_kick_tables,
-    )
-
-    D = group.size
-    split = fkw["split"]
-    long_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
-                                     part="long", **fkw)
-    short_acc = make_domain_p3m_local(cosmo, geom, eps, group=group,
-                                      part="short", **fkw)
-    G = units.COSMO.G
+def _rung_kit(cosmo, group: ShardGroup, *, box: float, eps: float,
+              geom: DomainP3M, E: int, n_rungs: int, target_capacity: int,
+              col_capacity: int | None = None, col_window: int | None = None,
+              rung_frozen: bool = False, column_skin: float = 0.0,
+              fkw: dict) -> dict:
+    """The forces, knobs, overflow channels and counts of the domain rung
+    tier: what :func:`_domain_rung_step` takes and updates (the channel
+    words stay on the devices; the counts are host ints)."""
+    kit = dict(box=box, eps=float(eps), geom=geom, E=E, n_rungs=n_rungs,
+               group=group, fkw=fkw, rung_frozen=rung_frozen,
+               cosmo=(float(cosmo.H0), float(cosmo.Omega_m),
+                      float(cosmo.Omega_L)),
+               long_acc=make_domain_p3m_local(cosmo, geom, eps, group=group,
+                                              part="long", **fkw),
+               short_acc=make_domain_p3m_local(cosmo, geom, eps,
+                                               group=group, part="short",
+                                               **fkw))
     if rung_frozen:
         if not col_capacity:
             raise ValueError(
@@ -1112,123 +1090,347 @@ def _run_domain_rungs(shards: list, cosmo, a_grid, group: ShardGroup, *,
                 "rung_frozen needs column_skin > 0 (the per-step drift "
                 "budget the frozen plan is sized for)")
         ck = _ceil128(col_capacity)
-        ckw = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell, group=group,
-                   col_capacity=ck,
-                   window=int(col_window or column_window(box, geom.r_cut,
-                                                          ck)))
-        skin = float(column_skin)
+        kit["ckw"] = dict(box=box, r_cut=geom.r_cut, ncell=geom.ncell,
+                          group=group, col_capacity=ck,
+                          window=int(col_window
+                                     or column_window(box, geom.r_cut, ck)))
+        kit["skin"] = float(column_skin)
     else:
-        masked_acc = make_domain_p3m_local(
+        kit["masked_acc"] = make_domain_p3m_local(
             cosmo, geom, eps, group=group, part="short_masked",
             target_capacity=target_capacity, **fkw)
+    zeros = _zeros(group)
+    kit.update(ov_ex=zeros, ov_bk=zeros, ov_tg=zeros, occ_tg=zeros,
+               ov_pl=zeros, ov_st=zeros, n_boundary=0, n_interior=0,
+               n_freeze=0)
+    return kit
 
+
+def _shard_rungs(kit: dict, vel: list, mass: list, gl: list, gs: list,
+                 a0: list, dla_step: list, tabs: list):
+    """Each shard's rungs from the demand of its carried force at a0 (per
+    shard 0-d tensors) against the step ``dla_step``, and the global
+    histogram of the resident rows (parked rows binned out), summed over
+    the shards on shard 0's device: (rungs, hist tensor)."""
+    from nbody_torch.integrate.cosmo_stepping import (
+        _assign_rungs,
+        _rung_demand,
+    )
+
+    n_rungs = kit["n_rungs"]
+    rung, counts = [], []
+    for d in range(len(vel)):
+        tb = tabs[d]
+        dla = _rung_demand(vel[d], gl[d], gs[d], a0[d], tb["cell"],
+                           tb["eta"], tb["acc"], *kit["cosmo"])
+        dla = torch.where(mass[d] > 0, dla, torch.full_like(dla, np.inf))
+        r = _assign_rungs(dla, dla_step[d], n_rungs)
+        rung.append(r)
+        counts.append(torch.bincount(
+            torch.where(mass[d] > 0, r, torch.full_like(r, n_rungs)),
+            minlength=n_rungs + 1)[:n_rungs])
+    return rung, kit["group"].psum(counts)[0]
+
+
+def _domain_rung_step(kit: dict, pos: list, vel: list, mass: list, gl: list,
+                      gs: list, rung: list, hist, tables):
+    """One rung block step on the slab-resident shards (the JAX package's
+    step body around ``_rung_ticks``): the step of the fixed-grid
+    :func:`_run_domain_rungs` and of
+    :func:`run_cosmological_domain_adaptive`.  ``tables = (a1, kl1, kl2,
+    Fk, Dr, A_sub)``, Fk a list of each shard's (n_sub + 1, n_rungs)
+    kick table on its device and the rest host floats; ``hist`` is the
+    step's global rung histogram on the host.
+
+    Every sub-tick drifts every shard; the boundary tick migrates
+    (:func:`slab_exchange`, with the carried forces and the rungs riding
+    along) and takes the full short force of the cells tier, then the far
+    field.  A tick whose lowest active rung is above the deepest
+    populated rung is skipped on every shard (its kick would add 0).
+    Interior ticks kick the active rungs:
+
+    * masked route: every sub-tick migrates too, and K6's two-plane slab
+      site evaluates the force on the active rows;
+    * frozen route (``kit['rung_frozen']``): the step's local column plans
+      are frozen at its start, after the last boundary's exchange, and
+      the particles stay on their shard until the boundary; K5's slab
+      site evaluates the force on the chunks with an active row, and the
+      plans' staleness (drift beyond skin/2) is counted.  A step without
+      an active interior tick freezes no plan.
+
+    The channels and counts of ``kit`` are updated in place.  Returns
+    (pos, vel, mass, gl, gs)."""
+    from nbody_torch.integrate.cosmo_stepping import rung_active_min
+
+    a1, kl1, kl2, Fk, Dr, A_sub = tables
+    group, box, geom, n_rungs = (kit["group"], kit["box"], kit["geom"],
+                                 kit["n_rungs"])
+    n_sub = 2 ** (n_rungs - 1)
+    deepest = max((r for r, c in enumerate(hist) if c), default=0)
+
+    def chan_max(key, new):
+        kit[key] = _chan_max(group, kit[key], new)
+
+    plans = None
+    if kit["rung_frozen"] and deepest >= 1:
+        plans = freeze_local_column_plan(pos, mass, skin=kit["skin"],
+                                         **kit["ckw"])
+        chan_max("ov_pl", [pl.ov for pl in plans])
+        kit["n_freeze"] += 1
+    p = [v + x * kl1 + y * f[0][r][:, None]
+         for v, x, y, r, f in zip(vel, gl, gs, rung, Fk)]
+    for j in range(1, n_sub + 1):
+        pos = [torch.remainder(x + q * Dr[j - 1], box)
+               for x, q in zip(pos, p)]
+        a_s = A_sub[j - 1]
+        if not kit["rung_frozen"] or j == n_sub:
+            pos, p, mass, (gl, gs, rung), ov_e = slab_exchange(
+                pos, p, mass, box=box, ncell=geom.ncell, group=group,
+                exchange_capacity=kit["E"], extras=(gl, gs, rung))
+            chan_max("ov_ex", ov_e)
+        if j == n_sub:
+            g, ovs = kit["short_acc"](pos, mass, a_s)
+            gs = g
+            chan_max("ov_bk", ovs)
+            kit["n_boundary"] += 1
+        elif deepest < rung_active_min(j, n_rungs):
+            continue
+        else:
+            act = [(r >= rung_active_min(j, n_rungs)) & (m > 0)
+                   for r, m in zip(rung, mass)]
+            if kit["rung_frozen"]:
+                fkw = kit["fkw"]
+                g, ovs = p3m_local_columns_frozen_masked(
+                    pos, mass, act, plans, eps=kit["eps"], r_s=geom.r_s,
+                    G=units.COSMO.G, split=fkw["split"],
+                    softening=fkw["softening"], **kit["ckw"])
+                g = [x / a_s for x in g]
+                chan_max("ov_pl", ovs)
+                chan_max("ov_st", [local_plan_stale(x, pl, box, kit["skin"])
+                                   for x, pl in zip(pos, plans)])
+            else:
+                g, ov_j, ov_i, occ_i = kit["masked_acc"](pos, mass, act, a_s)
+                chan_max("ov_bk", ov_j)
+                chan_max("ov_tg", ov_i)
+                chan_max("occ_tg", occ_i)
+            kit["n_interior"] += 1
+        p = [q + x * f[j][r][:, None] for q, x, r, f in zip(p, g, rung, Fk)]
+    gl = kit["long_acc"](pos, mass, a1)
+    vel = [q + x * kl2 for q, x in zip(p, gl)]
+    return pos, vel, mass, gl, gs
+
+
+def _demand_tables(kit: dict, cell: float, eta_disp: float, eta_acc: float,
+                   eps: float, dtype, **extra) -> list:
+    """Each shard's device copies of the demand's 0-d factors (one set a
+    device; ``extra``: more host arrays to copy)."""
+    out, seen = [], {}
+    for dev in kit["group"].devices:
+        if dev not in seen:
+            def t(x):
+                return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                       device=dev)
+
+            seen[dev] = dict(
+                cell=t(cell), eta=t(eta_disp),
+                acc=t(2.0 * eta_acc * eps) if eta_acc * eps > 0 else None,
+                **{k: t(v) for k, v in extra.items()})
+        out.append(seen[dev])
+    return out
+
+
+def _run_domain_rungs(shards: list, cosmo, a_grid, group: ShardGroup, *,
+                      box: float, nmesh: int, eps: float, geom: DomainP3M,
+                      E: int, n_rungs: int, eta_disp: float, eta_acc: float,
+                      target_capacity: int, col_capacity: int | None,
+                      col_window: int | None, rung_frozen: bool,
+                      column_skin: float, fkw: dict) -> DomainRunResult:
+    """The domain rung tier on a fixed grid (CONCEPT's block steps on the
+    slab decomposition; the JAX package's
+    ``run_cosmological_domain(rungs=...)``).  Each global step assigns
+    rungs from the displacement and acceleration demand of the carried
+    force and takes :func:`_domain_rung_step`: the far field kicks at the
+    half-steps and rung r at every 2^(R - 1 - r)-th of the n_sub = 2^(R -
+    1) sub-ticks, the interior ticks on the masked cell planes or, with
+    ``rung_frozen``, on each step's frozen local column plans.
+
+    The step's global rung histogram is read on the host once per step
+    (the only read before the end); the overflow channels stay on the
+    device until the end."""
+    from nbody_torch.integrate.cosmo_stepping import (
+        cosmo_kick_drift_factors,
+        rung_kick_tables,
+    )
+
+    kit = _rung_kit(cosmo, group, box=box, eps=eps, geom=geom, E=E,
+                    n_rungs=n_rungs, target_capacity=target_capacity,
+                    col_capacity=col_capacity, col_window=col_window,
+                    rung_frozen=rung_frozen, column_skin=column_skin, fkw=fkw)
     a_grid = np.asarray(a_grid, dtype=np.float64)
     n_steps = len(a_grid) - 1
-    n_sub = 2 ** (n_rungs - 1)
     KL1, _, KL2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
     Fk, Dr, A_sub = rung_kick_tables(cosmo, a_grid, n_rungs)
     pos = [s.pos for s in shards]
     vel = [s.vel for s in shards]
     mass = [s.mass for s in shards]
-    dtype = pos[0].dtype
-    tabs = {}
-
-    def tab(d):
-        """Shard d's device copies of the step tables and the demand's
-        0-d factors (one set a device)."""
-        dev = group.devices[d]
-        if dev not in tabs:
-            def t(x):
-                return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-
-            tabs[dev] = dict(
-                Fk=t(Fk), a0=t(a_grid[:-1]), a1=t(a_grid[1:]),
-                cell=t(box / nmesh), eta=t(eta_disp),
-                acc=t(2.0 * eta_acc * eps) if eta_acc * eps > 0 else None)
-        return tabs[dev]
-
-    def chan_max(chan, new):
-        return _chan_max(group, chan, new)
-
-    zeros = _zeros(group)
-    ov_ex = ov_tg = occ_tg = ov_pl = ov_st = zeros
-    H0, Om, OL = float(cosmo.H0), float(cosmo.Omega_m), float(cosmo.Omega_L)
+    tabs = _demand_tables(kit, box / nmesh, eta_disp, eta_acc, eps,
+                          pos[0].dtype, Fk=Fk, a0=a_grid[:-1], a1=a_grid[1:])
 
     t0 = float(shards[0].time)
-    gl = long_acc(pos, mass, t0)
-    gs, ovs = short_acc(pos, mass, t0)
-    ov_bk = chan_max(zeros, ovs)
-    n_boundary, n_interior, n_freeze = 1, 0, 0
+    gl = kit["long_acc"](pos, mass, t0)
+    gs, ovs = kit["short_acc"](pos, mass, t0)
+    kit["ov_bk"] = _chan_max(group, kit["ov_bk"], ovs)
+    kit["n_boundary"] = 1
     hists = np.zeros((n_steps, n_rungs), dtype=np.int64)
     for i in range(n_steps):
-        rung, counts = [], []
-        for d in range(D):
-            tb = tab(d)
-            dla = _rung_demand(vel[d], gl[d], gs[d], tb["a0"][i], tb["cell"],
-                               tb["eta"], tb["acc"], H0, Om, OL)
-            dla = torch.where(mass[d] > 0, dla, torch.full_like(dla, np.inf))
-            r = _assign_rungs(dla, torch.log(tb["a1"][i])
-                              - torch.log(tb["a0"][i]), n_rungs)
-            rung.append(r)
-            # resident populations only: parked rows go to a dropped bin
-            counts.append(torch.bincount(
-                torch.where(mass[d] > 0, r, torch.full_like(r, n_rungs)),
-                minlength=n_rungs + 1)[:n_rungs])
-        hists[i] = group.psum(counts)[0].tolist()
-        deepest = int(np.nonzero(hists[i])[0].max()) if hists[i].any() else 0
-        plans = None
-        if rung_frozen and deepest >= 1:
-            plans = freeze_local_column_plan(pos, mass, skin=skin, **ckw)
-            ov_pl = chan_max(ov_pl, [pl.ov for pl in plans])
-            n_freeze += 1
-        p = [v + x * float(KL1[i]) + y * tab(d)["Fk"][i, 0][r][:, None]
-             for d, (v, x, y, r) in enumerate(zip(vel, gl, gs, rung))]
-        for j in range(1, n_sub + 1):
-            pos = [torch.remainder(x + q * float(Dr[i, j - 1]), box)
-                   for x, q in zip(pos, p)]
-            a_s = float(A_sub[i, j - 1])
-            if not rung_frozen or j == n_sub:
-                pos, p, mass, (gl, gs, rung), ov_e = slab_exchange(
-                    pos, p, mass, box=box, ncell=geom.ncell, group=group,
-                    exchange_capacity=E, extras=(gl, gs, rung))
-                ov_ex = chan_max(ov_ex, ov_e)
-            if j == n_sub:
-                g, ovs = short_acc(pos, mass, a_s)
-                gs = g
-                ov_bk = chan_max(ov_bk, ovs)
-                n_boundary += 1
-            elif deepest < rung_active_min(j, n_rungs):
-                continue
-            else:
-                act = [(r >= rung_active_min(j, n_rungs)) & (m > 0)
-                       for r, m in zip(rung, mass)]
-                if rung_frozen:
-                    g, ovs = p3m_local_columns_frozen_masked(
-                        pos, mass, act, plans, eps=float(eps), r_s=geom.r_s,
-                        G=G, split=split, softening=fkw["softening"], **ckw)
-                    g = [x / a_s for x in g]
-                    ov_pl = chan_max(ov_pl, ovs)
-                    ov_st = chan_max(ov_st, [
-                        local_plan_stale(x, pl, box, skin)
-                        for x, pl in zip(pos, plans)])
-                else:
-                    g, ov_j, ov_i, occ_i = masked_acc(pos, mass, act, a_s)
-                    ov_bk = chan_max(ov_bk, ov_j)
-                    ov_tg = chan_max(ov_tg, ov_i)
-                    occ_tg = chan_max(occ_tg, occ_i)
-                n_interior += 1
-            p = [q + x * tab(d)["Fk"][i, j][r][:, None]
-                 for d, (q, x, r) in enumerate(zip(p, g, rung))]
-        gl = long_acc(pos, mass, float(a_grid[i + 1]))
-        vel = [q + x * float(KL2[i]) for q, x in zip(p, gl)]
+        rung, hist = _shard_rungs(
+            kit, vel, mass, gl, gs, [tb["a0"][i] for tb in tabs],
+            [torch.log(tb["a1"][i]) - torch.log(tb["a0"][i]) for tb in tabs],
+            tabs)
+        hists[i] = hist.tolist()
+        tables = (float(a_grid[i + 1]), float(KL1[i]), float(KL2[i]),
+                  [tb["Fk"][i] for tb in tabs], Dr[i].tolist(),
+                  A_sub[i].tolist())
+        pos, vel, mass, gl, gs = _domain_rung_step(kit, pos, vel, mass, gl,
+                                                   gs, rung, hists[i], tables)
+    return _rung_result(kit, _states(pos, vel, mass, float(a_grid[-1])),
+                        rung_hists=hists)
+
+
+def _rung_result(kit: dict, state: list, **kw) -> DomainRunResult:
+    """The run's channels reduced as the JAX package reduces them (one
+    host read each) and its counts."""
+    group = kit["group"]
     return DomainRunResult(
-        state=_states(pos, vel, mass, float(a_grid[-1])),
-        exchange_overflow=int(group.psum(ov_ex)[0]),
-        bucket_overflow=int(group.psum(ov_bk)[0]),
-        force_evals=n_boundary,
-        target_overflow=int(group.psum(ov_tg)[0]),
-        target_occupancy=int(group.pmax(occ_tg)[0]),
-        rung_hists=hists,
-        plan_overflow=int(group.pmax(ov_pl)[0]),
-        plan_stale=int(group.pmax(ov_st)[0]),
-        interior_evals=n_interior, plan_freezes=n_freeze)
+        state=state,
+        exchange_overflow=int(group.psum(kit["ov_ex"])[0]),
+        bucket_overflow=int(group.psum(kit["ov_bk"])[0]),
+        force_evals=kit["n_boundary"],
+        target_overflow=int(group.psum(kit["ov_tg"])[0]),
+        target_occupancy=int(group.pmax(kit["occ_tg"])[0]),
+        plan_overflow=int(group.pmax(kit["ov_pl"])[0]),
+        plan_stale=int(group.pmax(kit["ov_st"])[0]),
+        interior_evals=kit["n_interior"], plan_freezes=kit["n_freeze"],
+        **kw)
+
+
+class DomainAdaptiveResult(NamedTuple):
+    state: list                  # the shards' ParticleStates
+    n_steps: int                 # steps taken by this call
+    exchange_overflow: int       # sum over shards of each's max
+    bucket_overflow: int         # sum over shards of each's max
+    target_overflow: int         # sum over shards of each's max
+    target_occupancy: int        # max over shards
+    dla_last: float              # the last chosen background step
+    rung_hist: list              # (rungs,) populations of the last step
+    force_evals: int = 0         # boundary evaluations (far field and
+    #                              short force each) of this call
+    interior_evals: int = 0      # masked interior evaluations (K6's
+    #                              two-plane slab site, one launch a shard)
+    step_reads: int = 0          # host reads of the step and histogram
+
+
+def run_cosmological_domain_adaptive(
+        shards: list, cosmo, a_end: float, group: ShardGroup, *, box: float,
+        nmesh: int, eps: float, n_global: int,
+        exchange_capacity: int | None = None, geom: DomainP3M | None = None,
+        deconvolve_p: int = 2, split: str = "spline",
+        grad_order: str = "fd4", interlace: bool = False,
+        softening: str = "plummer", rungs: int = 1, dla_max: float = 0.03,
+        eta_disp: float = 0.25, eta_acc: float = 0.025,
+        target_capacity: int = 128,
+        max_steps: int | None = None) -> DomainAdaptiveResult:
+    """The adaptive background step times per-particle rungs on the slab
+    domain (the JAX package's ``run_cosmological_domain_adaptive``): per
+    step, each shard's demand of its resident rows (parked rows count as
+    inf), the global step
+
+        dla = min(dla_max, 2^(rungs - 1) min over the shards of the
+                  demand, ln a_end - ln a0),
+
+    floored at 1e-8 (the last step ends exactly at a_end), the kick tables
+    of the chosen step on the device (:func:`_rung_tables_device` in the
+    state's dtype, on shard 0's device, copied to the others) and the rung
+    step of the fixed grid, :func:`_domain_rung_step`, on the masked cell
+    planes (every tick migrates).  ``rungs=1`` takes boundary ticks only:
+    a plain adaptive KDK.  The chosen step, its tables and the histogram
+    summed over the shards come to the host in one read a step.
+
+    The call starts with the far field and the short force at the
+    shards' positions and steps until a_end, or ``max_steps`` steps (the
+    caller's stretch); the channels are read once, at the end."""
+    from nbody_torch.integrate.cosmo_stepping import (
+        _end_of,
+        _host_read,
+        _rung_demand,
+        _rung_tables_device,
+        _step_end,
+        _time_of,
+    )
+
+    D = group.size
+    if geom is None:
+        geom = domain_p3m_geometry(box, nmesh, D, n_global)
+    C = shards[0].pos.shape[0]
+    E = exchange_capacity or max(64, C // 8)
+    n_rungs = int(rungs)
+    n_sub = 2 ** (n_rungs - 1)
+    depth = float(n_sub)
+    fkw = dict(deconvolve_p=deconvolve_p, split=split, grad_order=grad_order,
+               interlace=interlace, softening=softening)
+    kit = _rung_kit(cosmo, group, box=box, eps=eps, geom=geom, E=E,
+                    n_rungs=n_rungs, target_capacity=target_capacity,
+                    fkw=fkw)
+    H0, Om, OL = kit["cosmo"]
+    pos = [s.pos for s in shards]
+    vel = [s.vel for s in shards]
+    mass = [s.mass for s in shards]
+    dtype, dev0 = pos[0].dtype, pos[0].device
+    tabs = _demand_tables(kit, box / nmesh, eta_disp, eta_acc, eps, dtype)
+    t, t_h = _time_of(shards[0])
+    a_end_t, a_end_h = _end_of(a_end, pos[0])
+    dla_max_t = torch.full((), float(dla_max), dtype=dtype, device=dev0)
+
+    gl = kit["long_acc"](pos, mass, t_h)
+    gs, ovs = kit["short_acc"](pos, mass, t_h)
+    kit["ov_bk"] = _chan_max(group, kit["ov_bk"], ovs)
+    kit["n_boundary"] = 1
+    steps, reads, dla_h, hist = 0, 0, float(dla_max), [0] * n_rungs
+    while t_h < a_end_h and (max_steps is None or steps < max_steps):
+        demand = []
+        for d in range(D):
+            tb = tabs[d]
+            dla = _rung_demand(vel[d], gl[d], gs[d], t.to(pos[d].device),
+                               tb["cell"], tb["eta"], tb["acc"], H0, Om, OL)
+            demand.append(torch.min(torch.where(mass[d] > 0, dla,
+                                                torch.full_like(dla,
+                                                                np.inf))))
+        dla_min = group.pmin(demand)[0]
+        dla = torch.minimum(torch.minimum(dla_max_t, depth * dla_min),
+                            torch.log(a_end_t) - torch.log(t))
+        dla = torch.clamp_min(dla, 1e-8)
+        a1 = _step_end(t, dla, a_end_t)
+        kl1, kl2, Fk, Dr, A_sub = _rung_tables_device(t, a1, n_rungs, H0, Om,
+                                                      OL)
+        rung, hist_t = _shard_rungs(
+            kit, vel, mass, gl, gs, [t.to(x.device) for x in pos],
+            [dla.to(x.device) for x in pos], tabs)
+        vals = _host_read(dla, a1, kl1, kl2, Dr, A_sub, hist_t)
+        reads += 1
+        dla_h, a1_h = vals[0], vals[1]
+        hist = [int(x) for x in vals[4 + 2 * n_sub:]]
+        tables = (a1_h, vals[2], vals[3], [Fk.to(x.device) for x in pos],
+                  vals[4:4 + n_sub], vals[4 + n_sub:4 + 2 * n_sub])
+        pos, vel, mass, gl, gs = _domain_rung_step(kit, pos, vel, mass, gl,
+                                                   gs, rung, hist, tables)
+        t, t_h = a1, a1_h
+        steps += 1
+    res = _rung_result(kit, _states(pos, vel, mass, t_h))
+    return DomainAdaptiveResult(
+        state=res.state, n_steps=steps,
+        exchange_overflow=res.exchange_overflow,
+        bucket_overflow=res.bucket_overflow,
+        target_overflow=res.target_overflow,
+        target_occupancy=res.target_occupancy, dla_last=dla_h,
+        rung_hist=hist, force_evals=res.force_evals,
+        interior_evals=res.interior_evals, step_reads=reads)

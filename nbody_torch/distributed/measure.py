@@ -18,6 +18,7 @@ from nbody_torch.distributed.collectives import ShardGroup
 from nbody_torch.distributed.domain import slab_bspline_deposit
 from nbody_torch.distributed.fft import kvecs_slab, slab_rfftn
 from nbody_torch.distributed.ic import slab_delta1_k
+from nbody_torch.mesh.cic import scatter_sum
 from nbody_torch.mesh.spectrum import PowerSpectrumResult
 
 
@@ -96,8 +97,7 @@ def measure_powerspec_domain(shards: list, group: ShardGroup, *, box: float,
         idx = _bin_index(km, edges, n_bins)
 
         def binned(w):
-            return torch.bincount(idx, weights=w,
-                                  minlength=n_bins + 1)[:n_bins]
+            return scatter_sum(n_bins + 1, idx, w)[:n_bins]
 
         tables.append(torch.stack([
             binned(mult), binned(mult * pk3.reshape(-1)),
@@ -149,8 +149,7 @@ def realized_spectrum_domain(seed: int, spec, power, group: ShardGroup,
         idx = _bin_index(km, edges, n_bins)
 
         def binned(w):
-            return torch.bincount(idx, weights=w,
-                                  minlength=n_bins + 1)[:n_bins]
+            return scatter_sum(n_bins + 1, idx, w)[:n_bins]
 
         tables.append(torch.stack([binned(mult), binned(mult * pk3),
                                    binned(mult * km.reshape(-1))]))

@@ -1,25 +1,28 @@
 """Single simulation runs: config -> ICs -> KDK -> outputs.
 
-Counterpart of :func:`nbody.driver.simulate.run_simulation` for the
-fixed-step slice: LPT ICs, the comoving KDK with the PM, P3M (dense,
-cells, supercell or columns short-range tier) or exact periodic PP force
-(Ewald: K1 with the Gaussian split plus the k-space sum), the
-split-Hamiltonian subcycled KDK (P3M with ``subcycles > 1``: the far
-field at the global step, the short-range force subcycled inside it, on
-frozen column plans on the column tiers and with the fused boundary
-evaluation), or the per-particle rung KDK (``rungs >= 2``: dense or
-cell-plane boundary ticks with two-plane cell interior ticks, or frozen
-column plans on the supercell tier), the capacity pre-warm and self-heal,
-the Layzer-Irvine energy samples, and P(k) and snapshot outputs at the
-output times, in the same run.log, powerspec and snapshot formats.  The
-entry points run on the card unless the caller passes ``device="cpu"``.
-Options outside the slice raise ``NotImplementedError``
-(``rung_active_capacity > 0``, ``time_stepping='adaptive'``, and on more
-than one device ``ic_realization='domain'`` with ``solver='pp'``).  With
-``devices > 1`` (D shards driven by one process, placed round-robin over
-the visible cards) pm and p3m run the slab domain decomposition
-(:mod:`nbody_torch.distributed.domain`), with fixed steps, subcycles or
-rungs, from ICs realized on one device or slab by slab
+Counterpart of :func:`nbody.driver.simulate.run_simulation`: LPT ICs, the
+comoving KDK with the PM, P3M (dense, cells, supercell or columns
+short-range tier) or exact periodic PP force (Ewald: K1 with the Gaussian
+split plus the k-space sum), the split-Hamiltonian subcycled KDK (P3M
+with ``subcycles > 1``: the far field at the global step, the short-range
+force subcycled inside it, on frozen column plans on the column tiers and
+with the fused boundary evaluation), or the per-particle rung KDK
+(``rungs >= 2``: dense or cell-plane boundary ticks with two-plane cell
+interior ticks, or frozen column plans on the supercell tier, with the
+compact active-row kicks of ``rung_active_capacity > 0``), on the fixed
+log-a grid or with adaptive steps (``time_stepping='adaptive'``: the
+plain, subcycled and rung runners, outputs at the requested a
+themselves), the capacity pre-warm and self-heal, the Layzer-Irvine
+energy samples, and P(k) and snapshot outputs at the output times, in the
+same run.log, powerspec and snapshot formats.  The entry points run on
+the card unless the caller passes ``device="cpu"``.  On more than one
+device ``ic_realization='domain'`` with ``solver='pp'`` raises
+``NotImplementedError``, and adaptive steps with subcycles and no rungs
+``ValueError`` (as in the JAX package).  With ``devices > 1`` (D shards
+driven by one process, placed round-robin over the visible cards) pm and
+p3m run the slab domain decomposition
+(:mod:`nbody_torch.distributed.domain`), with fixed steps, subcycles,
+rungs or adaptive steps, from ICs realized on one device or slab by slab
 (``ic_realization='domain'``, :mod:`nbody_torch.distributed.ic`), and
 ``solver='pp'`` stays on the single-device flow with the ring Ewald force
 over D particle blocks
@@ -77,6 +80,8 @@ from nbody_torch.ic.zeldovich import lpt_ic
 from nbody_torch.integrate.cosmo_stepping import (
     kdk_steps,
     log_a_steps,
+    make_adaptive_cosmo_runner,
+    make_adaptive_rung_runner,
     run_cosmological_rungs,
     run_cosmological_subcycled,
 )
@@ -131,14 +136,12 @@ def _n_devices(config: SimulationConfig, device=None) -> int:
 
 def check_supported(config: SimulationConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
-    and ``ValueError`` for rungs without the P3M solver (as the JAX
-    package does)."""
+    and ``ValueError`` for rungs without the P3M solver and, on more than
+    one device, for adaptive steps with subcycles and no rungs (as the
+    JAX package does)."""
     if config.rungs >= 2 and config.solver != "p3m":
         raise ValueError("rungs requires the p3m solver")
     n_dev = _n_devices(config, device)
-    # subcycles apply to the P3M split without rungs (rungs override them)
-    sub = " with subcycles > 1" if _n_sub_eff(config) > 1 and \
-        config.rungs < 2 else ""
     if n_dev > 1:
         missing = []
         if config.solver == "pp":
@@ -148,23 +151,16 @@ def check_supported(config: SimulationConfig, device=None) -> None:
                 missing.append(f"ic_realization={config.ic_realization!r} "
                                f"(the ring PP realizes its ICs on one "
                                f"device)")
-        else:
-            route = "the slab domain decomposition"
-            if config.time_stepping != "fixed":
-                missing.append(f"time_stepping={config.time_stepping!r}"
-                               f"{sub} (the adaptive domain runner)")
+        elif (config.time_stepping == "adaptive" and config.rungs < 2
+              and config.subcycles > 1):
+            raise ValueError(
+                "devices > 1 with adaptive stepping subdivides via rungs, "
+                "not uniform subcycles: set rungs >= 2 (or subcycles=1); "
+                "the single-device path composes adaptive x subcycles")
         if missing:
             raise NotImplementedError(
                 f"devices={n_dev} ({route}): not ported yet: "
                 + "; ".join(missing))
-    if config.rungs >= 2 and config.rung_active_capacity > 0:
-        raise NotImplementedError(
-            "rungs with rung_active_capacity > 0 (the compact active-row "
-            "kicks) are not ported yet")
-    if config.time_stepping != "fixed":
-        raise NotImplementedError(
-            f"time_stepping={config.time_stepping!r}{sub} is not ported yet"
-        )
 
 
 def _n_sub_eff(config: SimulationConfig) -> int:
@@ -472,11 +468,12 @@ def build_cosmo_force_frozen_both(config: SimulationConfig):
     def drift_ok_fn(pos, plan):
         return plan_drift_ok(pos, plan, box, 0.5 * skin)
 
-    def masked_frozen_fn(pos, mass, act, a, plan):
+    def masked_frozen_fn(pos, mass, act, a, plan, buckets=False):
+        # buckets=True: the slot table, which the compact kicks gather
         acc, ov = p3m_short_columns_frozen_masked(
             pos, mass, act, plan, box, eps, r_s, r_cut, G=G, ncell=ncell,
             col_capacity=ck, window=w, split=config.force_split,
-            softening=config.softening_kernel)
+            softening=config.softening_kernel, return_buckets=buckets)
         return acc / a, ov
 
     def stale_fn(pos, plan):
@@ -829,11 +826,13 @@ def heal_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
 
 
 def heal_rung_channels(config: SimulationConfig, cfg_run: SimulationConfig,
-                       ov: int, ovt: int, ovm: int
+                       ov: int, ovt: int, ovm: int, compact: bool = False
                        ) -> tuple[SimulationConfig, list[str]]:
     """Grow the knobs of ``cfg_run`` that a rung stretch's overflow
     channels name, in the JAX driver's order: the target plane's spills
-    (``ovt``) double ``rung_capacity``, the masked source plane's
+    (``ovt``) double ``rung_capacity``, or with ``compact`` (the compact
+    kicks on the frozen plans, where ``ovt`` counts the active rows past
+    the capacity) ``rung_active_capacity``; the masked source plane's
     (``ovm``) ``cell_capacity``, and the boundary word ``ov`` heals the
     tier's own knob (:func:`heal_capacity`; off the column tiers the
     boundary and the masked source plane share the cell capacity, which
@@ -841,7 +840,13 @@ def heal_rung_channels(config: SimulationConfig, cfg_run: SimulationConfig,
     if _resolved_shortrange(config) not in ("columns", "supercell"):
         ov, ovm = max(ov, ovm), 0
     lines = []
-    if ovt:
+    if ovt and compact:
+        new_acap = 2 * cfg_run.rung_active_capacity
+        lines.append(f"compact active-row overflow ({ovt} particles beyond "
+                     f"capacity) — doubling rung_active_capacity to "
+                     f"{new_acap}, re-running segment")
+        cfg_run = cfg_run.replace(rung_active_capacity=new_acap)
+    elif ovt:
         new_rcap = 2 * (cfg_run.rung_capacity or 128)
         lines.append(f"rung target-plane overflow ({ovt} particles) — "
                      f"doubling rung capacity to {new_rcap}, re-running "
@@ -897,10 +902,13 @@ def run_simulation(
     checkpoint_every_steps: int | None = None,
     resume: bool = False,
 ) -> SimulationResult:
-    """Run one full simulation: ICs at a_begin -> fixed log-a KDK to a_end.
+    """Run one full simulation: ICs at a_begin -> KDK to a_end.
 
-    Output times (``config.output.snapshot_times``) are snapped onto the
-    step grid; P(k) files and snapshots are written there under
+    On the fixed log-a grid the output times
+    (``config.output.snapshot_times``) are snapped onto the step grid;
+    with ``time_stepping='adaptive'`` each output time ends a segment and
+    the run arrives there exactly.  P(k) files and snapshots are written
+    under
     ``workdir`` (default ``config.output.dir``), with a CONCEPT-style
     run.log.  ``initial_state`` replaces the realized ICs.  The stretches of
     steps are ``SAMPLE_EVERY_STEPS // n_sub`` steps long (at least 4, as
@@ -923,8 +931,24 @@ def run_simulation(
     ``HEAL_ATTEMPTS`` attempts).  On frozen plans, particles that drifted
     beyond skin/2 grow ``column_skin`` and re-run the stretch, unless they
     are at most :func:`stale_tolerance`: then run.log notes them and
-    ``result.stale_max`` keeps the largest such count.
-    ``result.config_run`` is the healed config."""
+    ``result.stale_max`` keeps the largest such count.  The compact kicks'
+    truncation doubles ``rung_active_capacity``.
+    ``result.config_run`` is the healed config.
+
+    Adaptive steps (the JAX driver's ``seg_adaptive``): the rung runner
+    (:func:`~nbody_torch.integrate.cosmo_stepping.make_adaptive_rung_runner`)
+    with rungs, else the plain or subcycled one
+    (:func:`~nbody_torch.integrate.cosmo_stepping.make_adaptive_cosmo_runner`),
+    in stretches of at most ``SAMPLE_EVERY_STEPS // n_sub`` steps (at
+    least 4, with rungs at least 2), each logged as "Time step N  a = ...
+    dln(a) = ...  Rung population: ..." with N the steps so far, then
+    "Reached a = ..." at each segment's end and "Total adaptive steps: N".
+    A stretch that dropped force is healed and re-run from its own start
+    (the JAX driver re-runs the segment from its entry): a heal that drops
+    no force changes no step, so the result is the same, and the steps of
+    a try that did not stand are not counted.  Checkpoints carry
+    ``grid_index = -1`` and the a they were taken at, where a resume
+    continues."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
     n_dev = _n_devices(config, device)
@@ -969,12 +993,19 @@ def run_simulation(
         config.save(os.path.join(workdir, "config.json"))
     ckpt_path = (os.path.join(workdir, "autosave", CHECKPOINT_NAME)
                  if workdir else None)
-    state, start_idx = None, 0
+    state, start_idx, a_start = None, 0, config.a_begin
     if resume and ckpt_path and os.path.exists(ckpt_path):
         state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
-        start_idx = int(extra["grid_index"])
-    # the JAX driver's stretches: 32 sub-steps (at least 4 steps)
+        start_idx, a_start = int(extra["grid_index"]), float(extra["a"])
+    # the JAX driver's stretches: 32 sub-steps (at least 4 steps; an
+    # adaptive rung stretch at least 2)
     seg_steps = max(4, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
+    stretch = max(2 if rungs else 4, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
+    adaptive = config.time_stepping == "adaptive"
+    # adaptive outputs at the requested a themselves, each a segment bound
+    out_a = sorted({float(a) for a in config.output.snapshot_times
+                    if config.a_begin < a <= config.a_end})
+    a_bounds = sorted({a for a in out_a if a > a_start} | {config.a_end})
     bounds = set(out_idx) | {last} | set(
         range(start_idx + seg_steps, last, seg_steps))
     if checkpoint_every_steps:
@@ -994,9 +1025,12 @@ def run_simulation(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    rerun_evals = rerun_masked = 0
+    rerun_evals = rerun_masked = rerun_short = 0
     rung_occ_seen = stale_max = 0
-    totals = dict(boundary_evals=0, interior_evals=0, refreezes=0)
+    totals = dict(boundary_evals=0, interior_evals=0, refreezes=0,
+                  step_reads=0, drift_reads=0)
+    ada_totals = dict(evals=0, long_evals=0, short_evals=0, both_evals=0,
+                      step_reads=0)
     sub_totals = dict(long_evals=0, short_evals=0, frozen_evals=0,
                       both_evals=0, refreezes=0, drift_reads=0)
 
@@ -1035,17 +1069,35 @@ def run_simulation(
         log(line)
         return None, grown
 
+    def active_capacity(frozen_fns) -> int:
+        """The compact active-row capacity of the rung kicks: the healed
+        ``rung_active_capacity`` where the interior ticks ride the frozen
+        plans, else 0 (the full-N kicks)."""
+        if frozen_fns is None or len(frozen_fns) < 6:
+            return 0
+        return int(cfg_run.rung_active_capacity)
+
     def rung_attempt(fns, st, a_seg):
         """One try of a stretch of rung steps from ``st``: ((state,
         per-step rung histograms), None), or (None, the healed config)."""
-        nonlocal rerun_evals, rerun_masked, rung_occ_seen, stale_max
         masked_fn, both_fn, frozen_fns = fns
         stats = {}
         new, ov, ovm, ovt, occt, ovst, hists = run_cosmological_rungs(
             st, cosmo, a_seg, both_fn, masked_fn, config.box, rungs,
             config.box / config.mesh_size, eta_disp=config.step_eta_disp,
             eta_acc=config.step_eta_acc, eps=config.eps,
-            frozen_both_fns=frozen_fns, stats=stats)
+            frozen_both_fns=frozen_fns,
+            active_capacity=active_capacity(frozen_fns), stats=stats)
+        grown = rung_outcome(stats, ov, ovm, ovt, occt, ovst,
+                             active_capacity(frozen_fns) > 0)
+        return ((new, hists), None) if grown is None else (None, grown)
+
+    def rung_outcome(stats, ov, ovm, ovt, occt, ovst, compact):
+        """The heal after a try of rung steps: None when the stretch is
+        kept (its counts added to the totals), else the healed config,
+        its run.log lines written.  On the compact route ``ovt`` counts
+        the active rows past ``rung_active_capacity``, which doubles."""
+        nonlocal rerun_evals, rerun_masked, rung_occ_seen, stale_max
         if ovst and ovst <= stale_tolerance(config):
             log(_drift_note(ovst))
             stale_max = max(stale_max, ovst)
@@ -1065,14 +1117,59 @@ def run_simulation(
             rung_occ_seen = occt
             for key in totals:
                 totals[key] += stats[key]
-            return (new, hists), None
+            return None
         else:
-            grown, lines = heal_rung_channels(config, cfg_run, ov, ovt, ovm)
+            grown, lines = heal_rung_channels(config, cfg_run, ov, ovt, ovm,
+                                              compact=compact)
         rerun_evals += stats["boundary_evals"]
         rerun_masked += stats["interior_evals"]
         for line in lines:
             log(line)
-        return None, grown
+        return grown
+
+    def adaptive_attempt(fns, st, a_hi):
+        """One try of a stretch of at most ``stretch`` adaptive steps from
+        ``st`` toward ``a_hi``: ((state, steps, last dln(a), last rung
+        histogram), None), or (None, the healed config).  The runner is
+        built from the forces of this try (no compile to amortise)."""
+        nonlocal rerun_evals, rerun_short
+        stats = {}
+        cell = config.box / config.mesh_size
+        if rungs:
+            masked_fn, both_fn, frozen_fns = fns
+            acap = active_capacity(frozen_fns)
+            runner = make_adaptive_rung_runner(
+                cosmo, both_fn, masked_fn, config.box, cell,
+                dla_max=config.step_dla_max, eta_disp=config.step_eta_disp,
+                eta_acc=config.step_eta_acc, eps=config.eps, n_rungs=rungs,
+                frozen_both_fns=frozen_fns, active_capacity=acap)
+            new, n, ov, ovm, ovt, occt, ovst, dla, hist = runner(
+                st, a_hi, max_steps=stretch, stats=stats)
+            grown = rung_outcome(stats, ov, ovm, ovt, occt, ovst, acap > 0)
+        else:
+            if subcycled:
+                runner = make_adaptive_cosmo_runner(
+                    cosmo, None, config.box, cell,
+                    dla_max=config.step_dla_max,
+                    eta_disp=config.step_eta_disp, split_fns=fns[0],
+                    n_sub=config.subcycles, acc_both_fn=fns[1])
+            else:
+                runner = make_adaptive_cosmo_runner(
+                    cosmo, fns, config.box, cell,
+                    dla_max=config.step_dla_max,
+                    eta_disp=config.step_eta_disp)
+            new, n, ov, dla, hist = runner(st, a_hi, max_steps=stretch,
+                                           stats=stats)
+            for key in ada_totals:
+                ada_totals[key] += stats[key]
+            grown = None
+            if ov:
+                rerun_evals += sum(stats[k] for k in (
+                    "evals", "long_evals", "both_evals"))
+                rerun_short += stats["short_evals"]
+                grown, line = heal_capacity(config, cfg_run, ov)
+                log(line)
+        return ((new, n, dla, hist), None) if grown is None else (None, grown)
 
     def segment_with_heal(attempt, st, *args, rung_occ: int = 0):
         """One stretch of steps from ``st`` after the pre-warm, re-run from
@@ -1104,8 +1201,10 @@ def run_simulation(
     log(
         f"nbody run: solver={config.solver} N={config.n_particles} "
         f"box={config.box:g} Mpc mesh={config.mesh_size} "
-        f"a={config.a_begin:g}->{config.a_end:g} in {config.n_steps} steps"
-        f" (seed={seed}, start_idx={start_idx})"
+        f"a={config.a_begin:g}->{config.a_end:g} "
+        + ("(adaptive stepping)" if adaptive
+           else f"in {config.n_steps} steps")
+        + f" (seed={seed}, start_idx={start_idx})"
     )
     if ic_wall:
         log(f"Initial conditions realized ({ic_wall:.2f} s)")
@@ -1145,7 +1244,30 @@ def run_simulation(
     sample_energy(state)
     g = None
     prev = last_ckpt = start_idx
-    for idx in bounds:
+    n_adaptive = 0
+    for a_hi in a_bounds if adaptive else ():
+        t_seg = time.perf_counter()
+        a_hi_t = float(torch.tensor(a_hi, dtype=dtype))
+        while float(state.time) < a_hi_t:
+            state, n, dla, hist = segment_with_heal(adaptive_attempt, state,
+                                                    a_hi,
+                                                    rung_occ=rung_occ_seen)
+            n_adaptive += n
+            top = max((r for r, c in enumerate(hist) if c), default=0) + 1
+            log(f"Time step {n_adaptive:4d}   a = {float(state.time):.4f}   "
+                f"dln(a) = {dla:.5f}   Rung population: matter: "
+                + ", ".join(str(int(x)) for x in hist[:top]))
+        sync()
+        sample_energy(state)
+        log(f"Reached a = {a_hi:.4f} ({time.perf_counter() - t_seg:.2f} s)")
+        if a_hi in out_a and workdir:
+            write_outputs(a_hi)
+        if checkpoint_every_steps and ckpt_path and a_hi < config.a_end:
+            save_checkpoint(ckpt_path, state, {
+                "grid_index": -1, "seed": seed, "a": float(a_hi)})
+    if adaptive:
+        log(f"Total adaptive steps: {n_adaptive}")
+    for idx in bounds if not adaptive else ():
         t_seg = time.perf_counter()
         a_seg = a_grid[prev: idx + 1]
         if rungs:
@@ -1178,7 +1300,20 @@ def run_simulation(
     if rerun_masked:
         log(f"Capacity heals repeated {rerun_masked} masked interior "
             f"evaluations")
-    if subcycled:
+    if rerun_short:
+        log(f"Capacity heals repeated {rerun_short} short-range "
+            f"evaluations")
+    if adaptive and not rungs:
+        t = ada_totals
+        log(f"Adaptive stepping ({config.subcycles} subcycles, heals' "
+            f"repeats included): {t['evals']} plain, {t['long_evals']} long, "
+            f"{t['short_evals']} short and {t['both_evals']} fused force "
+            f"evaluations, {t['step_reads']} host reads of the step")
+    elif adaptive:
+        log(f"Adaptive rung stepping: {totals['step_reads']} host reads of "
+            f"the step and its rung histogram, {totals['drift_reads']} of "
+            f"the drift predicate")
+    if subcycled and not adaptive:
         t = sub_totals
         log(f"Subcycled stepping ({config.subcycles} subcycles, heals' "
             f"repeats included): {t['long_evals']} long, {t['short_evals']} "
@@ -1432,7 +1567,14 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     (``result.stale_max``); more grows the skin toward its ceiling, and at
     the ceiling the port heals ``column_skin`` to 0 and re-runs the
     segment on the masked cell planes, which have no drift budget (the
-    JAX driver keeps such a segment with a warning)."""
+    JAX driver keeps such a segment with a warning).
+
+    Adaptive steps run :func:`~nbody_torch.distributed.domain.
+    run_cosmological_domain_adaptive` (with ``rungs`` or one rung, on the
+    masked cell planes) in stretches toward each output time and a_end,
+    each re-run from its start after a heal (the JAX driver's
+    ``run_segment_adaptive``: the target capacity, the bucket and the
+    exchange double), with the log lines of the single-device path."""
     from nbody_torch.diagnostics.layzer_irvine import (
         peculiar_energies_domain,
     )
@@ -1441,6 +1583,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         domain_gather,
         domain_p3m_geometry,
         run_cosmological_domain,
+        run_cosmological_domain_adaptive,
         slab_grid,
     )
     from nbody_torch.distributed.ic import lpt_ic_domain
@@ -1479,7 +1622,8 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     if resume and ckpt_path and os.path.exists(ckpt_path):
         state, extra = load_checkpoint(ckpt_path, device=device, dtype=dtype)
         start_idx = int(extra["grid_index"])
-    tier = _domain_tier(config, n_dev, rungs=bool(rungs))
+    adaptive = config.time_stepping == "adaptive"
+    tier = _domain_tier(config, n_dev, rungs=bool(rungs), adaptive=adaptive)
     xgrid = slab_grid(geom, tier)
     if (state is None and initial_state is None
             and config.ic_realization == "domain"):
@@ -1505,7 +1649,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     C = dstate[0].pos.shape[0]
     E = max(64, C // 8)
 
-    seg_steps = max(2, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
+    seg_steps = stretch = max(2, SAMPLE_EVERY_STEPS // _n_sub_eff(config))
     bounds = set(out_idx) | {last}
     if checkpoint_every_steps:
         bounds |= set(range(checkpoint_every_steps, last,
@@ -1515,10 +1659,14 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
 
     log(f"nbody run: solver={config.solver} N={config.n_particles} "
         f"box={config.box:g} Mpc mesh={config.mesh_size} "
-        f"a={config.a_begin:g}->{config.a_end:g} in {config.n_steps} steps "
-        f"(seed={seed}, start_idx={start_idx})")
+        f"a={config.a_begin:g}->{config.a_end:g} "
+        + ("(adaptive stepping) " if adaptive
+           else f"in {config.n_steps} steps ")
+        + f"(seed={seed}, start_idx={start_idx})")
     ck, cw = domain_column_knobs(config, tier, geom)
-    skin, ck, fw = domain_frozen_knobs(config, geom, ck)
+    # the adaptive runner's interior ticks ride the masked cell planes
+    skin, ck, fw = (domain_frozen_knobs(config, geom, ck) if not adaptive
+                    else (0.0, ck, 0))
     cw = fw or cw
     log(f"Domain decomposition: {n_dev}x1x1 ({geom.ncell} chaining cells, "
         f"{C} slots/device, bucket capacity {geom.bucket_capacity}, "
@@ -1532,7 +1680,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
     skin0, stale_max = skin, 0
     evals = dict(total=0, repeated=0, frozen=0, masked=0, freezes=0,
                  repeated_frozen=0, repeated_masked=0, short=0, fused=0,
-                 repeated_short=0)
+                 repeated_short=0, step_reads=0)
     subcycled = _subcycled(config)
 
     def run_segment(dst, lo, hi):
@@ -1596,6 +1744,49 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
                 log(line)
         raise RuntimeError("domain capacity retries exhausted")
 
+    def run_stretch_adaptive(dst, a_hi):
+        """One stretch of at most ``stretch`` adaptive steps toward
+        ``a_hi`` (the JAX driver's ``run_segment_adaptive``), re-run from
+        its start after a heal: the target capacity, the bucket and the
+        exchange double."""
+        nonlocal geom, E, rcap
+        for _ in range(HEAL_ATTEMPTS):
+            res = run_cosmological_domain_adaptive(
+                dst, cosmo, a_hi, group, box=config.box,
+                nmesh=config.mesh_size, eps=config.eps,
+                n_global=config.n_particles, exchange_capacity=E, geom=geom,
+                deconvolve_p=config.deconvolve_p, split=split,
+                grad_order=config.pm_gradient, interlace=config.interlace,
+                softening=config.softening_kernel, rungs=rungs or 1,
+                dla_max=config.step_dla_max, eta_disp=config.step_eta_disp,
+                eta_acc=config.step_eta_acc, target_capacity=rcap,
+                max_steps=stretch)
+            evals["total"] += res.force_evals
+            evals["masked"] += res.interior_evals
+            evals["step_reads"] += res.step_reads
+            ov_b, ov_e, ov_t = (res.bucket_overflow, res.exchange_overflow,
+                                res.target_overflow)
+            if ov_b == 0 and ov_e == 0 and ov_t == 0:
+                needed = -(-int(res.target_occupancy * 1.35) // 128) * 128
+                if rungs and needed > rcap:
+                    log(f"pre-warming rung target capacity to {needed} "
+                        f"(densest active bucket {res.target_occupancy})")
+                    rcap = needed
+                return res
+            evals["repeated"] += res.force_evals
+            evals["repeated_masked"] += res.interior_evals
+            lines = []
+            if ov_t:
+                rcap *= 2
+                lines.append(f"rung target-plane overflow ({ov_t} "
+                             f"particles) — doubling rung capacity to "
+                             f"{rcap}, re-running segment")
+            geom, _, _, E, more = heal_domain(config, tier, geom, 0, 0, E,
+                                              ov_b, ov_e)
+            for line in lines + more:
+                log(line)
+        raise RuntimeError("domain capacity retries exhausted")
+
     meta_of = lambda a: SnapshotMeta.from_cosmology(cosmo, config.box, a=a)  # noqa: E731
     energy_samples: list[tuple[float, float, float]] = []
 
@@ -1614,31 +1805,57 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
         log(f"Energy budget: T = {T_s[-1]:.6e}  W = {W_s[-1]:.6e}  "
             f"Layzer-Irvine residual = {100.0 * res:.2f}%")
 
+    def write_outputs(a_out: float) -> None:
+        log_energy()
+        tag = f"a={a_out:.2f}"
+        if config.output.snapshot:
+            spath = os.path.join(workdir, "snapshots", f"snapshot_{tag}.hdf5")
+            write_snapshot(spath, domain_gather(dstate), meta_of(a_out))
+            snapshots.append(spath)
+            log(f"Snapshot written: {spath}")
+        if config.output.powerspec:
+            ppath = os.path.join(workdir, "powerspec", f"powerspec_{tag}")
+            measure_powerspec_sharded(dstate, group, config, a_out,
+                                      path=ppath, seed=seed)
+            powerspecs.append(ppath)
+            log(f"Power spectrum written (sharded): {ppath}")
+
     sample_energy(dstate)
+    n_adaptive = 0
+    out_a = sorted({float(a) for a in config.output.snapshot_times
+                    if config.a_begin < a <= config.a_end})
+    a_start = float(dstate[0].time)
+    for a_hi in (sorted({a for a in out_a if a > a_start} | {config.a_end})
+                 if adaptive else ()):
+        t_seg = time.perf_counter()
+        a_hi_t = float(torch.tensor(a_hi, dtype=dtype))
+        while float(dstate[0].time) < a_hi_t:
+            res = run_stretch_adaptive(dstate, a_hi)
+            dstate, n_adaptive = res.state, n_adaptive + res.n_steps
+            top = max((r for r, c in enumerate(res.rung_hist) if c),
+                      default=0) + 1
+            log(f"Time step {n_adaptive:4d}   a = "
+                f"{float(dstate[0].time):.4f}   dln(a) = "
+                f"{res.dla_last:.5f}   Rung population: matter: "
+                + ", ".join(str(int(x)) for x in res.rung_hist[:top]))
+        log(f"Reached a = {a_hi:.4f} ({time.perf_counter() - t_seg:.2f} s)")
+        sample_energy(dstate)
+        if a_hi in out_a and workdir:
+            write_outputs(a_hi)
+        if checkpoint_every_steps and ckpt_path and a_hi < config.a_end:
+            save_checkpoint(ckpt_path, domain_gather(dstate), {
+                "grid_index": -1, "seed": seed, "a": float(a_hi)})
+    if adaptive:
+        log(f"Total adaptive steps: {n_adaptive}")
     prev = last_ckpt = start_idx
-    for idx in bounds:
+    for idx in bounds if not adaptive else ():
         t_seg = time.perf_counter()
         dstate = run_segment(dstate, prev, idx)
         log(f"Time step {idx:4d}   a = {a_grid[idx]:.4f}   "
             f"({idx - prev} steps in {time.perf_counter() - t_seg:.2f} s)")
         sample_energy(dstate)
         if idx in out_idx and workdir:
-            log_energy()
-            a_out = float(a_grid[idx])
-            tag = f"a={a_out:.2f}"
-            if config.output.snapshot:
-                spath = os.path.join(workdir, "snapshots",
-                                     f"snapshot_{tag}.hdf5")
-                write_snapshot(spath, domain_gather(dstate), meta_of(a_out))
-                snapshots.append(spath)
-                log(f"Snapshot written: {spath}")
-            if config.output.powerspec:
-                ppath = os.path.join(workdir, "powerspec",
-                                     f"powerspec_{tag}")
-                measure_powerspec_sharded(dstate, group, config, a_out,
-                                          path=ppath, seed=seed)
-                powerspecs.append(ppath)
-                log(f"Power spectrum written (sharded): {ppath}")
+            write_outputs(float(a_grid[idx]))
         if (checkpoint_every_steps and ckpt_path and idx < last
                 and idx - last_ckpt >= checkpoint_every_steps):
             save_checkpoint(ckpt_path, domain_gather(dstate), {
@@ -1660,6 +1877,9 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
             f"({evals['fused']} of them fused with the last subcycle's "
             f"short force) and {evals['short']} short-range force "
             f"evaluations")
+    if adaptive:
+        log(f"Domain adaptive stepping: {evals['step_reads']} host reads of "
+            f"the step and its rung histogram")
     if rungs:
         log(f"Domain rung stepping: {evals['total']} boundary, "
             f"{evals['frozen']} frozen-plan interior and {evals['masked']} "

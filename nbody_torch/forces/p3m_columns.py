@@ -648,10 +648,12 @@ def plane_geometry(box: float, r_cut: float, col_capacity: int,
 
 def read_back(out, gidx, rows: int):
     """Per-particle values of the first ``rows`` plane rows at each
-    particle's slot (zeros for an overflowed particle): (n, rows)."""
+    particle's slot (zeros for an overflowed particle): (n, rows); with
+    ``gidx`` None the slot table itself, a zero row appended."""
     flat = out[:rows].T
     pad = torch.zeros((1, rows), dtype=out.dtype, device=out.device)
-    return torch.cat([flat, pad], dim=0)[gidx]
+    table = torch.cat([flat, pad], dim=0)
+    return table if gidx is None else table[gidx]
 
 
 def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
@@ -794,12 +796,16 @@ def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
                                     ncell: int, col_capacity: int,
                                     window: int, split: str = "gaussian",
                                     softening: str = "plummer",
-                                    chunk: int = 256):
+                                    chunk: int = 256,
+                                    return_buckets: bool = False):
     """Short-range column force ON the chunks that hold an ``act``
     particle FROM all, on a frozen plan (K5): the rung tier's interior
     tick.  Rows of other chunks come back 0; the other rows of a visited
     chunk come back with their force, which the integrator's rung kick
-    factors zero.  Returns (acc (N, 3), plan.ov)."""
+    factors zero.  Returns (acc (N, 3), plan.ov); with ``return_buckets``
+    the slot table (slots + 1, 3) before the gather (its last row 0, the
+    slot of an overflowed particle), which the compact kicks gather at
+    ``plan.gidx`` of their active rows only."""
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,
                                                      col_capacity, window,
                                                      chunk)
@@ -811,6 +817,8 @@ def p3m_short_columns_frozen_masked(pos, mass, act, plan: ColumnPlan,
         plane, plan.ws, nch_act, cht, ncell=ncell, stride=stride, W=W,
         maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
         split=split, softening=softening, box=box, drift=drift)
+    if return_buckets:
+        return G * read_back(out, None, 3).to(pos.dtype), plan.ov
     return G * read_back(out, plan.gidx, 3).to(pos.dtype), plan.ov
 
 

@@ -8,7 +8,8 @@ the Gaussian or spline long-range filter folded in), the spectral
 gradient kernels and the interlacing phases.  A force evaluation is then
 deposit, one rfftn, one multiply, the inverse transform(s) and the gather.
 No hand-written kernel is involved: the FFTs are cuFFT through
-``torch.fft`` and the scatter is ``index_add_``.
+``torch.fft`` and the scatter is the fixed-point, deterministic
+:func:`~nbody_torch.mesh.cic.scatter_sum`.
 """
 
 from __future__ import annotations

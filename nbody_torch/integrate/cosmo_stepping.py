@@ -1,10 +1,12 @@
 """Comoving-coordinate KDK stepping in the scale factor a.
 
-Counterpart of the fixed-step part of :mod:`nbody.integrate.cosmo_stepping`
-(the plain KDK, the split-Hamiltonian subcycled KDK and the per-particle
-rungs).  The exact kick/drift factors are pre-integrated on the host (the
-same numpy) and the steps run as a Python loop in place of ``lax.scan``,
-with the same KDK order and ``mod(box)`` wrap.
+Counterpart of :mod:`nbody.integrate.cosmo_stepping` (the plain KDK, the
+split-Hamiltonian subcycled KDK and the per-particle rungs, on a fixed
+grid or with adaptive steps).  On a fixed grid the exact kick/drift
+factors are pre-integrated on the host (the same numpy); an adaptive step
+integrates its own on the device.  The steps run as a Python loop in
+place of ``lax.scan`` and ``lax.while_loop``, with the same KDK order and
+``mod(box)`` wrap.
 
 Conventions: x comoving, p = a^2 dx/dt,
   dx/da = p / (a^3 H(a)),   dp/da = g(x, a) / (a H(a)),
@@ -15,6 +17,7 @@ and a KDK step over [a0, a1] with geometric midpoint am uses
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -303,49 +306,194 @@ def _assign_rungs(dla_i, dla_step, n_rungs: int):
     return torch.clamp(r, 0, n_rungs - 1).to(torch.int64)
 
 
+def _compact_rows(rung, capacity: int, n_act: int):
+    """(idx_act, act_valid): the rows with rung >= 1, ascending, in a
+    (capacity,) index (0 past their count, as ``jnp.nonzero(size=,
+    fill_value=0)`` pads), and the mask of its valid entries.  ``n_act``,
+    their count, comes from the step's histogram on the host, so nothing
+    here reads the device."""
+    act_any = rung >= 1
+    slot = torch.cumsum(act_any, 0) - 1
+    target = torch.where(act_any & (slot < capacity), slot, capacity)
+    rows = torch.arange(rung.shape[0], device=rung.device)
+    # the rows past the capacity all land on the dropped slot `capacity`
+    idx = torch.zeros(capacity + 1, dtype=torch.int64,
+                      device=rung.device).scatter_(0, target, rows)
+    valid = (torch.arange(capacity, device=rung.device)
+             < min(int(n_act), capacity))
+    return idx[:capacity], valid
+
+
+def _rung_block_step(pos, vel, mass, gl, gs, rung, hist, tables, *,
+                     box: float, n_rungs: int, acc_both_fn,
+                     acc_short_masked_fn, frozen_both_fns=None, plan=None,
+                     active_capacity: int = 0, chans: dict, n: dict):
+    """One global KDK step with per-particle rung short-range kicks: the
+    step of the fixed-grid :func:`run_cosmological_rungs` and of the
+    adaptive :func:`make_adaptive_rung_runner` (the JAX package's
+    ``_rung_block_step``).
+
+    ``tables = (a1, kl1, kl2, Fk, Dr, A_sub)``: the step's end, the long
+    half-kick factors, the per-tick rung kick factors Fk (n_sub + 1,
+    n_rungs) as a tensor of the state's dtype on its device, and the
+    sub-ticks' drift factors and end scale factors; everything but Fk is
+    host floats.  ``hist`` is the step's rung histogram on the host: a
+    tick whose lowest active rung is above the deepest populated one is
+    skipped (its kick would add 0), and with ``active_capacity > 0`` on
+    the frozen route the interior kicks go to the step's rows with rung
+    >= 1 only (the compact active-row kicks: K5's slot table gathered at
+    those rows and added back into them, bit for bit the full-N kick);
+    their count past the capacity is ``n['truncated']``.
+
+    ``chans`` holds the overflow words (ovb, ovm, ovt, occt, ovst) on the
+    device and ``n`` the counts (boundary_evals, interior_evals,
+    refreezes, drift_reads, truncated); both are updated in place.
+    Returns (pos, vel, gl_new, gs_new, plan)."""
+    a1, kl1, kl2, Fk, Dr, A_sub = tables
+    n_sub = 2 ** (n_rungs - 1)
+    deepest = max((r for r, c in enumerate(hist) if c), default=0)
+    fns = frozen_both_fns
+    if fns is not None:
+        freeze_fn, both_frozen_fn, drift_ok_fn = fns[:3]
+    masked_frozen_fn, stale_fn, fresh_plan_fn = (
+        fns[3:6] if fns is not None and len(fns) > 5 else (None,) * 3)
+    compact = masked_frozen_fn is not None and active_capacity > 0
+
+    p = vel + gl * kl1
+    p = p + gs * Fk[0][rung][:, None]
+    if compact:
+        n_act = int(sum(hist[1:]))
+        n["truncated"] = max(n["truncated"], n_act - active_capacity)
+        idx_act, act_valid = _compact_rows(rung, active_capacity, n_act)
+        rung_act = rung[idx_act]
+        slot_act = plan.gidx[idx_act]
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    for j in range(1, n_sub + 1):
+        pos = torch.remainder(pos + p * Dr[j - 1], box)
+        a_s = A_sub[j - 1]
+        if j < n_sub:
+            if deepest < rung_active_min(j, n_rungs):
+                continue
+            act = rung >= rung_active_min(j, n_rungs)
+            if masked_frozen_fn is not None:
+                # interior tick on the carried plan, unconditionally:
+                # drift beyond skin/2 shows on the staleness channel
+                if compact:
+                    buckets, o = masked_frozen_fn(pos, mass, act, a_s, plan,
+                                                  buckets=True)
+                    fk = torch.where(act_valid, Fk[j][rung_act], zero)
+                    p = p.index_add(0, idx_act,
+                                    buckets[slot_act] * fk[:, None])
+                    g = None
+                else:
+                    g, o = masked_frozen_fn(pos, mass, act, a_s, plan)
+                chans["ovb"] = _max_overflow(chans["ovb"], o)
+                chans["ovst"] = _max_overflow(chans["ovst"],
+                                              stale_fn(pos, plan))
+            else:
+                g, o, ot, oc = acc_short_masked_fn(pos, mass, act, a_s)
+                chans["ovm"] = _max_overflow(chans["ovm"], o)
+                chans["ovt"] = _max_overflow(chans["ovt"], ot)
+                chans["occt"] = _max_overflow(chans["occt"], oc)
+            n["interior_evals"] += 1
+        else:
+            # boundary tick: the full short force and the closing long
+            # force at the same positions
+            if fns is not None:
+                keep = bool(drift_ok_fn(pos, plan))
+                n["drift_reads"] += 1
+                if not keep:
+                    n["refreezes"] += 1
+                if keep or fresh_plan_fn is None:
+                    if not keep:
+                        plan = freeze_fn(pos, mass)
+                    g, gl_new, o = both_frozen_fn(pos, mass, a_s, a1, plan)
+                else:
+                    g, gl_new, o, plan = fresh_plan_fn(pos, mass, a_s, a1)
+            else:
+                g, gl_new, o = acc_both_fn(pos, mass, a_s, a1)
+            gs = g
+            chans["ovb"] = _max_overflow(chans["ovb"], o)
+            n["boundary_evals"] += 1
+        if g is not None:
+            p = p + g * Fk[j][rung][:, None]
+    return pos, p + gl_new * kl2, gl_new, gs, plan
+
+
+def _rung_start(pos, mass, a, acc_both_fn, frozen_both_fns):
+    """The rung runners' first evaluation at ``pos``: (gs, gl, overflow,
+    plan), the plan from the fresh fused evaluation where the frozen
+    route has one, else frozen after it (None off the frozen route)."""
+    fns = frozen_both_fns
+    if fns is not None and len(fns) > 5:
+        return fns[5](pos, mass, a, a)
+    gs, gl, ov = acc_both_fn(pos, mass, a, a)
+    return gs, gl, ov, (fns[0](pos, mass) if fns is not None else None)
+
+
+def _rung_chans(dev) -> dict:
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return dict(ovb=zero, ovm=zero, ovt=zero, occt=zero, ovst=zero)
+
+
+def _rung_counts() -> dict:
+    return dict(boundary_evals=0, interior_evals=0, refreezes=0,
+                drift_reads=0, step_reads=0, truncated=0)
+
+
+def _rung_channels(chans: dict, n: dict) -> list:
+    """The five channels on the host (one read): boundary, masked source,
+    target (or the compact rows' truncation), target occupancy, plan
+    staleness."""
+    out = torch.stack([chans[k] for k in ("ovb", "ovm", "ovt", "occt",
+                                          "ovst")]).tolist()
+    out[2] = max(out[2], n["truncated"])
+    return out
+
+
 def run_cosmological_rungs(state: ParticleState, cosmo: Cosmology, a_grid,
                            acc_both_fn, acc_short_masked_fn, box: float,
                            n_rungs: int, cell: float,
                            eta_disp: float = 0.25, eta_acc: float = 0.025,
                            eps: float = 0.0, frozen_both_fns=None,
+                           active_capacity: int = 0,
                            stats: dict | None = None):
     """Block-step KDK with per-particle rungs (CONCEPT's scheme) over
     ``a_grid``: counterpart of the JAX package's fixed-grid
-    ``run_cosmological_rungs`` (its full-N kicks, and both halves of the
-    boundary force from one evaluation; the compact active-row kicks are
-    not ported).
+    ``run_cosmological_rungs`` (both halves of the boundary force from one
+    evaluation).
 
     Each global step assigns rungs from the displacement and acceleration
     demand, kicks the far field at the half-steps and kicks rung r at
-    every 2^(n_rungs - 1 - r)-th of the n_sub = 2^(n_rungs - 1) sub-ticks.
-    Interior sub-ticks evaluate the short force for the active rungs
-    only: ``acc_short_masked_fn(pos, mass, act, a) -> (g, ov_source,
-    ov_target, occupancy)`` (the two-plane cell kernel), or, with the
-    six-function ``frozen_both_fns = (freeze_fn, both_frozen_fn,
-    drift_ok_fn, masked_frozen_fn, stale_fn, fresh_plan_fn)``, the masked
-    column kernel on the plan frozen at the last boundary.  Boundary ticks
-    evaluate both halves at once (``acc_both_fn(pos, mass, a_s, a_l) ->
-    (gs, gl, ov)``, or the frozen-plan forms, which refreeze when
-    ``drift_ok_fn`` fails).
-    With the three-function ``frozen_both_fns`` (freeze, both_frozen,
+    every 2^(n_rungs - 1 - r)-th of the n_sub = 2^(n_rungs - 1) sub-ticks
+    (:func:`_rung_block_step`).  Interior sub-ticks evaluate the short
+    force for the active rungs only: ``acc_short_masked_fn(pos, mass, act,
+    a) -> (g, ov_source, ov_target, occupancy)`` (the two-plane cell
+    kernel), or, with the six-function ``frozen_both_fns = (freeze_fn,
+    both_frozen_fn, drift_ok_fn, masked_frozen_fn, stale_fn,
+    fresh_plan_fn)``, the masked column kernel on the plan frozen at the
+    last boundary (``masked_frozen_fn(..., buckets=True)`` returns its
+    slot table, which the compact kicks of ``active_capacity > 0``
+    gather).  Boundary ticks evaluate both halves at once
+    (``acc_both_fn(pos, mass, a_s, a_l) -> (gs, gl, ov)``, or the
+    frozen-plan forms, which refreeze when ``drift_ok_fn`` fails).  With
+    the three-function ``frozen_both_fns`` (freeze, both_frozen,
     drift_ok) only the boundary rides the plan.
 
     The run starts with one evaluation at the state's positions, as the
     JAX package's scan does.  The step's rung histogram is read on the
-    host once per step: tick j has an active set exactly when the deepest
-    populated rung is >= rung_active_min(j), so the masked evaluation of a
-    tick without one is skipped (its kick would add 0), and the frozen
-    boundary reads its drift predicate once.  Every other quantity stays
-    on the device until the end.
+    host once per step, and the frozen boundary reads its drift
+    predicate once; every other quantity stays on the device until the
+    end.
 
     Returns (final_state, boundary overflow, masked source overflow,
-    target overflow, target occupancy, plan staleness, hists (n_steps,
-    n_rungs) numpy): the channels heal different knobs.  ``stats``, when
-    given, receives the counts of boundary evaluations, interior
-    evaluations and plan refreezes."""
+    target overflow (on the compact route: the active rows past
+    ``active_capacity``), target occupancy, plan staleness, hists
+    (n_steps, n_rungs) numpy): the channels heal different knobs.
+    ``stats``, when given, receives the counts of boundary evaluations,
+    interior evaluations, plan refreezes and host reads."""
     a_grid = np.asarray(a_grid, dtype=np.float64)
     n_steps = len(a_grid) - 1
-    n_sub = 2 ** (n_rungs - 1)
     KL1, _, KL2, _ = cosmo_kick_drift_factors(cosmo, a_grid)
     Fk, Dr, A_sub = rung_kick_tables(cosmo, a_grid, n_rungs)
     pos, vel, mass = state.pos, state.vel, state.mass
@@ -358,26 +506,12 @@ def run_cosmological_rungs(state: ParticleState, cosmo: Cosmology, a_grid,
     H0, Om, OL = float(cosmo.H0), float(cosmo.Omega_m), float(cosmo.Omega_L)
     cell_t, eta_t = dev_t(cell), dev_t(eta_disp)
     acc_t = dev_t(2.0 * eta_acc * eps) if eta_acc * eps > 0 else None
+    chans, n = _rung_chans(dev), _rung_counts()
 
-    fns = frozen_both_fns
-    if fns is not None:
-        freeze_fn, both_frozen_fn, drift_ok_fn = fns[:3]
-    masked_frozen_fn, stale_fn, fresh_plan_fn = (
-        fns[3:6] if fns is not None and len(fns) > 5 else (None,) * 3)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    ovb = ovm = ovt = occt = ovst = zero
-    n_b = n_i = n_refreeze = 0
-
-    a_start = float(a_grid[0])
-    plan = None
-    if fresh_plan_fn is not None:
-        gs, gl, ov0, plan = fresh_plan_fn(pos, mass, a_start, a_start)
-    else:
-        gs, gl, ov0 = acc_both_fn(pos, mass, a_start, a_start)
-        if fns is not None:
-            plan = freeze_fn(pos, mass)
-    ovb = _max_overflow(ovb, ov0)
-    n_b += 1
+    gs, gl, ov0, plan = _rung_start(pos, mass, float(a_grid[0]),
+                                    acc_both_fn, frozen_both_fns)
+    chans["ovb"] = _max_overflow(chans["ovb"], ov0)
+    n["boundary_evals"] += 1
 
     hists = np.zeros((n_steps, n_rungs), dtype=np.int64)
     for i in range(n_steps):
@@ -386,55 +520,321 @@ def run_cosmological_rungs(state: ParticleState, cosmo: Cosmology, a_grid,
         rung = _assign_rungs(dla_i, torch.log(a1s[i]) - torch.log(a0s[i]),
                              n_rungs)
         hists[i] = torch.bincount(rung, minlength=n_rungs).tolist()
-        deepest = int(np.nonzero(hists[i])[0].max())
-
-        p = vel + gl * float(KL1[i])
-        p = p + gs * Fk_d[i, 0][rung][:, None]
-        for j in range(1, n_sub + 1):
-            pos = torch.remainder(pos + p * float(Dr[i, j - 1]), box)
-            a_s = float(A_sub[i, j - 1])
-            if j < n_sub:
-                if deepest < rung_active_min(j, n_rungs):
-                    continue
-                act = rung >= rung_active_min(j, n_rungs)
-                if masked_frozen_fn is not None:
-                    # interior tick on the carried plan, unconditionally:
-                    # drift beyond skin/2 shows on the staleness channel
-                    g, o = masked_frozen_fn(pos, mass, act, a_s, plan)
-                    ovb = _max_overflow(ovb, o)
-                    ovst = _max_overflow(ovst, stale_fn(pos, plan))
-                else:
-                    g, o, ot, oc = acc_short_masked_fn(pos, mass, act, a_s)
-                    ovm, ovt = _max_overflow(ovm, o), _max_overflow(ovt, ot)
-                    occt = _max_overflow(occt, oc)
-                n_i += 1
-            else:
-                # boundary tick: the full short force and the closing long
-                # force at the same positions
-                a1 = float(a_grid[i + 1])
-                if fns is not None:
-                    keep = bool(drift_ok_fn(pos, plan))
-                    if not keep:
-                        n_refreeze += 1
-                    if keep or fresh_plan_fn is None:
-                        if not keep:
-                            plan = freeze_fn(pos, mass)
-                        g, gl_new, o = both_frozen_fn(pos, mass, a_s, a1, plan)
-                    else:
-                        g, gl_new, o, plan = fresh_plan_fn(pos, mass, a_s, a1)
-                else:
-                    g, gl_new, o = acc_both_fn(pos, mass, a_s, a1)
-                gs = g
-                ovb = _max_overflow(ovb, o)
-                n_b += 1
-            p = p + g * Fk_d[i, j][rung][:, None]
-        gl = gl_new
-        vel = p + gl * float(KL2[i])
+        n["step_reads"] += 1
+        tables = (float(a_grid[i + 1]), float(KL1[i]), float(KL2[i]),
+                  Fk_d[i], Dr[i].tolist(), A_sub[i].tolist())
+        pos, vel, gl, gs, plan = _rung_block_step(
+            pos, vel, mass, gl, gs, rung, hists[i], tables, box=box,
+            n_rungs=n_rungs, acc_both_fn=acc_both_fn,
+            acc_short_masked_fn=acc_short_masked_fn,
+            frozen_both_fns=frozen_both_fns, plan=plan,
+            active_capacity=active_capacity, chans=chans, n=n)
 
     if stats is not None:
-        stats.update(boundary_evals=n_b, interior_evals=n_i,
-                     refreezes=n_refreeze)
-    chans = torch.stack([ovb, ovm, ovt, occt, ovst]).tolist()
+        stats.update(n)
     time = torch.as_tensor(float(a_grid[-1]), device=dev, dtype=dtype)
     final = state.replace(pos=pos, vel=vel, time=time)
-    return (final, *chans, hists)
+    return (final, *_rung_channels(chans, n), hists)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive stepping (CONCEPT's adaptive background step)
+# ---------------------------------------------------------------------------
+
+# 16-point Gauss-Legendre nodes and weights on [0, 1]: the kick and drift
+# integrals of a step chosen at run time, evaluated on the device
+_GL_X, _GL_W = np.polynomial.legendre.leggauss(16)
+_GL_X = (_GL_X + 1.0) / 2.0
+_GL_W = _GL_W / 2.0
+
+
+@functools.lru_cache(maxsize=16)
+def _gl_nodes(dtype, device):
+    """The nodes and weights as tensors, one copy a device and dtype (an
+    upload in every step would wait for the device)."""
+    return (torch.as_tensor(_GL_X, dtype=dtype, device=device),
+            torch.as_tensor(_GL_W, dtype=dtype, device=device))
+
+
+def _gl_int(f, lo, hi):
+    """Integral of f(a) da over [lo, hi] (tensors, broadcast) by the
+    16-point Gauss-Legendre rule in ln a, in ``lo``'s dtype on its
+    device."""
+    x, w = _gl_nodes(lo.dtype, lo.device)
+    lnl, lnh = torch.log(lo), torch.log(hi)
+    a = torch.exp(lnl[..., None] + x * (lnh - lnl)[..., None])
+    return (lnh - lnl) * torch.sum(w * f(a) * a, dim=-1)
+
+
+def _hubble(H0: float, Om: float, OL: float):
+    def H(a):
+        return H0 * torch.sqrt(Om / a**3 + OL)
+
+    return H
+
+
+def _kick(H, lo, hi):
+    """The kick factor int da / (a H) over [lo, hi]."""
+    return _gl_int(lambda a: 1.0 / (a * H(a)), lo, hi)
+
+
+def _drift(H, lo, hi):
+    """The drift factor int da / (a^3 H) over [lo, hi]."""
+    return _gl_int(lambda a: 1.0 / (a**3 * H(a)), lo, hi)
+
+
+def _rung_tables_device(a0, a1, n_rungs: int, H0: float, Om: float,
+                        OL: float):
+    """The rung kick tables of one global step [a0, a1] (0-d tensors) on
+    the device, in their dtype: (kl1, kl2, Fk (n_sub + 1, n_rungs), Dr
+    (n_sub,), A_sub (n_sub,)), the layout of :func:`rung_kick_tables`
+    for one step, by 16-point Gauss-Legendre in place of its trapezoid."""
+    n_sub = 2 ** (n_rungs - 1)
+    H = _hubble(H0, Om, OL)
+    lnl, lnh = torch.log(a0), torch.log(a1)
+    t = torch.exp(lnl + torch.arange(n_sub + 1, dtype=a0.dtype,
+                                     device=a0.device) / n_sub * (lnh - lnl))
+    Dr = _drift(H, t[:-1], t[1:])
+    am = torch.sqrt(a0 * a1)
+    kl1, kl2 = _kick(H, a0, am), _kick(H, am, a1)
+    Fk = torch.zeros((n_sub + 1, n_rungs), dtype=a0.dtype, device=a0.device)
+    for r in range(n_rungs):
+        m = 2 ** (n_rungs - 1 - r)
+        bounds = t[::m]
+        bm = torch.sqrt(bounds[:-1] * bounds[1:])
+        Fk[0:n_sub:m, r] += _kick(H, bounds[:-1], bm)
+        Fk[m:n_sub + 1:m, r] += _kick(H, bm, bounds[1:])
+    return kl1, kl2, Fk, Dr, t[1:]
+
+
+def _step_end(a0, dla, a_end_t):
+    """The step's end exp(ln a0 + dla), and a_end itself when the step is
+    the rest of the way: the run then arrives at a_end exactly in the
+    state's dtype (exp(ln a0 + ln a_end - ln a0) can land an ulp short,
+    and a float32 time an ulp short of a_end would take another step)."""
+    rem = torch.log(a_end_t) - torch.log(a0)
+    return torch.where(dla >= rem, a_end_t, torch.exp(torch.log(a0) + dla))
+
+
+def _host_read(*parts) -> list:
+    """One host read of the step's numbers: the 0-d and 1-d tensors
+    concatenated in float64 (exact for the state's float32 values and
+    for counts)."""
+    return torch.cat([x.reshape(-1).double() for x in parts]).tolist()
+
+
+def _time_of(state: ParticleState):
+    """(the state's time as a 0-d tensor of its dtype on its device, the
+    same on the host)."""
+    t = torch.as_tensor(state.time).to(device=state.pos.device,
+                                       dtype=state.pos.dtype)
+    return t, float(t)
+
+
+def _end_of(a_end: float, like):
+    """a_end in the state's dtype: (0-d tensor on its device, host)."""
+    a_h = float(torch.tensor(float(a_end), dtype=like.dtype))
+    return torch.full((), a_h, dtype=like.dtype, device=like.device), a_h
+
+
+def make_adaptive_cosmo_runner(cosmo: Cosmology, acc_fn, box: float,
+                               cell: float, *, dla_max: float = 0.03,
+                               eta_disp: float = 0.25, n_rungs: int = 8,
+                               split_fns=None, n_sub: int = 1,
+                               acc_both_fn=None):
+    """An adaptive KDK runner (the JAX package's
+    ``make_adaptive_cosmo_runner``): each step takes a global Delta(ln a)
+
+      dla = clip(min_i dla_i, dla_max / 2^(n_rungs - 1), dla_max),
+      dla_i = eta_disp * cell * a^2 H(a) / |p_i|   (drift <= eta cell),
+
+    and the last one ends exactly at a_end.  The kick and drift factors of
+    the chosen step are 16-point Gauss-Legendre integrals on the device,
+    in the state's dtype, as the JAX package computes them; the step, the
+    factors and the rung histogram (rung r wants dla_max / 2^r) come to
+    the host in one read a step, and the forces take the step's scale
+    factors as host floats (the same float32 values).
+
+    ``acc_fn(pos, mass, a) -> (g, overflow)``.  ``split_fns = (long_fn,
+    short_fn)`` with ``n_sub > 1`` subcycles the short-range KDK n_sub
+    times inside each chosen step, the far field kicking at its
+    half-steps; ``acc_both_fn(pos, mass, a_short, a_long) -> (gs, gl,
+    overflow)`` fuses the last subcycle's short force with the closing
+    long force.
+
+    Returns ``run(state, a_end, max_steps=None, stats=None) -> (state,
+    n_steps, overflow, dla_last, rung_hist)``: it starts with an
+    evaluation at the state's positions and steps until a_end, or
+    ``max_steps`` steps (the caller's stretch); the overflow words are
+    reduced on the device and read once, at the end.  ``stats`` receives
+    the counts of evaluations by kind and of host reads."""
+    H0, Om, OL = float(cosmo.H0), float(cosmo.Omega_m), float(cosmo.Omega_L)
+    dla_floor = dla_max / 2 ** (n_rungs - 1)
+    H = _hubble(H0, Om, OL)
+    subcycled = split_fns is not None and n_sub > 1
+
+    def run(state: ParticleState, a_end: float, max_steps: int | None = None,
+            stats: dict | None = None):
+        pos, vel, mass = state.pos, state.vel, state.mass
+        t, t_h = _time_of(state)
+        a_end_t, a_end_h = _end_of(a_end, pos)
+        n = dict(evals=0, long_evals=0, short_evals=0, both_evals=0,
+                 step_reads=0)
+        if subcycled:
+            long_fn, short_fn = split_fns
+            gl = long_fn(pos, mass, t_h)
+            gs, ov = short_fn(pos, mass, t_h)
+            n["long_evals"] += 1
+            n["short_evals"] += 1
+        else:
+            g, ov = acc_fn(pos, mass, t_h)
+            n["evals"] += 1
+        overflow = _max_overflow(None, ov)
+        steps, dla_h, hist = 0, float(dla_max), [0] * n_rungs
+        while t_h < a_end_h and (max_steps is None or steps < max_steps):
+            speed = torch.linalg.vector_norm(vel, dim=-1)
+            dla_i = eta_disp * cell * t**2 * H(t) / torch.clamp_min(speed,
+                                                                    1e-30)
+            dla = torch.minimum(torch.clamp(torch.min(dla_i), dla_floor,
+                                            dla_max),
+                                torch.log(a_end_t) - torch.log(t))
+            a1 = _step_end(t, dla, a_end_t)
+            rung = torch.clamp(torch.ceil(torch.log2(
+                dla_max / torch.clamp_min(dla_i, 1e-30))), 0, n_rungs - 1)
+            hist_t = torch.bincount(rung.to(torch.int64), minlength=n_rungs)
+            am = torch.sqrt(t * a1)
+            kl1, kl2 = _kick(H, t, am), _kick(H, am, a1)
+            if subcycled:
+                lnr = (torch.log(a1) - torch.log(t)) / n_sub
+                js = torch.arange(n_sub, dtype=t.dtype, device=t.device)
+                b0 = torch.exp(torch.log(t) + js * lnr)
+                b1 = torch.exp(torch.log(t) + (js + 1) * lnr)
+                bm = torch.sqrt(b0 * b1)
+                sub = (b1, _kick(H, b0, bm), _drift(H, b0, b1),
+                       _kick(H, bm, b1))
+            else:
+                sub = (_drift(H, t, a1),)
+            vals = _host_read(dla, a1, kl1, kl2, *sub, hist_t)
+            n["step_reads"] += 1
+            dla_h, a1_h, k1, k2 = vals[:4]
+            hist = [int(x) for x in vals[-n_rungs:]]
+            if subcycled:
+                b1s, ks1, drs, ks2 = (vals[4 + q * n_sub: 4 + (q + 1) * n_sub]
+                                      for q in range(4))
+                p = vel + gl * k1
+                for j in range(n_sub):
+                    p = p + gs * ks1[j]
+                    pos = torch.remainder(pos + p * drs[j], box)
+                    if acc_both_fn is not None and j == n_sub - 1:
+                        gs, gl, o = acc_both_fn(pos, mass, b1s[j], a1_h)
+                        n["both_evals"] += 1
+                    else:
+                        gs, o = short_fn(pos, mass, b1s[j])
+                        n["short_evals"] += 1
+                    overflow = _max_overflow(overflow, o)
+                    p = p + gs * ks2[j]
+                if acc_both_fn is None:
+                    gl = long_fn(pos, mass, a1_h)
+                    n["long_evals"] += 1
+                vel = p + gl * k2
+            else:
+                p_half = vel + g * k1
+                pos = torch.remainder(pos + p_half * vals[4], box)
+                g, o = acc_fn(pos, mass, a1_h)
+                n["evals"] += 1
+                overflow = _max_overflow(overflow, o)
+                vel = p_half + g * k2
+            t, t_h = a1, a1_h
+            steps += 1
+        if stats is not None:
+            stats.update(n)
+        final = state.replace(pos=pos, vel=vel, time=t)
+        return (final, steps, 0 if overflow is None else int(overflow),
+                dla_h, hist)
+
+    return run
+
+
+def make_adaptive_rung_runner(cosmo: Cosmology, acc_both_fn,
+                              acc_short_masked_fn, box: float, cell: float,
+                              *, dla_max: float = 0.03,
+                              eta_disp: float = 0.25, eta_acc: float = 0.025,
+                              eps: float = 0.0, n_rungs: int = 3,
+                              frozen_both_fns=None,
+                              active_capacity: int = 0):
+    """The adaptive global step composed with per-particle rungs (the JAX
+    package's ``make_adaptive_rung_runner``, CONCEPT's integrator
+    structure): each step takes the demand dla_i of
+    :func:`run_cosmological_rungs` and the global step
+
+        dla = min(dla_max, 2^(n_rungs - 1) min_i dla_i, ln a_end - ln a0),
+
+    floored at 1e-8, so the deepest rung serves the fastest particle; the
+    last step ends exactly at a_end.  The step's kick tables come from
+    :func:`_rung_tables_device` in the state's dtype, and its body is
+    :func:`_rung_block_step`, the fixed grid's, on both of its routes
+    (the masked cell kernel, or the frozen plans of ``frozen_both_fns``
+    with the compact kicks of ``active_capacity > 0``).  The chosen step,
+    its tables and the rung histogram come to the host in one read a
+    step; the frozen boundary adds its read of the drift predicate.
+
+    Returns ``run(state, a_end, max_steps=None, stats=None) -> (state,
+    n_steps, overflow_boundary, overflow_masked_source, overflow_target,
+    occupancy_target, plan_stale, dla_last, rung_hist)`` with the
+    channels of :func:`run_cosmological_rungs`, read once at the end.  A
+    call starts with an evaluation at the state's positions (and a fresh
+    plan) and steps until a_end, or ``max_steps`` steps."""
+    H0, Om, OL = float(cosmo.H0), float(cosmo.Omega_m), float(cosmo.Omega_L)
+    depth = float(2 ** (n_rungs - 1))
+    n_sub = 2 ** (n_rungs - 1)
+
+    def run(state: ParticleState, a_end: float, max_steps: int | None = None,
+            stats: dict | None = None):
+        pos, vel, mass = state.pos, state.vel, state.mass
+        dev, dtype = pos.device, pos.dtype
+
+        def dev_t(x):
+            return torch.full((), float(x), dtype=dtype, device=dev)
+
+        t, t_h = _time_of(state)
+        a_end_t, a_end_h = _end_of(a_end, pos)
+        cell_t, eta_t, dla_max_t = dev_t(cell), dev_t(eta_disp), dev_t(dla_max)
+        acc_t = dev_t(2.0 * eta_acc * eps) if eta_acc * eps > 0 else None
+        chans, n = _rung_chans(dev), _rung_counts()
+        gs, gl, ov0, plan = _rung_start(pos, mass, t_h, acc_both_fn,
+                                        frozen_both_fns)
+        chans["ovb"] = _max_overflow(chans["ovb"], ov0)
+        n["boundary_evals"] += 1
+        steps, dla_h, hist = 0, float(dla_max), [0] * n_rungs
+        while t_h < a_end_h and (max_steps is None or steps < max_steps):
+            dla_i = _rung_demand(vel, gl, gs, t, cell_t, eta_t, acc_t,
+                                 H0, Om, OL)
+            dla = torch.minimum(
+                torch.minimum(dla_max_t, depth * torch.min(dla_i)),
+                torch.log(a_end_t) - torch.log(t))
+            dla = torch.clamp_min(dla, 1e-8)
+            a1 = _step_end(t, dla, a_end_t)
+            kl1, kl2, Fk, Dr, A_sub = _rung_tables_device(t, a1, n_rungs,
+                                                          H0, Om, OL)
+            rung = _assign_rungs(dla_i, dla, n_rungs)
+            hist_t = torch.bincount(rung, minlength=n_rungs)
+            vals = _host_read(dla, a1, kl1, kl2, Dr, A_sub, hist_t)
+            n["step_reads"] += 1
+            dla_h, a1_h = vals[0], vals[1]
+            hist = [int(x) for x in vals[4 + 2 * n_sub:]]
+            tables = (a1_h, vals[2], vals[3], Fk, vals[4:4 + n_sub],
+                      vals[4 + n_sub:4 + 2 * n_sub])
+            pos, vel, gl, gs, plan = _rung_block_step(
+                pos, vel, mass, gl, gs, rung, hist, tables, box=box,
+                n_rungs=n_rungs, acc_both_fn=acc_both_fn,
+                acc_short_masked_fn=acc_short_masked_fn,
+                frozen_both_fns=frozen_both_fns, plan=plan,
+                active_capacity=active_capacity, chans=chans, n=n)
+            t, t_h = a1, a1_h
+            steps += 1
+        if stats is not None:
+            stats.update(n)
+        final = state.replace(pos=pos, vel=vel, time=t)
+        return (final, steps, *_rung_channels(chans, n), dla_h, hist)
+
+    return run

@@ -2,10 +2,10 @@
 interlacing.
 
 Counterpart of :mod:`nbody.mesh.cic`.  The 8-corner trilinear scatter is
-one ``index_add_`` over all corners' flattened cell indices; the gather is
-its adjoint.  Deconvolution is amplitude-level (divide by the window
-prod_i sinc^p) and the interlacing phase is e^{-i k.d/2}, as in the
-JAX package.
+one :func:`scatter_sum` over all corners' flattened cell indices; the
+gather is its adjoint.  Deconvolution is amplitude-level (divide by the
+window prod_i sinc^p) and the interlacing phase is e^{-i k.d/2}, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +18,21 @@ import torch
 from nbody_torch.mesh.grids import kvecs
 
 _CORNERS = tuple(itertools.product((0, 1), repeat=3))
+
+
+def scatter_sum(size: int, index, values):
+    """A flat (size,) tensor with ``values`` summed at ``index``, the same
+    bits in every call, on the card too, where a float ``index_add_`` adds
+    in the order its atomics land (so two runs of one float32 trajectory
+    would part).  The values are summed in int64 fixed point, 2^61 over
+    the sum of their magnitudes: integer addition is exact, so no order of
+    the additions can change a bit, and a bin's error is the rounding of
+    its values to about 4e-19 of that sum each, then float64 rounding."""
+    v = values.to(torch.float64)
+    scale = 2.0**61 / torch.clamp_min(torch.sum(torch.abs(v)), 1e-300)
+    sums = torch.zeros(size, dtype=torch.int64, device=values.device)
+    sums.index_add_(0, index, torch.round(v * scale).to(torch.int64))
+    return (sums.to(torch.float64) / scale).to(values.dtype)
 
 
 def _cic_corners(pos, box: float, nmesh: int, shift: float = 0.0):
@@ -48,9 +63,8 @@ def cic_deposit(pos, box: float, nmesh: int, weights=None,
     lin, w = _cic_corners(pos, box, nmesh, shift)
     if weights is not None:
         w = w * weights
-    flat = torch.zeros(nmesh**3, device=pos.device, dtype=pos.dtype)
-    flat.index_add_(0, lin.reshape(-1), w.reshape(-1))
-    return flat.reshape(nmesh, nmesh, nmesh)
+    return scatter_sum(nmesh**3, lin.reshape(-1), w.reshape(-1)).reshape(
+        nmesh, nmesh, nmesh)
 
 
 def cic_gather(grid, pos, box: float, shift: float = 0.0):
@@ -109,9 +123,8 @@ def bspline_deposit(pos, box: float, nmesh: int, order: int = 2,
     w = torch.stack(ws)
     if weights is not None:
         w = w * weights
-    flat = torch.zeros(nmesh**3, device=pos.device, dtype=pos.dtype)
-    flat.index_add_(0, torch.stack(lins).reshape(-1), w.reshape(-1))
-    return flat.reshape(nmesh, nmesh, nmesh)
+    return scatter_sum(nmesh**3, torch.stack(lins).reshape(-1),
+                       w.reshape(-1)).reshape(nmesh, nmesh, nmesh)
 
 
 def density_to_delta(count_grid, n_particles: int):

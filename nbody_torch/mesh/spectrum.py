@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nbody_torch.mesh.cic import cic_window
+from nbody_torch.mesh.cic import cic_window, scatter_sum
 from nbody_torch.mesh.grids import kmag, rfft_mode_weights
 
 
@@ -102,8 +102,7 @@ def power_spectrum(
     w = mult.reshape(-1)
 
     def binsum(v):
-        out = torch.zeros(n_bins + 1, device=device, dtype=dtype)
-        return out.index_add_(0, idx, v)[:n_bins]
+        return scatter_sum(n_bins + 1, idx, v.to(dtype))[:n_bins]
 
     counts = binsum(w)
     psum = binsum(w * pk3.reshape(-1))

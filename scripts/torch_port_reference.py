@@ -72,21 +72,31 @@ Writes, under ``tests/data/torch_port/``:
   ``systems.plummer(4096, seed=0)`` (float32) over 200 KDK steps of
   ``allpairs_pallas`` (eps 0.05, dt 1e-3, interpret mode), sampled every
   25 steps and at the start (columns: step, time, E_kin, E_pot, E, the
-  three momentum components).
+  three momentum components);
+* ``powerspec_a=1.00_n16_adaptive_seed0``,
+  ``..._n16_adaptive_sub4_seed0``, ``..._n16_adaptive_rungs3_seed0`` and
+  ``..._n16_domain4_adaptive_rungs2_seed0``: the same 16^3 run with
+  ``time_stepping='adaptive'`` (the plain KDK and ``subcycles=4`` from
+  a = 0.02; ``rungs=3``, and ``rungs=2`` on 4 devices of the slab domain
+  decomposition, from a = 0.3 like the rung runs), and
+  ``adaptive_steps_n16{tag}_seed0.txt`` beside each: its run.log's
+  "Time step ... dln(a) = ..." lines (one a stretch of steps: the step
+  count so far, a and the last step's dln(a)) and its "Total adaptive
+  steps" line.
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
-        [domain_rungs] [sharded] [sub] [domain_ic] [_TAG ...]
+        [domain_rungs] [sharded] [sub] [domain_ic] [adaptive] [_TAG ...]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
 ``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
 the four domain runs' P(k), ``domain_rungs`` the three domain rung
 runs, ``sharded`` the 4-device PP run's P(k) and the sharded P3M
-force, ``sub`` the three subcycled runs' P(k) and ``domain_ic`` the
-domain draw, its ICs and its realized spectrum (all eight without
-arguments); an argument ``_TAG`` runs the one run of that file-name tag
+force, ``sub`` the three subcycled runs' P(k), ``domain_ic`` the
+domain draw, its ICs and its realized spectrum and ``adaptive`` the four
+adaptive runs (all nine without arguments); an argument ``_TAG`` runs the one run of that file-name tag
 (e.g. ``_sub4``), so that the runs can go in parallel processes.
 """
 
@@ -136,6 +146,15 @@ SUB_RUNS = {
     "_domain4_supercell_sub4": CONFIG.replace(devices=4,
                                               shortrange="supercell",
                                               subcycles=4),
+}
+#: adaptive stepping: the plain and subcycled KDK over the whole run, the
+#: rung runner and the domain runner from the rung runs' a = 0.3
+ADAPTIVE_RUNS = {
+    "_adaptive": CONFIG.replace(time_stepping="adaptive"),
+    "_adaptive_sub4": CONFIG.replace(time_stepping="adaptive", subcycles=4),
+    "_adaptive_rungs3": RUNG_CONFIG.replace(time_stepping="adaptive"),
+    "_domain4_adaptive_rungs2": RUNG_CONFIG.replace(
+        time_stepping="adaptive", rungs=2, devices=4),
 }
 #: the slab-resident ICs: shards and LPT orders
 DOMAIN_IC_DEVICES = 4
@@ -340,14 +359,15 @@ def main(which) -> None:
     if "domain_ic" in which:
         domain_ics()
     every = dict(RUNS, **SHARDED_RUNS, **PP_RUNS, **DOMAIN_RUNS,
-                 **DOMAIN_RUNG_RUNS, **SUB_RUNS)
+                 **DOMAIN_RUNG_RUNS, **SUB_RUNS, **ADAPTIVE_RUNS)
     runs = dict(RUNS if "pk" in which else {},
                 **{tag: every[tag] for tag in which if tag.startswith("_")},
                 **(SUB_RUNS if "sub" in which else {}),
                 **(SHARDED_RUNS if "sharded" in which else {}),
                 **(PP_RUNS if "pp" in which else {}),
                 **(DOMAIN_RUNS if "domain" in which else {}),
-                **(DOMAIN_RUNG_RUNS if "domain_rungs" in which else {}))
+                **(DOMAIN_RUNG_RUNS if "domain_rungs" in which else {}),
+                **(ADAPTIVE_RUNS if "adaptive" in which else {}))
     for tag, cfg in runs.items():
         if cfg.devices > 1 and cfg.shortrange == "supercell":
             from nbody.driver import simulate
@@ -364,7 +384,16 @@ def main(which) -> None:
             print(f"JAX run ({cfg.solver}, {cfg.shortrange}, rungs="
                   f"{cfg.rungs}, devices={cfg.devices}): "
                   f"{res.wall_s:.1f} s, wrote {name}")
-            if cfg.rungs:
+            if cfg.time_stepping == "adaptive":
+                with open(os.path.join(work, "run.log")) as f:
+                    steps = [line.rstrip() for line in f
+                             if "dln(a)" in line or "Total adaptive" in line
+                             or "re-running" in line]
+                sname = f"adaptive_steps_n16{tag}_seed0.txt"
+                with open(os.path.join(OUT, sname), "w") as f:
+                    f.write("\n".join(steps) + "\n")
+                print(f"  {sname}: {steps[-1]}")
+            if cfg.rungs and cfg.time_stepping == "fixed":
                 log_path = os.path.join(work, "run.log")
                 pops = rung_populations(log_path, cfg.rungs)
                 pname = f"rung_population_n16{tag}_seed0.txt"
@@ -385,4 +414,4 @@ def main(which) -> None:
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs",
-                          "sharded", "sub", "domain_ic"])
+                          "sharded", "sub", "domain_ic", "adaptive"])

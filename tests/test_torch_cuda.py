@@ -1111,3 +1111,45 @@ def test_replicated_grid_site_matches_plain(cuda):
     scale = float(ref.norm(dim=1).max())
     assert float((g.cpu() - ref).norm(dim=1).max()) <= 2e-5 * scale
     assert int(out["cuda", 8][1]) == int(out["cpu", 8][1]) > 0
+
+
+@pytest.mark.parametrize("n,nmesh", [(32768, 64), (1 << 18, 128)])
+def test_cic_deposit_deterministic(cuda, n, nmesh):
+    """The fixed-point CIC deposit on the card: two calls equal bit for bit,
+    and the float32 grid equal to the float64 deposit of the same
+    positions to float32 rounding (the cell coordinate x nmesh / box
+    rounds by up to 7.6e-6 at mesh 128, and each corner weight carries
+    it)."""
+    from nbody_torch.mesh.cic import cic_deposit
+
+    box = 500.0
+    pos, mass = _particles(n, box, cuda, seed=3)
+    a = cic_deposit(pos, box, nmesh, weights=mass)
+    b = cic_deposit(pos, box, nmesh, weights=mass)
+    assert torch.equal(a, b)
+    ref = cic_deposit(pos.double().cpu(), box, nmesh,
+                      weights=mass.double().cpu())
+    err = (a.double().cpu() - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 3e-5
+
+
+def test_adaptive_run_on_gpu_matches_cpu(cuda, tmp_path):
+    """A tiny adaptive rung run on the card against the same run on the
+    CPU: the same step count, and the final time a_end itself."""
+    cfg = SimulationConfig(n_side=12, box=60.0, pm_grid=32, a_begin=0.2,
+                           a_end=0.3, rungs=3, time_stepping="adaptive",
+                           output=OutputConfig(snapshot=False,
+                                               powerspec=False,
+                                               energy_log=False))
+    gpu = run_simulation(cfg, 0, str(tmp_path / "gpu"))
+    cpu = run_simulation(cfg, 0, str(tmp_path / "cpu"), device="cpu")
+    assert float(gpu.state.time) == float(cpu.state.time) == float(
+        np.float32(0.3))
+
+    def total(run):
+        with open(tmp_path / run / "run.log") as f:
+            return [x for x in f if x.startswith("Total adaptive steps")]
+
+    assert total("gpu") == total("cpu") and total("gpu")
+    d = (gpu.state.pos.cpu() - cpu.state.pos).abs()
+    assert float(torch.minimum(d, 60.0 - d).max()) < 1e-3

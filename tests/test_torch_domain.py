@@ -842,11 +842,13 @@ PORT_DATA = __import__("os").path.join(
     # of its ICs is not ported
     pytest.param(dict(solver="pp", ic_realization="domain"), "solver='pp'",
                  id="change0-solver='pp'"),
-    pytest.param(dict(rungs=3, time_stepping="adaptive"),
-                 "time_stepping='adaptive'", id="change1-rungs >= 2"),
-    # subcycles and the domain ICs are ported: the run completes
+    # adaptive steps, subcycles and the domain ICs are ported: the run
+    # completes
+    pytest.param(dict(rungs=3, time_stepping="adaptive"), None,
+                 id="change1-rungs >= 2"),
     pytest.param(dict(subcycles=2), None, id="change2-subcycles > 1"),
-    (dict(time_stepping="adaptive"), "time_stepping='adaptive'"),
+    pytest.param(dict(time_stepping="adaptive"), None,
+                 id="change3-time_stepping='adaptive'"),
     pytest.param(dict(ic_realization="domain"), None,
                  id="change4-ic_realization='domain'"),
 ])
@@ -860,8 +862,10 @@ def test_domain_refusals_name_what_is_missing(change, missing, tmp_path):
     cfg = TConfig(n_side=16, devices=2).replace(**change)
     if missing is None:
         check_supported(cfg, "cpu")
-        cfg = cfg.replace(a_begin=0.5, n_steps=1, output=OutputConfig(
-            snapshot=False, energy_log=False, realization_correction=True))
+        cfg = cfg.replace(a_begin=0.5, n_steps=1, step_dla_max=0.35,
+                          output=OutputConfig(snapshot=False,
+                                              energy_log=False,
+                                              realization_correction=True))
         res = run_simulation(cfg, 0, str(tmp_path), device="cpu")
         assert res.state.pos.shape == (cfg.n_particles, 3)
         assert bool(torch.isfinite(res.state.vel).all())

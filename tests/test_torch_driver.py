@@ -104,28 +104,42 @@ def test_config_json_round_trips_across_packages(tmp_path):
         (jcfg.eps, jcfg.mesh_size, jcfg.n_particles)
 
 
-@pytest.mark.parametrize("change,match", [
+@pytest.mark.parametrize("change,match,error", [
     pytest.param(dict(solver="pp", devices=2, ic_realization="domain"),
-                 "pp", id="change0-pp"),
-    # subcycles and the domain ICs run (tests/test_torch_subcycle.py);
-    # adaptive stepping with subcycles does not
+                 "pp", NotImplementedError, id="change0-pp"),
+    # subcycles, the domain ICs, adaptive steps and the compact kicks run
+    # (tests/test_torch_subcycle.py, tests/test_torch_adaptive.py);
+    # adaptive steps with subcycles and no rungs on several devices raise
+    # ValueError, as in the JAX package
     pytest.param(dict(solver="p3m", subcycles=2, time_stepping="adaptive"),
-                 "subcycles", id="change1-subcycles"),
-    pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64),
-                 "rungs", id="change2-rungs"),
-    (dict(time_stepping="adaptive"), "adaptive"),
+                 None, None, id="change1-subcycles"),
+    pytest.param(dict(solver="p3m", rungs=2, rung_active_capacity=64,
+                      box=60.0, pm_grid=32), None, None, id="change2-rungs"),
+    pytest.param(dict(time_stepping="adaptive"), None, None,
+                 id="change3-adaptive"),
     pytest.param(dict(devices=2, subcycles=2, time_stepping="adaptive"),
-                 "devices", id="change4-devices"),
-    (dict(solver="p3m", rungs=3, time_stepping="adaptive"), "adaptive"),
+                 "devices", ValueError, id="change4-devices"),
+    pytest.param(dict(solver="p3m", rungs=3, time_stepping="adaptive",
+                      box=60.0, pm_grid=32), None, None,
+                 id="change5-adaptive"),
     pytest.param(dict(solver="p3m", box=500.0, pm_grid=64,
                       shortrange="supercell", subcycles=2,
-                      time_stepping="adaptive"), "subcycles",
+                      time_stepping="adaptive"), None, None,
                  id="change6-subcycles"),
 ])
-def test_unported_paths_raise(change, match, tmp_path):
+def test_unported_paths_raise(change, match, error, tmp_path):
+    """What the port does not run raises, naming it; the paths that used
+    to raise here (``error`` None) run from a = 0.75 to a_end on the CPU
+    and end there."""
     cfg = _tconfig(TINY).replace(**change)
-    with pytest.raises(NotImplementedError, match=match):
-        t_run(cfg, 0, str(tmp_path), device="cpu")
+    if error is not None:
+        with pytest.raises(error, match=match):
+            t_run(cfg, 0, str(tmp_path), device="cpu")
+        return
+    cfg = cfg.replace(a_begin=0.75, n_steps=2, step_dla_max=0.35)
+    res = t_run(cfg, 0, str(tmp_path), device="cpu")
+    assert float(res.state.time) == pytest.approx(cfg.a_end)
+    assert bool(torch.isfinite(res.state.pos).all())
 
 
 def test_cuda_path_is_float32_only():
