@@ -25,7 +25,8 @@ script exits non-zero:
    [3]'s gates;
 6. the 16^3 run from the JAX package's committed white noise, whose P(k)
    at a = 1 must match the JAX package's committed P(k);
-7. K2 (supercell deposit) and K3 (fused PM readback + column pair sum,
+7. K2 (supercell deposit; here and in phases 11 and 19 two launches
+   equal bit for bit) and K3 (fused PM readback + column pair sum,
    plain, interlaced and split_out) against their plain versions on the
    supercell tier's plane of the 64^3 production run, and K4 (column pair
    sum) on its columns tier's plane: on the ICs at the geometry each run
@@ -194,18 +195,37 @@ script exits non-zero:
     equal to the evaluations of run.log's summary, which must equal the
     counts from its stretches, steps and heals; (c) the rung run with the
     compact active-row kicks (``rung_active_capacity=COMPACT_CAPACITY``,
-    N / 8) beside (b)'s, both walls: one rung step from the same state and forces with the
-    compact and the full-N kicks gives the same positions bit for bit,
-    and the two runs' P(k) at a = 1 agree within DOMAIN_PK_BANDS (the
-    runs cannot agree bit for bit: K2's float atomics add in another
-    order in every call); (d) (b)'s rung run on four shards of the card:
+    N / 8) beside (b)'s, both walls, each from no capacity learned in
+    the process (``forget_capacities``): the final state and the P(k)
+    file equal (b)'s bit for bit; the plain run of (b) is made twice so,
+    with the same steps, final state and P(k) bits (K2's sums are exact,
+    so the supercell runs repeat); (d) (b)'s rung run on four shards of
+    the card:
     K6 = 4 x the boundary and masked evaluations, P(k) within
     DOMAIN_PK_BANDS of (b)'s rung run.
+24. the ensemble (the reference's NN-data pipeline, the JAX package's
+    ``vmap`` tier): (b) ``run_ensemble(SimulationConfig() without
+    snapshots, 8, A_s_values=draw_A_s(8), batch=8)``: no member failed
+    and K1 launched n_steps + 1 times for the chunk, then each member
+    through ``run_simulation(member, base=config)`` (8 x n_steps + 1),
+    every member's final positions (``run_members_batched``) within
+    ENSEMBLE_POS_TOL and its P(k) within ENSEMBLE_PK_TOL of its
+    sequential run, with both walls; (a) K1's batched site (one launch
+    over the 8 members) at their ICs and final states against its
+    float64 plain version (relative L2, per target) and each member equal
+    bit for bit to its own launch, timed beside the 8 single launches;
+    (d) ``benchmark_fn`` on the batched call and a ``trace`` of one
+    ensemble step that names the K1 kernel; the analysis port with no
+    figure (``ensemble_scatter`` over the pipeline's P(k) files,
+    ``density_projection`` bit for bit over two calls,
+    ``compare_solver_spectra`` at 16^3); (c) the committed 16^3
+    ensemble (4 members, the JAX noise) through ``run_members_batched``
+    against the JAX package's P(k) to PK_REL_TOL.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 16, 18, 19, 20, 21 and 22, and each kernel's
+from phases 3, 7, 11, 15, 16, 18, 19, 20, 21, 22 and 24, and each kernel's
 bound:
 the larger of the bytes the function needs over the card's memory rate
 and its operations over its float32 rate, for K8 its rsqrts over the SFU's rate
@@ -356,7 +376,20 @@ POP_TOL = 0.005
 PLUMMER_N = 262144
 
 
+#: {phase number: seconds}: the time from one phase line to the next,
+#: counted to the phase whose line ends it
+PHASE_S: dict[int, float] = {}
+START = time.perf_counter()
+_LAST_LINE = [START]
+
+
 def phase(msg: str) -> None:
+    tag = re.match(r"\[(\d+)\]", msg)
+    if tag:
+        now = time.perf_counter()
+        key = int(tag.group(1))
+        PHASE_S[key] = PHASE_S.get(key, 0.0) + now - _LAST_LINE[0]
+        _LAST_LINE[0] = now
     print(msg, flush=True)
 
 
@@ -1269,15 +1302,16 @@ def enqueue_ms(fn, calls: int = 50) -> float:
 
 def k2_timing(tag: str, kws: list, reps: int = 50) -> dict:
     """K2 at one site (``kws``: ``scripts/torch_k2_ablation.py``'s call
-    keywords, one a shard): the call (CUDA events around back-to-back
-    ``supercell_deposit_from_plane`` calls, the wrapper's host work
-    included), the kernel alone (the memset and the kernel by one library
-    call on prepared buffers: the device's time), the host's enqueue of a
-    call,
-    and K2 before its redesign (the ablation's ``original``: its call
-    through its own wrapper, the mesh fill included, and its kernel alone),
-    means over the shards; the original's deposit must agree with the
-    float32 plain version to NODE_MASS_TOL.  Returns the times."""
+    keywords, one a shard): two launches equal bit for bit on every
+    shard (the fixed-point sums), the call (CUDA events around
+    back-to-back ``supercell_deposit_from_plane`` calls, the wrapper's
+    host work included), the kernel alone (the memset and the three
+    passes by one library call on prepared buffers: the device's time),
+    the host's enqueue of a call, and K2 before its redesign (the
+    ablation's ``original``: its call through its own wrapper, the mesh
+    fill included, and its kernel alone), means over the shards; the
+    original's deposit must agree with the float32 plain version to
+    NODE_MASS_TOL.  Returns the times."""
     from nbody_torch._kernels import load_library
     from nbody_torch.forces.pm_supercell import supercell_deposit_from_plane
 
@@ -1289,6 +1323,7 @@ def k2_timing(tag: str, kws: list, reps: int = 50) -> dict:
             ncell=kw["ncell"], stride=kw["stride"], gz=kw["gz"],
             shift=kw["shift"], nx=kw["nx"], row0=kw["row0"])
 
+    same = all(torch.equal(call(kw), call(kw)) for kw in kws)
     ms = _mean_ms([lambda kw=kw: call(kw) for kw in kws], reps)
     kern = [abl.kernel_launch("redesign", load_library(), kw) for kw in kws]
     kernel_ms = _mean_ms([k[0] for k in kern], reps)
@@ -1303,13 +1338,16 @@ def k2_timing(tag: str, kws: list, reps: int = 50) -> dict:
         ref = abl.plain(kw)
         o_err = max(o_err, max_abs(abl.variant_call("original", orig, kw),
                                    ref) / float(ref.abs().max()))
-    phase(f"{tag}: the call {ms:.4f} ms, the kernel alone {kernel_ms:.4f} ms"
-          f" (the memset and the kernel), the host's enqueue {host:.4f} ms a "
-          f"call; K2 before the redesign (scripts/"
-          f"torch_k2_ablation.py's original, built in this run): the call "
-          f"{o_ms:.4f} ms ({o_ms / ms:.2f}x), its kernel alone "
-          f"{o_kernel_ms:.4f} ms, max |node - plain f32| / max {o_err:.3e}")
-    if not o_err <= NODE_MASS_TOL:
+    phase(f"{tag}: two launches equal bit for bit: {same}; the call "
+          f"{ms:.4f} ms, the kernel alone {kernel_ms:.4f} ms (the memset and"
+          f" the three passes), the host's enqueue {host:.4f} ms a call; K2 "
+          f"before the redesign (scripts/torch_k2_ablation.py's original, "
+          f"built in this run): the call {o_ms:.4f} ms ({o_ms / ms:.2f}x), "
+          f"its kernel alone {o_kernel_ms:.4f} ms, max |node - plain f32| / "
+          f"max {o_err:.3e}")
+    if not same:
+        raise AssertionError(f"{tag}: two K2 launches differ")
+    if o_err > NODE_MASS_TOL:
         raise AssertionError(f"{tag}: K2 before the redesign disagrees: "
                              f"{o_err}")
     return dict(ms=ms, kernel_ms=kernel_ms, enqueue_ms=host,
@@ -3385,70 +3423,26 @@ def adaptive_16_runs(noise) -> None:
                         f"[23] 16^3 {tag} from the JAX noise")
 
 
-def compact_step_check(state, cfg_run) -> None:
-    """[23](c) one rung step of cfg64 from ``state`` with the driver's
-    frozen-plan forces, the compact active-row kicks against the full-N
-    kicks: the same positions bit for bit (the interior kicks are K5's
-    output gathered at the same rows and added the same way; the drift
-    that follows them sets the positions), and the velocities, which take
-    the boundary force after the drift (K2's float atomics add in another
-    order in each call), close."""
-    from nbody_torch.driver.simulate import (
-        build_cosmo_force_both,
-        build_cosmo_force_frozen_both,
-        build_cosmo_force_rungs,
-    )
-    from nbody_torch.integrate import cosmo_stepping as cs
-
-    fns = build_cosmo_force_frozen_both(cfg_run)
-    cosmo = cfg_run.cosmology()
-    H0, Om, OL = (float(cosmo.H0), float(cosmo.Omega_m),
-                  float(cosmo.Omega_L))
-    pos, vel, mass = state.pos, state.vel, state.mass
-    t = state.time.to(pos.device, pos.dtype)
-    gs, gl, _, plan = fns[5](pos, mass, float(t), float(t))
-
-    def f32(x):
-        return torch.full((), float(x), dtype=pos.dtype, device=pos.device)
-
-    dla_i = cs._rung_demand(vel, gl, gs, t, f32(cfg_run.box
-                                                 / cfg_run.mesh_size),
-                            f32(cfg_run.step_eta_disp),
-                            f32(2.0 * cfg_run.step_eta_acc * cfg_run.eps),
-                            H0, Om, OL)
-    dla = torch.minimum(f32(cfg_run.step_dla_max), 4.0 * torch.min(dla_i))
-    a1 = torch.exp(torch.log(t) + dla)
-    kl1, kl2, Fk, Dr, A_sub = cs._rung_tables_device(t, a1, 3, H0, Om, OL)
-    rung = cs._assign_rungs(dla_i, dla, 3)
-    hist = torch.bincount(rung, minlength=3).tolist()
-    tables = (float(a1), float(kl1), float(kl2), Fk, Dr.tolist(),
-              A_sub.tolist())
-    outs = []
-    for cap in (0, cfg_run.n_particles):
-        n = cs._rung_counts()
-        outs.append(cs._rung_block_step(
-            pos, vel, mass, gl, gs, rung, hist, tables, box=cfg_run.box,
-            n_rungs=3, acc_both_fn=build_cosmo_force_both(cfg_run),
-            acc_short_masked_fn=build_cosmo_force_rungs(cfg_run),
-            frozen_both_fns=fns, plan=plan, active_capacity=cap,
-            chans=cs._rung_chans(pos.device), n=n)[:2])
-        if n["interior_evals"] == 0:
-            raise AssertionError("[23] the compact step has no interior tick")
-    same = bool(torch.equal(outs[0][0], outs[1][0]))
-    dv = float((outs[0][1] - outs[1][1]).abs().max()
-               / outs[0][1].abs().max())
-    phase(f"[23] one rung step of cfg64 at a = {float(t):.4f} (populations "
-          f"{hist}, {n['interior_evals']} interior ticks), compact kicks "
-          f"against full-N: positions equal bit for bit: {same}; velocities "
-          f"max |diff| / max {dv:.3e} (the boundary's K2 atomics)")
-    if not same or not dv <= 1e-5:
-        raise AssertionError(f"[23] compact step: positions equal {same}, "
-                             f"velocities {dv}")
+def same_run(tag: str, res, other, what: str) -> None:
+    """Two runs' final states equal bit for bit, and their P(k) files."""
+    same = (torch.equal(res.state.pos, other.state.pos)
+            and torch.equal(res.state.vel, other.state.vel))
+    with open(res.powerspecs[0], "rb") as f, \
+            open(other.powerspecs[0], "rb") as g:
+        same_pk = f.read() == g.read()
+    phase(f"[23] {tag}: final positions and velocities equal bit for bit to "
+          f"{what}: {same}; P(k) files equal byte for byte: {same_pk}")
+    if not (same and same_pk):
+        raise AssertionError(f"[23] {tag} parts from {what}")
 
 
 def adaptive_64_runs() -> dict:
-    """[23](b)-(d) the committed adaptive 64^3 config at full width."""
+    """[23](b)-(d) the committed adaptive 64^3 config at full width.  The
+    runs compared bit for bit with each other start with no capacity
+    learned in the process (``forget_capacities``), as in a fresh one: a
+    run's bits depend on the capacities it starts from."""
     from nbody_torch.driver import OutputConfig, SimulationConfig
+    from nbody_torch.driver.simulate import forget_capacities
 
     with open(os.path.join(ROOT, "tests", "data", "parity", "adaptive",
                            "config.json")) as f:
@@ -3459,29 +3453,43 @@ def adaptive_64_runs() -> dict:
     base = SimulationConfig.from_dict(d).replace(
         output=OutputConfig(snapshot=False))
     out = {}
-    # (b) plain, rungs=3, subcycles=4
+    # (b) plain (twice: the same steps, the same bits), rungs=3,
+    # subcycles=4
+    results = {}
     for tag, cfg in (("cfg64_adaptive", base),
+                     ("cfg64_adaptive_again", base),
                      ("cfg64_adaptive_rungs3", base.replace(rungs=3)),
                      ("cfg64_adaptive_sub4", base.replace(subcycles=4))):
+        if tag != "cfg64_adaptive_sub4":
+            forget_capacities()
         res, counts, run = adaptive_run(cfg, tag)
         out[tag] = dict(run, counts=counts, pk=res.powerspecs[0])
-        if tag == "cfg64_adaptive_rungs3":
-            rung_res = res
+        if tag in ("cfg64_adaptive", "cfg64_adaptive_rungs3"):
+            results[tag] = res
+        if tag == "cfg64_adaptive_again":
+            first = out["cfg64_adaptive"]
+            phase(f"[23] cfg64_adaptive twice: {first['total']} and "
+                  f"{run['total']} steps, {first['wall']:.3f} and "
+                  f"{run['wall']:.3f} s")
+            if run["total"] != first["total"]:
+                raise AssertionError("[23] two cfg64_adaptive calls took "
+                                     f"{first['total']} and {run['total']} "
+                                     f"steps")
+            same_run(tag, res, results.pop("cfg64_adaptive"),
+                     "the first call")
         del res
-    # (c) the compact kicks: one step bit for bit, the run beside (b)'s
-    compact_step_check(rung_res.state, rung_res.config_run)
-    del rung_res
+    # (c) the compact kicks: the whole run bit for bit against (b)'s
+    # full-N rung run, both from no learned capacity
+    forget_capacities()
     ccfg = base.replace(rungs=3, rung_active_capacity=COMPACT_CAPACITY)
     res, counts, run = adaptive_run(ccfg, "cfg64_adaptive_rungs3_compact")
     full = out["cfg64_adaptive_rungs3"]
-    bands = pk_bands(res.powerspecs[0], full["pk"], ccfg, "[23] compact")
     phase(f"[23] compact active-row kicks (rung_active_capacity "
           f"{COMPACT_CAPACITY}, {run['heals']} heals): {run['total']} steps "
           f"in {run['wall']:.3f} s against the full-N kicks' "
-          f"{full['total']} in {full['wall']:.3f} s; P(k) vs the full-N "
-          f"run, max rel "
-          + bands_text(bands))
-    check_bands(bands, "[23] compact")
+          f"{full['total']} in {full['wall']:.3f} s")
+    same_run("cfg64_adaptive_rungs3_compact", res,
+             results.pop("cfg64_adaptive_rungs3"), "the full-N kicks' run")
     out["cfg64_adaptive_rungs3_compact"] = dict(run, counts=counts)
     del res
     # (d) four shards of the card
@@ -3495,6 +3503,237 @@ def adaptive_64_runs() -> dict:
     check_bands(bands, "[23] d4")
     out["cfg64_adaptive_rungs3_d4"] = dict(run, counts=counts)
     return out
+
+
+# ---------------------------------------------------------------------------
+# [24] the ensemble: K1's batched site and the NN-data pipeline
+# ---------------------------------------------------------------------------
+
+#: [24] the reference's NN-data pipeline: members of SimulationConfig()
+#: integrated at once (the JAX package's vmap tier), and the committed
+#: 16^3 ensemble's members
+ENSEMBLE_MEMBERS = 8
+ENSEMBLE_16_MEMBERS = 4
+#: [24](b) the batched tier's members against the sequential tier's runs:
+#: positions to 1e-6 relative and 1e-6 of the box (tests/test_driver.py's
+#: bound on the JAX package's two tiers), P(k) at a = 1 to 1e-4
+ENSEMBLE_POS_TOL = 1e-6
+ENSEMBLE_PK_TOL = 1e-4
+
+
+def batched_k1_check(tag: str, pos, mass, args, reps: int) -> dict:
+    """[24](a) K1's batched site on B members (pos (B, N, 3)): relative
+    L2 (K1_REL_L2_TOL) and per target (TARGET_TOL, each member against
+    the RMS of its own force) against the float64 plain version, one
+    launch per call, each member equal bit for bit to its own single
+    launch; the batched launch timed beside the B single launches and the
+    float32 plain version; the bound: every member's pairs inside r_cut x
+    (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE), 28 bytes a particle."""
+    from nbody_torch.forces.p3m import p3m_short_acc, p3m_short_plain
+
+    B, n = pos.shape[0], pos.shape[1]
+    box, _, _, r_cut = args[:4]
+    before = p3m_short_acc.launches
+    got = p3m_short_acc(pos, mass, *args)
+    torch.cuda.synchronize()
+    one_launch = p3m_short_acc.launches == before + 1
+    same = all(torch.equal(got[b], p3m_short_acc(pos[b], mass[b], *args))
+               for b in range(B))
+    ref = p3m_short_plain(pos.double(), mass.double(), *args)
+    rel = rel_l2(got, ref)
+    err = max(target_err(got[b].T, ref[b].T) for b in range(B))
+    ms = cuda_time_ms(lambda: p3m_short_acc(pos, mass, *args), reps)
+    singles = cuda_time_ms(lambda: [p3m_short_acc(pos[b], mass[b], *args)
+                                    for b in range(B)], reps)
+    plain_ms = cuda_time_ms(lambda: p3m_short_plain(pos, mass, *args), 1)
+    inside = sum(count_inside_dense(pos[b], box, r_cut) for b in range(B))
+    b_ms, b_by = bound(28 * n * B,
+                       inside * (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE))
+    phase(f"{tag}: {B} members x {n}: one launch {one_launch}; each member "
+          f"equal bit for bit to its own launch: {same}; rel L2 {rel:.3e} "
+          f"(tol {K1_REL_L2_TOL:g}), per-target error {err:.3e} (tol "
+          f"{TARGET_TOL:g}); the batched launch {ms:.4f} ms ({ms / B:.4f} ms "
+          f"a member), {B} single launches {singles:.4f} ms, plain f32 "
+          f"{plain_ms:.3f} ms; {inside:.4e} pairs inside r_cut, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    if not (one_launch and same):
+        raise AssertionError(f"{tag}: one launch {one_launch}, bit for bit "
+                             f"{same}")
+    if not (rel <= K1_REL_L2_TOL and err <= TARGET_TOL):
+        raise AssertionError(f"{tag}: K1 batched disagrees: {rel}, {err}")
+    return dict(max_abs_err=max_abs(got, ref), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                singles_ms=singles)
+
+
+def ensemble_phase(cfg) -> tuple[dict, int]:
+    """[24] the ensemble on the card.  (b) the NN-data pipeline,
+    ``run_ensemble(cfg, 8, batch=8)``: no member failed, K1 launched once
+    a force evaluation for the chunk; the sequential tier, each member
+    through ``run_simulation(member, base=cfg)``, K1 8 times as often;
+    every member's final positions (the batched tier's from
+    ``run_members_batched``) and P(k) files against its sequential run;
+    both walls.  (a) K1's batched site on the 8 members' ICs and their
+    final states.  (c) the committed 16^3 ensemble from the JAX noise
+    against the JAX package's P(k).  (d) ``benchmark_fn`` on K1's batched
+    call and a ``trace`` around one ensemble step; the analysis functions
+    with no figure path.  Returns K1's batched
+    row and its launches in the pipeline's chunk."""
+    from nbody_torch.analysis import (
+        compare_solver_spectra,
+        density_projection,
+        ensemble_scatter,
+    )
+    from nbody_torch.core import units
+    from nbody_torch.diagnostics.profiling import benchmark_fn, trace
+    from nbody_torch.driver.ensemble import (
+        draw_A_s,
+        realize_members,
+        run_ensemble,
+        run_members_batched,
+    )
+    from nbody_torch.driver.simulate import (
+        build_cosmo_force,
+        measure_powerspec,
+        run_simulation,
+    )
+    from nbody_torch.forces.p3m import p3m_short_acc, p3m_short_params
+    from nbody_torch.integrate.cosmo_stepping import kdk_steps, log_a_steps
+
+    B = ENSEMBLE_MEMBERS
+    A_s = draw_A_s(B)
+    work = os.path.join(OUT, "ensemble")
+    shutil.rmtree(work, ignore_errors=True)
+    # (b) the pipeline, batched and sequential
+    reset_launches()
+    ens = run_ensemble(cfg, B, os.path.join(work, "batched"), A_s_values=A_s,
+                       batch=B)
+    batched = read_launches()
+    per_chunk = cfg.n_steps + 1
+    phase(f"[24] run_ensemble(SimulationConfig(), {B}, batch={B}): "
+          f"{ens.wall_s:.3f} s, failed {ens.failed}, skipped {ens.skipped}; "
+          f"launches {batched}")
+    if ens.failed or batched != zero_launches(K1=per_chunk):
+        raise AssertionError(f"[24] the batched tier: failed {ens.failed}, "
+                             f"launches {batched}")
+    seeds = ens.seeds
+    reset_launches()
+    t0 = time.perf_counter()
+    seq = [run_simulation(cfg.replace(A_s=float(A_s[i])), int(seeds[i]),
+                          os.path.join(work, "sequential", f"m{i}"),
+                          base=cfg) for i in range(B)]
+    seq_wall = time.perf_counter() - t0
+    sequential = read_launches()
+    phase(f"[24] the sequential tier: {B} x run_simulation(member, "
+          f"base=cfg) in {seq_wall:.3f} s ({seq_wall / B:.3f} s a member); "
+          f"launches {sequential}")
+    if sequential != zero_launches(K1=B * per_chunk):
+        raise AssertionError(f"[24] the sequential tier: launches "
+                             f"{sequential}")
+    t0 = time.perf_counter()
+    states = run_members_batched(cfg, seeds, A_s, base=cfg)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    pos_err, pk_err = 0.0, 0.0
+    for i in range(B):
+        check_run_outputs(seq[i], cfg.replace(A_s=float(A_s[i])),
+                          f"[24] member {i}")
+        d = (states.pos[i] - seq[i].state.pos).abs()
+        d = torch.minimum(d, cfg.box - d).double()
+        ref = seq[i].state.pos.abs().double()
+        pos_err = max(pos_err, float((d / (ENSEMBLE_POS_TOL * ref
+                                            + ENSEMBLE_POS_TOL * cfg.box)
+                                      ).max()))
+        got_pk = np.loadtxt(os.path.join(ens.run_dirs[i], "powerspec",
+                                         f"powerspec_a={cfg.a_end:.2f}"))
+        ref_pk = np.loadtxt(seq[i].powerspecs[0])
+        pk_err = max(pk_err, float(np.abs(got_pk[:, 2] / ref_pk[:, 2]
+                                          - 1.0).max()))
+    phase(f"[24] batched members against their sequential runs: positions "
+          f"at most {pos_err:.3f} of the bound (rtol {ENSEMBLE_POS_TOL:g}, "
+          f"atol {ENSEMBLE_POS_TOL:g} box), P(k) max rel {pk_err:.3e} (tol "
+          f"{ENSEMBLE_PK_TOL:g}); walls: batched tier {ens.wall_s:.3f} s "
+          f"(run_members_batched alone {again_wall:.3f} s), sequential "
+          f"{seq_wall:.3f} s ({seq_wall / ens.wall_s:.2f}x)")
+    if not (pos_err <= 1.0 and pk_err <= ENSEMBLE_PK_TOL):
+        raise AssertionError(f"[24] batched members part from the "
+                             f"sequential runs: {pos_err}, {pk_err}")
+    # (a) K1's batched site at the members' ICs and final states
+    r_s, r_cut, _, _ = p3m_short_params(cfg.box, cfg.mesh_size,
+                                        cfg.n_particles)
+    args = (cfg.box, cfg.eps, r_s, r_cut, units.COSMO.G, cfg.force_split,
+            cfg.softening_kernel)
+    ics = realize_members(cfg, seeds, A_s, cfg)
+    row = batched_k1_check("[24] K1 batched at the members' ICs",
+                           ics.pos.contiguous(), ics.mass.contiguous(), args,
+                           20)
+    batched_k1_check("[24] K1 batched at the members' final states",
+                     states.pos.contiguous(), states.mass.contiguous(), args,
+                     5)
+    # (d) the profiling port: benchmark_fn and a trace of one step
+    bench = benchmark_fn(p3m_short_acc, ics.pos.contiguous(),
+                         ics.mass.contiguous(), *args, reps=5)
+    acc_fn = build_cosmo_force(cfg, checked=True)
+    a_grid = log_a_steps(cfg.a_begin, cfg.a_end, cfg.n_steps)
+    tdir = os.path.join(work, "trace")
+    with trace(tdir) as prof:
+        kdk_steps(ics, cfg.cosmology(), a_grid[:2], acc_fn, cfg.box)
+    names = [e.key for e in prof.key_averages()]
+    k1_ms = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages() if "k1_pairs" in e.key) / 1e3
+    path = os.path.join(tdir, "trace.json")
+    with open(path) as f:
+        named = "k1_pairs" in f.read()
+    phase(f"[24] benchmark_fn(K1 batched): median {bench * 1e3:.4f} ms of 5 "
+          f"calls; trace of one ensemble step: {path} "
+          f"({os.path.getsize(path)} bytes), names the K1 kernel: {named}; "
+          f"{len(names)} ops, K1's device time {k1_ms:.4f} ms over 2 "
+          f"evaluations")
+    if not (named and os.path.getsize(path) > 0):
+        raise AssertionError("[24] the trace does not name the K1 kernel")
+    # the analysis port on the card, with no figure (matplotlib may be
+    # absent): the realization scatter of the pipeline's P(k) files, a
+    # density image bit for bit over two calls, the solver study at 16^3
+    k, mean, std, count = ensemble_scatter(os.path.join(work, "batched"))
+    img = density_projection(states.pos[0], cfg.box, res=256)
+    same_img = torch.equal(img, density_projection(states.pos[0], cfg.box,
+                                                   res=256))
+    study = compare_solver_spectra(cfg.replace(n_side=16),
+                                   solvers=("pm", "p3m"))
+    phase(f"[24] analysis: ensemble_scatter over {count} members, "
+          f"{len(k)} bins, std / mean at the first bin "
+          f"{std[0] / mean[0]:.3e}; density_projection 256^2 on the card, "
+          f"two calls equal bit for bit: {same_img}, mass "
+          f"{float(img.sum()):.1f} of {cfg.n_particles}; "
+          f"compare_solver_spectra at 16^3: mean relative error vs linear "
+          + ", ".join(f"{s} {r['mean_rel_err']:.3e} ({r['wall_s']:.3f} s)"
+                      for s, r in study.items()))
+    if not (count == B and same_img and np.all(np.isfinite(mean))
+            and abs(float(img.sum()) - cfg.n_particles) < 1e-3
+            * cfg.n_particles):
+        raise AssertionError("[24] the analysis port failed on the card")
+    # (c) the committed 16^3 ensemble from the JAX noise
+    cfg16 = cfg.replace(n_side=16)
+    noise = np.load(os.path.join(
+        PORT_DATA, f"white_noise_n16_ensemble{ENSEMBLE_16_MEMBERS}_seed0.npy"))
+    members = np.loadtxt(os.path.join(PORT_DATA,
+                                      "ensemble_n16_members_seed0.txt"))
+    t0 = time.perf_counter()
+    st16 = run_members_batched(cfg16, members[:, 0].astype(np.int64),
+                               members[:, 1], base=cfg16, noise=noise)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    for b in range(ENSEMBLE_16_MEMBERS):
+        member = cfg16.replace(A_s=float(members[b, 1]))
+        path = os.path.join(work, f"powerspec_n16_member{b}")
+        measure_powerspec(st16.pos[b], member, cfg16.a_end, path=path)
+        name = (f"powerspec_a=1.00_n16_ensemble{ENSEMBLE_16_MEMBERS}_member"
+                f"{b}_seed0")
+        pk_file_vs_reference(path, member, name,
+                             f"[24] 16^3 batched member {b} from the JAX "
+                             f"noise", wall16)
+    return row, per_chunk
 
 
 def _wrappers() -> dict:
@@ -3554,7 +3793,12 @@ def check_run_outputs(res, cfg, tag: str) -> None:
 
 
 def pk_vs_reference(res, cfg, ref_name: str, tag: str) -> None:
-    got_pk = np.loadtxt(res.powerspecs[0])
+    pk_file_vs_reference(res.powerspecs[0], cfg, ref_name, tag, res.wall_s)
+
+
+def pk_file_vs_reference(path: str, cfg, ref_name: str, tag: str,
+                         wall: float) -> None:
+    got_pk = np.loadtxt(path)
     ref_pk = np.loadtxt(os.path.join(PORT_DATA, ref_name))
     k_half = 0.5 * np.pi * cfg.mesh_size / cfg.box
     m = ref_pk[:, 0] <= k_half
@@ -3567,7 +3811,7 @@ def pk_vs_reference(res, cfg, ref_name: str, tag: str) -> None:
     rel_pk = np.abs(got_pk[m, 2] / ref_pk[m, 2] - 1.0)
     phase(f"{tag}: P(k) vs JAX at {int(m.sum())} bins k <= {k_half:.4f}/Mpc:"
           f" max rel {rel_pk.max():.3e} (tol {PK_REL_TOL:g}); run "
-          f"{res.wall_s:.3f} s")
+          f"{wall:.3f} s")
     if not rel_pk.max() <= PK_REL_TOL:
         raise AssertionError(f"{tag}: P(k) differs from JAX: {rel_pk.max()}")
 
@@ -4676,6 +4920,9 @@ def main() -> None:
     # (b)-(d) the committed adaptive 64^3 config at full width
     adaptive_64_runs()
 
+    # -- 24. the ensemble: K1's batched site, the NN-data pipeline -------
+    k1b, k1b_launches = ensemble_phase(run_cfg)
+
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
@@ -4686,6 +4933,11 @@ def main() -> None:
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
         "replaces": "nbody/forces/ewald.py:123", "launches": k1_pp_launches,
         **k1_pp,
+    }, {
+        "name": "p3m_short_acc (batched members)", "route": "cuda",
+        "source": "nbody_torch/forces/csrc/p3m_short.cu",
+        "replaces": "nbody/forces/p3m.py:226", "launches": k1b_launches,
+        **k1b,
     }]
     launch_counts["rungs"] = zero_launches(K5=k5_launches, K6=k6_launches)
     for key, name, source, replaces, path in (
@@ -4754,6 +5006,9 @@ def main() -> None:
                  "source": "nbody_torch/forces/csrc/p3m_columns.cu",
                  "replaces": "nbody/forces/p3m_columns.py:774",
                  "launches": counts_s64["K4"], **kernels["K4f"]})
+    walls = {f"[{k}]": round(v, 1) for k, v in sorted(PHASE_S.items())}
+    print(f"phase walls (s): {json.dumps(walls)}; total "
+          f"{time.perf_counter() - START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -99,7 +99,7 @@ def _build(so: Path) -> None:
 # i = int, d = double; every entry point returns a CUDA error code
 _ENTRY_POINTS = {
     "p3m_short_keys": "pidpp",
-    "p3m_short_f32": "pppidddddiiiippppp",
+    "p3m_short_f32": "pppiidddddiiiippppp",
     "p3m_short_info": "iip",
     "p3m_short_reach": "ddp",
     "p3m_columns_f32": "pppiiiiiiiddddpiipp",
@@ -107,7 +107,7 @@ _ENTRY_POINTS = {
     "column_pairs_info": "ppp",
     "p3m_cells_f32": "ppppiiiidddiiipp",
     "p3m_cells_info": "iip",
-    "pm_supercell_deposit_f32": "ppiiiiiiiiiddpp",
+    "pm_supercell_deposit_f32": "ppiiiiiiiiiddppp",
     "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiiddddpiipp",
     "pp_allpairs_f32": "pippiddiippp",
     "pp_allpairs_f64": "pippiddiippp",

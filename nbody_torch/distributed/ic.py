@@ -65,14 +65,13 @@ def slab_noise(seed: int, nmesh: int, group: ShardGroup, *, noise=None,
 
 
 def slab_delta1_k(seed: int, spec: GRFSpec, power: Callable,
-                  group: ShardGroup, *, noise=None,
+                  group: ShardGroup, *, noise=None, amplitude: float = 1.0,
                   dtype=torch.float32) -> list:
     """The shards' transposed-layout blocks of delta(k) at a = 1 of the
     domain draw (:func:`slab_noise`): the noise's slab rfftn scaled by
-    sqrt(P(k) N^3 / V) (times 2 pi with the 'fac' convention), the DC
-    mode zeroed.  ``power`` is a host numpy callable.  The amplitude is
-    P(k)'s own: the JAX driver's A_s ratio to an ensemble base has no
-    counterpart until the port has that base."""
+    sqrt(amplitude P(k) N^3 / V) (times 2 pi with the 'fac' convention),
+    the DC mode zeroed.  ``power`` is a host numpy callable; ``amplitude``
+    the A_s ratio of an ensemble member to its base."""
     nmesh, box = spec.nmesh, spec.box
     D = group.size
     wk = slab_rfftn(slab_noise(seed, nmesh, group, noise=noise, dtype=dtype),
@@ -82,7 +81,7 @@ def slab_delta1_k(seed: int, spec: GRFSpec, power: Callable,
         kx, ky, kz = kvecs_slab(nmesh, box, d, D, torch.float64)
         km = torch.sqrt(kx**2 + ky**2 + kz**2).numpy()
         with np.errstate(divide="ignore", invalid="ignore"):  # k = 0
-            amp2 = np.asarray(power(km)) * (nmesh**3 / box**3)
+            amp2 = amplitude * np.asarray(power(km)) * (nmesh**3 / box**3)
         if spec.convention == "fac":
             amp2 = amp2 * (2.0 * np.pi)
         amp = np.where(km > 0, np.sqrt(np.maximum(amp2, 0.0)), 0.0)
@@ -154,6 +153,7 @@ def ic_capacities(nmesh: int, D: int) -> tuple[int, int]:
 def lpt_ic_domain(seed: int, spec: GRFSpec, power: Callable, cosmo: Cosmology,
                   a_init: float, group: ShardGroup, *, order: int = 1,
                   ncell: int | None = None, noise=None,
+                  amplitude: float = 1.0,
                   dtype=torch.float32) -> tuple[list, int]:
     """Slab-resident LPT ICs on the shards of ``group``.
 
@@ -161,8 +161,8 @@ def lpt_ic_domain(seed: int, spec: GRFSpec, power: Callable, cosmo: Cosmology,
     1LPT or 2LPT displacement, canonical momentum a^2 H f D psi), computed
     slab by slab from the domain draw of ``seed`` (or ``noise``, a list of
     D real (nmesh / D, nmesh, nmesh) slabs).  The particle mass is the
-    mean matter density's share, and P(k) enters at its own amplitude
-    (:func:`slab_delta1_k`).
+    mean matter density's share, and P(k) enters times ``amplitude``
+    (:func:`slab_delta1_k`; an ensemble member's A_s ratio to its base).
 
     Returns (shards, exchange_overflow): D :class:`ParticleState` of C
     rows each (:func:`ic_capacities`; empty rows have mass 0 and are
@@ -190,7 +190,7 @@ def lpt_ic_domain(seed: int, spec: GRFSpec, power: Callable, cosmo: Cosmology,
     mom1 = a**2 * H * f1 * D1
 
     delta1_k = slab_delta1_k(seed, spec, power, group, noise=noise,
-                             dtype=dtype)
+                             amplitude=amplitude, dtype=dtype)
     psi1 = _grad_psi_slab(delta1_k, nmesh, box, group)
     disp = [D1 * p for p in psi1]
     mom = [mom1 * p for p in psi1]

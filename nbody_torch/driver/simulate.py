@@ -209,21 +209,40 @@ def _tier_capacity(config: SimulationConfig):
     return "cell_capacity", (config.cell_capacity or None)
 
 
+def check_base(config: SimulationConfig,
+               base: SimulationConfig | None) -> SimulationConfig:
+    """The anchor of an ensemble member: ``base``, which may differ from
+    ``config`` only in ``A_s`` and ``output`` (``ValueError`` otherwise),
+    or ``config`` itself without one."""
+    if base is None:
+        return config
+    if base.replace(A_s=config.A_s, output=config.output) != config:
+        raise ValueError("base config may differ from config only in A_s")
+    return base
+
+
 def realize_ics(config: SimulationConfig, seed: int, *, device="cuda",
-                dtype=None, noise=None) -> ParticleState:
+                dtype=None, noise=None,
+                base: SimulationConfig | None = None) -> ParticleState:
     """LPT initial conditions at a_begin for the config's cosmology.
 
     The white noise is drawn from a CPU ``torch.Generator`` seeded with
     ``seed`` (so a seed gives the same ICs on every device), or given as
-    ``noise`` (real, (n_side,)*3), e.g. the JAX package's own draw."""
+    ``noise`` (real, (n_side,)*3), e.g. the JAX package's own draw.
+
+    ``base``: the ensemble's anchor (:func:`check_base`): its cosmology
+    gives the power spectrum and the growth, and ``config.A_s`` enters as
+    the amplitude ratio A_s / base.A_s, as the JAX package's amplitude-only
+    ensembles do (the reference regex-substitutes A_s alone)."""
     device, dtype = _device_dtype(device, dtype)
-    cosmo = config.cosmology()
+    anchor = check_base(config, base)
+    cosmo = anchor.cosmology()
     generator = None if noise is not None else torch.Generator().manual_seed(seed)
     return lpt_ic(
         GRFSpec(nmesh=config.n_side, box=config.box),
-        _linear_power_fn(cosmo, config.transfer), cosmo, config.a_begin,
-        order=config.lpt_order, generator=generator, noise=noise,
-        device=device, dtype=dtype,
+        _linear_power_fn(cosmo, anchor.transfer), cosmo, config.a_begin,
+        order=config.lpt_order, amplitude=config.A_s / anchor.A_s,
+        generator=generator, noise=noise, device=device, dtype=dtype,
     )
 
 
@@ -678,6 +697,16 @@ def _capacity_signature(config: SimulationConfig) -> tuple:
     )
 
 
+def forget_capacities() -> None:
+    """Forget the capacities earlier runs of this process learned: the
+    next run of every geometry starts from its config's and the pre-warm's
+    capacities, as in a fresh process.  A run's bits depend on the
+    capacities it starts from (they set the column tiers' launch shapes
+    and so the order of their sums), so two runs that are to agree bit
+    for bit each start after this call or in a process of their own."""
+    _CAPACITY_MEMORY.clear()
+
+
 def _apply_capacity_memory(config: SimulationConfig) -> SimulationConfig:
     mem = _CAPACITY_MEMORY.get(_capacity_signature(config))
     if not mem:
@@ -895,6 +924,7 @@ def run_simulation(
     config: SimulationConfig,
     seed: int = 0,
     workdir: str | None = None,
+    base: SimulationConfig | None = None,
     *,
     device="cuda",
     dtype=None,
@@ -922,7 +952,10 @@ def run_simulation(
 
     ``checkpoint_every_steps`` writes an atomic autosave checkpoint every
     k steps; ``resume=True`` continues from the workdir's autosave if
-    there is one.
+    there is one.  ``base``: an ensemble's anchor, which ``config`` may
+    differ from only in A_s and output (``ValueError`` otherwise): the ICs
+    take its cosmology and power at the amplitude ratio A_s / base.A_s
+    (:func:`realize_ics`), as the JAX package's ensemble members do.
 
     The tiers that build a plane pre-warm their knobs from the state
     before each stretch of steps (:func:`prewarm_capacity`), and a
@@ -951,11 +984,12 @@ def run_simulation(
     continues."""
     device, dtype = _device_dtype(device, dtype)
     check_supported(config, device)
+    check_base(config, base)
     n_dev = _n_devices(config, device)
     if n_dev > 1 and config.solver != "pp":
         return _run_simulation_domain(
             config, seed, workdir, device, dtype, initial_state,
-            checkpoint_every_steps, resume, n_dev)
+            checkpoint_every_steps, resume, n_dev, base)
     t0 = time.perf_counter()
     cosmo = config.cosmology()
     cfg_run = _apply_capacity_memory(config)
@@ -1194,7 +1228,8 @@ def run_simulation(
         state = initial_state.to(device=device, dtype=dtype)
     elif state is None:
         t_ic = time.perf_counter()
-        state = realize_ics(config, seed, device=device, dtype=dtype)
+        state = realize_ics(config, seed, device=device, dtype=dtype,
+                            base=base)
         sync()
         ic_wall = time.perf_counter() - t_ic
 
@@ -1541,14 +1576,18 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
                            workdir: str | None, device, dtype,
                            initial_state: ParticleState | None,
                            checkpoint_every_steps: int | None, resume: bool,
-                           n_dev: int) -> SimulationResult:
+                           n_dev: int,
+                           base: SimulationConfig | None = None
+                           ) -> SimulationResult:
     """The ``devices > 1`` branch of :func:`run_simulation`: the ICs are
     realized on one device and decomposed once into slab-resident shards
     (:func:`~nbody_torch.distributed.domain.domain_decompose`, shards
     round-robin over the visible cards), or with ``ic_realization=
     'domain'`` realized slab by slab
-    (:func:`~nbody_torch.distributed.ic.lpt_ic_domain`, amplitude 1; an
-    exchange overflow raises), then the domain runner
+    (:func:`~nbody_torch.distributed.ic.lpt_ic_domain`; with ``base``
+    the anchor's cosmology and power at the amplitude A_s / base.A_s, as
+    :func:`realize_ics` takes them; an exchange overflow raises), then
+    the domain runner
     (:func:`~nbody_torch.distributed.domain.run_cosmological_domain`) runs
     stretches of at most 32 steps (32 // n_sub with subcycles or rungs),
     each re-run from its start after a heal; P(k) at the output times
@@ -1629,12 +1668,16 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
             and config.ic_realization == "domain"):
         # slab-resident realization: about N / D on a shard throughout,
         # another sample of the ensemble than the single-device draw
-        cosmo_ic = config.cosmology()
+        # the anchor's cosmology and power at the member's amplitude, as
+        # realize_ics takes them (the JAX domain flow pairs the member's
+        # own power with the ratio, counting it twice)
+        anchor = check_base(config, base)
+        cosmo_ic = anchor.cosmology()
         dstate, ov_ic = lpt_ic_domain(
             seed, GRFSpec(nmesh=config.n_side, box=config.box),
-            _linear_power_fn(cosmo_ic, config.transfer), cosmo_ic,
+            _linear_power_fn(cosmo_ic, anchor.transfer), cosmo_ic,
             config.a_begin, group, order=config.lpt_order, ncell=xgrid,
-            dtype=dtype)
+            amplitude=config.A_s / anchor.A_s, dtype=dtype)
         if ov_ic:
             raise RuntimeError(
                 f"slab IC exchange overflow ({ov_ic} particles)")
@@ -1643,7 +1686,7 @@ def _run_simulation_domain(config: SimulationConfig, seed: int,
             state = (initial_state.to(device=device, dtype=dtype)
                      if initial_state is not None
                      else realize_ics(config, seed, device=device,
-                                      dtype=dtype))
+                                      dtype=dtype, base=base))
         dstate = domain_decompose(state, group, config.box, ncell=xgrid)
         del state
     C = dstate[0].pos.shape[0]

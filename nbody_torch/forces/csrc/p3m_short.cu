@@ -171,15 +171,25 @@ __device__ __forceinline__ float warp_max(float v) {
 // packed[k] = (wrapped x, y, z, m) of particle perm[k], k < npad; the
 // padding repeats the last particle's position with m = 0.  boxes[2 t],
 // boxes[2 t + 1]: the low and high corner of tile t's real particles.  One
-// warp a tile.
+// warp a tile; with several members, member b's tiles follow member
+// b - 1's (its pos, mass and perm n rows further on, its packed rows npad).
 __global__ void k1_pack(const float* __restrict__ pos,
                         const float* __restrict__ mass,
                         const long long* __restrict__ perm, int n, int npad,
-                        float box, float inv_box, float4* __restrict__ packed,
+                        int members, float box, float inv_box,
+                        float4* __restrict__ packed,
                         float4* __restrict__ boxes) {
   const int lane = threadIdx.x % 32;
-  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  if (tile * kTile >= npad) return;  // warp-uniform
+  const int ntiles = npad / kTile;
+  const int gtile = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (gtile >= ntiles * members) return;  // warp-uniform
+  const int member = gtile / ntiles;
+  const int tile = gtile % ntiles;
+  pos += 3 * static_cast<size_t>(member) * n;
+  mass += static_cast<size_t>(member) * n;
+  perm += static_cast<size_t>(member) * n;
+  packed += static_cast<size_t>(member) * npad;
+  boxes += 2 * static_cast<size_t>(member) * ntiles;
   float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
   float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
@@ -298,10 +308,11 @@ struct K1Shared {
   float red[kWarps - 1][3][32];   // warps 1.. sums, for warp 0
 };
 
-// Block (g, s): targets [32 g, 32 (g + 1)) of the sorted order against the
-// source tiles [s slice_tiles, min(ntiles, (s + 1) slice_tiles)).  Thread
-// lane of every warp holds target 32 g + lane.  With one slice, writes
-// G * sum to out[perm[k]] (n, 3); else the raw sums to part[s] (npad, 3).
+// Block (g, s, b): targets [32 g, 32 (g + 1)) of member b's sorted order
+// against its source tiles [s slice_tiles, min(ntiles, (s + 1)
+// slice_tiles)).  Thread lane of every warp holds target 32 g + lane.
+// With one slice, writes G * sum to out[perm[k]] (n, 3); else the raw sums
+// to part[s] (npad, 3); each member's arrays follow the one before.
 template <int SPLIT, int SOFT>
 __global__ void __launch_bounds__(kThreads)
 k1_pairs(const float4* __restrict__ packed, const float4* __restrict__ boxes,
@@ -309,6 +320,14 @@ k1_pairs(const float4* __restrict__ packed, const float4* __restrict__ boxes,
          int slice_tiles, int slices, Params p, CullGeom c,
          float* __restrict__ part, float* __restrict__ out) {
   __shared__ K1Shared sh;
+  {
+    const size_t b = blockIdx.z;
+    packed += b * npad;
+    boxes += 2 * b * (npad / kTile);
+    perm += b * n;
+    out += 3 * b * n;
+    if (part != nullptr) part += 3 * b * slices * static_cast<size_t>(npad);
+  }
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -436,13 +455,19 @@ k1_pairs(const float4* __restrict__ packed, const float4* __restrict__ boxes,
   }
 }
 
-// out[perm[k]] = G (part[0][k] + part[1][k] + ...), in slice order
+// out[perm[k]] = G (part[0][k] + part[1][k] + ...), in slice order; the
+// members one after another
 __global__ void k1_sum_slices(const float* __restrict__ part,
                               const long long* __restrict__ perm, int n,
-                              int npad, int slices, float G,
+                              int npad, int slices, int members, float G,
                               float* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  const int gk = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gk >= n * members) return;
+  const int k = gk % n;
+  const size_t member = gk / n;
+  part += 3 * member * slices * static_cast<size_t>(npad);
+  perm += member * n;
+  out += 3 * member * n;
   const size_t stride = 3 * static_cast<size_t>(npad);
   const size_t j = 3 * static_cast<size_t>(perm[k]);
 #pragma unroll
@@ -457,9 +482,10 @@ __global__ void k1_sum_slices(const float* __restrict__ part,
 template <int SPLIT, int SOFT>
 cudaError_t launch(const float4* packed, const float4* boxes,
                    const long long* perm, int n, int npad, int slice_tiles,
-                   int slices, const Params& p, const CullGeom& c,
-                   float* part, float* out, cudaStream_t s) {
-  const dim3 grid((n + 31) / 32, slices);
+                   int slices, int members, const Params& p,
+                   const CullGeom& c, float* part, float* out,
+                   cudaStream_t s) {
+  const dim3 grid((n + 31) / 32, slices, members);
   k1_pairs<SPLIT, SOFT><<<grid, kThreads, 0, s>>>(
       packed, boxes, perm, n, npad, slice_tiles, slices, p, c, part, out);
   return cudaGetLastError();
@@ -498,25 +524,29 @@ int p3m_short_keys(const float* pos, int n, double box, void* keys,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The pair sum of (pos (n, 3), mass (n,)) in the order perm (n,) int64
-// (the argsort of p3m_short_keys): acc (n, 3) in the input order.
+// The pair sum of `members` problems of n particles, pos (members, n, 3)
+// and mass (members, n), in the order perm (members, n) int64 (each
+// member's argsort of p3m_short_keys, indices into its own n rows): acc
+// (members, n, 3) in the input order, one launch of each kernel for all
+// members, each member's sums those of a launch of it alone, bit for bit.
 // split: 0 = Gaussian, 1 = spline; softening: 0 = Plummer, 1 = cubic
 // spline; the sources cut into `slices` slices of `slice_tiles` tiles.
-// Scratch, from the caller: packed (npad, 4), boxes (npad / tile, 2, 4)
-// and, with more than one slice, part (slices, npad, 3); npad = n rounded
-// up to the tile.  Returns cudaGetLastError() after the launches (0 on
-// success); 1 (cudaErrorInvalidValue) for arguments the kernel does not
-// take.
+// Scratch, from the caller, member after member: packed (npad, 4), boxes
+// (npad / tile, 2, 4) and, with more than one slice, part (slices, npad,
+// 3); npad = n rounded up to the tile.  Returns cudaGetLastError() after
+// the launches (0 on success); 1 (cudaErrorInvalidValue) for arguments
+// the kernel does not take.
 int p3m_short_f32(const float* pos, const float* mass, const long long* perm,
-                  int n, double box, double eps, double r_s, double r_cut,
-                  double G, int split, int softening, int slice_tiles,
-                  int slices, float* packed, float* boxes, float* part,
-                  float* out, void* stream) {
+                  int n, int members, double box, double eps, double r_s,
+                  double r_cut, double G, int split, int softening,
+                  int slice_tiles, int slices, float* packed, float* boxes,
+                  float* part, float* out, void* stream) {
   const int npad = (n + kTile - 1) / kTile * kTile;
   const int ntiles = npad / kTile;
-  if (n < 0 || n > (1 << 30) || !(box > 0.0) || split < 0 || split > 1 ||
-      softening < 0 || softening > 1 || slice_tiles < 1 || slices < 1 ||
-      slices > 65535 ||
+  if (n < 0 || n > (1 << 30) || members < 1 || members > 65535 ||
+      static_cast<long long>(n) * members > (1 << 30) || !(box > 0.0) ||
+      split < 0 || split > 1 || softening < 0 || softening > 1 ||
+      slice_tiles < 1 || slices < 1 || slices > 65535 ||
       static_cast<long long>(slice_tiles) * slices < ntiles ||
       static_cast<long long>(slice_tiles) * (slices - 1) >=
           (ntiles > 0 ? ntiles : 1) ||
@@ -530,8 +560,10 @@ int p3m_short_f32(const float* pos, const float* mass, const long long* perm,
   float4* pk = reinterpret_cast<float4*>(packed);
   float4* bx = reinterpret_cast<float4*>(boxes);
   const int per_block = 128;
-  k1_pack<<<(ntiles * 32 + per_block - 1) / per_block, per_block, 0, s>>>(
-      pos, mass, perm, n, npad, fbox, inv_box, pk, bx);
+  const long long pack_threads = 32LL * ntiles * members;
+  k1_pack<<<static_cast<unsigned>((pack_threads + per_block - 1) / per_block),
+            per_block, 0, s>>>(pos, mass, perm, n, npad, members, fbox,
+                               inv_box, pk, bx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -546,11 +578,14 @@ int p3m_short_f32(const float* pos, const float* mass, const long long* perm,
   const auto run =
       split == 0 ? (softening == 0 ? &launch<0, 0> : &launch<0, 1>)
                  : (softening == 0 ? &launch<1, 0> : &launch<1, 1>);
-  err = run(pk, bx, perm, n, npad, slice_tiles, slices, p, c, part, out, s);
+  err = run(pk, bx, perm, n, npad, slice_tiles, slices, members, p, c, part,
+            out, s);
   if (err == cudaSuccess && slices > 1) {
     const int threads = 256;
-    k1_sum_slices<<<(n + threads - 1) / threads, threads, 0, s>>>(
-        part, perm, n, npad, slices, c.G, out);
+    const long long total = static_cast<long long>(n) * members;
+    k1_sum_slices<<<static_cast<unsigned>((total + threads - 1) / threads),
+                    threads, 0, s>>>(part, perm, n, npad, slices, members,
+                                     c.G, out);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);

@@ -18,19 +18,24 @@
 // particle and 4 B written a mesh node (8.4 MB at 128^3).
 //
 // The design: one thread a real slot, its 8 corner masses added straight
-// into the mesh with global atomics, as before the redesign: the adds
-// bound it (2.1 M at cfg64, ~80 G a second from L2 on an H100), so
-// the two corners of a node line, adjacent in z, go as one float4 atomic
-// (red.global.add.v4.f32) on the aligned four nodes that hold both,
-// unless the pair straddles four: 5 atomics a slot on average, not 8.
-// The mesh is zeroed by a memset in the same library call.  The order of
-// the adds changes from run to run, so the mesh agrees with the plain
-// version to float32 summation order and is not equal bit for bit across
-// launches.  A shared-memory tile a column and z range (the TPU kernel's
+// into the mesh with global atomics: the adds bound it (2.1 M at cfg64).
+// The sums are exact, so two launches give the same bits: each corner
+// mass (float32, as the plain version rounds it) is scaled by a power of
+// two 2^e and rounded to a 64-bit integer, and the integers are summed
+// with integer atomics, which no order of arrival can change.  A first
+// pass finds the largest |mass| of the real slots (a block's maximum,
+// then one atomicMax of its float bits), and e is chosen so that the
+// real slots' masses, summed, stay below 2^62: no node can overflow, and
+// a weight of float32 precision loses nothing at any scale down to
+// 2^-e.  A last pass writes the float32 node masses, each the exact sum
+// rounded once.  The integer mesh (8 bytes a node) and the maximum are
+// zeroed by a memset in the same library call.  64-bit atomics have no
+// vector form: 8 atomics a slot, where the float design before it
+// (scripts/torch_k2_float4.cu) sent each node line's z pair as one
+// float4 atomic, 5 a slot, and its sums changed with the order of
+// arrival.  A shared-memory tile a column and z range (the TPU kernel's
 // node subgrid), with its ring added by a second kernel, ran slower
-// (scripts/torch_k2_tile.cu, scripts/torch_k2_ablation.py); so does a
-// float atomicAdd to shared memory, which on this card is a
-// compare-and-swap loop.
+// (scripts/torch_k2_tile.cu, scripts/torch_k2_ablation.py).
 //
 // On a slab of the domain decomposition (`slab` = 1) both kernels run
 // over the slab's nx = ncell / D interior x-rows, the first of which is
@@ -66,6 +71,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "column_pairs.cuh"
 
 namespace {
@@ -91,35 +98,61 @@ __device__ __forceinline__ int x_plane(int ix, int nmesh, int nxg, int slab) {
   return (ix + 1 >= 0 && ix + 1 < nxg) ? ix + 1 : -1;
 }
 
-// Adds the z pair (w0 at node iz, w1 at iz + 1, periodic) of one node
-// line: a float4 atomic on the aligned four nodes that hold both, or,
-// where the pair straddles four (or the rows are not aligned to four
-// floats), two scalar atomics.
-__device__ __forceinline__ void add_pair(float* __restrict__ line, int iz,
-                                         int nmesh, bool vec, float w0,
-                                         float w1) {
-  const int z = wrap(iz, nmesh);
-  const int k = z & 3;
-  if (vec && k != 3) {
-    const float4 v = make_float4(k == 0 ? w0 : 0.0f,
-                                 k == 0 ? w1 : (k == 1 ? w0 : 0.0f),
-                                 k == 1 ? w1 : (k == 2 ? w0 : 0.0f),
-                                 k == 2 ? w1 : 0.0f);
-    atomicAdd(reinterpret_cast<float4*>(line + (z - k)), v);
-  } else {
-    atomicAdd(line + z, w0);
-    atomicAdd(line + wrap(iz + 1, nmesh), w1);
+// The exponent e of the fixed point: the real slots' masses, each below
+// 2^k (k from the largest, `mbits`), summed over at most 2^j slots, stay
+// below 2^62 when scaled by 2^e.
+__device__ __forceinline__ int fixed_exponent(const unsigned* mbits, int j) {
+  const float mmax = __uint_as_float(*mbits);
+  if (!(mmax > 0.0f)) return 0;
+  int k;
+  frexpf(mmax, &k);
+  return 62 - k - j;
+}
+
+// Pass 1: the largest |mass| of the real slots, as the bits of a
+// non-negative float (which order as the floats do).
+__global__ void __launch_bounds__(kDepositThreads)
+deposit_max_kernel(const float* __restrict__ plane,
+                   const int* __restrict__ counts, int ncell, int stride,
+                   int gz, size_t row, unsigned* __restrict__ mbits) {
+  __shared__ unsigned warp_max[kDepositThreads / 32];
+  const int ic = blockIdx.x;
+  const int r = blockIdx.y * kDepositThreads + threadIdx.x;
+  unsigned v = 0u;
+  if (r < counts[ic]) {
+    const int P = ncell + 2;
+    const size_t i = static_cast<size_t>((ic / ncell + 1) * P +
+                                         (ic % ncell + 1)) * stride + gz + r;
+    v = __float_as_uint(fabsf(plane[3 * row + i]));
+  }
+  v = __reduce_max_sync(0xffffffffu, v);
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < kDepositThreads / 32 ? warp_max[threadIdx.x] : 0u;
+    v = __reduce_max_sync(0xffffffffu, v);
+    if (threadIdx.x == 0 && v != 0u) atomicMax(mbits, v);
   }
 }
 
+// Adds the weight w, scaled by 2^e and rounded, to a node's integer sum.
+__device__ __forceinline__ void add_fixed(unsigned long long* node, float w,
+                                          int e) {
+  const long long q = __float2ll_rn(ldexpf(w, e));
+  if (q != 0) atomicAdd(node, static_cast<unsigned long long>(q));
+}
+
+// Pass 2: a thread a real slot, its 8 corners into the integer mesh.
 __global__ void __launch_bounds__(kDepositThreads)
 deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
                int ncell, int S, int nmesh, int nxg, int slab, int row0,
                int stride, int gz, size_t row, float scale, float shift,
-               float* __restrict__ rho) {
+               const unsigned* __restrict__ mbits, int j,
+               unsigned long long* __restrict__ sums) {
   const int ic = blockIdx.x;
   const int r = blockIdx.y * kDepositThreads + threadIdx.x;
   if (r >= counts[ic]) return;
+  const int e = fixed_exponent(mbits, j);
   const int cx = ic / ncell;
   const int cy = ic % ncell;
   const int P = ncell + 2;
@@ -141,7 +174,7 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
   const int iz = static_cast<int>(fz0);
   const float wx[2] = {1.0f - fx, fx};
   const float wy[2] = {1.0f - fy, fy};
-  const bool vec = (nmesh & 3) == 0;
+  const int z0 = wrap(iz, nmesh), z1 = wrap(iz + 1, nmesh);
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const int px = x_plane(ix + a, nmesh, nxg, slab);
@@ -150,9 +183,22 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const float wxy = wx[a] * wy[b] * m;
-      add_pair(rho + (gx + wrap(iy + b, nmesh)) * nmesh, iz, nmesh, vec,
-               wxy * (1.0f - fz), wxy * fz);
+      unsigned long long* line = sums + (gx + wrap(iy + b, nmesh)) * nmesh;
+      add_fixed(line + z0, wxy * (1.0f - fz), e);
+      add_fixed(line + z1, wxy * fz, e);
     }
+  }
+}
+
+// Pass 3: the float32 node masses, each integer sum rounded once.
+__global__ void deposit_float_kernel(const unsigned long long* __restrict__ sums,
+                                     size_t nodes,
+                                     const unsigned* __restrict__ mbits,
+                                     int j, float* __restrict__ rho) {
+  const int e = fixed_exponent(mbits, j);
+  for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       k < nodes; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    rho[k] = ldexpf(__ll2float_rn(static_cast<long long>(sums[k])), -e);
   }
 }
 
@@ -283,31 +329,48 @@ extern "C" {
 
 // K2.  plane (8, (nx + 2) * (ncell + 2) * stride) float32; counts
 // (nx * ncell,) int32 (real slots per column, <= CK); rho receives the
-// masses (zeroed here first, on `stream`): (nmesh^3,) with nx = ncell and
-// slab = 0, or on a slab (slab = 1, nx = ncell / D, its first x-row row0
-// of the box's grid) the haloed (nx * S + 3, nmesh, nmesh).  Returns
-// cudaGetLastError() after the launch (0 on success); 1
+// masses: (nmesh^3,) with nx = ncell and slab = 0, or on a slab (slab = 1,
+// nx = ncell / D, its first x-row row0 of the box's grid) the haloed
+// (nx * S + 3, nmesh, nmesh).  scratch: (nodes + 1,) 64-bit words from the
+// caller, nodes = the size of rho (the integer sums and, in the last
+// word, the largest mass), zeroed here first, on `stream`.  Returns
+// cudaGetLastError() after the launches (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
 int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
                              int ncell, int slab, int row0, int S, int nmesh,
                              int stride, int gz, int CK, double scale,
-                             double shift, float* rho, void* stream) {
+                             double shift, float* rho, void* scratch,
+                             void* stream) {
   if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
       slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
       (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S ||
-      stride < 1 || gz < 0 || CK < 1 || gz + CK > stride) {
+      stride < 1 || gz < 0 || CK < 1 || gz + CK > stride ||
+      scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
   const int nxg = slab ? nx * S + 3 : nmesh;
+  const size_t nodes = static_cast<size_t>(nxg) * nmesh * nmesh;
+  // the bits that count the real slots: at most nx * ncell * CK
+  const unsigned long long nslots =
+      static_cast<unsigned long long>(nx) * ncell * CK;
+  const int j = 64 - __builtin_clzll(nslots);
+  auto* sums = static_cast<unsigned long long*>(scratch);
+  auto* mbits = reinterpret_cast<unsigned*>(sums + nodes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaMemsetAsync(
-      rho, 0, static_cast<size_t>(nxg) * nmesh * nmesh * sizeof(float), s);
+  cudaError_t e = cudaMemsetAsync(sums, 0, (nodes + 1) * sizeof(*sums), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(nx * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
+  deposit_max_kernel<<<grid, kDepositThreads, 0, s>>>(plane, counts, ncell,
+                                                      stride, gz, row, mbits);
   deposit_kernel<<<grid, kDepositThreads, 0, s>>>(
       plane, counts, ncell, S, nmesh, nxg, slab, row0, stride, gz, row,
-      static_cast<float>(scale), static_cast<float>(shift), rho);
+      static_cast<float>(scale), static_cast<float>(shift), mbits, j, sums);
+  const int threads = 256;
+  const size_t blocks =
+      std::min<size_t>((nodes + threads - 1) / threads, 132 * 16);
+  deposit_float_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+      sums, nodes, mbits, j, rho);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -143,8 +143,10 @@ def ewald_pp_acc(
     softening applies to the short-range Newton term exactly as in the
     non-periodic solver.
     """
-    from nbody_torch.forces.p3m import p3m_short_acc
+    from nbody_torch.forces.p3m import batched_refusal, p3m_short_acc
 
+    if pos.ndim != 2:
+        raise NotImplementedError(batched_refusal("the Ewald PP force"))
     mass = mass.to(pos.dtype)
     if r_s is None:
         r_s = box / 16.0

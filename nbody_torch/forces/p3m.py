@@ -135,17 +135,20 @@ def p3m_short_plain(pos, mass, box: float, eps: float, r_s: float,
                     softening: str = "plummer", chunk_pairs: int = 1 << 24):
     """Plain PyTorch version of K1: the same sum, chunked over targets so
     no more than ``chunk_pairs`` pairs are materialized at once.  Like the
-    kernel it has no self-pair mask (d = 0 contributes nothing)."""
+    kernel it has no self-pair mask (d = 0 contributes nothing).  ``pos``
+    (B, N, 3) and ``mass`` (B, N) sum B members at once, each alone."""
     weight = _weight_fn(split, softening)
     posw = torch.remainder(pos, box)
-    n = pos.shape[0]
+    n = pos.shape[-2]
+    members = pos.shape[0] if pos.ndim == 3 else 1
     out = torch.empty_like(pos)
-    step = max(1, chunk_pairs // max(n, 1))
+    step = max(1, chunk_pairs // max(n * members, 1))
     for i0 in range(0, n, step):
-        d = _min_image(posw[None, :, :] - posw[i0:i0 + step, None, :], box)
+        d = _min_image(posw[..., None, :, :] - posw[..., i0:i0 + step, None, :],
+                       box)
         r2 = torch.sum(d * d, dim=-1)
-        w = mass[None, :] * weight(r2, eps * eps, r_s, r_cut)
-        out[i0:i0 + step] = torch.einsum("ij,ijk->ik", w, d)
+        w = mass[..., None, :] * weight(r2, eps * eps, r_s, r_cut)
+        out[..., i0:i0 + step, :] = torch.einsum("...ij,...ijk->...ik", w, d)
     return out * G
 
 
@@ -370,14 +373,15 @@ def _k1_info(lib, device: int, split: int, softening: int) -> tuple:
 
 def k1_card_geometry(pos, box: float, r_cut: float, split: str = "gaussian",
                      softening: str = "plummer", lib=None) -> K1Geometry:
-    """The launch shape K1 takes for ``pos`` (a CUDA tensor) on its card."""
+    """The launch shape K1 takes for ``pos`` (a CUDA tensor, (N, 3) or B
+    members' (B, N, 3): each member's) on its card."""
     if lib is None:
         from nbody_torch._kernels import load_library
 
         lib = load_library()
     info = _k1_info(lib, pos.device.index, _SPLITS[split],
                     _SOFTENINGS[softening])
-    return k1_geometry(pos.shape[0], float(box), float(r_cut), info)
+    return k1_geometry(pos.shape[-2], float(box), float(r_cut), info)
 
 
 def _k1_run(lib, geo: K1Geometry, pos, mass, box: float, eps: float,
@@ -386,32 +390,40 @@ def _k1_run(lib, geo: K1Geometry, pos, mass, box: float, eps: float,
     tensors :func:`p3m_short_acc` has checked: the keys, their stable
     argsort, the pack and the pair sum, all on the current stream.  The
     pack's sources and tile boxes and the slices' partial sums share one
-    scratch tensor."""
-    n, dev = pos.shape[0], pos.device
+    scratch tensor.  B members, ``pos`` (B, N, 3), run in one launch of
+    each kernel (the keys of all members at once, each member's argsort
+    along its own row, the scratch member after member); ``pos`` (N, 3)
+    is one member."""
+    one = pos.ndim == 2
+    if one:
+        pos, mass = pos[None], mass[None]
+    members, n = pos.shape[0], pos.shape[1]
+    dev = pos.device
     npad = -(-n // geo.tile) * geo.tile
     n_packed, n_boxes = 4 * npad, 8 * (npad // geo.tile)
     n_part = 3 * npad * geo.slices if geo.slices > 1 else 0
-    keys = torch.empty((n,), device=dev, dtype=torch.int16)
-    out = torch.empty((n, 3), device=dev, dtype=torch.float32)
+    keys = torch.empty((members, n), device=dev, dtype=torch.int16)
+    out = torch.empty((members, n, 3), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.p3m_short_keys(pos.data_ptr(), n, float(box),
+        err = lib.p3m_short_keys(pos.data_ptr(), members * n, float(box),
                                  keys.data_ptr(), stream)
         if err == 0:
-            perm = torch.argsort(keys, stable=True)
-            scratch = torch.empty((n_packed + n_boxes + n_part,),
-                                  device=dev, dtype=torch.float32)
+            perm = torch.argsort(keys, dim=-1, stable=True)
+            scratch = torch.empty(
+                (members * (n_packed + n_boxes + n_part),), device=dev,
+                dtype=torch.float32)
             base = scratch.data_ptr()
             err = lib.p3m_short_f32(
-                pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n,
+                pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n, members,
                 float(box), float(eps), float(r_s), float(r_cut), float(G),
                 _SPLITS[split], _SOFTENINGS[softening], geo.slice_tiles,
-                geo.slices, base, base + 4 * n_packed,
-                base + 4 * (n_packed + n_boxes) if n_part else None,
+                geo.slices, base, base + 4 * members * n_packed,
+                base + 4 * members * (n_packed + n_boxes) if n_part else None,
                 out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"p3m_short_acc: CUDA launch failed (error {err})")
-    return out
+    return out[0] if one else out
 
 
 def p3m_short_acc(pos, mass, box: float, eps: float, r_s: float,
@@ -424,8 +436,11 @@ def p3m_short_acc(pos, mass, box: float, eps: float, r_s: float,
     (N,) masses on one device; the particles sorted on the card along a
     Hilbert curve, the source tiles out of reach culled, the launch shape
     from :func:`k1_geometry`) or raises; a CPU tensor takes
-    :func:`p3m_short_plain`.  ``p3m_short_acc.launches`` counts calls that
-    launched K1."""
+    :func:`p3m_short_plain`.  B members at once, ``pos`` (B, N, 3) and
+    ``mass`` (B, N), make one launch over a member axis of the grid (the
+    batched site: the JAX package's ``vmap`` of the ensemble runner, each
+    member's sums those of its own launch, bit for bit).
+    ``p3m_short_acc.launches`` counts calls that launched K1."""
     if split not in _SPLITS:
         raise ValueError(f"unknown split {split!r}")
     if softening not in _SOFTENINGS:
@@ -435,16 +450,18 @@ def p3m_short_acc(pos, mass, box: float, eps: float, r_s: float,
                                split=split, softening=softening)
     if pos.device.type != "cuda":
         raise ValueError(f"p3m_short_acc: no kernel for device {pos.device}")
-    n = pos.shape[0]
+    n = pos.shape[-2] if pos.ndim >= 2 else 0
     if pos.dtype != torch.float32 or mass.dtype != torch.float32:
         raise TypeError(
             f"p3m_short_acc: the CUDA kernel takes float32, got "
             f"{pos.dtype}/{mass.dtype}"
         )
-    if pos.ndim != 2 or pos.shape[1] != 3 or mass.shape != (n,):
+    if (pos.ndim not in (2, 3) or pos.shape[-1] != 3
+            or mass.shape != pos.shape[:-1]):
         raise ValueError(
             f"p3m_short_acc: shapes pos {tuple(pos.shape)} / mass "
-            f"{tuple(mass.shape)}, expected (N, 3) / (N,)"
+            f"{tuple(mass.shape)}, expected (N, 3) / (N,) or (B, N, 3) / "
+            f"(B, N)"
         )
     if mass.device != pos.device:
         raise ValueError("p3m_short_acc: pos and mass on different devices")
@@ -539,6 +556,15 @@ def resolve_shortrange(shortrange: str, n: int, box: float, r_cut: float,
     return shortrange
 
 
+def batched_refusal(what: str) -> str:
+    """The message of a batched call (a member axis) on a force that has
+    no batched form yet."""
+    return (f"{what} takes no member axis yet: the batched tier covers "
+            f"solver='pm' and the dense 'allpairs' P3M tier (N <= "
+            f"{ALLPAIRS_MAX_N}); the plane tiers and 'pp' are ROADMAP.md "
+            f"Queue 1 E.3")
+
+
 def p3m_acc(
     pos,
     mass,
@@ -571,7 +597,10 @@ def p3m_acc(
     column tiers' bucket capacity and ``window`` the column tiers'
     z-window (None: auto).  ``with_overflow=True``
     returns (acc, overflow): 0 iff no force was dropped (the column tiers'
-    field-encoded word, a 0-d tensor; the dense tier returns 0)."""
+    field-encoded word, a 0-d tensor; the dense tier returns 0).
+    ``pos`` (B, N, 3) and ``mass`` (B, N) evaluate B members at once on
+    the mesh and the dense tier (K1's batched site); another tier raises
+    ``NotImplementedError``."""
     if part not in ("both", "long", "short", "split"):
         raise ValueError(f"unknown part {part!r}")
     cell = box / nmesh
@@ -591,9 +620,11 @@ def p3m_acc(
 
     if part == "long":
         return _pm_long()
-    n = pos.shape[0]
+    n = pos.shape[-2]
     tier = resolve_shortrange(shortrange, n, box, float(r_cut), nmesh,
                               capacity)
+    if pos.ndim == 3 and tier != "allpairs":
+        raise NotImplementedError(batched_refusal(f"the {tier} tier"))
     ckw = dict(G=G, split=split, softening=softening)
     if tier == "supercell":
         from nbody_torch.forces.p3m_columns import (

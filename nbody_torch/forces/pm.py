@@ -8,8 +8,9 @@ the Gaussian or spline long-range filter folded in), the spectral
 gradient kernels and the interlacing phases.  A force evaluation is then
 deposit, one rfftn, one multiply, the inverse transform(s) and the gather.
 No hand-written kernel is involved: the FFTs are cuFFT through
-``torch.fft`` and the scatter is the fixed-point, deterministic
-:func:`~nbody_torch.mesh.cic.scatter_sum`.
+``torch.fft`` (:func:`~nbody_torch.mesh.grids.rfft3`, whose bits do not
+depend on a leading member axis) and the scatter is the fixed-point,
+deterministic :func:`~nbody_torch.mesh.cic.scatter_sum`.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from nbody_torch.mesh.cic import (
     cic_window,
     interlace_phase,
 )
-from nbody_torch.mesh.grids import kvecs
+from nbody_torch.mesh.grids import irfft3, kvecs, rfft3
 
 GRAD_ORDERS = ("spectral", "fd2", "fd4")
 
@@ -117,11 +118,12 @@ def spline_longrange_filter(nmesh: int, box: float, r_cut: float, *,
 
 
 def _fd_gradient_grids(phi, box: float, order: str):
-    """Real-space centred-difference force grids (3, N, N, N), exactly the
-    k-space sin kernels of :func:`gradient_kernel`."""
-    h = box / phi.shape[0]
+    """Real-space centred-difference force grids (..., 3, N, N, N) of a
+    potential (..., N, N, N), exactly the k-space sin kernels of
+    :func:`gradient_kernel`."""
+    h = box / phi.shape[-1]
     grids = []
-    for ax in range(3):
+    for ax in (-3, -2, -1):
         p1 = torch.roll(phi, -1, ax)
         m1 = torch.roll(phi, 1, ax)
         if order == "fd2":
@@ -131,7 +133,7 @@ def _fd_gradient_grids(phi, box: float, order: str):
             m2 = torch.roll(phi, 2, ax)
             g = (8.0 * (p1 - m1) - (p2 - m2)) * (1.0 / (12.0 * h))
         grids.append(-g)  # force = -grad phi
-    return torch.stack(grids)
+    return torch.stack(grids, dim=-4)
 
 
 class PMForce(nn.Module):
@@ -192,11 +194,10 @@ class PMForce(nn.Module):
             raise ValueError("a second deposit needs an interlaced PMForce")
         if self.grid_shift != 0.0:
             raise ValueError("force_grids_from_rho: grid_shift must be 0")
-        rho_k = torch.fft.rfftn(rho)
+        rho_k = rfft3(rho)
         if rho1 is not None:
             # e^{-i k.d/2} aligns the shifted deposit
-            rho_k = 0.5 * (rho_k
-                           + torch.fft.rfftn(rho1) * self.phase_read.conj())
+            rho_k = 0.5 * (rho_k + rfft3(rho1) * self.phase_read.conj())
         phi_k = rho_k * (self.green * (amp * self.nmesh**3 / mass_sum))
         grids = self._force_grids(phi_k)
         if rho1 is None:
@@ -204,22 +205,30 @@ class PMForce(nn.Module):
         return torch.cat([grids, self._force_grids(phi_k * self.phase_read)])
 
     def _force_grids(self, phi_k):
-        shape = (self.nmesh,) * 3
         if self.grad_order == "spectral":
-            return torch.stack([torch.fft.irfftn(-1j * g * phi_k, s=shape)
-                                for g in self.grad])
-        phi = torch.fft.irfftn(phi_k, s=shape)
+            return torch.stack([irfft3(-1j * g * phi_k, self.nmesh)
+                                for g in self.grad], dim=-4)
+        phi = irfft3(phi_k, self.nmesh)
         return _fd_gradient_grids(phi, self.box, self.grad_order)
 
     def forward(self, pos, mass, amp):
+        """The acceleration (n, 3) of particles ``pos`` (n, 3), ``mass``
+        (n,); or of B members at once, ``pos`` (B, n, 3), ``mass`` (B, n)
+        and ``amp`` a number or (B,), with one deposit over the members
+        (:func:`~nbody_torch.mesh.cic.cic_deposit`) and batched FFTs over
+        the last three dimensions (one set of particles is a batch of
+        one)."""
+        if pos.ndim == 2:
+            return self(pos[None], mass[None], amp)[0]
         box, nmesh, shift = self.box, self.nmesh, self.grid_shift
         if self.interlace:
             rho_k = cic_deposit_interlaced_k(pos, box, nmesh, weights=mass,
                                              base_shift=shift)
         else:
-            rho_k = torch.fft.rfftn(
-                cic_deposit(pos, box, nmesh, weights=mass, shift=shift))
-        phi_k = rho_k * (self.green * (amp * nmesh**3 / torch.sum(mass)))
+            rho_k = rfft3(cic_deposit(pos, box, nmesh, weights=mass,
+                                      shift=shift))
+        factor = amp * nmesh**3 / torch.sum(mass, dim=-1)
+        phi_k = rho_k * (self.green * factor[:, None, None, None])
         grids = self._force_grids(phi_k)
         if not self.interlace:
             return cic_gather_vec(grids, pos, box, shift=shift)
@@ -258,8 +267,8 @@ def pm_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
     pm = pm_module(float(box), int(nmesh), int(deconvolve_p), bool(interlace),
                    float(longrange_split), float(spline_split), grad_order,
                    0.5 if cell_centered else 0.0, pos.device, pos.dtype)
-    amp = 4.0 * math.pi * G * torch.sum(mass) / box**3
-    return pm(pos, mass, amp)
+    return pm(pos, mass,
+              4.0 * math.pi * G * torch.sum(mass, dim=-1) / box**3)
 
 
 def make_pm_cosmo_force(cosmo: Cosmology, box: float, nmesh: int,

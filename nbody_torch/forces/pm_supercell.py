@@ -177,18 +177,43 @@ def slab_halo_fold(exts: list, group) -> list:
     return out
 
 
+def deposit_fixed_exponent(mass_max: float, nslots: int) -> int:
+    """K2's fixed-point exponent: the corner masses are scaled by 2^e and
+    rounded to 64-bit integers, e chosen so that ``nslots`` masses below
+    2^k (k from the largest real mass, ``mass_max``) sum below 2^62; 0
+    when no mass is positive."""
+    if not mass_max > 0.0:
+        return 0
+    return 62 - math.frexp(float(mass_max))[1] - int(nslots).bit_length()
+
+
+def deposit_fixed(size: int, node, w, e: int):
+    """K2's sums as the kernel forms them, from :func:`deposit_atomics`:
+    each corner weight scaled by 2^e and rounded to an integer, the
+    integers summed (exact, in any order) into ``size`` nodes, each sum
+    rounded once to float32 and scaled back.  Returns (sums (size,) int64,
+    node masses (size,) float32)."""
+    ok = node >= 0
+    q = torch.round(torch.ldexp(w[ok].double(),
+                                torch.tensor(float(e), dtype=torch.float64)))
+    sums = torch.zeros(size, dtype=torch.int64, device=w.device)
+    sums.index_add_(0, node[ok], q.to(torch.int64))
+    rho = torch.ldexp(sums.to(torch.float32),
+                      torch.tensor(float(-e), dtype=torch.float32))
+    return sums, rho
+
+
 def deposit_atomics(plane, counts, *, ncell: int, S: int, nmesh: int,
                     stride: int, gz: int, scale: float, shift: float = 0.0,
                     nx: int | None = None, row0: int = 0):
     """K2's atomics, in plain PyTorch as the kernel issues them (a model
-    of the device code, for the tests): for each real slot and each of its
-    4 node lines (a, b) = (k // 2, k % 2), with coordinates rounded op by
-    op as the kernel's: (line (ncol, CK, 4) int64, the line's mesh offset,
-    -1 outside a slab's halo or past counts; z (ncol, CK, 4), the pair's
-    lower node, periodic; vector (ncol, CK, 4) bool, whether the pair goes
-    as one float4 atomic on nodes z - z % 4 .. + 3 (else as two scalar
-    atomics at z and (z + 1) % nmesh); w (2, ncol, CK, 4) float32, the
-    weights of the pair's two nodes)."""
+    of the device code, for the tests): for each real slot its 8 corners
+    k = (a, b, c) = (k // 4, k // 2 % 2, k % 2), with coordinates and
+    weights rounded op by op as the kernel's.  Returns (node (ncol, CK, 8)
+    int64, the corner's mesh offset, -1 outside a slab's halo or past
+    counts; w (ncol, CK, 8) float32, its weight) and the exponent
+    :func:`deposit_fixed_exponent` gives from the largest real mass and
+    the plane's slot count (ncol * CK)."""
     nx = ncell if nx is None else nx
     ncol = nx * ncell
     P = ncell + 2
@@ -211,24 +236,25 @@ def deposit_atomics(plane, counts, *, ncell: int, S: int, nmesh: int,
     fx, fy, fz = x - fx0, y - fy0, z - fz0
     ix = fx0.to(torch.int64) + (c // ncell * S)[:, None]
     iy = fy0.to(torch.int64) + (c % ncell * S)[:, None]
-    iz = torch.remainder(fz0.to(torch.int64), nmesh)
+    iz = fz0.to(torch.int64)
     slab = nx != ncell
-    lines, ws = [], []
-    for k in range(4):
-        a, b = k // 2, k % 2
+    nodes, ws = [], []
+    for k in range(8):
+        a, b, cz = k // 4, k // 2 % 2, k % 2
         if slab:
             px = ix + a + 1
             ok = (px >= 0) & (px < nx * S + 3) & live
         else:
             px = torch.remainder(ix + a, nmesh)
             ok = live
-        line = (px * nmesh + torch.remainder(iy + b, nmesh)) * nmesh
-        lines.append(torch.where(ok, line, -1))
+        node = ((px * nmesh + torch.remainder(iy + b, nmesh)) * nmesh
+                + torch.remainder(iz + cz, nmesh))
+        nodes.append(torch.where(ok, node, -1))
         wxy = (fx if a else 1.0 - fx) * (fy if b else 1.0 - fy) * m
-        ws.append(torch.stack([wxy * (1.0 - fz), wxy * fz]))
-    vector = (iz % 4 != 3) & (nmesh % 4 == 0)
-    return (torch.stack(lines, dim=-1), iz[..., None].expand(-1, -1, 4),
-            vector[..., None].expand(-1, -1, 4), torch.stack(ws, dim=-1))
+        ws.append(wxy * (fz if cz else 1.0 - fz))
+    m_max = float(torch.where(live, m.abs(), 0.0).max()) if ncol else 0.0
+    return (torch.stack(nodes, dim=-1), torch.stack(ws, dim=-1),
+            deposit_fixed_exponent(m_max, ncol * CK))
 
 
 def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
@@ -244,10 +270,10 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     (nx * S + 3, nmesh, nmesh) slab (:func:`fold_slab_node_masses`;
     :func:`supercell_deposit_local` sends the halo planes on).
 
-    A CUDA plane launches the kernel (a thread a real slot, each node
-    line's z pair of corner masses as one vector atomic where it can,
-    :func:`deposit_atomics`; the mesh zeroed in the same library call) or
-    raises; a CPU plane takes :func:`deposit_node_masses_plain` +
+    A CUDA plane launches the kernel (a thread a real slot, its corner
+    masses summed in 64-bit integer fixed point, exact in any order, so
+    two launches give the same bits; :func:`deposit_atomics`) or raises; a
+    CPU plane takes :func:`deposit_node_masses_plain` +
     :func:`fold_node_masses` (or :func:`fold_slab_node_masses`).
     ``supercell_deposit_from_plane.launches`` counts kernel launches."""
     geom = supercell_geometry(nmesh, ncell)
@@ -280,13 +306,15 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     dev = plane.device
     rho = torch.empty((nx * S + 3 if slab else nmesh, nmesh, nmesh),
                       dtype=torch.float32, device=dev)
+    # the kernel's integer sums, and the largest mass in the last word
+    scratch = torch.empty((rho.numel() + 1,), dtype=torch.int64, device=dev)
     ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
            else torch.cuda.device(dev))
     with ctx:
         err = lib.pm_supercell_deposit_f32(
             plane.data_ptr(), counts.data_ptr(), nx, ncell, int(slab), row0,
             S, nmesh, stride, gz, CK, scale, float(shift), rho.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"supercell_deposit_from_plane: CUDA launch "
                            f"failed (error {err})")

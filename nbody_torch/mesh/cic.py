@@ -15,28 +15,58 @@ import math
 
 import torch
 
-from nbody_torch.mesh.grids import kvecs
+from nbody_torch.mesh.grids import kvecs, rfft3
 
 _CORNERS = tuple(itertools.product((0, 1), repeat=3))
+
+
+def fixed_point_scale(vmax, count: int):
+    """The power of two by which :func:`scatter_sum` scales its values:
+    ``count`` values of magnitude at most ``vmax`` (a float64 tensor, one
+    a member) sum below 2^61 once scaled.  It depends on the largest
+    magnitude and the count alone, which any order of reduction gives the
+    same, so a member's scale is the same in a batch as alone."""
+    _, k = torch.frexp(torch.where(vmax > 0, vmax, torch.ones_like(vmax)))
+    return torch.ldexp(torch.ones_like(vmax),
+                       61 - k - int(count).bit_length())
 
 
 def scatter_sum(size: int, index, values):
     """A flat (size,) tensor with ``values`` summed at ``index``, the same
     bits in every call, on the card too, where a float ``index_add_`` adds
     in the order its atomics land (so two runs of one float32 trajectory
-    would part).  The values are summed in int64 fixed point, 2^61 over
-    the sum of their magnitudes: integer addition is exact, so no order of
-    the additions can change a bit, and a bin's error is the rounding of
-    its values to about 4e-19 of that sum each, then float64 rounding."""
+    would part).  The values are summed in int64 fixed point, scaled by
+    the power of two :func:`fixed_point_scale` gives: integer addition is
+    exact, so no order of the additions can change a bit, and a bin's
+    error is the rounding of its values to 2^-61 of count x the largest
+    magnitude each, then float64 rounding.
+
+    With ``index`` and ``values`` of shape (B, M), B members at once: one
+    integer sum over member-offset indices, each member at its own scale,
+    (B, size) out, each row the bits its own call gives (a flat call is
+    one member)."""
+    one = values.ndim == 1
     v = values.to(torch.float64)
-    scale = 2.0**61 / torch.clamp_min(torch.sum(torch.abs(v)), 1e-300)
-    sums = torch.zeros(size, dtype=torch.int64, device=values.device)
-    sums.index_add_(0, index, torch.round(v * scale).to(torch.int64))
-    return (sums.to(torch.float64) / scale).to(values.dtype)
+    if one:
+        v, index = v[None], index[None]
+    B = v.shape[0]
+    if v.shape[1] == 0:
+        out = torch.zeros((B, size), dtype=values.dtype, device=v.device)
+        return out[0] if one else out
+    scale = fixed_point_scale(torch.amax(torch.abs(v), dim=1), v.shape[1])
+    offset = torch.arange(B, device=index.device)[:, None] * size
+    sums = torch.zeros(B * size, dtype=torch.int64, device=values.device)
+    sums.index_add_(0, (index + offset).reshape(-1),
+                    torch.round(v * scale[:, None]).to(torch.int64)
+                    .reshape(-1))
+    out = (sums.view(B, size).to(torch.float64) / scale[:, None]).to(
+        values.dtype)
+    return out[0] if one else out
 
 
 def _cic_corners(pos, box: float, nmesh: int, shift: float = 0.0):
-    """Flat cell index (8, n) and trilinear weight (8, n) of each corner."""
+    """Flat cell index (8, ...) and trilinear weight (8, ...) of each
+    corner of positions (..., 3)."""
     s = pos * (nmesh / box) - shift
     i0 = torch.floor(s)
     f = s - i0
@@ -44,27 +74,39 @@ def _cic_corners(pos, box: float, nmesh: int, shift: float = 0.0):
     lins, ws = [], []
     for dx, dy, dz in _CORNERS:
         ws.append(
-            (f[:, 0] if dx else 1.0 - f[:, 0])
-            * (f[:, 1] if dy else 1.0 - f[:, 1])
-            * (f[:, 2] if dz else 1.0 - f[:, 2])
+            (f[..., 0] if dx else 1.0 - f[..., 0])
+            * (f[..., 1] if dy else 1.0 - f[..., 1])
+            * (f[..., 2] if dz else 1.0 - f[..., 2])
         )
-        ix = torch.remainder(i0[:, 0] + dx, nmesh)
-        iy = torch.remainder(i0[:, 1] + dy, nmesh)
-        iz = torch.remainder(i0[:, 2] + dz, nmesh)
+        ix = torch.remainder(i0[..., 0] + dx, nmesh)
+        iy = torch.remainder(i0[..., 1] + dy, nmesh)
+        iz = torch.remainder(i0[..., 2] + dz, nmesh)
         lins.append((ix * nmesh + iy) * nmesh + iz)
     return torch.stack(lins), torch.stack(ws)
+
+
+def _deposit(lin, w, nmesh: int):
+    """The (nmesh,)^3 grid of the corners ``lin``, ``w`` (C, n), or of B
+    members' (C, B, n) as (B, nmesh, nmesh, nmesh)."""
+    B = lin.shape[1] if lin.ndim == 3 else 1
+    grid = scatter_sum(nmesh**3, lin.reshape(lin.shape[0], B, -1)
+                       .transpose(0, 1).reshape(B, -1),
+                       w.reshape(w.shape[0], B, -1).transpose(0, 1)
+                       .reshape(B, -1))
+    return grid.reshape(lin.shape[1:-1] + (nmesh,) * 3)
 
 
 def cic_deposit(pos, box: float, nmesh: int, weights=None,
                 shift: float = 0.0):
     """CIC deposit onto an (nmesh,)*3 grid: each particle's weight spread
     trilinearly over its 8 cells with periodic wrap.  ``shift`` (cells)
-    offsets the grid origin (interlacing)."""
+    offsets the grid origin (interlacing).  ``pos`` (B, n, 3) deposits B
+    members at once into (B, nmesh, nmesh, nmesh), each its own grid's
+    bits."""
     lin, w = _cic_corners(pos, box, nmesh, shift)
     if weights is not None:
         w = w * weights
-    return scatter_sum(nmesh**3, lin.reshape(-1), w.reshape(-1)).reshape(
-        nmesh, nmesh, nmesh)
+    return _deposit(lin, w, nmesh)
 
 
 def cic_gather(grid, pos, box: float, shift: float = 0.0):
@@ -74,11 +116,17 @@ def cic_gather(grid, pos, box: float, shift: float = 0.0):
 
 
 def cic_gather_vec(grids, pos, box: float, shift: float = 0.0):
-    """CIC-interpolate C grids at once: grids (C, N, N, N) -> (n, C)."""
-    C, nmesh = grids.shape[0], grids.shape[1]
+    """CIC-interpolate C grids at once: grids (C, N, N, N) -> (n, C); or
+    B members' grids (B, C, N, N, N) at their positions (B, n, 3) ->
+    (B, n, C)."""
+    C, nmesh = grids.shape[-4], grids.shape[-1]
     lin, w = _cic_corners(pos, box, nmesh, shift)
-    flat = grids.reshape(C, -1).T  # (N^3, C): one row per corner fetch
-    return (w[:, :, None] * flat[lin]).sum(dim=0)
+    B = grids.shape[0] if grids.ndim == 5 else 1
+    # (B N^3, C): one row per corner fetch, member after member
+    flat = grids.reshape(B, C, -1).transpose(1, 2).reshape(-1, C)
+    member = (torch.arange(B, device=pos.device) * nmesh**3).reshape(
+        (B,) + (1,) * (pos.ndim - 2))
+    return (w[..., None] * flat[lin + member]).sum(dim=0)
 
 
 def _bspline_weight(order: int, u):
@@ -112,9 +160,9 @@ def bspline_deposit(pos, box: float, nmesh: int, order: int = 2,
     else:  # 4 nodes from floor - 1
         ic = torch.floor(s).to(torch.int64)
         offsets = (-1, 0, 1, 2)
-    w1 = [[_bspline_weight(order, s[:, ax] - (ic[:, ax] + o)) for o in offsets]
-          for ax in range(3)]
-    idx = [[torch.remainder(ic[:, ax] + o, nmesh) for o in offsets]
+    w1 = [[_bspline_weight(order, s[..., ax] - (ic[..., ax] + o))
+           for o in offsets] for ax in range(3)]
+    idx = [[torch.remainder(ic[..., ax] + o, nmesh) for o in offsets]
            for ax in range(3)]
     lins, ws = [], []
     for a, b, c in itertools.product(range(len(offsets)), repeat=3):
@@ -123,8 +171,7 @@ def bspline_deposit(pos, box: float, nmesh: int, order: int = 2,
     w = torch.stack(ws)
     if weights is not None:
         w = w * weights
-    return scatter_sum(nmesh**3, torch.stack(lins).reshape(-1),
-                       w.reshape(-1)).reshape(nmesh, nmesh, nmesh)
+    return _deposit(torch.stack(lins), w, nmesh)
 
 
 def density_to_delta(count_grid, n_particles: int):
@@ -174,7 +221,7 @@ def bspline_deposit_interlaced_k(pos, box: float, nmesh: int, order: int = 2,
                          shift=base_shift + 0.5)
     phase = interlace_phase(nmesh, box, -1.0, device=pos.device,
                             dtype=pos.dtype)
-    return 0.5 * (torch.fft.rfftn(g0) + torch.fft.rfftn(g1) * phase)
+    return 0.5 * (rfft3(g0) + rfft3(g1) * phase)
 
 
 def cic_deposit_interlaced_k(pos, box: float, nmesh: int, weights=None,

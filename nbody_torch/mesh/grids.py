@@ -56,3 +56,25 @@ def lattice(nmesh: int, box: float, *, device=None, dtype=torch.float32):
                         dtype=dtype)
     X, Y, Z = torch.meshgrid(x, x, x, indexing="ij")
     return torch.stack([X, Y, Z], dim=-1).reshape(-1, 3)
+
+
+def rfft3(x):
+    """The rfftn of the last three dimensions of ``x``, taken as a batch
+    of grids (one grid is a batch of one).  cuFFT's 3-D real-to-complex
+    plan for a grid with no batch axis rounds differently from its plan
+    for a batch, while the batched plans of 1, 2, 4 and 8 grids of 32^3,
+    64^3 and 128^3 give the same bits for every grid
+    (``chip_smoke.py`` [24] holds the members of a batch equal to their
+    own runs), so a member of a batch gets the bits of its own run."""
+    n = x.shape[-3:]
+    return torch.fft.rfftn(x.reshape((-1,) + tuple(n)),
+                           dim=(-3, -2, -1)).reshape(
+        x.shape[:-1] + (n[-1] // 2 + 1,))
+
+
+def irfft3(k, n: int):
+    """The inverse of :func:`rfft3` to real grids of side ``n``, likewise
+    taken as a batch of grids."""
+    shape = k.shape[:-3] + (n, n, n)
+    return torch.fft.irfftn(k.reshape((-1,) + tuple(k.shape[-3:])),
+                            s=(n, n, n), dim=(-3, -2, -1)).reshape(shape)

@@ -346,8 +346,9 @@ def r_targets(R: int, pred: bool = False) -> list:
     pairs = pairs.replace("constexpr bool PRED = kPred;",
                           f"constexpr bool PRED = {str(pred).lower()};")
     return [(CU, R_REGION, pairs),
-            (CU, "const dim3 grid((n + 31) / 32, slices);",
-             f"const dim3 grid((n + {32 * R - 1}) / {32 * R}, slices);")]
+            (CU, "const dim3 grid((n + 31) / 32, slices, members);",
+             f"const dim3 grid((n + {32 * R - 1}) / {32 * R}, slices, "
+             f"members);")]
 
 
 class Variant(NamedTuple):
@@ -383,7 +384,7 @@ VARIANTS = {
     "2^10 grid": Variant(GRID_10, keys=torch.int32),
     "narrowed": Variant([NARROWED]),
 }
-ENTRY = {"p3m_short_keys": "pidpp", "p3m_short_f32": "pppidddddiiiippppp",
+ENTRY = {"p3m_short_keys": "pidpp", "p3m_short_f32": "pppiidddddiiiippppp",
          "p3m_short_info": "iip"}
 ORIGINAL_ENTRY = {"p3m_short_acc_f32": "piidddddiipp"}
 
@@ -512,7 +513,7 @@ def _run_with_keys(lib, geo, pos, mass, box, eps, r_s, r_cut, G, split,
     boxes = torch.empty((npad // geo.tile, 2, 4), **f32)
     part = torch.empty((geo.slices, npad, 3), **f32)
     err = err or lib.p3m_short_f32(
-        pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n, float(box),
+        pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n, 1, float(box),
         float(eps), float(r_s), float(r_cut), float(G), P._SPLITS[split],
         P._SOFTENINGS[softening], geo.slice_tiles, geo.slices,
         packed.data_ptr(), boxes.data_ptr(), part.data_ptr(), out.data_ptr(),
@@ -564,9 +565,10 @@ def kernel_launch(name, lib, pos, mass, box, eps, r_s, r_cut, G, split,
     packed = torch.empty((npad, 4), **f32)
     boxes = torch.empty((npad // geo.tile, 2, 4), **f32)
     part = torch.empty((geo.slices, npad, 3), **f32)
-    args = (pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n, float(box),
-            float(eps), float(r_s), float(r_cut), float(G), P._SPLITS[split],
-            P._SOFTENINGS[softening], geo.slice_tiles, geo.slices,
+    args = (pos.data_ptr(), mass.data_ptr(), perm.data_ptr(), n, 1,
+            float(box), float(eps), float(r_s), float(r_cut), float(G),
+            P._SPLITS[split], P._SOFTENINGS[softening], geo.slice_tiles,
+            geo.slices,
             packed.data_ptr(), boxes.data_ptr(), part.data_ptr(),
             out.data_ptr(), stream)
     return lambda: lib.p3m_short_f32(*args), (perm, packed, boxes, part, out)

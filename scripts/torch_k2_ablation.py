@@ -11,12 +11,15 @@ loaded with ctypes.  The kernel carries only the redesign; every other
 design lives here, and a patch that no longer applies stops the script.
 Variants:
 
-* ``redesign``: the source as it is (a thread a real slot; each node
-  line's z pair of corners as one float4 atomic on the aligned four
-  nodes that hold both, else two scalar atomics; the mesh zeroed by a
+* ``redesign``: the source as it is (a thread a real slot; its 8 corner
+  masses in 64-bit integer fixed point, added with integer atomics, the
+  node masses written by a last pass; the integer mesh zeroed by a
   memset in the same call);
-* ``scalar atomics``: the redesign with 8 scalar atomics a slot (the
-  design before it, with the memset in the call);
+* ``float atomics``: the design before it
+  (``scripts/torch_k2_float4.cu``: each node line's z pair of corners as
+  one float4 atomic on the aligned four nodes that hold both, else two
+  scalar atomics, into the float mesh; not bit for bit), and ``scalar
+  atomics``, that design with 8 scalar float atomics a slot;
 * ``128 threads``: the redesign with 128 threads a block;
 * ``original``: K2 before its redesign for Hopper
   (``scripts/torch_k2_original.cu``: 8 scalar atomics a slot into a
@@ -77,6 +80,7 @@ from nbody_torch.forces import pm_supercell as ps  # noqa: E402
 
 BUILD = os.path.join(ROOT, "output", "k2_ablation")
 ORIGINAL = os.path.join(ROOT, "scripts", "torch_k2_original.cu")
+FLOAT4 = os.path.join(ROOT, "scripts", "torch_k2_float4.cu")
 TILE = os.path.join(ROOT, "scripts", "torch_k2_tile.cu")
 CU = "pm_supercell.cu"
 
@@ -106,8 +110,8 @@ NO_GATHER = (CU, "  const int inner = S > 2 * kDepositHalo ? S - 2 * kDepositHal
 
 
 class Variant(NamedTuple):
-    """The source (``port``: csrc/ as it is; ``original``, ``tile``: the
-    designs under scripts/), patches on it (file, old, new, each to match
+    """The source (``port``: csrc/ as it is; ``float4``, ``original``,
+    ``tile``: the designs under scripts/), patches on it (file, old, new, each to match
     once) and, for the tile, the factor on ``tile_geometry``'s Z."""
 
     source: str
@@ -117,7 +121,8 @@ class Variant(NamedTuple):
 
 VARIANTS = {
     "redesign": Variant("port"),
-    "scalar atomics": Variant("port", [SCALAR]),
+    "float atomics": Variant("float4"),
+    "scalar atomics": Variant("float4", [SCALAR]),
     "128 threads": Variant("port", [THREADS_128]),
     "original": Variant("original"),
     "tile": Variant("tile"),
@@ -126,7 +131,8 @@ VARIANTS = {
     "tile no scan": Variant("tile", [NO_SCAN]),
     "tile no gather": Variant("tile", [NO_GATHER]),
 }
-ENTRY = "ppiiiiiiiiiddpp"
+ENTRY = "ppiiiiiiiiiddppp"
+FLOAT_ENTRY = "ppiiiiiiiiiddpp"
 TILE_ENTRY = "ppiiiiiiiiiiddppp"
 SAME_SOURCE = {"tile Z x2": "tile"}
 
@@ -186,8 +192,8 @@ def build_all(names) -> dict:
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_kernels.SOURCE_DIR, out)
         if v.source != "port":
-            shutil.copy(ORIGINAL if v.source == "original" else TILE,
-                        os.path.join(out, CU))
+            shutil.copy({"original": ORIGINAL, "float4": FLOAT4,
+                         "tile": TILE}[v.source], os.path.join(out, CU))
         for fname, old, new in v.patches:
             path = os.path.join(out, fname)
             src = open(path).read()
@@ -213,7 +219,8 @@ def build_all(names) -> dict:
 
 def load(name: str, so: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
-    sig = TILE_ENTRY if VARIANTS[name].source == "tile" else ENTRY
+    sig = {"tile": TILE_ENTRY, "port": ENTRY}.get(VARIANTS[name].source,
+                                                 FLOAT_ENTRY)
     f = lib.pm_supercell_deposit_f32
     f.argtypes = [_kernels._CTYPES[c] for c in sig]
     f.restype = ctypes.c_int
@@ -285,6 +292,12 @@ def _mesh(kw: dict, fill: bool):
     return make(shape, dtype=torch.float32, device=kw["plane"].device)
 
 
+def _sums(rho):
+    """The port's scratch: the integer sums and the largest mass."""
+    return torch.empty((rho.numel() + 1,), dtype=torch.int64,
+                       device=rho.device)
+
+
 def _scratch(geo: TileGeometry, device):
     words = 1 + -(-geo.lines // 32)
     return torch.empty(geo.items * (geo.lines * geo.Z + words),
@@ -303,7 +316,12 @@ def variant_call(name: str, lib, kw: dict):
     rho = _mesh(kw, False)
     geo = variant_geometry(name, kw)
     stream = torch.cuda.current_stream().cuda_stream
-    if geo is None:
+    if VARIANTS[name].source == "port":
+        sums = _sums(rho)
+        err = lib.pm_supercell_deposit_f32(*_head(kw), a["scale"], a["shift"],
+                                           rho.data_ptr(), sums.data_ptr(),
+                                           stream)
+    elif geo is None:
         err = lib.pm_supercell_deposit_f32(*_head(kw), a["scale"], a["shift"],
                                            rho.data_ptr(), stream)
     else:
@@ -326,6 +344,11 @@ def kernel_launch(name: str, lib, kw: dict):
     stream = torch.cuda.current_stream().cuda_stream
     head = _head(kw)
     geo = variant_geometry(name, kw)
+    if VARIANTS[name].source == "port":
+        sums = _sums(rho)
+        return (lambda: lib.pm_supercell_deposit_f32(
+            *head, a["scale"], a["shift"], rho.data_ptr(), sums.data_ptr(),
+            stream), (rho, sums))
     if geo is None:
         return (lambda: lib.pm_supercell_deposit_f32(
             *head, a["scale"], a["shift"], rho.data_ptr(), stream), (rho,))

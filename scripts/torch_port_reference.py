@@ -82,21 +82,31 @@ Writes, under ``tests/data/torch_port/``:
   ``adaptive_steps_n16{tag}_seed0.txt`` beside each: its run.log's
   "Time step ... dln(a) = ..." lines (one a stretch of steps: the step
   count so far, a and the last step's dln(a)) and its "Total adaptive
-  steps" line.
+  steps" line;
+* ``white_noise_n16_ensemble4_seed0.npy``: (4, 16, 16, 16) float32, the
+  white noise of each of the 4 members of a 16^3 ensemble
+  (``ensemble_n16_members_seed0.txt``: each member's seed,
+  ``nbody.driver.ensemble.make_seeds(4, 0)``, and A_s,
+  ``draw_A_s(4)``), and ``powerspec_a=1.00_n16_ensemble4_member{b}_seed0``:
+  the P(k) at a = 1 of member b of ``run_members_batched(CONFIG, seeds,
+  A_s, base=CONFIG)`` (the ``vmap`` of the fixed-step run, P3M dense tier;
+  K1 in interpret mode), measured with ``measure_powerspec``.
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
-        [domain_rungs] [sharded] [sub] [domain_ic] [adaptive] [_TAG ...]
+        [domain_rungs] [sharded] [sub] [domain_ic] [adaptive] [ensemble]
+        [_TAG ...]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
 ``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
 the four domain runs' P(k), ``domain_rungs`` the three domain rung
 runs, ``sharded`` the 4-device PP run's P(k) and the sharded P3M
 force, ``sub`` the three subcycled runs' P(k), ``domain_ic`` the
-domain draw, its ICs and its realized spectrum and ``adaptive`` the four
-adaptive runs (all nine without arguments); an argument ``_TAG`` runs the one run of that file-name tag
+domain draw, its ICs and its realized spectrum, ``adaptive`` the four
+adaptive runs and ``ensemble`` the batched 16^3 ensemble (all ten
+without arguments); an argument ``_TAG`` runs the one run of that file-name tag
 (e.g. ``_sub4``), so that the runs can go in parallel processes.
 """
 
@@ -106,6 +116,7 @@ import os
 import shutil
 import sys
 import tempfile
+import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("NBODY_NO_COMPILE_CACHE", "1")
@@ -323,6 +334,55 @@ def domain_ics() -> None:
         raise SystemExit("port realized spectrum differs from JAX's")
 
 
+#: the batched ensemble: members of CONFIG
+ENSEMBLE_MEMBERS = 4
+
+
+def ensemble_runs() -> None:
+    """The 16^3 batched ensemble's noise, seeds and A_s, and each member's
+    final P(k); checks that the port's member ICs from the saved noise
+    (``base=CONFIG``) equal the JAX package's."""
+    import torch
+
+    from nbody.driver.ensemble import draw_A_s, make_seeds, run_members_batched
+    from nbody.driver.simulate import measure_powerspec
+    from nbody_torch.driver import SimulationConfig as TorchConfig
+    from nbody_torch.driver.simulate import realize_ics as torch_ics
+
+    seeds = make_seeds(ENSEMBLE_MEMBERS, SEED)
+    A_s = draw_A_s(ENSEMBLE_MEMBERS)
+    noise = np.stack([np.asarray(jax.random.normal(
+        jax.random.key(int(s)), (CONFIG.n_side,) * 3, jnp.float32))
+        for s in seeds])
+    tag = f"n16_ensemble{ENSEMBLE_MEMBERS}_seed{SEED}"
+    np.save(os.path.join(OUT, f"white_noise_{tag}.npy"), noise)
+    np.savetxt(os.path.join(OUT, f"ensemble_n16_members_seed{SEED}.txt"),
+               np.column_stack([seeds, A_s]), fmt=["%d", "%.17g"],
+               header="seed A_s")
+    base = TorchConfig.from_dict(CONFIG.to_dict())
+    for b in range(ENSEMBLE_MEMBERS):
+        member = CONFIG.replace(A_s=float(A_s[b]))
+        ref = realize_ics(member, int(seeds[b]), base=CONFIG)
+        port = torch_ics(base.replace(A_s=float(A_s[b])), 0, device="cpu",
+                         dtype=torch.float32, noise=noise[b], base=base)
+        d = np.asarray(ref.pos) - port.pos.numpy()
+        d -= CONFIG.box * np.round(d / CONFIG.box)
+        if np.abs(d).max() > 1e-3:
+            raise SystemExit(f"member {b}: port ICs differ from the JAX ICs")
+    t0 = time.perf_counter()
+    states = run_members_batched(CONFIG, seeds, A_s, base=CONFIG)
+    pos = np.asarray(states.pos)
+    print(f"JAX batched ensemble ({ENSEMBLE_MEMBERS} members): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for b in range(ENSEMBLE_MEMBERS):
+        name = f"powerspec_a=1.00_n16_ensemble{ENSEMBLE_MEMBERS}_member{b}" \
+               f"_seed{SEED}"
+        measure_powerspec(jnp.asarray(pos[b]),
+                          CONFIG.replace(A_s=float(A_s[b])), CONFIG.a_end,
+                          path=os.path.join(OUT, name))
+        print(f"  wrote {name}")
+
+
 def main(which) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
@@ -358,6 +418,8 @@ def main(which) -> None:
         sharded_p3m_force(ref)
     if "domain_ic" in which:
         domain_ics()
+    if "ensemble" in which:
+        ensemble_runs()
     every = dict(RUNS, **SHARDED_RUNS, **PP_RUNS, **DOMAIN_RUNS,
                  **DOMAIN_RUNG_RUNS, **SUB_RUNS, **ADAPTIVE_RUNS)
     runs = dict(RUNS if "pk" in which else {},
@@ -414,4 +476,5 @@ def main(which) -> None:
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs",
-                          "sharded", "sub", "domain_ic", "adaptive"])
+                          "sharded", "sub", "domain_ic", "adaptive",
+                          "ensemble"])

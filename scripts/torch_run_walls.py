@@ -24,6 +24,15 @@ before the wall).  ``--runs`` picks some of them (default: all), each run
 warm-up: cuFFT plans, the allocator).  Prints each run's wall (the
 result's ``wall_s``), steps/s and the K1, K3, K5 and K6 launches, and
 appends one JSON line to ``--out`` (default ``output/run_walls.jsonl``).
+
+``--profile`` then runs each named run once more under ``torch.profiler``
+(CPU and CUDA activity; the profiler slows the host, so that run's wall
+is not one of the walls) and prints its device time and kernel count by
+family: K1 (``k1_*``), K2 (``deposit_*`` and the memsets), K3
+(``fused_kernel``), the FFTs (cuFFT's kernels), ``index_add_`` (the
+deposits' integer sums, ``scatter_sum``) and the rest, with the device's
+busy time; two checkouts profiled in one call attribute a change of wall
+to the families whose time or launches moved.
 """
 
 from __future__ import annotations
@@ -82,6 +91,41 @@ def sharded_p3m_run(cfg, state):
     return state, time.perf_counter() - t0
 
 
+#: kernel families of --profile: (name, substrings of the kernel's name)
+FAMILIES = (("K1", ("k1_",)), ("K2", ("deposit_", "memset")),
+            ("K3", ("fused_kernel",)), ("FFT", ("fft",)),
+            ("index_add_", ("index",)))
+
+
+def profile_run(cfg, work: str) -> dict:
+    """One ``run_simulation`` of ``cfg`` under ``torch.profiler``: its
+    wall, the device's busy time and {family: [ms, kernels]}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_torch.driver.simulate import run_simulation
+
+    shutil.rmtree(work, ignore_errors=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run_simulation(cfg, 0, work).wall_s
+        torch.cuda.synchronize()
+    fam = {name: [0.0, 0] for name, _ in FAMILIES + (("other", ()),)}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        key = ev.key.lower()
+        name = next((n for n, subs in FAMILIES
+                     if any(sub in key for sub in subs)), "other")
+        fam[name][0] += us / 1e3
+        fam[name][1] += ev.count
+    return dict(wall_s=wall, busy_ms=sum(v[0] for v in fam.values()),
+                kernels=sum(v[1] for v in fam.values()), families=fam)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=ROOT)
@@ -91,6 +135,9 @@ def main() -> None:
                     help="comma-separated run names (default: all)")
     ap.add_argument("--out", default=os.path.join(ROOT, "output",
                                                   "run_walls.jsonl"))
+    ap.add_argument("--profile", action="store_true",
+                    help="then one profiled run each: device time by "
+                         "kernel family")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -146,10 +193,20 @@ def main() -> None:
                   f"{run_fused_column_plane.launches}, K5 launches "
                   f"{run_column_plane_masked.launches}, K6 launches "
                   f"{run_cell_plane.launches}", flush=True)
+    profiles = {}
+    for name, cfg in runs.items() if args.profile else ():
+        if name == "cfg64-sharded-p3m4":
+            continue
+        prof = profiles[name] = profile_run(cfg, work)
+        fams = "; ".join(f"{f} {ms:.3f} ms ({k})" for f, (ms, k)
+                         in prof["families"].items())
+        print(f"{args.tag} {name} profiled: wall {prof['wall_s']:.3f} s, "
+              f"device busy {prof['busy_ms']:.3f} ms in {prof['kernels']} "
+              f"kernels: {fams}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "a") as f:
         f.write(json.dumps({"tag": args.tag, "root": args.root, "card": card,
-                            "walls_s": walls}) + "\n")
+                            "walls_s": walls, "profiles": profiles}) + "\n")
 
 
 if __name__ == "__main__":

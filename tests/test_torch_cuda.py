@@ -222,7 +222,8 @@ def test_k2_matches_plain(cuda, shift):
                                       stride=stride, gz=gz, scale=nmesh / box,
                                       shift=shift)
     ref = fold_node_masses(nodes, ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
-    # float32 sums in another order (atomic adds), see chip_smoke.py
+    # the plain version's float32 sums against the kernel's exact sums
+    # rounded once, see chip_smoke.py
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
@@ -852,7 +853,8 @@ def test_k2_slab_matches_plain(cuda, shift):
     assert got[0].shape == (nx * S + 3, nmesh, nmesh)
     g = torch.cat(slab_halo_fold(got, group))
     r = torch.cat(slab_halo_fold(ref, group))
-    # float32 sums in another order (atomic adds), see chip_smoke.py
+    # the plain version's float32 sums against the kernel's exact sums
+    # rounded once, see chip_smoke.py
     assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
     assert abs(float(g.sum()) - 20000.0) < 1e-2
 
@@ -1153,3 +1155,111 @@ def test_adaptive_run_on_gpu_matches_cpu(cuda, tmp_path):
     assert total("gpu") == total("cpu") and total("gpu")
     d = (gpu.state.pos.cpu() - cpu.state.pos).abs()
     assert float(torch.minimum(d, 60.0 - d).max()) < 1e-3
+
+
+@pytest.mark.parametrize("site", ["box", "slab"])
+def test_k2_twice_bit_for_bit(cuda, site):
+    """K2's integer fixed-point sums: two launches on the same plane give
+    the same node masses bit for bit, on the whole box and on every shard's
+    slab plane."""
+    from nbody_torch.forces.pm_supercell import supercell_deposit_from_plane
+
+    if site == "box":
+        plane, _, _, counts, kw, _, box, nmesh = _column_case(cuda)
+        calls = [dict(plane=plane, counts=counts, box=box, nmesh=nmesh,
+                      ncell=kw["ncell"], stride=kw["stride"], gz=kw["gz"])]
+    else:
+        group, geom, built, planes, kw = _slab_supercell(cuda)
+        calls = [dict(plane=p, counts=b[6], box=geom.box, nmesh=geom.nmesh,
+                      ncell=8, stride=kw["stride"], gz=kw["gz"],
+                      nx=kw["nx"], row0=d * kw["nx"])
+                 for d, (b, p) in enumerate(zip(built, planes))]
+    for c in calls:
+        plane, counts = c["plane"], c["counts"]
+        kw2 = {k: v for k, v in c.items() if k not in ("plane", "counts")}
+        for shift in (0.0, 0.5):
+            a = supercell_deposit_from_plane(plane, counts, shift=shift, **kw2)
+            b = supercell_deposit_from_plane(plane, counts, shift=shift, **kw2)
+            assert torch.equal(a, b)
+            assert float(a.abs().max()) > 0
+
+
+@pytest.mark.parametrize("split,softening", [("spline", "spline"),
+                                             ("gaussian", "plummer")])
+@pytest.mark.parametrize("r_frac", [0.088, 0.4999])
+def test_k1_batched_equals_single_launches(cuda, split, softening, r_frac):
+    """K1's batched site: one launch over B members, each member's
+    acceleration equal bit for bit to its own single-member launch, and
+    against the float64 plain version."""
+    box = 100.0
+    r_cut = r_frac * box
+    B, n = 3, 3001
+    sets = [_particles(n, box, cuda, seed=s) for s in range(B)]
+    pos = torch.stack([p for p, _ in sets]).contiguous()
+    mass = torch.stack([m for _, m in sets]).contiguous()
+    before = p3m_short_acc.launches
+    got = p3m_short_acc(pos, mass, box, 0.3, r_cut / 4.5, r_cut, G=2.0,
+                        split=split, softening=softening)
+    torch.cuda.synchronize()
+    assert p3m_short_acc.launches == before + 1
+    assert got.shape == (B, n, 3)
+    for b in range(B):
+        one = p3m_short_acc(pos[b], mass[b], box, 0.3, r_cut / 4.5, r_cut,
+                            G=2.0, split=split, softening=softening)
+        assert torch.equal(got[b], one)
+    ref = p3m_short_plain(pos.double(), mass.double(), box, 0.3, r_cut / 4.5,
+                          r_cut, G=2.0, split=split, softening=softening)
+    assert float((got.double() - ref).norm() / ref.norm()) <= K1_REL_L2_TOL
+
+
+def test_batched_members_on_gpu_match_cpu(cuda):
+    """run_members_batched on the card (K1's batched site, the batched PM)
+    against the same members on the CPU."""
+    from nbody_torch.driver.ensemble import draw_A_s, run_members_batched
+
+    cfg = SimulationConfig(n_side=8, pm_grid=16, n_steps=4,
+                           output=OutputConfig(snapshot=False))
+    before = p3m_short_acc.launches
+    gpu = run_members_batched(cfg, [1, 2], draw_A_s(2))
+    assert p3m_short_acc.launches == before + cfg.n_steps + 1
+    cpu = run_members_batched(cfg, [1, 2], draw_A_s(2), device="cpu")
+    d = (gpu.pos.cpu() - cpu.pos).abs()
+    assert float(torch.minimum(d, cfg.box - d).max()) < 1e-3
+
+
+def test_profiling_on_cuda(cuda, tmp_path):
+    """benchmark_fn waits for the card (its median exceeds the enqueue of
+    a long kernel run), and trace writes a Chrome trace that names the
+    kernel it saw."""
+    import json
+
+    from nbody_torch.diagnostics.profiling import benchmark_fn, trace
+
+    pos, mass = _particles(32768, 500.0, cuda)
+    args = (pos, mass, 500.0, 0.5, 9.0, 40.5)
+    t = benchmark_fn(p3m_short_acc, *args, reps=3)
+    assert t > 0
+    with trace(str(tmp_path)) as prof:
+        p3m_short_acc(*args)
+    names = {e.key for e in prof.key_averages()}
+    assert any("k1_pairs" in k for k in names)
+    with open(tmp_path / "trace.json") as f:
+        assert "k1_pairs" in f.read()
+    json.loads(open(tmp_path / "trace.json").read())
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_rfft3_bits_do_not_depend_on_the_batch(cuda, n):
+    """The PM transforms' batch axis: each grid of a batch of 2, 4 or 8
+    transforms (forward and inverse) to the bits of the same grid alone,
+    which a batched member's run relies on to equal its own run."""
+    from nbody_torch.mesh.grids import irfft3, rfft3
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for B in (2, 4, 8):
+        x = torch.randn(B, n, n, n, device=cuda, generator=g)
+        k = rfft3(x)
+        r = irfft3(k, n)
+        for b in range(B):
+            assert torch.equal(k[b], rfft3(x[b]))
+            assert torch.equal(r[b], irfft3(k[b], n))

@@ -164,3 +164,48 @@ def test_domain_driver_corrects_by_the_domain_realization():
     assert (pr > 0).sum() > 10
     np.testing.assert_allclose(pc / pc0, want, rtol=1e-5)
     assert not np.allclose(pc, pc_host, rtol=1e-2)
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_domain_driver_takes_base_at_both_ic_routes(monkeypatch, tmp_path):
+    """``run_simulation(member, base=anchor)`` on two shards: the slab ICs
+    take the anchor's cosmology at the amplitude A_s / base.A_s (the run
+    equals the member's own run, so A_s counts once), and the host route
+    hands ``base`` to ``realize_ics``."""
+    import nbody_torch.distributed.ic as dic
+    from nbody_torch.driver import simulate as tsim
+
+    anchor = TCFG.replace(devices=2, a_begin=0.5, n_steps=1,
+                          step_dla_max=0.35,
+                          output=OutputConfig(snapshot=False,
+                                              powerspec=False))
+    member = anchor.replace(A_s=2.0 * anchor.A_s)
+    seen = []
+    real = dic.lpt_ic_domain
+
+    def spy(*args, **kw):
+        seen.append((args[3].A_s, kw["amplitude"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(dic, "lpt_ic_domain", spy)
+    dom = member.replace(ic_realization="domain")
+    got = tsim.run_simulation(dom, 0, str(tmp_path / "b"), device="cpu",
+                              base=anchor.replace(ic_realization="domain"))
+    own = tsim.run_simulation(dom, 0, str(tmp_path / "o"), device="cpu")
+    assert seen == [(pytest.approx(anchor.A_s), pytest.approx(2.0)),
+                    (pytest.approx(member.A_s), 1.0)]
+    np.testing.assert_allclose(got.state.pos.numpy(), own.state.pos.numpy(),
+                               rtol=POS_TOL, atol=POS_TOL * BOX)
+
+    def stop(config, seed, **kw):
+        seen.append(kw["base"])
+        raise _Stop
+
+    monkeypatch.setattr(tsim, "realize_ics", stop)
+    with pytest.raises(_Stop):
+        tsim.run_simulation(member, 0, str(tmp_path / "h"), device="cpu",
+                            base=anchor)
+    assert seen[-1] is anchor

@@ -1,20 +1,18 @@
-"""K2's atomics, on the CPU: the plain counterpart of what the redesigned
-deposit issues (nbody_torch/forces/csrc/pm_supercell.cu): a thread a
-real slot, and for each of its 4 node lines the z pair of corner masses
-as one float4 atomic on the aligned four nodes that hold both, else two
-scalar atomics (``pm_supercell.deposit_atomics``).
+"""K2's atomics, on the CPU: the plain counterpart of what the deposit
+issues (nbody_torch/forces/csrc/pm_supercell.cu): a thread a real slot,
+its 8 corner masses scaled by 2^e, rounded to 64-bit integers and added
+with integer atomics (``pm_supercell.deposit_atomics``), each node's sum
+then rounded once to float32 (``pm_supercell.deposit_fixed``).
 
-* every corner of every real slot is added exactly once, by a vector
-  atomic (aligned, both nodes inside its four) or by a scalar one;
-* added as the kernel adds them, the corners give the plain version's
-  mesh on a fresh plane at both shifts, on the whole box (the 64^3
-  supercell plane's shapes, 16 x 16 columns of 8^2 mesh cells) and on a
-  slab of four (4 x 16 columns, the haloed slab, corners outside its
-  halo dropped), and the CIC deposit of the plane's real slots on a
-  plane whose slots drifted a column away (past the plain version's
-  node grid);
-* a slot takes 4 to 8 atomics, 5 on average (a pair straddles an aligned
-  four one time in four).
+* every corner of every real slot is added exactly once, by one of 8
+  atomics a slot, and no real slot's masses can overflow the sums;
+* added as the kernel adds them, in two orders, the corners give the same
+  integer sums, and the plain version's mesh on a fresh plane at both
+  shifts, on the whole box (the 64^3 supercell plane's shapes, 16 x 16
+  columns of 8^2 mesh cells) and on a slab of four (4 x 16 columns, the
+  haloed slab, corners outside its halo dropped), and the CIC deposit of
+  the plane's real slots on a plane whose slots drifted a column away
+  (past the plain version's node grid).
 
 The plane: 262,144 particles uniform in a 500 Mpc box on the supercell
 geometry of mesh 128 (cfg64's shapes), built by the port; the slab
@@ -76,14 +74,11 @@ def _drifted(plane, counts, *, ncell, nx, stride, gz, S):
 
 
 def _add(atomics, size):
-    """The mesh the atomics give (float64), and the count of atomics."""
-    line, z, vector, w = atomics
-    ok = line >= 0
-    mesh = torch.zeros(size, dtype=torch.float64)
-    mesh.index_add_(0, (line + z)[ok], w[0][ok].double())
-    mesh.index_add_(0, (line + (z + 1) % NMESH)[ok], w[1][ok].double())
-    n = int(vector[ok].sum()) + 2 * int((~vector)[ok].sum())
-    return mesh, n
+    """The mesh the atomics give (float64, from the kernel's float32 node
+    masses), and the count of atomics."""
+    node, w, e = atomics
+    _, rho = ps.deposit_fixed(size, node, w, e)
+    return rho.double(), int((node >= 0).sum())
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.5])
@@ -92,34 +87,37 @@ def test_each_corner_added_once(whole, site, shift):
     ncell, stride, gz, S = (whole[k] for k in ("ncell", "stride", "gz",
                                                "S"))
     plane, counts, nx, row0 = _site(whole, site)
-    line, z, vector, w = ps.deposit_atomics(
+    node, w, e = ps.deposit_atomics(
         plane, counts, ncell=ncell, S=S, nmesh=NMESH, stride=stride, gz=gz,
         scale=NMESH / BOX, shift=shift, nx=nx, row0=row0)
     CK = stride - 2 * gz
     live = (torch.arange(CK)[None, :]
-            < counts.to(torch.int64)[:, None])[..., None].expand_as(line)
+            < counts.to(torch.int64)[:, None])[..., None].expand_as(node)
     if nx == ncell:
-        assert torch.equal(line >= 0, live)
-    assert bool((line[~live] == -1).all())
-    # a vector atomic: the aligned four nodes hold both of the pair
-    base = z - z % 4
-    assert bool(((z[vector] + 1) < (base[vector] + 4)).all())
-    assert bool(((z[vector] >= 0) & (z[vector] < NMESH)).all())
-    # scalar atomics only where the pair straddles an aligned four
-    assert bool((z[~vector & live] % 4 == 3).all())
+        assert torch.equal(node >= 0, live)
+    assert bool((node[~live] == -1).all())
+    # a slot's 8 corners are 8 different nodes
+    ok = live[..., 0] & (node >= 0).all(-1)
+    srt = node[ok].sort(dim=-1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all())
     # the weights of a slot's 8 corners sum to its mass
-    m = w.sum(0).sum(-1)
+    m = w.sum(-1)
     P = ncell + 2
     c = torch.arange(nx * ncell)
     slots = (((c // ncell + 1) * P + c % ncell + 1) * stride + gz)[:, None] \
         + torch.arange(CK)[None, :]
     mass = plane[3][slots]
-    ok = live[..., 0]
-    assert float((m[ok] - mass[ok]).abs().max()) <= 1e-6 * float(mass.max())
-    # 4 to 8 atomics a slot, about 5 on average
-    n = (vector & live).sum() + 2 * (~vector & live).sum()
-    per_slot = float(n) / int(counts.sum())
-    assert 4.5 <= per_slot <= 5.5
+    live1 = live[..., 0]
+    assert float((m[live1] - mass[live1]).abs().max()) <= \
+        1e-6 * float(mass.max())
+    # 8 atomics a slot on the whole box
+    if nx == ncell:
+        assert int((node >= 0).sum()) == 8 * int(counts.sum())
+    # the scaled masses of every slot the plane holds stay below 2^62
+    assert float(mass[live1].abs().max()) * 2.0**e * (nx * ncell * CK) \
+        < 2.0**62
+    assert e == ps.deposit_fixed_exponent(float(mass[live1].max()),
+                                          nx * ncell * CK)
 
 
 @pytest.mark.parametrize("site,shift", [("cfg64", 0.5), ("slab", 0.0),
@@ -134,7 +132,16 @@ def test_atomics_give_the_plain_deposit(whole, site, shift):
     atomics = ps.deposit_atomics(plane, counts, nmesh=NMESH, **kw)
     slab = nx != ncell
     shape = (nx * S + 3 if slab else NMESH, NMESH, NMESH)
-    got, _ = _add(atomics, shape[0] * NMESH * NMESH)
+    size = shape[0] * NMESH * NMESH
+    got, _ = _add(atomics, size)
+    # the integer sums do not depend on the order of the atomics
+    node, w, e = atomics
+    perm = torch.randperm(node.numel(),
+                          generator=torch.Generator().manual_seed(1))
+    sums, _ = ps.deposit_fixed(size, node, w, e)
+    again, _ = ps.deposit_fixed(size, node.reshape(-1)[perm],
+                                w.reshape(-1)[perm], e)
+    assert torch.equal(sums, again)
     _, ZP = ps.supercell_geometry(NMESH, ncell)
     # the float32 plain version: the same coordinates, rounded op by op
     nodes = ps.deposit_node_masses_plain(plane, counts, ZP=ZP, **kw)
