@@ -221,11 +221,31 @@ script exits non-zero:
     ``compare_solver_spectra`` at 16^3); (c) the committed 16^3
     ensemble (4 members, the JAX noise) through ``run_members_batched``
     against the JAX package's P(k) to PK_REL_TOL.
+25. the batched tier on the plane tiers and PP: (a) the repair of the
+    column sums' dependence on the capacity
+    (``scripts/torch_capacity_bits.py``): K2's mass grid and K3's and
+    K4's per-particle sums at cfg64's ICs, K5's at cfg64-rungs3's final
+    state and K6's, each at the driver's capacity and at twice it, equal
+    bit for bit; cfg64 run twice in one process, the second from the
+    capacities the first learned (no ``forget_capacities()`` between):
+    the same steps, final state and P(k) file; (b) each batched site over
+    B members (K2 and K3 at 8 members' cfg64 ICs, K4 and K6 at 4 members'
+    32^3 ICs on the columns and cells tiers, K1's Ewald site at the
+    same): one launch, two launches equal bit for bit, each member equal
+    bit for bit to its own launch, against the float64 plain version (K2
+    to NODE_MASS_TOL of the largest node, the sums to FORCE_REL_L2_TOL
+    and TARGET_TOL), timed beside the B single launches; (c)
+    cfg64-ensemble8 (``run_ensemble(cfg64, 8, batch=8)``, A_s from
+    ``draw_A_s(8)``) against its sequential tier; (d) 4 members of the
+    default 32^3 config on the columns, cells and PP tiers against their
+    sequential tiers: every member's final state and P(k) file equal bit
+    for bit to its sequential run's, K2 + K3 (K4, K6, K1) launched once
+    an evaluation, both walls and the heals.
 
 Phases 12 and 13 run before 11, which takes its active sets from their
 final states.  The line before the last but one is a JSON object of the
 kernels (launches from the run of each kernel's path, errors and times
-from phases 3, 7, 11, 15, 16, 18, 19, 20, 21, 22 and 24, and each kernel's
+from phases 3, 7, 11, 15, 16, 18, 19, 20, 21, 22, 24 and 25, and each kernel's
 bound:
 the larger of the bytes the function needs over the card's memory rate
 and its operations over its float32 rate, for K8 its rsqrts over the SFU's rate
@@ -720,7 +740,9 @@ def driver_knobs(state, config, cfg_run, prewarm: bool):
     """The knobs the driver gives the column kernels at ``state``:
     ``cfg_run``'s (after the driver's own pre-warm when ``prewarm``, as
     at the start of a stretch of steps), healed by the driver's own rule
-    until the plane drops nothing.  Returns (config, run.log lines)."""
+    until the plane drops nothing; for B members' ``state`` (B, N, 3) the
+    batch's knobs (pre-warmed over every member, healed on the batch's
+    overflow word).  Returns (config, run.log lines)."""
     from nbody_torch.driver.simulate import (
         HEAL_ATTEMPTS,
         column_knobs,
@@ -3438,9 +3460,10 @@ def same_run(tag: str, res, other, what: str) -> None:
 
 def adaptive_64_runs() -> dict:
     """[23](b)-(d) the committed adaptive 64^3 config at full width.  The
-    runs compared bit for bit with each other start with no capacity
-    learned in the process (``forget_capacities``), as in a fresh one: a
-    run's bits depend on the capacities it starts from."""
+    runs compared with each other start with no capacity learned in the
+    process (``forget_capacities``), as in a fresh one, so that their
+    walls and heals compare like with like; their bits no longer depend
+    on the capacities they start from ([25](a))."""
     from nbody_torch.driver import OutputConfig, SimulationConfig
     from nbody_torch.driver.simulate import forget_capacities
 
@@ -3734,6 +3757,375 @@ def ensemble_phase(cfg) -> tuple[dict, int]:
                              f"[24] 16^3 batched member {b} from the JAX "
                              f"noise", wall16)
     return row, per_chunk
+
+
+# ---------------------------------------------------------------------------
+# [25] the batched tier on the plane tiers and PP, after the capacity repair
+# ---------------------------------------------------------------------------
+
+#: [25](c) cfg64's members integrated at once (the 64^3 parity study's
+#: runs) and (d) the default 32^3 config's members on the columns, cells
+#: and PP tiers
+CFG64_MEMBERS = 8
+BATCH32_MEMBERS = 4
+
+
+def capacity_repair_check(cfg64, ics64, rung, card: str) -> None:
+    """[25](a) the sites at the driver's column capacity CK and at 2 CK
+    (``scripts/torch_capacity_bits.py``): K2's mass grid, K3's and K4's
+    per-particle sums at cfg64's ICs, the supercell force, K5's at
+    cfg64-rungs3's final state (``rung``: pos, mass, active mask, healed
+    config) and K6's, each equal bit for bit; then cfg64 run twice in one
+    process without ``forget_capacities()`` in between (the second from
+    the capacities the first learned): the same steps and final state
+    bytes and the same P(k) file."""
+    from nbody_torch.driver.simulate import forget_capacities, run_simulation
+
+    abl = _ablation("torch_capacity_bits")
+    lines = abl.capacity_checks(cfg64, ics64.pos, ics64.mass, card, k5=rung)
+    for line in lines:
+        phase(f"[25] {line['site']} at capacities {line['knobs']}: equal "
+              f"bit for bit {line['equal']}, max rel {line['max_rel']:.3e}")
+    if not all(line["equal"] for line in lines):
+        raise AssertionError("[25] a site's bits depend on the capacity")
+    forget_capacities()
+    runs = []
+    for k in range(2):
+        work = os.path.join(OUT, f"cfg64_repeat{k}")
+        shutil.rmtree(work, ignore_errors=True)
+        runs.append((run_simulation(cfg64, 0, work), run_log(work)))
+    (r0, l0), (r1, l1) = runs
+    steps = [sum(line.startswith("Time step") for line in lg)
+             for lg in (l0, l1)]
+    same = (torch.equal(r0.state.pos, r1.state.pos)
+            and torch.equal(r0.state.vel, r1.state.vel))
+    with open(r0.powerspecs[0], "rb") as f0, open(r1.powerspecs[0],
+                                                  "rb") as f1:
+        same_pk = f0.read() == f1.read()
+    grown = [line for line in l0 if "pre-warming" in line or "re-running"
+             in line]
+    phase(f"[25] cfg64 twice in one process, no forget_capacities() between:"
+          f" run 1 from the config's capacities ({len(grown)} pre-warms and "
+          f"heals: column capacity {r0.config_run.column_capacity}, window "
+          f"{r0.config_run.column_window} at its end) in {r0.wall_s:.3f} s; "
+          f"run 2 from the learned ones in {r1.wall_s:.3f} s ({steps} "
+          f"logged stretches); final state equal bit for bit {same}, P(k) "
+          f"file equal {same_pk}")
+    if not (same and same_pk and steps[0] == steps[1] and grown):
+        raise AssertionError(f"[25] cfg64 repeated from learned capacities "
+                             f"parts: state {same}, P(k) {same_pk}, steps "
+                             f"{steps}, pre-warms {len(grown)}")
+
+
+def batched_site_check(tag: str, fn, batch: tuple, member, kw: dict,
+                       ref64, plain32, nbytes: float, flops: float,
+                       nodes: bool = False, reps: int = 10) -> dict:
+    """[25](b) one batched site: ``fn(*batch, **kw)`` launches once for
+    the B members, twice gives the same bits, and member b equals its own
+    launch ``fn(*member(b), **kw)`` bit for bit; against the float64
+    plain version ``ref64()`` (B, ...) the pair sums to relative L2
+    FORCE_REL_L2_TOL and per target TARGET_TOL, and K2 (``nodes``), as
+    at its single site ([7]), against its float32 plain version
+    ``plain32()`` (the same coordinates, rounded op by op) to
+    NODE_MASS_TOL of each member's largest node, its float64 distance
+    reported (the float32 coordinates' rounding); the batched launch timed
+    beside the B single launches and the float32 plain version
+    ``plain32``, with CUDA events; the bound of ``nbytes`` and ``flops``.
+    Returns the kernels line's numbers."""
+    before = fn.launches
+    got = fn(*batch, **kw)
+    torch.cuda.synchronize()
+    one = fn.launches == before + 1
+    B = got.shape[0]
+    twice = torch.equal(got, fn(*batch, **kw))
+    own = all(torch.equal(got[b], fn(*member(b), **kw)) for b in range(B))
+    ref = ref64()
+    if nodes:
+        ref32 = plain32()
+
+        def node_err(r):
+            return max(max_abs(got[b], r[b]) / float(r[b].abs().max())
+                       for b in range(B))
+
+        err = node_err(ref32)
+        ok, text = err <= NODE_MASS_TOL, (
+            f"max |node - plain f32| / max node {err:.3e} (tol "
+            f"{NODE_MASS_TOL:g}), against float64 {node_err(ref):.3e}")
+    else:
+        rel = rel_l2(got, ref)
+        err = max(target_err(got[b], ref[b]) for b in range(B))
+        ok = rel <= FORCE_REL_L2_TOL and err <= TARGET_TOL
+        text = (f"rel L2 {rel:.3e} (tol {FORCE_REL_L2_TOL:g}), per target "
+                f"{err:.3e} (tol {TARGET_TOL:g})")
+    ms = cuda_time_ms(lambda: fn(*batch, **kw), reps)
+    singles = cuda_time_ms(lambda: [fn(*member(b), **kw) for b in range(B)],
+                           reps)
+    plain_ms = cuda_time_ms(plain32, 1, warm=False)
+    b_ms, b_by = bound(nbytes, flops)
+    phase(f"{tag}: {B} members, one launch {one}, two launches equal bit "
+          f"for bit {twice}, each member equal bit for bit to its own launch "
+          f"{own}; {text}; a launch of {B} members {ms:.4f} ms ({ms / B:.4f}"
+          f" a member), {B} single launches {singles:.4f} ms; plain f32 "
+          f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by})")
+    if not (one and twice and own and ok):
+        raise AssertionError(f"{tag}: one launch {one}, twice {twice}, own "
+                             f"{own}, {text}")
+    return dict(max_abs_err=max_abs(got, ref), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                singles_ms=singles)
+
+
+def batched_supercell_sites(state, config) -> dict:
+    """[25](b) K2 and K3 over B members at their ICs (cfg64-ensemble8's
+    shapes), at the batched driver knobs."""
+    from nbody_torch.forces.pm import pm_module
+    from nbody_torch.forces.pm_supercell import (
+        deposit_node_masses_plain,
+        fold_node_masses,
+        fused_column_plane_plain,
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+
+    box, nmesh = config.box, config.mesh_size
+    # the driver's knobs for the batch: the pre-warm over every member,
+    # the heal until the batch's plane drops nothing
+    knobs, plane, ws, nch, counts, geo = driver_plane(state, config, config,
+                                                      True)
+    B = plane.shape[0]
+    phase(f"[25] the batch's plane at {B} members' ICs: {knobs}")
+    ncell, stride, gz = geo["ncell"], geo["stride"], geo["gz"]
+    S, ZP = supercell_geometry(nmesh, ncell)
+    scale = nmesh / box
+    dkw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
+               chunk=geo["chunk"])
+
+    def k2_plain(p):
+        return torch.stack([fold_node_masses(deposit_node_masses_plain(
+            p[b], counts[b], ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz,
+            scale=scale), ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
+            for b in range(B)])
+
+    n_real = int(counts.sum())
+    out = {"K2": batched_site_check(
+        "[25] K2 batched", supercell_deposit_from_plane, (plane, counts),
+        lambda b: (plane[b], counts[b]), dkw,
+        lambda: k2_plain(plane.double()), lambda: k2_plain(plane),
+        n_real * 16 + counts.numel() * 4 + B * nmesh**3 * 4,
+        n_real * FLOPS_DEPOSIT, nodes=True)}
+    rho = supercell_deposit_from_plane(plane, counts, **dkw)
+    kw = _pair_kw(config, geo)
+    mass_sum = torch.sum(state.mass, dim=-1, dtype=torch.float64).to(
+        torch.float32)
+    split = config.force_split
+    pm = pm_module(box, nmesh, config.deconvolve_p, False,
+                   kw["r_s"] if split == "gaussian" else 0.0,
+                   kw["r_cut"] if split == "spline" else 0.0,
+                   config.pm_gradient, 0.0, plane.device, torch.float32)
+    grids = pm.force_grids_from_rho(rho, 4.0 * math.pi * mass_sum / box**3,
+                                    mass_sum).contiguous()
+    fkw = dict(S=S, scale=scale, **kw)
+    work = [needed_work(plane[b], counts[b], **kw) for b in range(B)]
+    visits = sum(w[0] for w in work)
+    inside = sum(w[1] for w in work)
+    n_t = sum(w[3] for w in work)
+    out["K3"] = batched_site_check(
+        "[25] K3 batched", run_fused_column_plane, (plane, ws, nch, grids),
+        lambda b: (plane[b], ws[b], nch[b], grids[b]), fkw,
+        lambda: fused_column_plane_plain(plane.double(), ws, nch,
+                                         grids.double(), **fkw),
+        lambda: fused_column_plane_plain(plane, ws, nch, grids, **fkw),
+        needed_bytes(n_t, n_t) + grids.numel() * 4,
+        visits * FLOPS_VISIT_COLUMNS + inside * FLOPS_INSIDE
+        + n_real * FLOPS_PM_READ, reps=5)
+    return out
+
+
+def batched_columns_site(state, config) -> dict:
+    """[25](b) K4 over B members at their ICs (the 32^3 columns tier)."""
+    from nbody_torch.forces.p3m_columns import (
+        column_plane_plain,
+        run_column_plane,
+    )
+
+    knobs, plane, ws, nch, counts, geo = driver_plane(state, config, config,
+                                                      True)
+    B = plane.shape[0]
+    phase(f"[25] the batch's plane at {B} members' ICs: {knobs}")
+    kw = _pair_kw(config, geo)
+    work = [needed_work(plane[b], counts[b], **kw) for b in range(B)]
+    n_t = sum(w[3] for w in work)
+    return batched_site_check(
+        "[25] K4 batched", run_column_plane, (plane, ws, nch),
+        lambda b: (plane[b], ws[b], nch[b]), dict(kw, box=config.box),
+        lambda: column_plane_plain(plane.double(), ws, nch, **kw),
+        lambda: column_plane_plain(plane, ws, nch, **kw),
+        needed_bytes(n_t, n_t),
+        sum(w[0] for w in work) * FLOPS_VISIT_COLUMNS
+        + sum(w[1] for w in work) * FLOPS_INSIDE)
+
+
+def batched_cells_site(state, config) -> dict:
+    """[25](b) K6 over B members at their ICs (the 32^3 cells tier, one
+    plane form), at the pre-warmed cell capacity."""
+    from nbody_torch.driver.simulate import prewarm_capacity
+    from nbody_torch.forces.p3m import (
+        build_padded_plane,
+        cell_plane_plain,
+        p3m_short_params,
+        run_cell_plane,
+    )
+
+    box = config.box
+    r_s, r_cut, _, _ = p3m_short_params(box, config.mesh_size,
+                                        config.n_particles)
+    ncell = int(box / r_cut)
+    cap = prewarm_capacity(config, config, state.pos)[0].cell_capacity
+    plane, ov, K, _, counts = build_padded_plane(state.pos, state.mass, box,
+                                                 r_cut, ncell, cap)
+    if int(ov.max()):
+        raise AssertionError(f"[25] the batched cell plane overflows: {ov}")
+    B = plane.shape[0]
+    kw = dict(nx=ncell, ncell=ncell, K=K, eps2=float(config.eps) ** 2,
+              r_s=r_s, r_cut=r_cut, split=config.force_split,
+              softening=config.softening_kernel)
+    nbytes = inside = 0
+    for b in range(B):
+        _, i, n_src, n_t = needed_work_cells(plane[b], counts[b], K,
+                                             plane[b], counts[b], K,
+                                             ncell=ncell, r_cut=r_cut)
+        inside += i
+        nbytes += needed_bytes(n_src, n_t)
+    return batched_site_check(
+        "[25] K6 batched", run_cell_plane, (plane, counts),
+        lambda b: (plane[b], counts[b]), kw,
+        lambda: cell_plane_plain(plane.double(), counts, **kw),
+        lambda: cell_plane_plain(plane, counts, **kw), nbytes,
+        inside * (FLOPS_VISIT_COLUMNS + FLOPS_INSIDE))
+
+
+def batched_tier_run(cfg, B: int, tag: str, work: str, want: tuple):
+    """[25](c)/(d) ``B`` members of ``cfg`` through ``run_ensemble(batch=B)``
+    and through the sequential tier (B x ``run_simulation(member,
+    base=cfg)``), then ``run_members_batched`` again for the final states:
+    each member's state and P(k) file equal bit for bit to its sequential
+    run's; the walls, the launches of each tier (the kernels ``want``
+    once an evaluation, B times as often in the sequential tier) and the
+    heals.  ``run_members_batched`` runs warm, its wall the batched tier's
+    beside the sequential tier's; each tier starts from no learned
+    capacity, so the walls compare like with like (the bits do not depend
+    on it, (a)).  Returns the batched tier's launches of ``want``."""
+    from nbody_torch.driver.ensemble import (
+        draw_A_s,
+        run_ensemble,
+        run_members_batched,
+    )
+    from nbody_torch.driver.simulate import forget_capacities, run_simulation
+
+    A_s = draw_A_s(B)
+    shutil.rmtree(work, ignore_errors=True)
+    forget_capacities()
+    reset_launches()
+    ens = run_ensemble(cfg, B, os.path.join(work, "batched"),
+                       A_s_values=A_s, batch=B)
+    batched = read_launches()
+    log0 = os.path.join(ens.run_dirs[0], "run.log")
+    # the batched tier's run.log holds its pre-warm and heal lines, if any
+    logged = run_log(ens.run_dirs[0]) if os.path.exists(log0) else []
+    evals = cfg.n_steps + 1 + rerun_evals(logged)
+    seeds = ens.seeds
+    forget_capacities()
+    reset_launches()
+    t0 = time.perf_counter()
+    seq = [run_simulation(cfg.replace(A_s=float(A_s[i])), int(seeds[i]),
+                          os.path.join(work, "sequential", f"m{i}"),
+                          base=cfg) for i in range(B)]
+    seq_wall = time.perf_counter() - t0
+    sequential = read_launches()
+    seq_logs = [run_log(os.path.join(work, "sequential", f"m{i}"))
+                for i in range(B)]
+    seq_evals = sum(cfg.n_steps + 1 + rerun_evals(lg) for lg in seq_logs)
+    seq_heals = sum("re-running" in line for lg in seq_logs for line in lg)
+    forget_capacities()
+    t0 = time.perf_counter()
+    states = run_members_batched(cfg, seeds, A_s, base=cfg,
+                                 log=lambda msg: None)
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    same = [torch.equal(states.pos[i], seq[i].state.pos)
+            and torch.equal(states.vel[i], seq[i].state.vel)
+            for i in range(B)]
+    same_pk = []
+    for i in range(B):
+        check_run_outputs(seq[i], cfg.replace(A_s=float(A_s[i])),
+                          f"{tag} member {i}")
+        with open(os.path.join(ens.run_dirs[i], "powerspec",
+                               f"powerspec_a={cfg.a_end:.2f}"), "rb") as f:
+            got = f.read()
+        with open(seq[i].powerspecs[0], "rb") as f:
+            same_pk.append(got == f.read())
+    heals = [line for line in logged if "re-running" in line]
+    phase(f"{tag}: run_ensemble(batch={B}) {ens.wall_s:.3f} s (its first "
+          f"call here; run_members_batched again {again:.3f} s), failed "
+          f"{ens.failed}; launches {batched} for {evals} evaluations, heals "
+          f"{len(heals)} ({'; '.join(heals) or 'none'}); the sequential tier"
+          f" {seq_wall:.3f} s ({seq_wall / B:.3f} s a member), launches "
+          f"{sequential} for {seq_evals} evaluations, heals {seq_heals}; "
+          f"{seq_wall / again:.2f}x"
+          f" the batched tier's warm wall; members equal bit for bit: "
+          f"states {same}, P(k) files {same_pk}")
+    if ens.failed or batched != zero_launches(**dict.fromkeys(want, evals)) \
+            or sequential != zero_launches(**dict.fromkeys(want, seq_evals)):
+        raise AssertionError(f"{tag}: failed {ens.failed}, launches "
+                             f"{batched} / {sequential}")
+    if not (all(same) and all(same_pk)):
+        raise AssertionError(f"{tag}: batched members part from their "
+                             f"sequential runs: {same}, {same_pk}")
+    return {key: batched[key] for key in want}
+
+
+def batched_planes_phase(cfg64, ics64, rung, run_cfg, card: str) -> tuple:
+    """[25] (a) the capacity repair; (b) each batched site against its
+    plain version, its single launches and itself; (c) cfg64-ensemble8
+    and (d) 4 members of the default 32^3 config on the columns, cells
+    and PP tiers, each batched against its sequential tier, bit for bit.
+    Returns ({row key: numbers}, {row key: launches})."""
+    from nbody_torch.core import units
+    from nbody_torch.driver.ensemble import draw_A_s, realize_members
+    from nbody_torch.driver.simulate import forget_capacities
+
+    capacity_repair_check(cfg64, ics64, rung, card)
+    rows, launches = {}, {}
+    B = CFG64_MEMBERS
+    seeds = np.arange(B) + 100
+    ics8 = realize_members(cfg64, seeds, draw_A_s(B), cfg64)
+    rows.update(batched_supercell_sites(ics8, cfg64))
+    del ics8
+    col32 = run_cfg.replace(shortrange="columns")
+    cells32 = run_cfg.replace(shortrange="cells")
+    pp32 = run_cfg.replace(solver="pp")
+    b32 = BATCH32_MEMBERS
+    ics4 = realize_members(run_cfg, seeds[:b32], draw_A_s(b32), run_cfg)
+    rows["K4"] = batched_columns_site(ics4, col32)
+    rows["K6"] = batched_cells_site(ics4, cells32)
+    G = units.COSMO.G
+    args = (pp32.box, pp32.eps, pp32.box / 16.0, 0.4999 * pp32.box, G,
+            "gaussian", pp32.softening_kernel)
+    rows["K1"] = batched_k1_check("[25] K1's Ewald site batched",
+                                  ics4.pos.contiguous(),
+                                  ics4.mass.contiguous(), args, 5)
+    del ics4
+    forget_capacities()
+    launches.update(batched_tier_run(
+        cfg64, B, "[25] cfg64-ensemble8", os.path.join(OUT, "ensemble64"),
+        ("K2", "K3")))
+    for key, cfg, name in (("K4", col32, "columns"), ("K6", cells32, "cells"),
+                           ("K1", pp32, "pp")):
+        launches.update(batched_tier_run(
+            cfg, b32, f"[25] default-32^3-{name}-ensemble{b32}",
+            os.path.join(OUT, f"ensemble32_{name}"), (key,)))
+    return rows, launches
 
 
 def _wrappers() -> dict:
@@ -4923,6 +5315,12 @@ def main() -> None:
     # -- 24. the ensemble: K1's batched site, the NN-data pipeline -------
     k1b, k1b_launches = ensemble_phase(run_cfg)
 
+    # -- 25. the batched tier on the plane tiers and PP, after the repair
+    # of the column sums' dependence on the capacity -------------------
+    k25, l25 = batched_planes_phase(
+        cfg64, ics64, (res64r.state.pos, res64r.state.mass, act64,
+                       res64r.config_run), run_cfg, card)
+
     rows = [{
         "name": "p3m_short_acc", "route": "cuda",
         "source": "nbody_torch/forces/csrc/p3m_short.cu",
@@ -5006,6 +5404,23 @@ def main() -> None:
                  "source": "nbody_torch/forces/csrc/p3m_columns.cu",
                  "replaces": "nbody/forces/p3m_columns.py:774",
                  "launches": counts_s64["K4"], **kernels["K4f"]})
+    # the batched sites ([25]): the JAX package's vmap of the ensemble
+    # runner (nbody/driver/ensemble.py:164) over each pallas_call
+    for key, name, source, replaces in (
+            ("K2", "supercell_deposit_from_plane (batched members)",
+             "pm_supercell.cu", "nbody/forces/pm_supercell.py:140"),
+            ("K3", "run_fused_column_plane (batched members)",
+             "pm_supercell.cu", "nbody/forces/pm_supercell.py:401"),
+            ("K4", "run_column_plane (batched members)", "p3m_columns.cu",
+             "nbody/forces/p3m_columns.py:510"),
+            ("K6", "run_cell_plane (batched members)", "p3m_cells.cu",
+             "nbody/forces/p3m.py:743"),
+            ("K1", "p3m_short_acc (Ewald real space, batched members)",
+             "p3m_short.cu", "nbody/forces/ewald.py:123")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"nbody_torch/forces/csrc/{source}",
+                     "replaces": replaces, "launches": l25[key],
+                     **k25[key]})
     walls = {f"[{k}]": round(v, 1) for k, v in sorted(PHASE_S.items())}
     print(f"phase walls (s): {json.dumps(walls)}; total "
           f"{time.perf_counter() - START:.1f} s", flush=True)

@@ -102,13 +102,13 @@ _ENTRY_POINTS = {
     "p3m_short_f32": "pppiidddddiiiippppp",
     "p3m_short_info": "iip",
     "p3m_short_reach": "ddp",
-    "p3m_columns_f32": "pppiiiiiiiddddpiipp",
-    "p3m_columns_masked_f32": "ppppiiiiiiiddddpiipp",
+    "p3m_columns_f32": "pppiiiiiiiiddddpiipp",
+    "p3m_columns_masked_f32": "ppppiiiiiiiiddddpiipp",
     "column_pairs_info": "ppp",
-    "p3m_cells_f32": "ppppiiiidddiiipp",
+    "p3m_cells_f32": "ppppiiiiidddiiipp",
     "p3m_cells_info": "iip",
-    "pm_supercell_deposit_f32": "ppiiiiiiiiiddppp",
-    "pm_supercell_fused_f32": "ppppiiiiiiiidiiiiiddddpiipp",
+    "pm_supercell_deposit_f32": "ppiiiiiiiiiiddppp",
+    "pm_supercell_fused_f32": "ppppiiiiiiiiidiiiiiddddpiipp",
     "pp_allpairs_f32": "pippiddiippp",
     "pp_allpairs_f64": "pippiddiippp",
     "pp_allpairs_info": "iip",

@@ -13,9 +13,11 @@ config as its ``base``; or chunks of B members integrated at once
 (:func:`run_members_batched`), where the JAX package wraps the run in
 ``jax.vmap``: here the state carries a leading member axis, the PM
 deposit is one fixed-point sum over the members and the FFTs are
-batched, and K1 makes one launch for all B members (its batched site).
-The batched tier runs ``solver='pm'`` and P3M on the dense tier (N <=
-65,536); the plane tiers and PP raise ``NotImplementedError``.
+batched, and each kernel makes one launch for all B members: K1 on the
+dense tier and in the Ewald PP force, K2 and K3 on the supercell tier,
+K4 on the columns tier, K6 on the cells tier.  The plane tiers share one
+capacity and window across the members, pre-warmed from all of them and
+healed when any member overflows.
 """
 
 from __future__ import annotations
@@ -32,14 +34,20 @@ import torch
 from nbody_torch.core.types import ParticleState
 from nbody_torch.driver.config import SimulationConfig
 from nbody_torch.driver.simulate import (
+    HEAL_ATTEMPTS,
+    SAMPLE_EVERY_STEPS,
+    _apply_capacity_memory,
     _device_dtype,
+    _n_devices,
+    _record_capacity_memory,
     build_cosmo_force,
     check_base,
+    heal_capacity,
     measure_powerspec,
+    prewarm_capacity,
     realize_ics,
     run_simulation,
 )
-from nbody_torch.forces.p3m import batched_refusal
 from nbody_torch.integrate.cosmo_stepping import kdk_steps, log_a_steps
 from nbody_torch.io.sidecars import (
     BoxParams,
@@ -121,31 +129,75 @@ def realize_members(config: SimulationConfig, seeds, A_s_values,
 
 def run_members_batched(config: SimulationConfig, seeds, A_s_values,
                         base: SimulationConfig | None = None, *,
-                        device="cuda", dtype=None,
-                        noise=None) -> ParticleState:
+                        device="cuda", dtype=None, noise=None,
+                        log=None) -> ParticleState:
     """Integrate B realizations at once: their ICs
     (:func:`realize_members`), then the fixed log-a KDK of
     ``config`` on the batched state (one force evaluation at the start and
-    one a step, each over all B members: the PM deposit one fixed-point
-    sum, the FFTs batched, K1 one launch), as the JAX package's ``vmap``
-    of one member's run.  Every member shares every config field but A_s
-    with the anchor (``base`` or ``config``); its force is the anchor's.
-    ``solver='pp'`` and the P3M plane tiers raise ``NotImplementedError``.
-    Returns the batched final state: pos, vel (B, N, 3), mass (B, N)."""
+    one a step, each over all B members: one launch of each kernel, the
+    FFTs batched), as the JAX package's ``vmap`` of one member's run.
+    Every member shares every config field but A_s with the anchor
+    (``base`` or ``config``); its force is the anchor's, on every solver
+    and P3M tier.
+
+    The steps go in the stretches of
+    :func:`~nbody_torch.driver.simulate.run_simulation`.  Before each, the
+    plane tiers' capacities are pre-warmed from all members' positions
+    (:func:`~nbody_torch.driver.simulate.prewarm_capacity`), and a stretch
+    whose overflow word (the batch's: each field the neediest member's) is
+    not 0 is healed (:func:`~nbody_torch.driver.simulate.heal_capacity`)
+    and re-run from its start for the whole batch, with the run's
+    capacity memory as in ``run_simulation``.  (The JAX package's batched
+    runner builds an unchecked force and drops the force of an overflowed
+    particle without a word.)  ``log(msg)`` receives the run.log lines of
+    the pre-warms and heals (default: printed).  Since the column sums
+    and K2's deposit do not depend on the capacities, each member ends in
+    the bits of its own run.  Returns the batched final state: pos, vel
+    (B, N, 3), mass (B, N)."""
     device, dtype = _device_dtype(device, dtype)
     anchor = check_base(config, base)
-    if anchor.solver == "pp":
-        # the plane tiers refuse a member axis in p3m_acc
-        raise NotImplementedError(batched_refusal("solver='pp'"))
+    if _n_devices(anchor, device) > 1:
+        raise ValueError("run_members_batched runs its members on one "
+                         "device (config.devices = 1)")
+    if log is None:
+        def log(msg: str) -> None:
+            print(f"[batch] {msg}", flush=True)
     state = realize_members(config, seeds, A_s_values, anchor,
                             device=device, dtype=dtype, noise=noise)
-    acc_fn = build_cosmo_force(anchor, device=device, dtype=dtype,
-                               checked=True)
+    cosmo = anchor.cosmology()
     a_grid = log_a_steps(config.a_begin, config.a_end, config.n_steps)
-    # the dense tier and the PM drop no force: no overflow to heal
-    final, _, _ = kdk_steps(state, anchor.cosmology(), a_grid, acc_fn,
-                            config.box)
-    return final
+    last = len(a_grid) - 1
+    seg = max(4, SAMPLE_EVERY_STEPS)
+    bounds = sorted(set(range(seg, last, seg)) | {last})
+    cfg_run = _apply_capacity_memory(anchor)
+    acc_fn = build_cosmo_force(cfg_run, device=device, dtype=dtype,
+                               checked=True)
+    g, prev, repeated = None, 0, 0
+    for idx in bounds:
+        a_seg = a_grid[prev:idx + 1]
+        grown, lines = prewarm_capacity(anchor, cfg_run, state.pos)
+        for line in lines:
+            log(line)
+        for _ in range(HEAL_ATTEMPTS):
+            if grown is not cfg_run:
+                cfg_run = grown
+                acc_fn = build_cosmo_force(cfg_run, device=device,
+                                           dtype=dtype, checked=True)
+            new, g_new, overflow = kdk_steps(state, cosmo, a_seg, acc_fn,
+                                             config.box, g=g)
+            if overflow == 0:
+                break
+            repeated += len(a_seg) - 1 + (g is None)
+            grown, line = heal_capacity(anchor, cfg_run, overflow)
+            log(line)
+        else:
+            raise RuntimeError("P3M capacity retries exhausted in the "
+                               "batched tier: state too clustered")
+        state, g, prev = new, g_new, idx
+    if repeated:
+        log(f"Capacity heals repeated {repeated} force evaluations")
+    _record_capacity_memory(anchor, cfg_run)
+    return state
 
 
 def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
@@ -163,7 +215,8 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
     :func:`~nbody_torch.driver.simulate.run_simulation` (``base=config``,
     each with its run.log, retried alone).  ``batch=B`` > 1 runs chunks
     of B members at once (:func:`run_members_batched`, a chunk retried
-    as a whole) and writes each member's snapshot and P(k) afterwards.
+    as a whole; its pre-warm and heal lines go to every member's run.log)
+    and writes each member's snapshot and P(k) afterwards.
     A member whose run dir holds its final snapshot is skipped
     (``resume``); one that fails ``max_retries`` times is recorded in
     ``failed`` and ``failures.log``.  The sidecars BoxParams,
@@ -218,7 +271,8 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
                 try:
                     states = run_members_batched(
                         config, seeds[chunk], A_s_values[chunk], base=config,
-                        device=device, dtype=dtype)
+                        device=device, dtype=dtype,
+                        log=_chunk_log(chunk, run_dirs))
                     break
                 except Exception:  # noqa: BLE001 - retry, then record
                     if attempt == max_retries - 1:
@@ -246,6 +300,17 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
     return EnsembleResult(run_dirs=run_dirs, params=params, seeds=seeds,
                           failed=failed, skipped=skipped,
                           wall_s=time.perf_counter() - t0)
+
+
+def _chunk_log(chunk: list, run_dirs: list):
+    """A batched chunk's run.log writer: each line to every member's."""
+    def log(msg: str) -> None:
+        for i in chunk:
+            os.makedirs(run_dirs[i], exist_ok=True)
+            with open(os.path.join(run_dirs[i], "run.log"), "a") as f:
+                f.write(msg + "\n")
+
+    return log
 
 
 def _write_members(config: SimulationConfig, states: ParticleState,

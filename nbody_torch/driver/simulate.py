@@ -757,7 +757,9 @@ def prewarm_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
     built (the cells tier, and the rung tier's masked source plane); the
     rung target capacity from ``rung_occ``, the densest active cell the
     last stretch saw.  Returns (the grown config, its run.log lines).
-    The dense tier without rungs builds no plane and grows nothing."""
+    The dense tier without rungs builds no plane and grows nothing.  B
+    members' positions (B, N, 3) size the knobs for the densest member
+    (one capacity serves the batch)."""
     r_cut = p3m_short_params(config.box, config.mesh_size,
                              config.n_particles)[1]
     if config.solver != "p3m" or int(config.box / r_cut) < 3:
@@ -768,21 +770,32 @@ def prewarm_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
     if not (col_like or rungs or tier == "cells"):
         return cfg_run, []
     lines = []
-    pos = torch.remainder(pos, config.box)
+    pos = torch.remainder(pos, config.box).reshape(-1, pos.shape[-2], 3)
+    B = pos.shape[0]
+    # each member's buckets its own: ids offset by the member
+    member = torch.arange(B, device=pos.device)[:, None]
     ncell = int(config.box / r_cut)
+
+    def densest_cell(nc: int) -> int:
+        ids = cell_ids(pos.reshape(-1, 3), config.box, nc).reshape(B, -1)
+        return int(torch.bincount((ids + member * nc**3).reshape(-1),
+                                  minlength=B * nc**3).max())
+
     if col_like:
         nct, ck, cur_w = column_knobs(config, cfg_run)
         c = torch.clamp((pos * (nct / config.box)).to(torch.int64), 0,
                         nct - 1)
-        cid = c[:, 0] * nct + c[:, 1]
-        occ = int(torch.bincount(cid, minlength=nct**2).max())
+        cid = c[..., 0] * nct + c[..., 1]
+        occ = int(torch.bincount((cid + member * nct**2).reshape(-1),
+                                 minlength=B * nct**2).max())
         # a chunk's sources lie within +- r_cut in z of the 9 neighbour
         # columns: at most the densest 3-cell z-run (cell z-height
         # box/nct >= r_cut)
-        cnt3 = torch.bincount(cid * nct + c[:, 2], minlength=nct**3).reshape(
-            nct, nct, nct)
-        run3 = cnt3 + torch.roll(cnt3, 1, dims=2) + torch.roll(cnt3, -1,
-                                                                dims=2)
+        cnt3 = torch.bincount((cid * nct + c[..., 2]
+                               + member * nct**3).reshape(-1),
+                              minlength=B * nct**3).reshape(B, nct, nct, nct)
+        run3 = cnt3 + torch.roll(cnt3, 1, dims=3) + torch.roll(cnt3, -1,
+                                                                dims=3)
         zrun = int(run3.max())
         # the 256-slot chunk scaled 1.15x for the density ratio between
         # columns + the measured z-run + alignment
@@ -793,14 +806,12 @@ def prewarm_capacity(config: SimulationConfig, cfg_run: SimulationConfig,
             cfg_run = cfg_run.replace(column_window=needed_w)
         field, cur = "column_capacity", ck
     else:
-        occ = int(torch.bincount(cell_ids(pos, config.box, ncell),
-                                 minlength=ncell**3).max())
+        occ = densest_cell(ncell)
         field, cur = "cell_capacity", _cell_knobs(config, cfg_run)[3]
     if rungs and col_like:
         # the masked cell kernel's source plane rides the cell geometry
         # whatever the boundary tier
-        occ3 = int(torch.bincount(cell_ids(pos, config.box, ncell),
-                                  minlength=ncell**3).max())
+        occ3 = densest_cell(ncell)
         needed3 = -(-int(occ3 * 1.10 + 4) // 128) * 128
         if needed3 > _cell_knobs(config, cfg_run)[3]:
             lines.append(f"pre-warming P3M cell capacity to {needed3} "

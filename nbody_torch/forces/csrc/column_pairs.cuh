@@ -60,7 +60,17 @@
 // the branch stay; the weight itself is made cheaper: beyond the
 // softening's support, nearly every pair, it takes the Newton form alone
 // (pair_weight).  Each target adds its sources in slot order, so two
-// launches give the same bits.
+// launches give the same bits, and the same sums at every capacity: its
+// terms are the massive sources within r_cut, taken neighbour by
+// neighbour and, in each, in their column's order (front ghosts, reals,
+// back ghosts), whatever the window's start and width W, the capacity
+// CK, the ghost band gz or the chunk; a slot out of reach or massless
+// adds nothing (tests/test_torch_cuda.py holds K3, K4 and K5 at CK and
+// 2 CK bit for bit, scripts/torch_capacity_bits.py at cfg64's shapes).
+//
+// A batched launch (the batched tier's members) adds blockIdx.z, the
+// member, whose plane, tables and output follow the previous member's
+// (member_part): each member has its own launch's blocks and sums.
 
 #pragma once
 
@@ -136,6 +146,12 @@ inline ColumnGeom make_geom(int nx, int ncell, int stride, int W, int maxch,
   g.key_hi = static_cast<float>(box + 1.0001 * r_cut);
   g.drift = drift;
   return g;
+}
+
+// The member blockIdx.z's part of an array of `per` elements a member.
+template <typename T>
+__device__ __forceinline__ T* member_part(T* p, size_t per) {
+  return p == nullptr ? p : p + static_cast<size_t>(blockIdx.z) * per;
 }
 
 // The first target slot of this block's share of chunk k of interior

@@ -154,7 +154,9 @@ __device__ __forceinline__ void add_pair(const float4 v, float x, float y,
   az += w * dz;
 }
 
-// Block b: real cell b (x-major, z fastest) of the target plane, W warps.
+// Block b: real cell b (x-major, z fastest) of the target plane, W warps;
+// blockIdx.y the member of a batched launch (its planes, counts and output
+// follow the previous member's).
 template <int SPLIT, int SOFT>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 cell_kernel(const float* __restrict__ plane, const float* __restrict__ plane_j,
@@ -170,6 +172,14 @@ cell_kernel(const float* __restrict__ plane, const float* __restrict__ plane_j,
   float* red = reinterpret_cast<float*>(smem + W * 2 * kTile);
   const int M = ncell + 2;
   const int ncells = (nx + 2) * M * M;
+  {
+    const size_t b = blockIdx.y;
+    plane += b * 8 * row;
+    plane_j += b * 8 * row_j;
+    counts += b * ncells;
+    counts_j += b * ncells;
+    out += b * 8 * row;
+  }
   const float rc2 = p.r_cut2 > 1e-30f ? p.r_cut2 : 0.0f;
 
   // the zeros this block owns beyond its target cell: a share of rows
@@ -326,11 +336,12 @@ const void* kernel_of(int split, int softening) {
 
 template <int SPLIT, int SOFT>
 cudaError_t launch(const float* plane, const float* plane_j,
-                   const int* counts, const int* counts_j, int nx, int ncell,
-                   int K, int K_j, size_t row, size_t row_j, const Params& p,
-                   int warps, float* out, cudaStream_t stream) {
+                   const int* counts, const int* counts_j, int members,
+                   int nx, int ncell, int K, int K_j, size_t row,
+                   size_t row_j, const Params& p, int warps, float* out,
+                   cudaStream_t stream) {
   // at most 22.5 KB: under the 48 KB a launch takes without an opt-in
-  cell_kernel<SPLIT, SOFT><<<nx * ncell * ncell, 32 * warps,
+  cell_kernel<SPLIT, SOFT><<<dim3(nx * ncell * ncell, members), 32 * warps,
                              smem_bytes(warps), stream>>>(
       plane, plane_j, counts, counts_j, nx, ncell, K, K_j, row, row_j, p, out);
   return cudaGetLastError();
@@ -340,20 +351,22 @@ cudaError_t launch(const float* plane, const float* plane_j,
 
 extern "C" {
 
-// plane (8, (nx + 2) * (ncell + 2)^2 * K) float32 and counts
-// ((nx + 2) * (ncell + 2)^2,) int32 (<= K); plane_j / counts_j the source
-// plane of the same cell geometry with bucket width K_j (plane and counts
-// again for the one-plane form); out like plane, written whole (no
-// zero-fill needed).  split: 0 = Gaussian, 1 = spline.  softening: 0 =
+// plane (members, 8, (nx + 2) * (ncell + 2)^2 * K) float32 and counts
+// (members, (nx + 2) * (ncell + 2)^2) int32 (<= K); plane_j / counts_j the
+// source planes of the same cell geometry with bucket width K_j (plane and
+// counts again for the one-plane form); out like plane, written whole (no
+// zero-fill needed).  One launch over the members, each with the blocks
+// of its own launch (its bits those of its launch alone).  split: 0 = Gaussian, 1 = spline.  softening: 0 =
 // Plummer, 1 = cubic spline.  warps: W, 1, 2, 4, 8 or 16 (the wrapper's
 // launch shape).  Returns cudaGetLastError() after the launch (0 on
 // success); 1 (cudaErrorInvalidValue) for arguments the kernel does not
 // take.
 int p3m_cells_f32(const float* plane, const float* plane_j, const int* counts,
-                  const int* counts_j, int nx, int ncell, int K, int K_j,
+                  const int* counts_j, int members, int nx, int ncell,
+                  int K, int K_j,
                   double eps, double r_s, double r_cut, int split,
                   int softening, int warps, float* out, void* stream) {
-  if (nx < 1 || ncell < 1 || K < 1 || K % 4 != 0 || K_j < 1 || split < 0 ||
+  if (members < 1 || members > 65535 || nx < 1 || ncell < 1 || K < 1 || K % 4 != 0 || K_j < 1 || split < 0 ||
       split > 1 || softening < 0 || softening > 1 || warps < 1 ||
       warps > kMaxWarps || (warps & (warps - 1)) != 0 ||
       static_cast<long long>(nx) * ncell * ncell > INT_MAX ||
@@ -370,8 +383,8 @@ int p3m_cells_f32(const float* plane, const float* plane_j, const int* counts,
   const auto run = split == 0
                        ? (softening == 0 ? &launch<0, 0> : &launch<0, 1>)
                        : (softening == 0 ? &launch<1, 0> : &launch<1, 1>);
-  return static_cast<int>(run(plane, plane_j, counts, counts_j, nx, ncell, K,
-                              K_j, row, row_j, p, warps, out, s));
+  return static_cast<int>(run(plane, plane_j, counts, counts_j, members, nx,
+                              ncell, K, K_j, row, row_j, p, warps, out, s));
 }
 
 // The launch shapes of the current device's kernel for one split and

@@ -70,15 +70,37 @@ __device__ __forceinline__ void column_body(const float* __restrict__ plane,
   out[2 * g.row + i] = t.az;
 }
 
+// The member blockIdx.z's plane, tables, drift and output.
+struct Member {
+  const float* plane;
+  const int* ws;
+  const int* nch;
+  const int* cht;
+  float* out;
+};
+
+__device__ __forceinline__ Member member_of(const float* plane,
+                                            const int* ws, const int* nch,
+                                            const int* cht, float* out,
+                                            ColumnGeom& g) {
+  using nbody_kernels::member_part;
+  const size_t ncol = static_cast<size_t>(g.nx) * g.ncell;
+  g.drift = member_part(g.drift, 1);
+  return Member{member_part(plane, 8 * g.row),
+                member_part(ws, ncol * 9 * g.maxch), member_part(nch, ncol),
+                member_part(cht, ncol * g.maxch), member_part(out, 8 * g.row)};
+}
+
 template <int SPLIT, int SOFT>
 __global__ void __launch_bounds__(kColThreads)
 column_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
               const int* __restrict__ nch, ColumnGeom g, Params p,
               float* __restrict__ out) {
+  const Member m = member_of(plane, ws, nch, nullptr, out, g);
   int ic, k;
   size_t first;
-  if (!nbody_kernels::column_block(g, nch, ic, k, first)) return;
-  column_body<SPLIT, SOFT>(plane, ws, g, p, ic, k, first, out);
+  if (!nbody_kernels::column_block(g, m.nch, ic, k, first)) return;
+  column_body<SPLIT, SOFT>(m.plane, m.ws, g, p, ic, k, first, m.out);
 }
 
 template <int SPLIT, int SOFT>
@@ -88,19 +110,21 @@ column_kernel_masked(const float* __restrict__ plane,
                      const int* __restrict__ nch_act,
                      const int* __restrict__ cht, ColumnGeom g, Params p,
                      float* __restrict__ out) {
+  const Member m = member_of(plane, ws, nch_act, cht, out, g);
   int ic, k;
   size_t first;
-  if (!nbody_kernels::column_block_masked(g, nch_act, cht, ic, k, first))
+  if (!nbody_kernels::column_block_masked(g, m.nch, m.cht, ic, k, first))
     return;
-  column_body<SPLIT, SOFT>(plane, ws, g, p, ic, k, first, out);
+  column_body<SPLIT, SOFT>(m.plane, m.ws, g, p, ic, k, first, m.out);
 }
 
 // cht == nullptr launches K4, else K5 with nch the active counts.
 template <int SPLIT, int SOFT>
 void launch(const float* plane, const int* ws, const int* nch, const int* cht,
-            const ColumnGeom& g, const Params& p, float* out,
+            int members, const ColumnGeom& g, const Params& p, float* out,
             cudaStream_t stream) {
-  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets));
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets),
+                  members);
   if (cht == nullptr)
     column_kernel<SPLIT, SOFT><<<grid, kColThreads, 0, stream>>>(
         plane, ws, nch, g, p, out);
@@ -110,10 +134,11 @@ void launch(const float* plane, const int* ws, const int* nch, const int* cht,
 }
 
 int run(const float* plane, const int* ws, const int* nch, const int* cht,
-        int nx, int ncell, int stride, int W, int maxch, int gz, int chunk,
+        int members, int nx, int ncell, int stride, int W, int maxch, int gz, int chunk,
         double eps, double r_s, double r_cut, double box, const float* drift,
         int split, int softening, float* out, void* stream) {
-  if (ncell < 1 || nx < 1 || nx > ncell || stride < 1 || W < 1 ||
+  if (members < 1 || members > 65535 || ncell < 1 || nx < 1 || nx > ncell ||
+      stride < 1 || W < 1 ||
       W > stride || maxch < 1 || gz < 0 || chunk < kColTargets ||
       chunk % kColTargets != 0 ||
       gz + maxch * chunk > stride || split < 0 || split > 1 ||
@@ -127,11 +152,11 @@ int run(const float* plane, const int* ws, const int* nch, const int* cht,
   const Params p = nbody_kernels::make_params(1.0, eps, r_s, r_cut);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split == 0) {
-    if (softening == 0) launch<0, 0>(plane, ws, nch, cht, g, p, out, s);
-    else                launch<0, 1>(plane, ws, nch, cht, g, p, out, s);
+    if (softening == 0) launch<0, 0>(plane, ws, nch, cht, members, g, p, out, s);
+    else                launch<0, 1>(plane, ws, nch, cht, members, g, p, out, s);
   } else {
-    if (softening == 0) launch<1, 0>(plane, ws, nch, cht, g, p, out, s);
-    else                launch<1, 1>(plane, ws, nch, cht, g, p, out, s);
+    if (softening == 0) launch<1, 0>(plane, ws, nch, cht, members, g, p, out, s);
+    else                launch<1, 1>(plane, ws, nch, cht, members, g, p, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -140,35 +165,38 @@ int run(const float* plane, const int* ws, const int* nch, const int* cht,
 
 extern "C" {
 
-// plane (8, (nx + 2) * (ncell + 2) * stride) float32, nx interior x-rows
-// (ncell for the whole box, ncell / D for a slab's plane); ws
-// (nx * ncell * 9 * maxch,) int32; nch (nx * ncell,) int32; out like
-// plane, zeroed by the caller.
+// plane (members, 8, (nx + 2) * (ncell + 2) * stride) float32, nx interior
+// x-rows (ncell for the whole box, ncell / D for a slab's plane); ws
+// (members, nx * ncell * 9 * maxch) int32; nch (members, nx * ncell)
+// int32; out like plane, zeroed by the caller.  One launch over the
+// members (blockIdx.z), each with the blocks of its own launch, so a
+// member's sums are those of its launch alone, bit for bit.
 // split: 0 = Gaussian, 1 = spline.  softening: 0 = Plummer, 1 = cubic
 // spline.  box: the periodic box side; drift: nullptr for a fresh plane,
-// for a frozen one a float on the card, the largest |z drift| of the
+// for a frozen one a float a member on the card, the largest |z drift| of the
 // plane's particles since the freeze (column_pairs.cuh).  Returns
 // cudaGetLastError() after the launch (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
 int p3m_columns_f32(const float* plane, const int* ws, const int* nch,
-                    int nx, int ncell, int stride, int W, int maxch, int gz,
+                    int members, int nx, int ncell, int stride, int W, int maxch, int gz,
                     int chunk, double eps, double r_s, double r_cut,
                     double box, const float* drift, int split,
                     int softening, float* out, void* stream) {
-  return run(plane, ws, nch, nullptr, nx, ncell, stride, W, maxch, gz, chunk,
+  return run(plane, ws, nch, nullptr, members, nx, ncell, stride, W, maxch, gz, chunk,
              eps, r_s, r_cut, box, drift, split, softening, out, stream);
 }
 
-// K5.  As p3m_columns_f32, with nch_act (nx * ncell,) int32 the active
-// chunks of each column and cht (nx * ncell * maxch,) int32 their indices
-// (the first nch_act[ic] entries of row ic).
+// K5.  As p3m_columns_f32, with nch_act (members, nx * ncell) int32 the
+// active chunks of each column and cht (members, nx * ncell * maxch) int32
+// their indices (the first nch_act[ic] entries of row ic).
 int p3m_columns_masked_f32(const float* plane, const int* ws,
-                           const int* nch_act, const int* cht, int nx,
+                           const int* nch_act, const int* cht, int members,
+                           int nx,
                            int ncell, int stride, int W, int maxch, int gz,
                            int chunk, double eps, double r_s, double r_cut,
                            double box, const float* drift, int split,
                            int softening, float* out, void* stream) {
-  return run(plane, ws, nch_act, cht, nx, ncell, stride, W, maxch, gz, chunk,
+  return run(plane, ws, nch_act, cht, members, nx, ncell, stride, W, maxch, gz, chunk,
              eps, r_s, r_cut, box, drift, split, softening, out, stream);
 }
 

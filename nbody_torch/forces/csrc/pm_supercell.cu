@@ -24,12 +24,22 @@
 // two 2^e and rounded to a 64-bit integer, and the integers are summed
 // with integer atomics, which no order of arrival can change.  A first
 // pass finds the largest |mass| of the real slots (a block's maximum,
-// then one atomicMax of its float bits), and e is chosen so that the
-// real slots' masses, summed, stay below 2^62: no node can overflow, and
-// a weight of float32 precision loses nothing at any scale down to
-// 2^-e.  A last pass writes the float32 node masses, each the exact sum
-// rounded once.  The integer mesh (8 bytes a node) and the maximum are
-// zeroed by a memset in the same library call.  64-bit atomics have no
+// then one atomicMax of its float bits) and counts the real slots (one
+// atomicAdd a column), and e is chosen so that the real slots' masses,
+// summed, stay below 2^62: no node can overflow.  A weight rounds to a
+// multiple of 2^-e, so e must not depend on the plane's capacity: the
+// count of real slots is the plane's particles whatever the capacity
+// CK, where the slot count nx * ncell * CK (the bound before) moved e,
+// and with it the rounding of every small corner weight, when a heal or
+// a learned capacity changed CK (two runs of one config then parted).
+// A last pass writes the float32 node masses, each the exact sum
+// rounded once.  The integer mesh (8 bytes a node), the maximum and the
+// count are zeroed by a memset in the same library call.
+//
+// B members of the batched tier run in one launch of each pass
+// (blockIdx.z the member): each member has its own integer mesh, its own
+// maximum and count and so its own e, and its bits are those of its own
+// launch.  64-bit atomics have no
 // vector form: 8 atomics a slot, where the float design before it
 // (scripts/torch_k2_float4.cu) sent each node line's z pair as one
 // float4 atomic, 5 a slot, and its sums changed with the order of
@@ -98,26 +108,38 @@ __device__ __forceinline__ int x_plane(int ix, int nmesh, int nxg, int slab) {
   return (ix + 1 >= 0 && ix + 1 < nxg) ? ix + 1 : -1;
 }
 
+// A member's largest |mass| (the bits of a non-negative float, which
+// order as the floats do) and its count of real slots: one 64-bit word.
+struct MassStats {
+  unsigned mbits;
+  unsigned count;
+};
+
 // The exponent e of the fixed point: the real slots' masses, each below
-// 2^k (k from the largest, `mbits`), summed over at most 2^j slots, stay
-// below 2^62 when scaled by 2^e.
-__device__ __forceinline__ int fixed_exponent(const unsigned* mbits, int j) {
-  const float mmax = __uint_as_float(*mbits);
+// 2^k (k from the largest), summed over `count` < 2^j slots, stay below
+// 2^62 when scaled by 2^e.
+__device__ __forceinline__ int fixed_exponent(const MassStats* st) {
+  const float mmax = __uint_as_float(st->mbits);
   if (!(mmax > 0.0f)) return 0;
   int k;
   frexpf(mmax, &k);
+  const int j = 32 - __clz(st->count);
   return 62 - k - j;
 }
 
-// Pass 1: the largest |mass| of the real slots, as the bits of a
-// non-negative float (which order as the floats do).
+// Pass 1: the largest |mass| of the real slots and their count.
 __global__ void __launch_bounds__(kDepositThreads)
 deposit_max_kernel(const float* __restrict__ plane,
                    const int* __restrict__ counts, int ncell, int stride,
-                   int gz, size_t row, unsigned* __restrict__ mbits) {
+                   int gz, size_t row, MassStats* __restrict__ stats) {
   __shared__ unsigned warp_max[kDepositThreads / 32];
+  plane = nbody_kernels::member_part(plane, 8 * row);
+  counts = nbody_kernels::member_part(counts, static_cast<size_t>(gridDim.x));
+  MassStats* st = stats + blockIdx.z;
   const int ic = blockIdx.x;
   const int r = blockIdx.y * kDepositThreads + threadIdx.x;
+  if (blockIdx.y == 0 && threadIdx.x == 0 && counts[ic] > 0)
+    atomicAdd(&st->count, static_cast<unsigned>(counts[ic]));
   unsigned v = 0u;
   if (r < counts[ic]) {
     const int P = ncell + 2;
@@ -131,7 +153,7 @@ deposit_max_kernel(const float* __restrict__ plane,
   if (threadIdx.x < 32) {
     v = threadIdx.x < kDepositThreads / 32 ? warp_max[threadIdx.x] : 0u;
     v = __reduce_max_sync(0xffffffffu, v);
-    if (threadIdx.x == 0 && v != 0u) atomicMax(mbits, v);
+    if (threadIdx.x == 0 && v != 0u) atomicMax(&st->mbits, v);
   }
 }
 
@@ -147,12 +169,16 @@ __global__ void __launch_bounds__(kDepositThreads)
 deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
                int ncell, int S, int nmesh, int nxg, int slab, int row0,
                int stride, int gz, size_t row, float scale, float shift,
-               const unsigned* __restrict__ mbits, int j,
+               const MassStats* __restrict__ stats, size_t nodes,
                unsigned long long* __restrict__ sums) {
+  using nbody_kernels::member_part;
+  plane = member_part(plane, 8 * row);
+  counts = member_part(counts, static_cast<size_t>(gridDim.x));
+  sums = member_part(sums, nodes);
   const int ic = blockIdx.x;
   const int r = blockIdx.y * kDepositThreads + threadIdx.x;
   if (r >= counts[ic]) return;
-  const int e = fixed_exponent(mbits, j);
+  const int e = fixed_exponent(stats + blockIdx.z);
   const int cx = ic / ncell;
   const int cy = ic % ncell;
   const int P = ncell + 2;
@@ -193,9 +219,11 @@ deposit_kernel(const float* __restrict__ plane, const int* __restrict__ counts,
 // Pass 3: the float32 node masses, each integer sum rounded once.
 __global__ void deposit_float_kernel(const unsigned long long* __restrict__ sums,
                                      size_t nodes,
-                                     const unsigned* __restrict__ mbits,
-                                     int j, float* __restrict__ rho) {
-  const int e = fixed_exponent(mbits, j);
+                                     const MassStats* __restrict__ stats,
+                                     float* __restrict__ rho) {
+  sums = nbody_kernels::member_part(sums, nodes);
+  rho = nbody_kernels::member_part(rho, nodes);
+  const int e = fixed_exponent(stats + blockIdx.z);
   for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        k < nodes; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
     rho[k] = ldexpf(__ll2float_rn(static_cast<long long>(sums[k])), -e);
@@ -247,12 +275,20 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
              int nmesh, int nxg, int slab, int row0, int S, float scale,
              ColumnGeom g, Params p, float* __restrict__ out) {
   __shared__ nbody_kernels::ColumnShared sh;
+  using nbody_kernels::member_part;
+  const size_t ncol = static_cast<size_t>(g.nx) * g.ncell;
+  const size_t n3 = static_cast<size_t>(nxg) * nmesh * nmesh;
+  plane = member_part(plane, 8 * g.row);
+  ws = member_part(ws, ncol * 9 * g.maxch);
+  nch = member_part(nch, ncol);
+  grids = member_part(grids, (INTERLACED ? 6 : 3) * n3);
+  out = member_part(out, 8 * g.row);
+  g.drift = member_part(g.drift, 1);
   int ic, k;
   size_t first;
   if (!nbody_kernels::column_block(g, nch, ic, k, first)) return;
   const int x0 = (ic / g.ncell) * S;
   const int y0 = (ic % g.ncell) * S;
-  const size_t n3 = static_cast<size_t>(nxg) * nmesh * nmesh;
   const size_t i = nbody_kernels::target_slot(first);
   ColumnTarget t = nbody_kernels::load_target(plane, g, i);
   // PM force at the target (the TPU kernel's first-neighbour visit)
@@ -287,10 +323,11 @@ fused_kernel(const float* __restrict__ plane, const int* __restrict__ ws,
 
 template <int SPLIT, int SOFT, bool INTERLACED, bool SPLIT_OUT>
 void launch_fused(const float* plane, const int* ws, const int* nch,
-                  const float* grids, int nmesh, int nxg, int slab, int row0,
-                  int S, float scale, const ColumnGeom& g, const Params& p,
-                  float* out, cudaStream_t stream) {
-  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets));
+                  const float* grids, int members, int nmesh, int nxg,
+                  int slab, int row0, int S, float scale, const ColumnGeom& g,
+                  const Params& p, float* out, cudaStream_t stream) {
+  const dim3 grid(g.nx * g.ncell, g.maxch * (g.chunk / kColTargets),
+                  members);
   fused_kernel<SPLIT, SOFT, INTERLACED, SPLIT_OUT>
       <<<grid, kColThreads, 0, stream>>>(plane, ws, nch, grids, nmesh, nxg,
                                          slab, row0, S, scale, g, p, out);
@@ -299,49 +336,39 @@ void launch_fused(const float* plane, const int* ws, const int* nch,
 template <int SPLIT, int SOFT>
 void dispatch_fused(bool interlaced, bool split_out, const float* plane,
                     const int* ws, const int* nch, const float* grids,
-                    int nmesh, int nxg, int slab, int row0, int S,
-                    float scale, const ColumnGeom& g, const Params& p,
+                    int members, int nmesh, int nxg, int slab, int row0,
+                    int S, float scale, const ColumnGeom& g, const Params& p,
                     float* out, cudaStream_t s) {
-  if (interlaced) {
-    if (split_out)
-      launch_fused<SPLIT, SOFT, true, true>(plane, ws, nch, grids, nmesh, nxg,
-                                            slab, row0, S, scale, g, p, out,
-                                            s);
-    else
-      launch_fused<SPLIT, SOFT, true, false>(plane, ws, nch, grids, nmesh,
-                                             nxg, slab, row0, S, scale, g, p,
-                                             out, s);
-  } else {
-    if (split_out)
-      launch_fused<SPLIT, SOFT, false, true>(plane, ws, nch, grids, nmesh,
-                                             nxg, slab, row0, S, scale, g, p,
-                                             out, s);
-    else
-      launch_fused<SPLIT, SOFT, false, false>(plane, ws, nch, grids, nmesh,
-                                              nxg, slab, row0, S, scale, g, p,
-                                              out, s);
-  }
+  const auto run =
+      interlaced ? (split_out ? &launch_fused<SPLIT, SOFT, true, true>
+                              : &launch_fused<SPLIT, SOFT, true, false>)
+                 : (split_out ? &launch_fused<SPLIT, SOFT, false, true>
+                              : &launch_fused<SPLIT, SOFT, false, false>);
+  run(plane, ws, nch, grids, members, nmesh, nxg, slab, row0, S, scale, g, p,
+      out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2.  plane (8, (nx + 2) * (ncell + 2) * stride) float32; counts
-// (nx * ncell,) int32 (real slots per column, <= CK); rho receives the
-// masses: (nmesh^3,) with nx = ncell and slab = 0, or on a slab (slab = 1,
-// nx = ncell / D, its first x-row row0 of the box's grid) the haloed
-// (nx * S + 3, nmesh, nmesh).  scratch: (nodes + 1,) 64-bit words from the
-// caller, nodes = the size of rho (the integer sums and, in the last
-// word, the largest mass), zeroed here first, on `stream`.  Returns
+// K2.  plane (members, 8, (nx + 2) * (ncell + 2) * stride) float32; counts
+// (members, nx * ncell) int32 (real slots per column, <= CK); rho receives
+// each member's masses: (nmesh^3,) with nx = ncell and slab = 0, or on a
+// slab (slab = 1, nx = ncell / D, its first x-row row0 of the box's grid)
+// the haloed (nx * S + 3, nmesh, nmesh).  scratch: members * (nodes + 1)
+// 64-bit words from the caller, nodes = the size of a member's rho (the
+// integer sums, then a word a member for its largest mass and its count
+// of real slots), zeroed here first, on `stream`.  Returns
 // cudaGetLastError() after the launches (0 on success); 1
 // (cudaErrorInvalidValue) for arguments the kernel does not take.
-int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
-                             int ncell, int slab, int row0, int S, int nmesh,
-                             int stride, int gz, int CK, double scale,
-                             double shift, float* rho, void* scratch,
-                             void* stream) {
-  if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
+int pm_supercell_deposit_f32(const float* plane, const int* counts,
+                             int members, int nx, int ncell, int slab,
+                             int row0, int S, int nmesh, int stride, int gz,
+                             int CK, double scale, double shift, float* rho,
+                             void* scratch, void* stream) {
+  if (members < 1 || members > 65535 || ncell < 1 || nx < 1 || nx > ncell ||
+      (slab == 0 && nx != ncell) ||
       slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
       (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S ||
       stride < 1 || gz < 0 || CK < 1 || gz + CK > stride ||
@@ -351,44 +378,46 @@ int pm_supercell_deposit_f32(const float* plane, const int* counts, int nx,
   const size_t row = static_cast<size_t>(nx + 2) * (ncell + 2) * stride;
   const int nxg = slab ? nx * S + 3 : nmesh;
   const size_t nodes = static_cast<size_t>(nxg) * nmesh * nmesh;
-  // the bits that count the real slots: at most nx * ncell * CK
-  const unsigned long long nslots =
-      static_cast<unsigned long long>(nx) * ncell * CK;
-  const int j = 64 - __builtin_clzll(nslots);
   auto* sums = static_cast<unsigned long long*>(scratch);
-  auto* mbits = reinterpret_cast<unsigned*>(sums + nodes);
+  auto* stats = reinterpret_cast<MassStats*>(sums + members * nodes);
+  static_assert(sizeof(MassStats) == sizeof(*sums), "a word a member");
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(sums, 0, (nodes + 1) * sizeof(*sums), s);
+  cudaError_t e =
+      cudaMemsetAsync(sums, 0, members * (nodes + 1) * sizeof(*sums), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(nx * ncell, (CK + kDepositThreads - 1) / kDepositThreads);
+  const dim3 grid(nx * ncell, (CK + kDepositThreads - 1) / kDepositThreads,
+                  members);
   deposit_max_kernel<<<grid, kDepositThreads, 0, s>>>(plane, counts, ncell,
-                                                      stride, gz, row, mbits);
+                                                      stride, gz, row, stats);
   deposit_kernel<<<grid, kDepositThreads, 0, s>>>(
       plane, counts, ncell, S, nmesh, nxg, slab, row0, stride, gz, row,
-      static_cast<float>(scale), static_cast<float>(shift), mbits, j, sums);
+      static_cast<float>(scale), static_cast<float>(shift), stats, nodes,
+      sums);
   const int threads = 256;
   const size_t blocks =
       std::min<size_t>((nodes + threads - 1) / threads, 132 * 16);
-  deposit_float_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-      sums, nodes, mbits, j, rho);
+  deposit_float_kernel<<<dim3(static_cast<unsigned>(blocks), 1, members),
+                         threads, 0, s>>>(sums, nodes, stats, rho);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3.  plane, ws, nch, out, box and drift as p3m_columns_f32; grids (3,
-// nxg, nmesh, nmesh) float32, or (6, ...) with `interlaced` (rows 3-5 read
-// at -0.5 cell): nxg = nmesh periodic (slab = 0, nx = ncell), or on a slab
-// (slab = 1, its first x-row row0 of the box's grid) the haloed
-// nx * S + 4 planes.  `split_out` writes the PM force to rows 3-5 and the
-// short-range sum alone to rows 0-2.
+// K3.  plane, ws, nch, out, box and drift as p3m_columns_f32, `members` of
+// them in one launch; grids (members, 3, nxg, nmesh, nmesh) float32, or
+// (members, 6, ...) with `interlaced` (rows 3-5 read at -0.5 cell):
+// nxg = nmesh periodic (slab = 0, nx = ncell), or on a slab (slab = 1, its
+// first x-row row0 of the box's grid) the haloed nx * S + 4 planes.
+// `split_out` writes the PM force to rows 3-5 and the short-range sum
+// alone to rows 0-2.
 int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
-                           const float* grids, int nmesh, int interlaced,
-                           int split_out, int nx, int ncell, int slab,
-                           int row0, int S, double scale, int stride, int W,
-                           int maxch, int gz, int chunk, double eps,
-                           double r_s, double r_cut, double box,
+                           const float* grids, int members, int nmesh,
+                           int interlaced, int split_out, int nx, int ncell,
+                           int slab, int row0, int S, double scale,
+                           int stride, int W, int maxch, int gz, int chunk,
+                           double eps, double r_s, double r_cut, double box,
                            const float* drift, int split, int softening,
                            float* out, void* stream) {
-  if (ncell < 1 || nx < 1 || nx > ncell || (slab == 0 && nx != ncell) ||
+  if (members < 1 || members > 65535 || ncell < 1 || nx < 1 || nx > ncell ||
+      (slab == 0 && nx != ncell) ||
       slab < 0 || slab > 1 || row0 < 0 || row0 + nx > ncell ||
       (slab == 0 && row0 != 0) || S < 1 || nmesh != ncell * S || stride < 1 ||
       W < 1 || W > stride || maxch < 1 || gz < 0 || chunk < kColTargets ||
@@ -405,21 +434,13 @@ int pm_supercell_fused_f32(const float* plane, const int* ws, const int* nch,
   const float sc = static_cast<float>(scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool il = interlaced != 0, so = split_out != 0;
-  if (split == 0) {
-    if (softening == 0)
-      dispatch_fused<0, 0>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
-                           row0, S, sc, g, p, out, s);
-    else
-      dispatch_fused<0, 1>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
-                           row0, S, sc, g, p, out, s);
-  } else {
-    if (softening == 0)
-      dispatch_fused<1, 0>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
-                           row0, S, sc, g, p, out, s);
-    else
-      dispatch_fused<1, 1>(il, so, plane, ws, nch, grids, nmesh, nxg, slab,
-                           row0, S, sc, g, p, out, s);
-  }
+  const auto run = split == 0
+                       ? (softening == 0 ? &dispatch_fused<0, 0>
+                                         : &dispatch_fused<0, 1>)
+                       : (softening == 0 ? &dispatch_fused<1, 0>
+                                         : &dispatch_fused<1, 1>);
+  run(il, so, plane, ws, nch, grids, members, nmesh, nxg, slab, row0, S, sc,
+      g, p, out, s);
   return static_cast<int>(cudaGetLastError());
 }
 

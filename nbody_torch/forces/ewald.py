@@ -17,7 +17,12 @@ Counterpart of :mod:`nbody.forces.ewald`:
     plain tensor code: a (N, 3) x (3, K) phase product, cos/sin and
     products with the (K, 3) weights, streamed over chunks of modes so
     the (N, K) phase matrix never materializes whole.  The JAX package
-    computes this half outside any Pallas kernel too.
+    computes this half outside any Pallas kernel too.  B members take it
+    member by member: the same products over a member axis (one (B N, 3)
+    x (3, K) product, batched block sums and (N, K) x (K, 3) products)
+    rounded a member otherwise than its own call on the H100
+    (``tests/test_torch_cuda.py::test_ewald_batched_equals_single_calls``),
+    where each member's own products give it its own bits.
 
 The k-space products run in full float32 on the card whatever the
 process's TF32 setting: TF32 keeps ~3 decimal digits, an error of ~0.03
@@ -89,7 +94,14 @@ def ewald_kspace_acc(
     n_max: int = 10,
     chunk: int = 512,
 ):
-    """The k-space (long-range) half of the Ewald force."""
+    """The k-space (long-range) half of the Ewald force: (N, 3) for
+    ``pos`` (N, 3); B members' ``pos`` (B, N, 3) and ``mass`` (B, N) give
+    (B, N, 3), each member's structure sums and products its own (the
+    bits of its own call)."""
+    if pos.ndim == 3:
+        return torch.stack([ewald_kspace_acc(p, m, box, G=G, r_s=r_s,
+                                             n_max=n_max, chunk=chunk)
+                            for p, m in zip(pos, mass)])
     if r_s is None:
         r_s = box / 16.0
     dtype, dev = pos.dtype, pos.device
@@ -141,12 +153,12 @@ def ewald_pp_acc(
     the exact k-space structure-factor sum.  With the defaults (r_s =
     box/16, n_max = 10) both truncations are below 1e-5 relative.  The
     softening applies to the short-range Newton term exactly as in the
-    non-periodic solver.
+    non-periodic solver.  B members, ``pos`` (B, N, 3) and ``mass``
+    (B, N), make one K1 launch (its batched site) and each member's
+    k-space sums: (B, N, 3), each member the bits of its own call.
     """
-    from nbody_torch.forces.p3m import batched_refusal, p3m_short_acc
+    from nbody_torch.forces.p3m import p3m_short_acc
 
-    if pos.ndim != 2:
-        raise NotImplementedError(batched_refusal("the Ewald PP force"))
     mass = mass.to(pos.dtype)
     if r_s is None:
         r_s = box / 16.0

@@ -556,15 +556,6 @@ def resolve_shortrange(shortrange: str, n: int, box: float, r_cut: float,
     return shortrange
 
 
-def batched_refusal(what: str) -> str:
-    """The message of a batched call (a member axis) on a force that has
-    no batched form yet."""
-    return (f"{what} takes no member axis yet: the batched tier covers "
-            f"solver='pm' and the dense 'allpairs' P3M tier (N <= "
-            f"{ALLPAIRS_MAX_N}); the plane tiers and 'pp' are ROADMAP.md "
-            f"Queue 1 E.3")
-
-
 def p3m_acc(
     pos,
     mass,
@@ -599,8 +590,9 @@ def p3m_acc(
     returns (acc, overflow): 0 iff no force was dropped (the column tiers'
     field-encoded word, a 0-d tensor; the dense tier returns 0).
     ``pos`` (B, N, 3) and ``mass`` (B, N) evaluate B members at once on
-    the mesh and the dense tier (K1's batched site); another tier raises
-    ``NotImplementedError``."""
+    every tier: batched FFTs on the mesh, one launch of each kernel over
+    the members, and on the plane tiers one capacity and window for all
+    (the overflow word the largest member's, field by field)."""
     if part not in ("both", "long", "short", "split"):
         raise ValueError(f"unknown part {part!r}")
     cell = box / nmesh
@@ -623,8 +615,6 @@ def p3m_acc(
     n = pos.shape[-2]
     tier = resolve_shortrange(shortrange, n, box, float(r_cut), nmesh,
                               capacity)
-    if pos.ndim == 3 and tier != "allpairs":
-        raise NotImplementedError(batched_refusal(f"the {tier} tier"))
     ckw = dict(G=G, split=split, softening=softening)
     if tier == "supercell":
         from nbody_torch.forces.p3m_columns import (
@@ -712,8 +702,15 @@ def build_padded_plane(pos, mass, box: float, r_cut: float, ncell: int,
     baked into their massive slots' coordinates.  ``gidx`` (n,) is each
     particle's slot (M^3 K for an overflowed or excluded particle).
     ``valid`` (n,) bool excludes particles from the plane entirely: the
-    rung tier's active-target plane."""
-    n = pos.shape[0]
+    rung tier's active-target plane.  B members, ``pos`` (B, n, 3) and
+    ``mass`` (B, n), give the plane, overflow, gidx and counts with a
+    leading member axis, each member's equal to its own build (one cell
+    list of all members, one scatter, one gather)."""
+    one = pos.ndim == 2
+    if one:
+        pos, mass = pos[None], mass[None]
+        valid = None if valid is None else valid[None]
+    B = pos.shape[0]
     dev = pos.device
     f32 = torch.float32
     K = -(-capacity // 128) * 128
@@ -726,28 +723,32 @@ def build_padded_plane(pos, mass, box: float, r_cut: float, ncell: int,
     slotK = torch.where(ov, torch.full_like(cid, C3 * K), cid * K + rank)
 
     posw = torch.remainder(pos, box).to(f32)
-    data = torch.cat([posw, mass.to(f32)[:, None]], dim=1)
+    data = torch.cat([posw, mass.to(f32)[..., None]], dim=-1)
     interior = torch.tensor([-4.0 * r_cut] * 3 + [0.0], dtype=f32,
-                            device=dev).repeat(C3 * K + 1, 1)
-    interior[slotK] = data
-    interior = interior[:C3 * K].reshape(ncell, ncell, ncell, K, 4)
+                            device=dev).repeat(B, C3 * K + 1, 1)
+    interior[torch.arange(B, device=dev)[:, None], slotK] = data
+    interior = interior[:, :C3 * K].reshape(B, ncell, ncell, ncell, K, 4)
 
     wrap = (torch.arange(M, device=dev) - 1) % ncell
-    padded = interior[wrap][:, wrap][:, :, wrap]
+    padded = interior[:, wrap][:, :, wrap][:, :, :, wrap]
     zero = torch.zeros((), dtype=f32, device=dev)
     for ax in range(3):
         for edge, delta in ((0, -box), (M - 1, box)):
-            sl = padded[(slice(None),) * ax + (edge,)]
+            sl = padded[(slice(None),) * (ax + 1) + (edge,)]
             sl[..., ax] += torch.where(sl[..., 3] > 0, zero + delta, zero)
-    soa = padded.reshape(M**3 * K, 4).T
-    plane = torch.cat([soa, torch.zeros_like(soa)], dim=0).contiguous()
+    soa = padded.reshape(B, M**3 * K, 4).transpose(1, 2)
+    plane = torch.cat([soa, torch.zeros_like(soa)], dim=1).contiguous()
 
     cx, cy, cz = cid // (ncell * ncell), (cid // ncell) % ncell, cid % ncell
     pad_cid = ((cx + 1) * M + (cy + 1)) * M + (cz + 1)
     gidx = torch.where(ov, torch.full_like(cid, M**3 * K), pad_cid * K + rank)
-    stored = torch.clamp_max(cl.counts, capacity).reshape(ncell, ncell, ncell)
-    counts = stored[wrap][:, wrap][:, :, wrap].reshape(-1).to(torch.int32)
-    return plane, cl.overflow, K, gidx, counts.contiguous()
+    stored = torch.clamp_max(cl.counts, capacity).reshape(B, ncell, ncell,
+                                                          ncell)
+    counts = stored[:, wrap][:, :, wrap][:, :, :, wrap].reshape(B, -1).to(
+        torch.int32).contiguous()
+    if one:
+        return plane[0], cl.overflow[0], K, gidx[0], counts[0]
+    return plane, cl.overflow, K, gidx, counts
 
 
 def _real_cells(nx: int, ncell: int, device):
@@ -769,11 +770,19 @@ def cell_plane_plain(plane, counts, *, nx: int, ncell: int, K: int,
     the short-range sum over the stored sources of its 27 neighbour cells
     of ``plane_j`` (default ``plane``), zeros everywhere else.  The JAX
     kernel also visits the sentinel slots; they lie farther than r_cut
-    from every slot they meet, so the sums are the same."""
+    from every slot they meet, so the sums are the same.  B members'
+    planes (B, 8, ...) and counts (B, ...) give B output planes, each
+    member alone."""
     if plane_j is None:
         plane_j, K_j, counts_j = plane, K, counts
     elif K_j <= 0 or counts_j is None:
         raise ValueError("plane_j requires its bucket width K_j and counts_j")
+    if plane.ndim == 3:
+        return torch.stack([cell_plane_plain(
+            plane[b], counts[b], nx=nx, ncell=ncell, K=K, eps2=eps2, r_s=r_s,
+            r_cut=r_cut, split=split, softening=softening,
+            plane_j=plane_j[b], K_j=K_j, counts_j=counts_j[b],
+            max_pairs=max_pairs) for b in range(plane.shape[0])])
     wfn = _weight_fn(split, softening)
     dev = plane.device
     M = ncell + 2
@@ -954,19 +963,22 @@ def cell_plane_ordered(plane, counts, *, nx: int, ncell: int, K: int,
 
 
 def _check_cell_plane(name: str, plane, counts, ncells: int, k: int,
-                      device):
+                      device, members: int):
     if plane.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, got "
                         f"{plane.dtype}")
-    if tuple(plane.shape) != (8, ncells * k) or not plane.is_contiguous():
+    want = (8, ncells * k) if plane.ndim == 2 else (members, 8, ncells * k)
+    if tuple(plane.shape) != want or not plane.is_contiguous():
         raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
-                         f"contiguous (8, {ncells * k})")
+                         f"contiguous {want}")
     if counts.dtype != torch.int32:
         raise TypeError(f"{name}: counts must be int32, got {counts.dtype}")
     if (counts.device != device or plane.device != device
-            or counts.numel() != ncells or not counts.is_contiguous()):
+            or counts.numel() != members * ncells
+            or not counts.is_contiguous()):
         raise ValueError(f"{name}: the plane and its counts must be "
-                         f"contiguous, on {device}, with {ncells} cells")
+                         f"contiguous, on {device}, with {members} x "
+                         f"{ncells} cells")
 
 
 def _k6_run(lib, geo: K6Geometry, plane, counts, plane_j, counts_j, *,
@@ -974,7 +986,8 @@ def _k6_run(lib, geo: K6Geometry, plane, counts, plane_j, counts_j, *,
             r_cut: float, split: str, softening: str):
     """K6 from the kernel library ``lib`` in the launch shape ``geo``, on
     planes :func:`run_cell_plane` has checked, on the current stream: one
-    launch, which writes the whole output plane."""
+    launch over every member of batched planes, which writes the whole
+    output plane."""
     out = torch.empty_like(plane)
     dev = plane.device
     ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
@@ -982,7 +995,8 @@ def _k6_run(lib, geo: K6Geometry, plane, counts, plane_j, counts_j, *,
     with ctx:
         err = lib.p3m_cells_f32(
             plane.data_ptr(), plane_j.data_ptr(), counts.data_ptr(),
-            counts_j.data_ptr(), nx, ncell, K, K_j, math.sqrt(float(eps2)),
+            counts_j.data_ptr(), plane.shape[0] if plane.ndim == 3 else 1,
+            nx, ncell, K, K_j, math.sqrt(float(eps2)),
             float(r_s), float(r_cut), _SPLITS[split], _SOFTENINGS[softening],
             geo.warps, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -1002,7 +1016,9 @@ def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
     ``counts`` its (nx + 2) M^2 per-cell counts; ``plane_j``/``K_j``/
     ``counts_j`` an optional SOURCE plane of the same cell geometry with
     its own bucket width (the rung tier's active-target plane against the
-    full plane).  A CUDA plane launches the kernel (a block a real cell,
+    full plane).  B members' planes (B, 8, ...) with their counts (B, ...)
+    make one launch, each member with the blocks and the bits of its own.
+    A CUDA plane launches the kernel (a block a real cell,
     the warps a block from :func:`k6_geometry`; K a multiple of 4) or
     raises; a CPU plane takes the plain version.
     ``run_cell_plane.launches`` counts kernel launches."""
@@ -1016,8 +1032,9 @@ def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
     if plane.device.type != "cuda":
         raise ValueError(f"run_cell_plane: no kernel for {plane.device}")
     ncells = (nx + 2) * (ncell + 2) ** 2
+    members = plane.shape[0] if plane.ndim == 3 else 1
     _check_cell_plane("run_cell_plane plane", plane, counts, ncells, K,
-                      plane.device)
+                      plane.device, members)
     if K % 4:
         raise ValueError(f"run_cell_plane: K {K} is not a multiple of 4")
     if plane_j is None:
@@ -1026,7 +1043,7 @@ def run_cell_plane(plane, counts, *, nx: int, ncell: int, K: int,
         raise ValueError("plane_j requires its bucket width K_j and counts_j")
     else:
         _check_cell_plane("run_cell_plane plane_j", plane_j, counts_j,
-                          ncells, K_j, plane.device)
+                          ncells, K_j, plane.device, members)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
@@ -1051,7 +1068,9 @@ def p3m_short_cells_pallas(pos, mass, box: float, eps: float, r_s: float,
 
     Returns (acc (N, 3) in ``pos``'s dtype, overflow 0-d tensor): the
     particles of over-full cells lose their short-range term and are
-    counted in ``overflow``."""
+    counted in ``overflow``.  B members, ``pos`` (B, N, 3), share one
+    capacity: one plane build, one K6 launch, acc (B, N, 3) and the
+    largest member's count."""
     if box / ncell < r_cut - 1e-9:
         raise ValueError(f"cell size {box / ncell:.3f} < r_cut {r_cut:.3f}")
     plane, overflow, K, gidx, counts = build_padded_plane(
@@ -1061,7 +1080,7 @@ def p3m_short_cells_pallas(pos, mass, box: float, eps: float, r_s: float,
                          split=split, softening=softening)
     from nbody_torch.forces.p3m_columns import read_back
 
-    return G * read_back(out, gidx, 3).to(pos.dtype), overflow
+    return G * read_back(out, gidx, 3).to(pos.dtype), torch.amax(overflow)
 
 
 def p3m_short_cells_pallas_masked(pos, mass, target, box: float, eps: float,

@@ -132,20 +132,23 @@ def _rows_to_buf(rows, src_ok, is_front, is_interior, is_back,
 def _plane_from_buf(buf, box: float, ncell: int, stride: int):
     """The xy ghost ring (+-box baked into x and y of the massive slots)
     and the (8, P2 * stride) SoA plane: rows x, y, z, m, then four zero
-    rows."""
+    rows; a buffer with a leading member axis (B, ncol, stride, 4) gives
+    (B, 8, P2 * stride)."""
     P = ncell + 2
     P2 = P * P
-    grid4 = buf.reshape(ncell, ncell, stride, 4)
+    lead = buf.shape[:-3]
+    grid4 = buf.reshape((-1, ncell, ncell, stride, 4))
     wrap = (torch.arange(P, device=buf.device) - 1) % ncell
-    padded = grid4[wrap][:, wrap].clone()
+    padded = grid4[:, wrap][:, :, wrap].clone()
     zero = torch.zeros((), dtype=buf.dtype, device=buf.device)
     for ax in range(2):
         for edge, delta in ((0, -box), (P - 1, box)):
-            sl = (slice(None),) * ax + (edge,)
+            sl = (slice(None),) * (ax + 1) + (edge,)
             lo = padded[sl]
             lo[..., ax] += torch.where(lo[..., 3] > 0, zero + delta, zero)
-    soa = padded.reshape(P2 * stride, 4).T
-    return torch.cat([soa, torch.zeros_like(soa)], dim=0).contiguous()
+    soa = padded.reshape(-1, P2 * stride, 4).transpose(1, 2)
+    plane = torch.cat([soa, torch.zeros_like(soa)], dim=1).contiguous()
+    return plane.reshape(lead + (8, P2 * stride))
 
 
 class ColumnPlan(NamedTuple):
@@ -180,11 +183,23 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     particle to its padded slot (P2 * stride if its bucket was full).
     The two overflow counts are 0-d int64 tensors on the device.
 
+    B members at once, ``pos`` (B, n, 3) and ``mass`` (B, n), give each
+    of these with a leading member axis (the overflow counts (B,)), each
+    member's equal to its own build: one sort of all members' keys (a
+    member's columns after the previous member's) and one gather.  One
+    particle set is a batch of one.
+
     ``skin`` widens the window thresholds and the ghost margins as
     :func:`freeze_column_plan` does (the extra sources lie beyond r_cut
-    and weigh nothing now); ``with_plan=True`` appends the
-    :class:`ColumnPlan` of the same sort."""
-    n = pos.shape[0]
+    and weigh nothing now); ``with_plan=True`` (one particle set) appends
+    the :class:`ColumnPlan` of the same sort."""
+    one = pos.ndim == 2
+    if one:
+        pos, mass = pos[None], mass[None]
+    elif with_plan:
+        raise ValueError("build_column_plane: a frozen plan holds one "
+                         "particle set")
+    B, n = pos.shape[0], pos.shape[1]
     dev = pos.device
     f32 = torch.float32
     CK = _ceil128(col_capacity)
@@ -197,30 +212,36 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     P2 = P * P
     zmargin = 1.0001 * r_cut + 0.5 * skin
 
-    posw = torch.remainder(pos, box).to(f32)
-    massf = mass.to(f32)
+    posw = torch.remainder(pos, box).to(f32).reshape(B * n, 3)
+    massf = mass.to(f32).reshape(B * n)
     cx = torch.clamp((posw[:, 0] * (ncell / box)).to(torch.int32), 0,
                      ncell - 1).to(torch.int64)
     cy = torch.clamp((posw[:, 1] * (ncell / box)).to(torch.int32), 0,
                      ncell - 1).to(torch.int64)
-    col = cx * ncell + cy
+    member = torch.arange(B, device=dev).repeat_interleave(n)
+    # a member's columns follow the previous member's, so one stable sort
+    # orders each member as its own sort does
+    col = member * ncol + cx * ncell + cy
     order = _col_z_order(col, posw[:, 2], box)
     pos_s = posw[order]
     mass_s = massf[order]
     col_s = col[order]
 
-    cols = torch.arange(ncol, device=dev)
+    cols = torch.arange(B * ncol, device=dev)
     starts = torch.searchsorted(col_s, cols, right=False)
     ends = torch.searchsorted(col_s, cols, right=True)
     counts = ends - starts
-    rank = torch.arange(n, device=dev) - starts[col_s]
+    rank = torch.arange(B * n, device=dev) - starts[col_s]
     ok = rank < CK
-    overflow_b = torch.sum(~ok)
+    overflow_b = torch.sum((~ok).reshape(B, n), dim=1)
+    # the member's rows of the sorted arrays, for clamped gathers
+    row_lo = (cols // ncol) * n
+    row_hi = row_lo + max(n - 1, 0)
 
     # interior + z-ghost assembly: one gather from the sorted rows
     src, src_ok, is_front, is_interior, is_back = _slot_sources(
         starts, counts, CK, gz, stride)
-    src_c = torch.clamp(src, 0, max(n - 1, 0))
+    src_c = torch.clamp(src, row_lo[:, None], row_hi[:, None])
     rows = torch.cat([pos_s, mass_s[:, None]], dim=1)[src_c]
     buf, z_raw = _rows_to_buf(rows, src_ok, is_front, is_interior, is_back,
                               box, r_cut, zmargin)
@@ -229,8 +250,8 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     # their wrap partners; counted on the bucket field (heal = capacity)
     nb = torch.sum(is_interior & (z_raw <= zmargin), dim=1)
     nf = torch.sum(is_interior & (z_raw >= box - zmargin), dim=1)
-    ov_g = (torch.sum(torch.clamp_min(nb - gz, 0))
-            + torch.sum(torch.clamp_min(nf - gz, 0)))
+    ov_g = torch.sum((torch.clamp_min(nb - gz, 0)
+                      + torch.clamp_min(nf - gz, 0)).reshape(B, ncol), dim=1)
 
     # window tables.  Each column's z is ascending up to the 2^-21 box
     # quantum of the sort key, so the counts of slots below a threshold
@@ -242,45 +263,52 @@ def build_column_plane(pos, mass, box: float, r_cut: float, ncell: int,
     nch = -(-cnt_ck // chunk)
     idx0 = starts[:, None] + ch[None, :] * chunk
     last = starts[:, None] + cnt_ck[:, None] - 1
-    hi_n = max(n - 1, 0)
-    zmin = pos_s[torch.clamp(idx0, 0, hi_n), 2]
-    zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), 0, hi_n),
-                 2]
+    lo_r, hi_r = row_lo[:, None], row_hi[:, None]
+    zmin = pos_s[torch.clamp(idx0, lo_r, hi_r), 2]
+    zmax = pos_s[torch.clamp(torch.minimum(idx0 + chunk - 1, last), lo_r,
+                             hi_r), 2]
     chunk_ok = ch[None, :] < nch[:, None]
     qlo = (zmin - r_cut - skin).contiguous()
     qhi = (zmax + r_cut + skin).contiguous()
 
-    ic_x = cols // ncell
-    ic_y = cols % ncell
+    ic = cols % ncol
+    ic_x = ic // ncell
+    ic_y = ic % ncell
     ws_list = []
-    ov_w = torch.zeros((), dtype=torch.int64, device=dev)
+    miss = torch.zeros_like(qlo, dtype=torch.int64)
     for o2 in range(9):
         dxo, dyo = o2 // 3 - 1, o2 % 3 - 1
-        nc = ((ic_x + dxo) % ncell) * ncell + (ic_y + dyo) % ncell
+        nc = (cols - ic + ((ic_x + dxo) % ncell) * ncell
+              + (ic_y + dyo) % ncell)
         zj = zsorted[nc]
         lo_exact = torch.searchsorted(zj, qlo, right=False)
         start = torch.clamp((lo_exact // 128) * 128, 0, stride - W)
         hi_exact = torch.searchsorted(zj, qhi, right=False)
-        ov_w = ov_w + torch.sum(torch.where(
-            chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0))
+        miss = miss + torch.where(
+            chunk_ok, torch.clamp_min(hi_exact - (start + W), 0), 0)
         ws_list.append(start)
-    ws = torch.stack(ws_list, dim=1).reshape(ncol * 9 * maxch)
+    ov_w = torch.sum(miss.reshape(B, -1), dim=1)
+    ws = torch.stack(ws_list, dim=1).reshape(B, ncol * 9 * maxch)
     overflow_b = overflow_b + ov_g
 
-    plane = _plane_from_buf(buf, box, ncell, stride)
+    plane = _plane_from_buf(buf.reshape(B, ncol, stride, 4), box, ncell,
+                            stride)
 
-    pc = (cx + 1) * P + (cy + 1)
-    gidx_s = torch.where(ok, pc[order] * stride + gz + rank,
+    pc = ((cx + 1) * P + (cy + 1))[order]
+    gidx_s = torch.where(ok, pc * stride + gz + rank,
                          torch.full_like(rank, P2 * stride))
-    gidx = torch.empty(n, dtype=torch.int64, device=dev)
+    gidx = torch.empty(B * n, dtype=torch.int64, device=dev)
     gidx[order] = gidx_s
-    base = (plane, ws.to(torch.int32), nch.to(torch.int32), overflow_b,
-            ov_w, gidx, cnt_ck.to(torch.int32))
+    base = (plane, ws.to(torch.int32), nch.to(torch.int32).reshape(B, ncol),
+            overflow_b, ov_w, gidx.reshape(B, n),
+            cnt_ck.to(torch.int32).reshape(B, ncol))
+    if one:
+        base = tuple(t[0] for t in base)
     if not with_plan:
         return base
     plan = ColumnPlan(pos0=posw, src_g=order[src_c], starts=starts,
-                      counts=counts, ws=base[1], nch=base[2], gidx=gidx,
-                      ov=encode_overflow(overflow_b, ov_w))
+                      counts=counts, ws=base[1], nch=base[2], gidx=base[5],
+                      ov=encode_overflow(base[3], base[4]))
     return base + (plan,)
 
 
@@ -301,9 +329,12 @@ def columns_stride_ok(box: float, r_cut: float, col_capacity: int) -> bool:
 
 def encode_overflow(ov_b, ov_w):
     """One overflow word: bucket/ghost spills * 65536 + window misses
-    (each field saturated), zero iff no force was dropped."""
-    return (torch.clamp_max(ov_b, 32767) * 65536
-            + torch.clamp_max(ov_w, 65535))
+    (each field saturated), zero iff no force was dropped.  Counts of B
+    members ((B,) each) give the batch's word: each field the largest
+    member's (never the sum), so a heal grows the knob each field names
+    to what the neediest member asks."""
+    return (torch.clamp_max(torch.amax(ov_b), 32767) * 65536
+            + torch.clamp_max(torch.amax(ov_w), 65535))
 
 
 def interior_slots(ncell: int, stride: int, gz: int, chunk: int, nch,
@@ -391,7 +422,16 @@ def column_plane_plain(plane, ws, nch, *, ncell: int, stride: int, W: int,
     short-range sums at the slots of the occupied (listed) chunks of the
     interior columns and zeros everywhere else.  ``nx`` is the count of
     interior x-rows: ncell for the whole box's (8, P2 * stride) plane, a
-    slab's ncell / D for its (8, (nx + 2) * P * stride) plane."""
+    slab's ncell / D for its (8, (nx + 2) * P * stride) plane.  B members'
+    planes (B, 8, ...) with their tables (B, ...) give B output planes,
+    each member alone."""
+    if plane.ndim == 3:
+        return torch.stack([column_plane_plain(
+            plane[b], ws[b], nch[b], ncell=ncell, stride=stride, W=W,
+            maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut,
+            split=split, softening=softening,
+            cht=None if cht is None else cht[b], nx=nx)
+            for b in range(plane.shape[0])])
     tgt, sums = column_pair_sums(
         plane, ws, nch, ncell=ncell, stride=stride, W=W, maxch=maxch, gz=gz,
         chunk=chunk, eps=eps, r_s=r_s, r_cut=r_cut, split=split,
@@ -485,11 +525,18 @@ def column_reach(plane, ws, nch, *, ncell: int, stride: int, W: int,
     return first, torch.where(empty, 0, lo), torch.where(empty, 0, hi)
 
 
+def plane_members(plane) -> int:
+    """The members of a plane: B for B members' planes (B, 8, ...), 1 for
+    one plane (8, ...)."""
+    return plane.shape[0] if plane.ndim == 3 else 1
+
+
 def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
-                     ncell: int, stride: int, nx: int | None = None):
+                     ncell: int, stride: int, nx: int | None = None) -> int:
     """Raise on what the column kernels do not take: a float32 contiguous
-    (8, (nx + 2) * (ncell + 2) * stride) plane and int32 contiguous tables
-    on its device (nx = ncell unless given)."""
+    (8, (nx + 2) * (ncell + 2) * stride) plane, or B members' (B, 8, ...),
+    and int32 contiguous tables on its device, a member's after another's
+    (nx = ncell unless given).  Returns the members."""
     nx = ncell if nx is None else nx
     if not 1 <= nx <= ncell:
         raise ValueError(f"{name}: nx={nx} outside 1..ncell={ncell}")
@@ -497,9 +544,12 @@ def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
     if plane.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes a float32 plane, "
                         f"got {plane.dtype}")
-    if tuple(plane.shape) != (8, P2 * stride) or not plane.is_contiguous():
+    members = plane_members(plane)
+    if (tuple(plane.shape[-2:]) != (8, P2 * stride) or plane.ndim not in (2, 3)
+            or members < 1 or not plane.is_contiguous()):
         raise ValueError(f"{name}: plane {tuple(plane.shape)}, expected a "
-                         f"contiguous (8, {P2 * stride})")
+                         f"contiguous (8, {P2 * stride}) or (B, 8, "
+                         f"{P2 * stride})")
     ncol = nx * ncell
     sizes = {"ws": ncol * 9 * maxch, "nch": ncol, "counts": ncol,
              "cht": ncol * maxch}
@@ -507,9 +557,11 @@ def check_plane_args(name: str, plane, ints: dict, *, maxch: int,
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
         if t.device != plane.device or not t.is_contiguous() \
-                or t.numel() != sizes[key]:
+                or t.numel() != members * sizes[key]:
             raise ValueError(f"{name}: {key} must be a contiguous int32 "
-                             f"({sizes[key]},) tensor on {plane.device}")
+                             f"tensor of {members} x {sizes[key]} on "
+                             f"{plane.device}")
+    return members
 
 
 def launch_columns(lib, plane, ws, nch, cht, *, ncell: int, stride: int,
@@ -517,8 +569,8 @@ def launch_columns(lib, plane, ws, nch, cht, *, ncell: int, stride: int,
                    r_s: float, r_cut: float, split: str, softening: str,
                    nx: int, box: float, drift):
     """One launch of K4 (``cht`` None) or K5 from the kernel library
-    ``lib`` on checked arguments -> the output plane; raises if the launch
-    fails.  The wrappers call it with the port's library, the ablation
+    ``lib`` on checked arguments, over every member of a batched plane ->
+    the output plane; raises if the launch fails.  The wrappers call it with the port's library, the ablation
     with its variants'."""
     out = torch.zeros_like(plane)
     stream = torch.cuda.current_stream(plane.device).cuda_stream
@@ -527,7 +579,7 @@ def launch_columns(lib, plane, ws, nch, cht, *, ncell: int, stride: int,
         head = head + (cht.data_ptr(),)
     fn = lib.p3m_columns_f32 if cht is None else lib.p3m_columns_masked_f32
     with torch.cuda.device(plane.device):
-        err = fn(*head, nx, ncell, stride, W, maxch, gz, chunk, float(eps),
+        err = fn(*head, plane_members(plane), nx, ncell, stride, W, maxch, gz, chunk, float(eps),
                  float(r_s), float(r_cut), float(box),
                  None if drift is None else drift.data_ptr(),
                  _SPLITS[split], _SOFTENINGS[softening], out.data_ptr(),
@@ -541,16 +593,17 @@ def launch_columns(lib, plane, ws, nch, cht, *, ncell: int, stride: int,
 def reach_args(name: str, plane, box, drift) -> dict:
     """The box and drift the column kernels' reach search takes, checked:
     a positive box (the plane's sentinels and its sort key's quantum) and
-    a frozen plane's drift, one float32 on the plane's device
+    a frozen plane's drift, one float32 a member on the plane's device
     (:func:`frozen_plane`), or None for a fresh plane."""
     if box is None or not float(box) > 0.0:
         raise ValueError(f"{name}: the kernel needs the box (> 0), got "
                          f"{box}")
     if drift is not None and (
             not isinstance(drift, torch.Tensor)
-            or drift.dtype != torch.float32 or drift.numel() != 1
-            or drift.device != plane.device):
-        raise ValueError(f"{name}: drift must be one float32 on "
+            or drift.dtype != torch.float32
+            or drift.numel() != plane_members(plane)
+            or not drift.is_contiguous() or drift.device != plane.device):
+        raise ValueError(f"{name}: drift must be one float32 a member on "
                          f"{plane.device} (frozen_plane's), got {drift!r}")
     return dict(box=float(box), drift=drift)
 
@@ -649,11 +702,16 @@ def plane_geometry(box: float, r_cut: float, col_capacity: int,
 def read_back(out, gidx, rows: int):
     """Per-particle values of the first ``rows`` plane rows at each
     particle's slot (zeros for an overflowed particle): (n, rows); with
-    ``gidx`` None the slot table itself, a zero row appended."""
-    flat = out[:rows].T
-    pad = torch.zeros((1, rows), dtype=out.dtype, device=out.device)
-    table = torch.cat([flat, pad], dim=0)
-    return table if gidx is None else table[gidx]
+    ``gidx`` None the slot table itself, a zero row appended.  B members'
+    output planes (B, 8, ...) and slots (B, n) give (B, n, rows)."""
+    flat = out[..., :rows, :].transpose(-1, -2)
+    pad = torch.zeros(flat.shape[:-2] + (1, rows), dtype=out.dtype,
+                      device=out.device)
+    table = torch.cat([flat, pad], dim=-2)
+    if gidx is None or table.ndim == 2:
+        return table if gidx is None else table[gidx]
+    member = torch.arange(table.shape[0], device=out.device)[:, None]
+    return table[member, gidx]
 
 
 def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
@@ -666,7 +724,9 @@ def p3m_short_columns(pos, mass, box: float, eps: float, r_s: float,
     Returns (acc (N, 3) in ``pos``'s dtype, overflow 0-d tensor): overflow
     is 0 iff no force was dropped, else bucket/ghost spills * 65536 +
     z-window misses, so the driver's self-heal can tell col_capacity (high
-    field) from column_window (low field)."""
+    field) from column_window (low field).  B members, ``pos`` (B, N, 3),
+    share one capacity and window: one plane build, one K4 launch, acc
+    (B, N, 3) and the batch's word (:func:`encode_overflow`)."""
     if box / ncell < r_cut - 1e-9:
         raise ValueError(f"column size {box / ncell:.3f} < r_cut {r_cut:.3f}")
     CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut,

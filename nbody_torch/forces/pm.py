@@ -189,20 +189,29 @@ class PMForce(nn.Module):
         and both readback grid sets come back stacked (6, N, N, N): rows
         0-2 unshifted, rows 3-5 for the half-cell-shifted gather.  ``amp``
         multiplies the overdensity Poisson source; ``mass_sum`` is the
-        total mass that ``rho`` holds at its mean."""
+        total mass that ``rho`` holds at its mean.  B members' grids (B,
+        N, N, N), with ``amp`` and ``mass_sum`` numbers or (B,), give (B,
+        3 or 6, N, N, N) from batched FFTs (one grid is a batch of one)."""
         if rho1 is not None and not self.interlace:
             raise ValueError("a second deposit needs an interlaced PMForce")
         if self.grid_shift != 0.0:
             raise ValueError("force_grids_from_rho: grid_shift must be 0")
+        if rho.ndim == 3:
+            return self.force_grids_from_rho(
+                rho[None], amp, mass_sum,
+                None if rho1 is None else rho1[None])[0]
         rho_k = rfft3(rho)
         if rho1 is not None:
             # e^{-i k.d/2} aligns the shifted deposit
             rho_k = 0.5 * (rho_k + rfft3(rho1) * self.phase_read.conj())
-        phi_k = rho_k * (self.green * (amp * self.nmesh**3 / mass_sum))
+        factor = torch.as_tensor(amp * self.nmesh**3 / mass_sum,
+                                 dtype=self.green.dtype, device=rho.device)
+        phi_k = rho_k * (self.green * factor.reshape(-1, 1, 1, 1))
         grids = self._force_grids(phi_k)
         if rho1 is None:
             return grids
-        return torch.cat([grids, self._force_grids(phi_k * self.phase_read)])
+        return torch.cat([grids, self._force_grids(phi_k * self.phase_read)],
+                         dim=-4)
 
     def _force_grids(self, phi_k):
         if self.grad_order == "spectral":

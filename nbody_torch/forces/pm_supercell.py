@@ -41,6 +41,7 @@ from nbody_torch.forces.p3m_columns import (
     frozen_plane,
     interior_slots,
     plane_geometry,
+    plane_members,
     reach_args,
     read_back,
 )
@@ -181,7 +182,9 @@ def deposit_fixed_exponent(mass_max: float, nslots: int) -> int:
     """K2's fixed-point exponent: the corner masses are scaled by 2^e and
     rounded to 64-bit integers, e chosen so that ``nslots`` masses below
     2^k (k from the largest real mass, ``mass_max``) sum below 2^62; 0
-    when no mass is positive."""
+    when no mass is positive.  ``nslots`` is the plane's count of real
+    slots (its deposited particles), which does not depend on the
+    capacity, so neither do the rounded weights."""
     if not mass_max > 0.0:
         return 0
     return 62 - math.frexp(float(mass_max))[1] - int(nslots).bit_length()
@@ -213,7 +216,7 @@ def deposit_atomics(plane, counts, *, ncell: int, S: int, nmesh: int,
     int64, the corner's mesh offset, -1 outside a slab's halo or past
     counts; w (ncol, CK, 8) float32, its weight) and the exponent
     :func:`deposit_fixed_exponent` gives from the largest real mass and
-    the plane's slot count (ncol * CK)."""
+    the plane's count of real slots (the sum of ``counts``)."""
     nx = ncell if nx is None else nx
     ncol = nx * ncell
     P = ncell + 2
@@ -254,7 +257,7 @@ def deposit_atomics(plane, counts, *, ncell: int, S: int, nmesh: int,
         ws.append(wxy * (fz if cz else 1.0 - fz))
     m_max = float(torch.where(live, m.abs(), 0.0).max()) if ncol else 0.0
     return (torch.stack(nodes, dim=-1), torch.stack(ws, dim=-1),
-            deposit_fixed_exponent(m_max, ncol * CK))
+            deposit_fixed_exponent(m_max, int(counts.sum())))
 
 
 def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
@@ -274,7 +277,10 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     masses summed in 64-bit integer fixed point, exact in any order, so
     two launches give the same bits; :func:`deposit_atomics`) or raises; a
     CPU plane takes :func:`deposit_node_masses_plain` +
-    :func:`fold_node_masses` (or :func:`fold_slab_node_masses`).
+    :func:`fold_node_masses` (or :func:`fold_slab_node_masses`).  B
+    members' planes (B, 8, ...) with their counts (B, ncol) give B mass
+    grids from one launch, each member at its own fixed-point exponent
+    (its bits those of its own launch).
     ``supercell_deposit_from_plane.launches`` counts kernel launches."""
     geom = supercell_geometry(nmesh, ncell)
     if geom is None:
@@ -285,6 +291,11 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
     nx = ncell if nx is None else nx
     slab = nx != ncell
     scale = float(nmesh / box)
+    if plane.device.type == "cpu" and plane.ndim == 3:
+        return torch.stack([supercell_deposit_from_plane(
+            plane[b], counts[b], box=box, nmesh=nmesh, ncell=ncell,
+            stride=stride, gz=gz, chunk=chunk, shift=shift, nx=nx, row0=row0)
+            for b in range(plane.shape[0])])
     if plane.device.type == "cpu":
         nodes = deposit_node_masses_plain(
             plane, counts, ncell=ncell, S=S, ZP=ZP, stride=stride, gz=gz,
@@ -297,22 +308,25 @@ def supercell_deposit_from_plane(plane, counts, *, box: float, nmesh: int,
         raise ValueError(f"supercell_deposit_from_plane: no kernel for "
                          f"{plane.device}")
     CK = stride - 2 * gz
-    check_plane_args("supercell_deposit_from_plane", plane,
-                     {"counts": counts}, maxch=CK // chunk, ncell=ncell,
-                     stride=stride, nx=nx)
+    members = check_plane_args("supercell_deposit_from_plane", plane,
+                               {"counts": counts}, maxch=CK // chunk,
+                               ncell=ncell, stride=stride, nx=nx)
     from nbody_torch._kernels import load_library
 
     lib = load_library()
     dev = plane.device
-    rho = torch.empty((nx * S + 3 if slab else nmesh, nmesh, nmesh),
-                      dtype=torch.float32, device=dev)
-    # the kernel's integer sums, and the largest mass in the last word
-    scratch = torch.empty((rho.numel() + 1,), dtype=torch.int64, device=dev)
+    grid = (nx * S + 3 if slab else nmesh, nmesh, nmesh)
+    rho = torch.empty(plane.shape[:-2] + grid, dtype=torch.float32,
+                      device=dev)
+    # each member's integer sums, then a word a member (its largest mass
+    # and its count of real slots)
+    scratch = torch.empty((rho.numel() + members,), dtype=torch.int64,
+                          device=dev)
     ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
            else torch.cuda.device(dev))
     with ctx:
         err = lib.pm_supercell_deposit_f32(
-            plane.data_ptr(), counts.data_ptr(), nx, ncell, int(slab), row0,
+            plane.data_ptr(), counts.data_ptr(), members, nx, ncell, int(slab), row0,
             S, nmesh, stride, gz, CK, scale, float(shift), rho.data_ptr(),
             scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -393,7 +407,15 @@ def fused_column_plane_plain(plane, ws, nch, grids, *, ncell: int,
     ``plane``, whose rows 0-2 hold PM + short-range force at the occupied
     chunks' slots of the interior columns (``split_out``: short range in
     rows 0-2, PM in rows 3-5), zeros elsewhere; ``nx`` and ``row0`` as in
-    :func:`column_pm_readback`."""
+    :func:`column_pm_readback`.  B members' planes (B, 8, ...), tables
+    and grids (B, ...) give B output planes, each member alone."""
+    if plane.ndim == 3:
+        return torch.stack([fused_column_plane_plain(
+            plane[b], ws[b], nch[b], grids[b], ncell=ncell, stride=stride,
+            W=W, maxch=maxch, gz=gz, chunk=chunk, eps=eps, r_s=r_s,
+            r_cut=r_cut, split=split, softening=softening, S=S, scale=scale,
+            split_out=split_out, interlaced=interlaced, nx=nx, row0=row0)
+            for b in range(plane.shape[0])])
     tgt, pm = column_pm_readback(plane, nch, grids, ncell=ncell,
                                  stride=stride, gz=gz, chunk=chunk, S=S,
                                  scale=scale, interlaced=interlaced, nx=nx,
@@ -418,7 +440,8 @@ def launch_fused(lib, plane, ws, nch, grids, *, ncell: int, stride: int,
                  S: int, scale: float, split_out: bool, interlaced: bool,
                  nx: int, row0: int, box: float, drift):
     """One launch of K3 from the kernel library ``lib`` on checked
-    arguments -> the output plane; raises if the launch fails.  The
+    arguments, over every member of a batched plane -> the output plane;
+    raises if the launch fails.  The
     wrapper calls it with the port's library, the ablation with its
     variants'."""
     out = torch.zeros_like(plane)
@@ -426,7 +449,8 @@ def launch_fused(lib, plane, ws, nch, grids, *, ncell: int, stride: int,
     with torch.cuda.device(plane.device):
         err = lib.pm_supercell_fused_f32(
             plane.data_ptr(), ws.data_ptr(), nch.data_ptr(),
-            grids.data_ptr(), grids.shape[-1], int(interlaced),
+            grids.data_ptr(), plane_members(plane), grids.shape[-1],
+            int(interlaced),
             int(split_out), nx, ncell, int(nx != ncell), row0, S,
             float(scale), stride, W, maxch, gz, chunk, float(eps),
             float(r_s), float(r_cut), float(box),
@@ -450,7 +474,9 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
     :func:`fused_column_plane_plain`.  With ``nx`` < ncell the plane is a
     slab's (from the box's x-row ``row0``, box coordinates) and ``grids``
     the slab's haloed (3 or 6, nx * S + 4, N, N) grids
-    (:func:`extract_local_subgrids`).  A CUDA plane launches the
+    (:func:`extract_local_subgrids`).  B members' planes (B, 8, ...),
+    tables and grids (B, 3 or 6, ...) make one launch, each member's sums
+    those of its own launch.  A CUDA plane launches the
     kernel or raises; a CPU plane takes the plain version.  The kernel
     takes the box from ``scale`` (N / box) and, for a frozen plane, its
     ``drift`` (:func:`~nbody_torch.forces.p3m_columns.frozen_plane`).
@@ -472,11 +498,11 @@ def run_fused_column_plane(plane, ws, nch, grids, *, ncell: int, stride: int,
     nmesh = grids.shape[-1]
     nc = 6 if interlaced else 3
     nxg = nx * S + 4 if nx != ncell else nmesh
+    want = plane.shape[:-2] + (nc, nxg, nmesh, nmesh)
     if (grids.dtype != torch.float32 or grids.device != plane.device
-            or tuple(grids.shape) != (nc, nxg, nmesh, nmesh)
-            or not grids.is_contiguous()):
+            or tuple(grids.shape) != want or not grids.is_contiguous()):
         raise ValueError(f"run_fused_column_plane: grids must be contiguous "
-                         f"float32 ({nc}, {nxg}, N, N) on {plane.device}, got "
+                         f"float32 {want} on {plane.device}, got "
                          f"{grids.dtype} {tuple(grids.shape)}")
     from nbody_torch._kernels import load_library
 
@@ -528,7 +554,10 @@ def p3m_supercell_acc(pos, mass, box: float, nmesh: int, G: float = 1.0,
                       interlace: bool = False, skin: float = 0.0,
                       with_plan: bool = False):
     """Full P3M force (PM far field + short-range correction) from one
-    particle sort: K2 deposit, FFT Poisson, K3 readback + pair sum.
+    particle sort: K2 deposit, FFT Poisson, K3 readback + pair sum.  B
+    members, ``pos`` (B, N, 3), share one capacity and window: one plane
+    build, one launch of K2 and of K3, batched FFTs; acc (B, N, 3) and the
+    batch's overflow word (:func:`encode_overflow`).
 
     Returns (acc (N, 3), overflow) with the columns tier's field-encoded
     overflow word (a 0-d tensor); an overflowed particle loses its whole
@@ -576,8 +605,10 @@ def _supercell_eval(plane, ws, nch, gidx, counts, pos, mass, box: float,
     rho1 = (supercell_deposit_from_plane(plane, counts, shift=0.5, **dkw)
             if interlace else None)
     # G is applied once at the end (the short-range sum is unscaled), so
-    # the Poisson source carries 4 pi rho_mean only
-    mass_sum = torch.sum(mass).to(torch.float32)
+    # the Poisson source carries 4 pi rho_mean only; each member's mass
+    # summed in float64, exact for equal masses whatever the reduction's
+    # order (so a member's bits are its own run's)
+    mass_sum = torch.sum(mass, dim=-1, dtype=torch.float64).to(torch.float32)
     amp = 4.0 * math.pi * mass_sum / box**3
     pm = pm_module(float(box), int(nmesh), int(deconvolve_p), bool(interlace),
                    float(r_s) if split == "gaussian" else 0.0,
@@ -592,7 +623,7 @@ def _supercell_eval(plane, ws, nch, gidx, counts, pos, mass, box: float,
         interlaced=interlace, drift=drift)
     if part_split:
         both = read_back(out, gidx, 6).to(pos.dtype)
-        return G * both[:, 3:6], G * both[:, 0:3], ov
+        return G * both[..., 3:6], G * both[..., 0:3], ov
     return G * read_back(out, gidx, 3).to(pos.dtype), ov
 
 

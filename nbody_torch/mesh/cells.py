@@ -47,26 +47,41 @@ def build_cell_list(pos, box: float, ncell: int, capacity: int,
     ``pos`` may be unwrapped.  ``valid`` (n,) bool excludes particles
     entirely (sentinel slot, no bucket space, not counted as overflow):
     the rung tier's active-target planes.  The sort is stable, as
-    ``jnp.argsort`` is, so slots equal the JAX package's."""
-    n = pos.shape[0]
+    ``jnp.argsort`` is, so slots equal the JAX package's.  B members at
+    once, ``pos`` (B, n, 3) (``valid`` (B, n)), give each field with a
+    leading member axis (``overflow`` (B,)), each member's equal to its
+    own list: one stable sort of all members' keys, a member's cells
+    after the previous member's."""
+    one = pos.ndim == 2
+    if one:
+        pos = pos[None]
+        valid = None if valid is None else valid[None]
+    B, n = pos.shape[0], pos.shape[1]
     dev = pos.device
     C3 = ncell**3
-    cid = cell_ids(pos, box, ncell)
+    cid = cell_ids(pos.reshape(B * n, 3), box, ncell)
     if valid is not None:
         # excluded particles sort past every real cell and never fit
-        cid = torch.where(valid, cid, torch.full_like(cid, C3))
-    order = torch.argsort(cid, stable=True)
+        cid = torch.where(valid.reshape(-1), cid, torch.full_like(cid, C3))
+    member = torch.arange(B * n, device=dev) // max(n, 1)
+    key = member * (C3 + 1) + cid
+    order = torch.argsort(key, stable=True)
     cid_s = cid[order]
-    counts = torch.bincount(cid, minlength=C3 + 1)[:C3]
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n, device=dev) - starts[torch.clamp_max(cid_s, C3 - 1)]
+    counts = torch.bincount(key, minlength=B * (C3 + 1)).reshape(
+        B, C3 + 1)[:, :C3]
+    starts = (torch.cumsum(counts, 1) - counts).reshape(-1)
+    # the sorted rows of member b are rows b n .. b n + n - 1
+    rank = (torch.arange(B * n, device=dev) - member * n
+            - starts[member * C3 + torch.clamp_max(cid_s, C3 - 1)])
     real = cid_s < C3
     ok = (rank < capacity) & real
     slot_s = torch.where(ok, cid_s * capacity + rank,
                          torch.full_like(rank, C3 * capacity))
-    table = torch.full((C3 * capacity,), n, dtype=torch.int64, device=dev)
-    table[slot_s[ok]] = order[ok]
-    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    table = torch.full((B, C3 * capacity), n, dtype=torch.int64, device=dev)
+    table[member[ok], slot_s[ok]] = (order - member * n)[ok]
+    slots = torch.empty(B * n, dtype=torch.int64, device=dev)
     slots[order] = slot_s
-    return CellList(indices=table.reshape(C3, capacity), counts=counts,
-                    overflow=torch.sum(~ok & real), slots=slots)
+    out = CellList(indices=table.reshape(B, C3, capacity), counts=counts,
+                   overflow=torch.sum((~ok & real).reshape(B, n), dim=1),
+                   slots=slots.reshape(B, n))
+    return CellList(*(t[0] for t in out)) if one else out

@@ -131,7 +131,7 @@ VARIANTS = {
     "tile no scan": Variant("tile", [NO_SCAN]),
     "tile no gather": Variant("tile", [NO_GATHER]),
 }
-ENTRY = "ppiiiiiiiiiddppp"
+ENTRY = "ppiiiiiiiiiiddppp"
 FLOAT_ENTRY = "ppiiiiiiiiiddpp"
 TILE_ENTRY = "ppiiiiiiiiiiddppp"
 SAME_SOURCE = {"tile Z x2": "tile"}
@@ -276,12 +276,15 @@ def _original_call(lib, kw: dict):
     return rho
 
 
-def _head(kw: dict) -> tuple:
+def _head(kw: dict, port: bool = False) -> tuple:
+    """The deposit's leading arguments; the port's source takes the
+    member count (one) after the counts."""
     a = _args(kw)
     slab = int(a["nx"] != a["ncell"])
-    return (kw["plane"].data_ptr(), kw["counts"].data_ptr(), a["nx"],
-            a["ncell"], slab, a["row0"], a["S"], a["nmesh"], a["stride"],
-            a["gz"], a["stride"] - 2 * a["gz"])
+    members = (1,) if port else ()
+    return (kw["plane"].data_ptr(), kw["counts"].data_ptr(), *members,
+            a["nx"], a["ncell"], slab, a["row0"], a["S"], a["nmesh"],
+            a["stride"], a["gz"], a["stride"] - 2 * a["gz"])
 
 
 def _mesh(kw: dict, fill: bool):
@@ -318,7 +321,8 @@ def variant_call(name: str, lib, kw: dict):
     stream = torch.cuda.current_stream().cuda_stream
     if VARIANTS[name].source == "port":
         sums = _sums(rho)
-        err = lib.pm_supercell_deposit_f32(*_head(kw), a["scale"], a["shift"],
+        err = lib.pm_supercell_deposit_f32(*_head(kw, True), a["scale"],
+                                           a["shift"],
                                            rho.data_ptr(), sums.data_ptr(),
                                            stream)
     elif geo is None:
@@ -346,6 +350,7 @@ def kernel_launch(name: str, lib, kw: dict):
     geo = variant_geometry(name, kw)
     if VARIANTS[name].source == "port":
         sums = _sums(rho)
+        head = _head(kw, True)
         return (lambda: lib.pm_supercell_deposit_f32(
             *head, a["scale"], a["shift"], rho.data_ptr(), sums.data_ptr(),
             stream), (rho, sums))

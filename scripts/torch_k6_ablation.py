@@ -217,7 +217,7 @@ VARIANTS = {
     "cull": Variant(CULL, sorted_sources=True),
     "narrowed": Variant([NARROWED]),
 }
-ENTRY = {"p3m_cells_f32": "ppppiiiidddiiipp", "p3m_cells_info": "iip"}
+ENTRY = {"p3m_cells_f32": "ppppiiiiidddiiipp", "p3m_cells_info": "iip"}
 ORIGINAL_ENTRY = {"p3m_cells_f32": "ppppiiiidddiipp"}
 # variants that share the redesign's source build once
 SAME_SOURCE = {name for name, v in VARIANTS.items()
@@ -336,7 +336,7 @@ def _original_call(lib, kw: dict):
     for name, p, c, k in (("plane", plane, counts, kw["K"]),
                           ("plane_j", plane_j, counts_j, K_j)):
         P._check_cell_plane(f"original {name}", p, c, ncells, k,
-                            plane.device)
+                            plane.device, 1)
     out = torch.zeros_like(plane)
     with torch.cuda.device(plane.device):
         err = lib.p3m_cells_f32(
@@ -363,7 +363,7 @@ def variant_call(name: str, lib, kw: dict, box: float | None = None):
     M = kw["ncell"] + 2
     ncells = (kw["nx"] + 2) * M * M
     P._check_cell_plane("variant plane", plane, counts, ncells, kw["K"],
-                        plane.device)
+                        plane.device, 1)
     geo = variant_geometry(name, lib, kw)
     return P._k6_run(lib, geo, plane, counts, plane_j, counts_j,
                      **{k: kw[k] for k in ("nx", "ncell", "K", "eps2", "r_s",
@@ -393,7 +393,7 @@ def kernel_launch(name: str, lib, kw: dict, box: float | None = None):
     out = torch.empty_like(plane)
     ptrs = (plane.data_ptr(), plane_j.data_ptr(), counts.data_ptr(),
             counts_j.data_ptr())
-    return (lambda: lib.p3m_cells_f32(*ptrs, *args, geo.warps,
+    return (lambda: lib.p3m_cells_f32(*ptrs, 1, *args, geo.warps,
                                       out.data_ptr(), stream), geo,
             (out, plane_j))
 

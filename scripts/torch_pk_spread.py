@@ -8,12 +8,12 @@ slab domain run that [19] holds to those bands.
 cfg64 (64^3 particles, box 500 Mpc, mesh 128, 142 steps, spline
 softening; the supercell tier) through ``run_simulation`` from its ICs:
 the run, the run again (the second starts from the capacities the first
-healed to, so its column planes, and the order of its pair sums, differ
-in the first stretches), ``--perturbed`` runs whose ICs move 1% of the
+healed to; K2's fixed point no longer depends on them, so the two end in
+the same bits, ``chip_smoke.py`` [25]), ``--perturbed`` runs whose ICs move 1% of the
 coordinates by one float32 ulp (a different draw each), and the run on
 four slab shards of the card (``devices=4``).  Since the deposits and K2
-sum exactly, two runs from the same ICs and capacities end in the same
-bits; every difference below is float32 rounding grown by the dynamics.
+sum exactly, two runs from the same ICs end in the same bits; every
+difference below is float32 rounding grown by the dynamics.
 Prints each pair's largest relative P(k) difference in each band and
 writes them as JSON to ``--out`` (default ``output/pk_spread.json``).
 """

@@ -1263,3 +1263,278 @@ def test_rfft3_bits_do_not_depend_on_the_batch(cuda, n):
         for b in range(B):
             assert torch.equal(k[b], rfft3(x[b]))
             assert torch.equal(r[b], irfft3(k[b], n))
+
+
+def _lattice_state(cuda, side=16, box=100.0, nmesh=32, seed=8):
+    """side^3 particles a little off the nmesh^3 mesh's nodes (the
+    Zel'dovich ICs' layout, where the small CIC corner weights round),
+    float32 on the card, unit masses."""
+    rng = np.random.default_rng(seed)
+    q = (np.indices((side,) * 3).reshape(3, -1).T + 0.5) * (box / side)
+    q = q + rng.normal(0.0, 1e-3 * box / nmesh, q.shape)
+    pos = torch.tensor(q, dtype=torch.float32, device=cuda)
+    return pos, torch.ones(pos.shape[0], device=cuda)
+
+
+def _capacity_planes(pos, mass, box, nmesh):
+    """The supercell geometry's column planes of one state at the auto
+    capacity and at twice it (each with its auto window): a list of
+    (built, kernel keywords)."""
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        column_window,
+        plane_geometry,
+    )
+    from nbody_torch.forces.pm_supercell import supercell_params
+
+    n = pos.shape[0]
+    r_s, r_cut, ncell, ck, w = supercell_params(box, nmesh, n)
+    out = []
+    for cap, win in ((ck, w), (2 * ck, column_window(box, r_cut, 2 * ck))):
+        CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, cap, win)
+        built = build_column_plane(pos, mass, box, r_cut, ncell, CK, W,
+                                   chunk=chunk)
+        assert int(built[3]) == int(built[4]) == 0
+        out.append((built, dict(ncell=ncell, stride=stride, W=W, maxch=maxch,
+                                gz=gz, chunk=chunk, eps=0.1, r_s=r_s,
+                                r_cut=r_cut, split="spline",
+                                softening="spline")))
+    return out
+
+
+@pytest.mark.parametrize("site", ["K2", "K3", "K4", "K5"])
+def test_column_sites_do_not_depend_on_the_capacity(cuda, site):
+    """A state's planes at a column capacity CK and at 2 CK (other ghost
+    bands, windows, chunks and window starts): K2's mass grid, and K3's,
+    K4's and K5's per-particle sums, are equal bit for bit.  K2 scaled its
+    fixed point by the plane's slot count (nx * ncell * CK) before, which
+    parted two runs of one config started from other capacities."""
+    from nbody_torch.forces.p3m_columns import (
+        active_chunk_table,
+        freeze_column_plan,
+        frozen_plane,
+        read_back,
+        run_column_plane,
+        run_column_plane_masked,
+    )
+    from nbody_torch.forces.pm_supercell import (
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+    )
+
+    box, nmesh = 100.0, 32
+    pos, mass = _lattice_state(cuda, box=box, nmesh=nmesh)
+    planes = _capacity_planes(pos, mass, box, nmesh)
+    got = []
+    g = torch.Generator().manual_seed(3)
+    grids = torch.randn((3,) + (nmesh,) * 3, generator=g).to(cuda)
+    act = (torch.rand(pos.shape[0], generator=g) < 0.1).to(cuda)
+    for built, kw in planes:
+        plane, ws, nch, gidx, counts = (built[i] for i in (0, 1, 2, 5, 6))
+        if site == "K2":
+            got.append(supercell_deposit_from_plane(
+                plane, counts, box=box, nmesh=nmesh, ncell=kw["ncell"],
+                stride=kw["stride"], gz=kw["gz"], chunk=kw["chunk"]))
+        elif site == "K3":
+            S = supercell_geometry(nmesh, kw["ncell"])[0]
+            out = run_fused_column_plane(plane, ws, nch, grids, S=S,
+                                         scale=nmesh / box, **kw)
+            got.append(read_back(out, gidx, 3))
+        elif site == "K4":
+            out = run_column_plane(plane, ws, nch, box=box, **kw)
+            got.append(read_back(out, gidx, 3))
+        else:
+            CK = kw["stride"] - 2 * kw["gz"]
+            plan = freeze_column_plan(pos, mass, box, kw["r_cut"],
+                                      kw["ncell"], CK, kw["W"], skin=3.0)
+            fplane, interior, drift = frozen_plane(
+                pos, mass, plan, box, kw["r_cut"], kw["ncell"], CK,
+                kw["gz"], kw["stride"])
+            nch_act, cht = active_chunk_table(
+                act, plan, interior, ncell=kw["ncell"], CK=CK, gz=kw["gz"],
+                maxch=kw["maxch"], chunk=kw["chunk"])
+            out = run_column_plane_masked(fplane, plan.ws, nch_act, cht,
+                                          box=box, drift=drift, **kw)
+            got.append(read_back(out, plan.gidx, 3)[act])
+    assert float(got[0].abs().max()) > 0
+    assert torch.equal(got[0], got[1])
+
+
+def _members(cuda, B=3, n=6000, box=100.0):
+    """B members' uniform states, their masses at 1, 10^3 and 10^-3 times
+    the first's (each member's K2 exponent its own), float32 on the
+    card."""
+    sets = [_particles(n, box, cuda, seed=10 + b) for b in range(B)]
+    pos = torch.stack([p for p, _ in sets]).contiguous()
+    scale = torch.tensor([1.0, 1e3, 1e-3][:B], device=cuda)[:, None]
+    mass = (torch.stack([m for _, m in sets]) * scale).contiguous()
+    return pos, mass
+
+
+@pytest.mark.parametrize("site", ["K2", "K3", "K4", "K6"])
+def test_batched_site_equals_single_launches(cuda, site):
+    """The batched sites of the plane kernels: B members' planes (one
+    build) in one launch, each member's output equal bit for bit to its
+    own plane's single launch, and the batch against the float64 plain
+    version (K2 to 1e-5 of the largest node, the sums to relative L2
+    1e-4)."""
+    from nbody_torch.forces.p3m import (
+        build_padded_plane,
+        cell_plane_plain,
+        run_cell_plane,
+    )
+    from nbody_torch.forces.p3m_columns import (
+        build_column_plane,
+        column_plane_plain,
+        plane_geometry,
+        run_column_plane,
+    )
+    from nbody_torch.forces.pm_supercell import (
+        fused_column_plane_plain,
+        run_fused_column_plane,
+        supercell_deposit_from_plane,
+        supercell_geometry,
+        supercell_params,
+    )
+
+    box, nmesh = 100.0, 32
+    pos, mass = _members(cuda, box=box)
+    B, n = pos.shape[:2]
+    if site == "K6":
+        r_cut = 0.999 * box / 4
+        plane, ov, K, _, counts = build_padded_plane(pos, mass, box, r_cut,
+                                                     4, 768)
+        assert plane.shape[0] == B and int(ov.max()) == 0
+        kw = dict(nx=4, ncell=4, K=K, eps2=0.01, r_s=r_cut / 4.5,
+                  r_cut=r_cut, split="spline", softening="spline")
+        fn, plain = run_cell_plane, cell_plane_plain
+        args = lambda b: (plane[b], counts[b])  # noqa: E731
+        batch = (plane, counts)
+    else:
+        r_s, r_cut, ncell, ck, w = supercell_params(box, nmesh, n)
+        CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
+        built = build_column_plane(pos, mass, box, r_cut, ncell, CK, W,
+                                   chunk=chunk)
+        plane, ws, nch, counts = built[0], built[1], built[2], built[6]
+        assert plane.shape[0] == B
+        geo = dict(ncell=ncell, stride=stride, gz=gz, chunk=chunk)
+        pair = dict(geo, W=W, maxch=maxch, eps=0.1, r_s=r_s, r_cut=r_cut,
+                    split="spline", softening="spline")
+        if site == "K2":
+            kw = dict(geo, box=box, nmesh=nmesh)
+            fn = supercell_deposit_from_plane
+            args = lambda b: (plane[b], counts[b])  # noqa: E731
+            batch = (plane, counts)
+        elif site == "K3":
+            g = torch.Generator().manual_seed(3)
+            grids = torch.randn((B, 3) + (nmesh,) * 3, generator=g).to(cuda)
+            kw = dict(pair, S=supercell_geometry(nmesh, ncell)[0],
+                      scale=nmesh / box)
+            fn, plain = run_fused_column_plane, fused_column_plane_plain
+            args = lambda b: (plane[b], ws[b], nch[b], grids[b])  # noqa
+            batch = (plane, ws, nch, grids)
+        else:
+            kw = dict(pair, box=box)
+            fn, plain = run_column_plane, column_plane_plain
+            args = lambda b: (plane[b], ws[b], nch[b])  # noqa: E731
+            batch = (plane, ws, nch)
+    before = fn.launches
+    got = fn(*batch, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.shape[0] == B
+    for b in range(B):
+        assert torch.equal(got[b], fn(*args(b), **kw))
+    if site == "K2":
+        from nbody_torch.forces.pm_supercell import (
+            deposit_node_masses_plain,
+            fold_node_masses,
+        )
+
+        S, ZP = supercell_geometry(nmesh, ncell)
+        for b in range(B):
+            ref = fold_node_masses(deposit_node_masses_plain(
+                plane[b].double(), counts[b], ncell=ncell, S=S, ZP=ZP,
+                stride=stride, gz=gz, scale=nmesh / box),
+                ncell=ncell, S=S, ZP=ZP, nmesh=nmesh)
+            assert float((got[b].double() - ref).abs().max()) <= \
+                1e-5 * float(ref.abs().max())
+        return
+    kw.pop("box", None)
+    ref = plain(*(t.double() if t.is_floating_point() else t for t in batch),
+                **kw)
+    for b in range(B):
+        assert float((got[b].double() - ref[b]).norm() / ref[b].norm()) \
+            <= K1_REL_L2_TOL
+
+
+def test_k2_batched_keeps_each_members_exponent(cuda):
+    """Members whose masses differ by 10^6: each member's batched mass
+    grid equals its single launch bit for bit (a batch-wide exponent,
+    from the heaviest member, would round the light members' corner
+    masses 2^20 times coarser)."""
+    from nbody_torch.forces.p3m_columns import build_column_plane, plane_geometry
+    from nbody_torch.forces.pm_supercell import (
+        supercell_deposit_from_plane,
+        supercell_params,
+    )
+
+    box, nmesh = 100.0, 32
+    lat, ones = _lattice_state(cuda, box=box, nmesh=nmesh)
+    pos = torch.stack([lat] * 3).contiguous()
+    mass = (ones * torch.tensor([1.0, 1e3, 1e-3], device=cuda)[:, None]
+            ).contiguous()
+    r_s, r_cut, ncell, ck, w = supercell_params(box, nmesh, lat.shape[0])
+    CK, gz, stride, W, maxch, chunk = plane_geometry(box, r_cut, ck, w)
+    built = build_column_plane(pos, mass, box, r_cut, ncell, CK, W,
+                               chunk=chunk)
+    kw = dict(box=box, nmesh=nmesh, ncell=ncell, stride=stride, gz=gz,
+              chunk=chunk)
+    rho = supercell_deposit_from_plane(built[0], built[6], **kw)
+    for b in range(3):
+        one = supercell_deposit_from_plane(built[0][b], built[6][b], **kw)
+        assert torch.equal(rho[b], one)
+
+
+def test_ewald_batched_equals_single_calls(cuda):
+    """The Ewald PP force over B members: K1's Ewald site in one launch
+    and each member's k-space sums, each member's force equal bit for bit
+    to its own call."""
+    from nbody_torch.forces.ewald import ewald_kspace_acc, ewald_pp_acc
+
+    box = 100.0
+    pos, mass = _members(cuda, n=3000, box=box)
+    before = p3m_short_acc.launches
+    got = ewald_pp_acc(pos, mass, box, eps=0.3)
+    torch.cuda.synchronize()
+    assert p3m_short_acc.launches == before + 1
+    lr = ewald_kspace_acc(pos, mass, box)
+    for b in range(pos.shape[0]):
+        assert torch.equal(lr[b], ewald_kspace_acc(pos[b], mass[b], box))
+        assert torch.equal(got[b], ewald_pp_acc(pos[b], mass[b], box,
+                                                eps=0.3))
+
+
+@pytest.mark.parametrize("tier", ["cells", "columns", "supercell", "pp"])
+def test_batched_plane_tiers_on_gpu_match_cpu(cuda, tier):
+    """run_members_batched on the plane tiers and PP on the card (one
+    launch of the tier's kernel an evaluation) against the same members
+    on the CPU."""
+    from nbody_torch.driver.ensemble import draw_A_s, run_members_batched
+    from nbody_torch.forces.p3m import run_cell_plane
+    from nbody_torch.forces.p3m_columns import run_column_plane
+    from nbody_torch.forces.pm_supercell import run_fused_column_plane
+
+    kw = (dict(solver="pp") if tier == "pp"
+          else dict(solver="p3m", shortrange=tier, pm_grid=32))
+    cfg = SimulationConfig(n_side=8, box=200.0, n_steps=4,
+                           output=OutputConfig(snapshot=False), **kw)
+    fn = {"cells": run_cell_plane, "columns": run_column_plane,
+          "supercell": run_fused_column_plane, "pp": p3m_short_acc}[tier]
+    before = fn.launches
+    gpu = run_members_batched(cfg, [1, 2], draw_A_s(2), log=lambda m: None)
+    assert fn.launches == before + cfg.n_steps + 1
+    cpu = run_members_batched(cfg, [1, 2], draw_A_s(2), device="cpu",
+                              log=lambda m: None)
+    d = (gpu.pos.cpu() - cpu.pos).abs()
+    assert float(torch.minimum(d, cfg.box - d).max()) < 1e-3

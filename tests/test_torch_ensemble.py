@@ -2,14 +2,15 @@
 sidecar files byte for byte, ``realize_ics(base=)`` and its refusal, the
 batched plain K1 against single calls and the dense oracle,
 ``run_members_batched`` against the JAX package's ``vmap`` tier in
-float64 from the JAX white noise (``'pm'`` and the dense ``'p3m'`` tier,
-JAX's K1 in interpret mode), ``run_ensemble``'s batched tier against its
-sequential one with resume by skip, ``find_missing_jobs``, the refusal of
-a batched call on a plane tier and on PP, and ``param_compat`` on param
+float64 from the JAX white noise (``'pm'``, every ``'p3m'`` tier and
+``'pp'``; JAX's kernels in interpret mode), ``run_ensemble``'s batched
+tier against its sequential one with resume by skip, ``find_missing_jobs``,
+a batched chunk that fails its retries, and ``param_compat`` on param
 text written here (the JAX package's ``.param`` tests read an absent
 reference checkout), config for config against the JAX package's.
 
-Tiny sizes: n_side 8, mesh 16, 4 steps, 2-3 members."""
+Tiny sizes: n_side 8, mesh 16 (32 for the plane tiers), 4 steps, 2-3
+members."""
 
 import dataclasses
 import os
@@ -31,11 +32,7 @@ from nbody_torch.driver import SimulationConfig as TConfig
 from nbody_torch.driver import ensemble as tens
 from nbody_torch.driver import param_compat as tpc
 from nbody_torch.driver.simulate import realize_ics, run_simulation
-from nbody_torch.forces.p3m import (
-    p3m_acc,
-    p3m_short_direct,
-    p3m_short_plain,
-)
+from nbody_torch.forces.p3m import p3m_short_direct, p3m_short_plain
 from nbody_torch.io import sidecars as tside
 
 TINY = JConfig(n_side=8, box=200.0, pm_grid=16, n_steps=4,
@@ -142,18 +139,55 @@ def test_batched_plain_k1_equals_single_calls(dtype):
                     1e-12 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("solver", ["pm", "p3m"])
-def test_run_members_batched_matches_jax(solver):
+#: the batched tier's configs: pm, the dense P3M tier at mesh 16 (box /
+#: r_cut = 2.8, below 3, where every tier runs dense), the plane tiers at
+#: mesh 32 (box / r_cut = 5.7) and PP
+BATCHED_CONFIGS = {
+    "pm": dict(solver="pm"),
+    "p3m": dict(solver="p3m"),
+    "cells": dict(solver="p3m", shortrange="cells", pm_grid=32),
+    "columns": dict(solver="p3m", shortrange="columns", pm_grid=32),
+    "supercell": dict(solver="p3m", shortrange="supercell", pm_grid=32),
+    "pp": dict(solver="pp"),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_batched():
+    """The JAX package's vmap tier of each of BATCHED_CONFIGS, run once:
+    name -> (config, seeds, A_s, final state)."""
+    done = {}
+
+    def run(name):
+        if name not in done:
+            cfg = TINY.replace(**BATCHED_CONFIGS[name])
+            seeds = jens.make_seeds(MEMBERS, 4)
+            A_s = jens.draw_A_s(MEMBERS)
+            done[name] = (cfg, seeds, A_s, jens.run_members_batched(
+                cfg, seeds, A_s, base=cfg))
+        return done[name]
+
+    return run
+
+
+@pytest.mark.parametrize("solver", list(BATCHED_CONFIGS))
+def test_run_members_batched_matches_jax(jax_batched, solver):
     """The batched tier against the JAX package's vmap of one member's
-    run, float64, from the JAX noise: positions to POS_RTOL."""
-    cfg = TINY.replace(solver=solver)
-    seeds = jens.make_seeds(MEMBERS, 4)
-    A_s = jens.draw_A_s(MEMBERS)
-    ref = jens.run_members_batched(cfg, seeds, A_s, base=cfg)
+    run, float64, from the JAX noise: positions to POS_RTOL, on pm, every
+    P3M tier (each resolved as by the JAX package) and PP."""
+    from nbody.driver.simulate import _resolved_shortrange as j_tier
+    from nbody_torch.driver.simulate import _resolved_shortrange as t_tier
+
+    cfg, seeds, A_s, ref = jax_batched(solver)
+    if cfg.solver == "p3m":
+        assert t_tier(_t(cfg)) == j_tier(cfg)
+        assert t_tier(_t(cfg)) == cfg.shortrange.replace("auto", "allpairs")
+    lines = []
     got = tens.run_members_batched(_t(cfg), seeds, A_s, base=_t(cfg),
                                    device="cpu", dtype=torch.float64,
-                                   noise=_noise(seeds, 8))
+                                   noise=_noise(seeds, 8), log=lines.append)
     assert got.pos.shape == (MEMBERS, 512, 3)
+    assert not any("re-running" in line for line in lines)
     d = got.pos.numpy() - np.asarray(ref.pos)
     d -= cfg.box * np.round(d / cfg.box)
     assert np.abs(d).max() <= POS_RTOL * cfg.box
@@ -215,28 +249,20 @@ def test_find_missing_jobs(tmp_path):
     assert tens._run_dir("r", 3, 2.1e-9) == jens._run_dir("r", 3, 2.1e-9)
 
 
-def test_batched_call_refused_on_plane_tiers_and_pp(tmp_path):
-    """The batched tier covers pm and the dense tier; a plane tier or PP
-    raises (no loop over members in its place), and a failed chunk is
-    recorded after its retries."""
-    seeds, A_s = [1, 2], tens.draw_A_s(2)
-    # mesh 32: box / r_cut = 5.7, where the chained tiers run (below 3 the
-    # dense tier runs for every tier)
-    for cfg in (TINY.replace(solver="p3m", shortrange="cells", pm_grid=32),
-                TINY.replace(solver="p3m", shortrange="columns",
-                             pm_grid=32),
-                TINY.replace(solver="pp")):
-        with pytest.raises(NotImplementedError, match="Queue 1 E.3"):
-            tens.run_members_batched(_t(cfg), seeds, A_s, device="cpu")
-    pos = torch.rand((2, 512, 3), dtype=torch.float64) * 200.0
-    with pytest.raises(NotImplementedError, match="the cells tier"):
-        p3m_acc(pos, torch.ones(2, 512, dtype=torch.float64), 200.0, 32,
-                shortrange="cells")
-    res = tens.run_ensemble(_t(TINY.replace(solver="pp")), 2,
-                            str(tmp_path), batch=2, max_retries=2,
-                            device="cpu")
-    assert res.failed == [0, 1]
-    assert "NotImplementedError" in (tmp_path / "failures.log").read_text()
+def test_failed_chunk_recorded_after_retries(tmp_path, monkeypatch):
+    """A batched chunk that fails every retry: each member recorded as
+    failed and the error in failures.log."""
+    calls = []
+
+    def broken(*args, **kwargs):
+        calls.append(1)
+        raise RuntimeError("a planted failure of the batched runner")
+
+    monkeypatch.setattr(tens, "run_members_batched", broken)
+    res = tens.run_ensemble(_t(TINY), 2, str(tmp_path), batch=2,
+                            max_retries=2, device="cpu")
+    assert res.failed == [0, 1] and len(calls) == 2
+    assert "planted failure" in (tmp_path / "failures.log").read_text()
 
 
 PARAM = textwrap.dedent("""\

@@ -113,11 +113,11 @@ def test_each_corner_added_once(whole, site, shift):
     # 8 atomics a slot on the whole box
     if nx == ncell:
         assert int((node >= 0).sum()) == 8 * int(counts.sum())
-    # the scaled masses of every slot the plane holds stay below 2^62
-    assert float(mass[live1].abs().max()) * 2.0**e * (nx * ncell * CK) \
-        < 2.0**62
-    assert e == ps.deposit_fixed_exponent(float(mass[live1].max()),
-                                          nx * ncell * CK)
+    # the scaled masses of the plane's real slots stay below 2^62, e from
+    # their count (not the capacity's slots)
+    nreal = int(counts.sum())
+    assert float(mass[live1].abs().max()) * 2.0**e * nreal < 2.0**62
+    assert e == ps.deposit_fixed_exponent(float(mass[live1].max()), nreal)
 
 
 @pytest.mark.parametrize("site,shift", [("cfg64", 0.5), ("slab", 0.0),
@@ -203,3 +203,38 @@ def test_atomics_reach_any_drift(whole, site):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.max())
     if not slab:
         assert float(got.sum()) == pytest.approx(float(m.sum()), rel=1e-9)
+
+
+def test_fixed_point_does_not_depend_on_the_capacity():
+    """K2's rounding on the planes of one particle set at a column
+    capacity and at twice it: the same exponent and the same integer
+    sums.  The exponent from the plane's slot count (the rule before:
+    nx * ncell * CK slots) moves by one between the two, and with it the
+    rounding of the small corner weights, so two runs of one config from
+    other capacities parted."""
+    # a lattice of 32^3 particles a little off the 64^3 mesh's nodes, as
+    # the Zel'dovich ICs sit: their small corner weights round
+    rng = np.random.default_rng(11)
+    n, nmesh = 32768, 64
+    q = (np.indices((32,) * 3).reshape(3, -1).T + 0.5) * (BOX / 32)
+    pos = torch.tensor(q + rng.normal(0, 1e-3 * BOX / nmesh, q.shape),
+                       dtype=torch.float32)
+    _, r_cut, ncell, ck, w = ps.supercell_params(BOX, nmesh, n)
+    got = []
+    for cap in (ck, 2 * ck):
+        CK, gz, stride, W, _, chunk = tc.plane_geometry(BOX, r_cut, cap, w)
+        plane, _, _, ovb, _, _, counts = tc.build_column_plane(
+            pos, torch.ones(n), BOX, r_cut, ncell, CK, W, chunk=chunk)
+        assert int(ovb) == 0
+        node, wt, e = ps.deposit_atomics(
+            plane, counts, ncell=ncell, S=nmesh // ncell, nmesh=nmesh,
+            stride=stride, gz=gz, scale=nmesh / BOX)
+        old = ps.deposit_fixed_exponent(1.0, ncell * ncell * CK)
+        got.append((e, ps.deposit_fixed(nmesh**3, node, wt, e)[0],
+                    old, ps.deposit_fixed(nmesh**3, node, wt, old)))
+    (e1, s1, old1, (q1, rho1)), (e2, s2, old2, (q2, rho2)) = got
+    assert e1 == e2 and torch.equal(s1, s2)
+    # the slot count's exponents: the exact sums differ (one a half step
+    # finer), and so does the float32 mesh
+    assert old1 == old2 + 1 and not torch.equal(q1, 2 * q2)
+    assert not torch.equal(rho1, rho2)
