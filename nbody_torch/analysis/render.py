@@ -59,10 +59,11 @@ def save_density_image(pos, box: float, path: str, res: int = 512,
 
 
 def render_snapshot(snapshot_path: str, out_path: str, res: int = 512,
-                    axis: int = 2):
-    """CONCEPT HDF5 snapshot -> density PNG."""
+                    axis: int = 2, *, device=None):
+    """CONCEPT HDF5 snapshot -> density PNG (the projection on
+    ``device``; default the CPU)."""
     from nbody_torch.io.snapshot import read_snapshot
 
-    state, meta = read_snapshot(snapshot_path)
+    state, meta = read_snapshot(snapshot_path, device=device)
     return save_density_image(state.pos, meta.boxsize, out_path, res=res,
                               axis=axis)

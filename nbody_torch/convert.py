@@ -81,3 +81,38 @@ def domain_state_to_numpy(shards: list):
     cat = [np.concatenate([getattr(s, f).detach().cpu().numpy()
                            for s in shards]) for f in ("pos", "vel", "mass")]
     return (*cat, shards[0].time.detach().cpu().numpy())
+
+
+def cnn_params_from_jax(params) -> dict:
+    """A :class:`~nbody_torch.emulator.model.CosmoCNN` state_dict from the
+    JAX package's flax params of a ``CosmoCNN`` (a nested dict of numpy
+    arrays: ``jax.tree_util.tree_map(np.asarray, params)``).
+
+    Conv kernels go from DHWIO to OIDHW and Dense kernels from (in, out)
+    to (out, in); the last Dense layer is the head.  The flatten of
+    ``global_pool=False`` is channel-last in both packages, so its Dense
+    kernel needs no other permutation.  A variational model's
+    ``kernel_mu`` / ``kernel_rho`` take the same layouts and its
+    ``bias_mu`` / ``bias_rho`` carry over."""
+    def layers(prefix):
+        names = sorted((k for k in params if k.startswith(prefix + "_")),
+                       key=lambda k: int(k.rsplit("_", 1)[1]))
+        return [params[k] for k in names]
+
+    variational = any(k.startswith("Conv3DVariational_") for k in params)
+    convs = layers("Conv3DVariational" if variational else "Conv")
+    denses = layers("DenseVariational" if variational else "Dense")
+    named = [(f"convs.{i}", p, (4, 3, 0, 1, 2)) for i, p in enumerate(convs)]
+    named += [(f"denses.{j}", p, (1, 0)) for j, p in enumerate(denses[:-1])]
+    named.append(("head", denses[-1], (1, 0)))
+    out = {}
+    for name, p, perm in named:
+        kernels = (("kernel_mu", "kernel_rho") if variational
+                   else ("kernel",))
+        for key, arr in p.items():
+            arr = np.asarray(arr, dtype=np.float32)
+            if key in kernels:
+                arr = arr.transpose(perm)
+            field = {"kernel": "weight", "bias": "bias"}.get(key, key)
+            out[f"{name}.{field}"] = torch.tensor(arr)
+    return out

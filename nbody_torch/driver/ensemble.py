@@ -205,7 +205,8 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
                  A_s_values: Sequence[float] | None = None,
                  max_retries: int = 3, resume: bool = True,
                  split_name: str = "Training", batch: int = 0, *,
-                 device="cuda", dtype=None) -> EnsembleResult:
+                 device="cuda", dtype=None, members=None,
+                 on_final_state=None) -> EnsembleResult:
     """Run n_samples seeded realizations of ``config``, on the card unless
     ``device`` says otherwise.
 
@@ -224,7 +225,10 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
     The snapshot writer needs h5py; with ``output.snapshot=False`` (the
     card's machine has no h5py) no final snapshot exists, so a resume
     finds none and runs every member again, as the JAX package's contract
-    says."""
+    says.  ``members``, when given, names the members to run; the others
+    are skipped (the emulator's pipeline resumes by the volumes it has
+    written).  ``on_final_state(i, state)``, when given, receives each
+    member run's final state (the pipeline's in-memory ETL)."""
     t0 = time.perf_counter()
     seeds = make_seeds(n_samples, master_seed)
     if A_s_values is None:
@@ -251,6 +255,7 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
     run_dirs = [_run_dir(workdir, i, float(A_s_values[i]))
                 for i in range(n_samples)]
     failed, skipped = [], []
+    wanted = set(range(n_samples) if members is None else members)
 
     def record(what: str) -> None:
         with open(os.path.join(workdir, "failures.log"), "a") as f:
@@ -259,8 +264,8 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
     if batch > 1:
         todo = []
         for i in range(n_samples):
-            if resume and os.path.exists(_final_snapshot(run_dirs[i],
-                                                         config)):
+            if i not in wanted or (resume and os.path.exists(
+                    _final_snapshot(run_dirs[i], config))):
                 skipped.append(i)
             else:
                 todo.append(i)
@@ -281,22 +286,32 @@ def run_ensemble(config: SimulationConfig, n_samples: int, workdir: str,
             if states is None:
                 continue
             _write_members(config, states, chunk, run_dirs, seeds, A_s_values)
+            if on_final_state is not None:
+                for j, i in enumerate(chunk):
+                    on_final_state(i, ParticleState(
+                        pos=states.pos[j], vel=states.vel[j],
+                        mass=states.mass[j], time=states.time))
     else:
         for i in range(n_samples):
             member = config.replace(A_s=float(A_s_values[i]))
             rd = run_dirs[i]
-            if resume and os.path.exists(_final_snapshot(rd, member)):
+            if i not in wanted or (resume and os.path.exists(
+                    _final_snapshot(rd, member))):
                 skipped.append(i)
                 continue
+            res = None
             for attempt in range(max_retries):
                 try:
-                    run_simulation(member, seed=int(seeds[i]), workdir=rd,
-                                   base=config, device=device, dtype=dtype)
+                    res = run_simulation(member, seed=int(seeds[i]),
+                                         workdir=rd, base=config,
+                                         device=device, dtype=dtype)
                     break
                 except Exception:  # noqa: BLE001 - retry, then record
                     if attempt == max_retries - 1:
                         failed.append(i)
                         record(f"member {i}")
+            if res is not None and on_final_state is not None:
+                on_final_state(i, res.state)
     return EnsembleResult(run_dirs=run_dirs, params=params, seeds=seeds,
                           failed=failed, skipped=skipped,
                           wall_s=time.perf_counter() - t0)

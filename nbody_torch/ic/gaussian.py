@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from nbody_torch.mesh.grids import kmag
+from nbody_torch.mesh.grids import irfft3, kmag, rfft3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +65,44 @@ def gaussian_delta_k(spec: GRFSpec, power: Callable, amplitude: float = 1.0,
     amp = np.sqrt(np.maximum(amp2, 0.0))
     amp[0, 0, 0] = 0.0  # zero the DC mode (mean overdensity 0)
     return wk * torch.as_tensor(amp, device=wk.device, dtype=dtype)
+
+
+def member_generator(master_seed: int, i: int) -> torch.Generator:
+    """Volume i's own CPU generator for the draws of ``master_seed``, so
+    a volume's field does not depend on the others drawn with it."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence(
+        [int(master_seed), int(i)]).generate_state(1, np.uint64)[0]))
+
+
+def gaussian_field(spec: GRFSpec, power: Callable, amplitudes,
+                   generators=None, *, noise=None, device="cuda",
+                   dtype=torch.float32):
+    """B real-space delta(x) realizations, (B, nmesh, nmesh, nmesh) on
+    ``device``: volume b at P(k) x ``amplitudes[b]``, its unit white
+    noise drawn in float64 from ``generators[b]`` (cast to ``dtype``) or
+    ``noise[b]`` (noise (B, nmesh, nmesh, nmesh)); one batched rfft and
+    irfft over the B volumes."""
+    nmesh, box = spec.nmesh, spec.box
+    amplitudes = np.asarray(amplitudes, dtype=np.float64).reshape(-1)
+    B = len(amplitudes)
+    if noise is None:
+        if generators is None or len(generators) != B:
+            raise ValueError(f"need {B} generators or the noise")
+        w = torch.stack([torch.randn((nmesh,) * 3, generator=g,
+                                     device=g.device, dtype=torch.float64)
+                         .to(device) for g in generators]).to(dtype)
+    else:
+        w = torch.as_tensor(np.array(noise), device=device, dtype=dtype)
+        if w.shape != (B,) + (nmesh,) * 3:
+            raise ValueError(f"noise shape {tuple(w.shape)} != "
+                             f"{(B,) + (nmesh,) * 3}")
+    km = kmag(nmesh, box, rfft=True, dtype=torch.float64).numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):  # k = 0, zeroed below
+        amp2 = (amplitudes[:, None, None, None] * np.asarray(power(km))[None]
+                * (nmesh**3 / box**3))
+    if spec.convention == "fac":
+        amp2 = amp2 * (2.0 * np.pi)
+    amp = np.sqrt(np.maximum(amp2, 0.0))
+    amp[:, 0, 0, 0] = 0.0  # zero the DC mode (mean overdensity 0)
+    return irfft3(rfft3(w) * torch.as_tensor(amp, device=w.device,
+                                             dtype=dtype), nmesh)

@@ -102,3 +102,14 @@ def read_snapshot(path, species: str = "matter", *, device=None,
                                  np.full(pos.shape[0], mass), meta.a,
                                  device=device, dtype=dtype)
     return state, meta
+
+
+def find_hdf5_files(root) -> list:
+    """The ``*.hdf5`` / ``*.h5`` files under ``root``, sorted (the
+    reference's ``find_all_hdf5``)."""
+    hits = []
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for name in filenames:
+            if name.endswith(".hdf5") or name.endswith(".h5"):
+                hits.append(os.path.join(dirpath, name))
+    return sorted(hits)

@@ -90,14 +90,23 @@ Writes, under ``tests/data/torch_port/``:
   ``draw_A_s(4)``), and ``powerspec_a=1.00_n16_ensemble4_member{b}_seed0``:
   the P(k) at a = 1 of member b of ``run_members_batched(CONFIG, seeds,
   A_s, base=CONFIG)`` (the ``vmap`` of the fixed-step run, P3M dense tier;
-  K1 in interpret mode), measured with ``measure_powerspec``.
+  K1 in interpret mode), measured with ``measure_powerspec``;
+* ``emulator_n16_seed0.npz``: the 16^3 emulator fixture: 20 volumes of
+  ``create_linear_dataset`` (box 500, the pipeline's +-20 sigma A_s band,
+  val_size 0.25) as ``DeltaDataset`` splits (``X_train``, ``y_train``,
+  ``X_val``, ``y_val``, ``maxima``), the init params of
+  ``CosmoCNN(n_out=1, n_conv=2, dropout_rate=0)`` that
+  ``_fit_host_loop`` draws for seed 0 (``param:<layer>/<name>``), and
+  that loop's history over 3 epochs at batch 4, lr 4e-3, no augmentation
+  (``train_loss``, ``val_loss``, ``lr``, ``best_epoch``,
+  ``best_val_loss``).
 
 It also checks that the port's ICs from the saved noise equal the JAX
 package's ICs.  Run from the repository root on a CPU machine with JAX:
 
     python scripts/torch_port_reference.py [pk] [pp] [plummer] [domain]
         [domain_rungs] [sharded] [sub] [domain_ic] [adaptive] [ensemble]
-        [_TAG ...]
+        [emulator] [_TAG ...]
 
 where ``pk`` writes the noise and the dense, supercell and rung files,
 ``pp`` the PP run's P(k), ``plummer`` the Plummer series, ``domain``
@@ -105,8 +114,8 @@ the four domain runs' P(k), ``domain_rungs`` the three domain rung
 runs, ``sharded`` the 4-device PP run's P(k) and the sharded P3M
 force, ``sub`` the three subcycled runs' P(k), ``domain_ic`` the
 domain draw, its ICs and its realized spectrum, ``adaptive`` the four
-adaptive runs and ``ensemble`` the batched 16^3 ensemble (all ten
-without arguments); an argument ``_TAG`` runs the one run of that file-name tag
+adaptive runs, ``ensemble`` the batched 16^3 ensemble and ``emulator``
+the emulator fixture (all eleven without arguments); an argument ``_TAG`` runs the one run of that file-name tag
 (e.g. ``_sub4``), so that the runs can go in parallel processes.
 """
 
@@ -383,9 +392,61 @@ def ensemble_runs() -> None:
         print(f"  wrote {name}")
 
 
+#: the emulator fixture: volumes, split, fit
+EMULATOR = dict(n=20, nmesh=16, box=500.0, val_size=0.25, batch_size=4,
+                epochs=3, lr=4e-3, seed=0)
+
+
+def emulator_fixture() -> None:
+    """The 16^3 emulator fixture: the volumes and labels, the init
+    params ``_fit_host_loop`` draws for its seed and its 3-epoch history
+    with dropout 0 and no augmentation."""
+    from nbody.driver.pipeline import A_S_CENTER, A_S_SIGMA
+    from nbody.emulator.data import DeltaDataset, create_linear_dataset
+    from nbody.emulator.model import CosmoCNN
+    from nbody.emulator.train import _fit_host_loop
+
+    e = EMULATOR
+    with tempfile.TemporaryDirectory() as root:
+        create_linear_dataset(root, e["n"], z=0.0, box=e["box"],
+                              nmesh=e["nmesh"],
+                              A_s_min=A_S_CENTER - 20 * A_S_SIGMA,
+                              A_s_max=A_S_CENTER + 20 * A_S_SIGMA,
+                              val_size=e["val_size"])
+        train = DeltaDataset.from_directory(root, "train")
+        val = DeltaDataset.from_directory(root, "val")
+    model = CosmoCNN(n_out=1, n_conv=2, dropout_rate=0.0)
+    # the init of _fit_host_loop (nbody/emulator/train.py:366-373)
+    _, kinit = jax.random.split(jax.random.key(e["seed"]))
+    params = model.init({"params": kinit, "dropout": kinit, "sample": kinit},
+                        jnp.zeros((1,) + (e["nmesh"],) * 3, jnp.float32),
+                        deterministic=True)["params"]
+    res = _fit_host_loop(
+        model, train, val, epochs=e["epochs"], batch_size=e["batch_size"],
+        lr=e["lr"], seed=e["seed"], augment=False, kl_weight=None,
+        early_stop_patience=None, early_stop_start=300,
+        reduce_lr_patience=None, reduce_lr_factor=0.5, min_lr=1e-5,
+        checkpoint_path=None, verbose=False, devices=1)
+    flat = {f"param:{layer}/{name}": np.asarray(arr)
+            for layer, group in params.items() for name, arr in group.items()}
+    path = os.path.join(OUT, f"emulator_n{e['nmesh']}_seed{e['seed']}.npz")
+    np.savez(path, X_train=train.X, y_train=train.y, X_val=val.X,
+             y_val=val.y, maxima=train.maxima,
+             train_loss=np.asarray(res.history["train_loss"]),
+             val_loss=np.asarray(res.history["val_loss"]),
+             lr=np.asarray(res.history["lr"]),
+             best_epoch=res.best_epoch, best_val_loss=res.best_val_loss,
+             **flat)
+    print(f"emulator fixture: {len(train)} train, {len(val)} val volumes; "
+          f"history {res.history['train_loss']} / {res.history['val_loss']};"
+          f" wrote {os.path.basename(path)} ({os.path.getsize(path)} bytes)")
+
+
 def main(which) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT, exist_ok=True)
+    if "emulator" in which:
+        emulator_fixture()
     if "plummer" in which:
         plummer_series()
     # the draw inside lpt_ic -> gaussian_delta_k -> white_noise_k
@@ -477,4 +538,4 @@ def main(which) -> None:
 if __name__ == "__main__":
     main(sys.argv[1:] or ["pk", "pp", "plummer", "domain", "domain_rungs",
                           "sharded", "sub", "domain_ic", "adaptive",
-                          "ensemble"])
+                          "ensemble", "emulator"])

@@ -1538,3 +1538,99 @@ def test_batched_plane_tiers_on_gpu_match_cpu(cuda, tier):
                               log=lambda m: None)
     d = (gpu.pos.cpu() - cpu.pos).abs()
     assert float(torch.minimum(d, cfg.box - d).max()) < 1e-3
+
+
+# -- the emulator on the card ----------------------------------------------
+
+EMU_F64_TOL = 1e-5  # chip_smoke.py's EMULATOR_F64_TOL
+
+
+@pytest.mark.parametrize("kw", [{}, dict(heteroscedastic=True, n_out=2),
+                                dict(global_pool=False, dim=16)],
+                         ids=["mc", "nll", "flatten"])
+def test_emulator_model_on_gpu_matches_float64(cuda, kw):
+    """CosmoCNN in float32 on the card (cuDNN deterministic, no TF32)
+    against the same weights in float64 on the CPU: the outputs and one
+    step's gradients to 1e-5 relative L2."""
+    from nbody_torch.emulator.model import (
+        CosmoCNN,
+        deterministic_cudnn,
+        gaussian_nll,
+        mse_loss,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 16, 16, 16, generator=g)
+    y = 0.9 + 0.1 * torch.rand(3, kw.get("n_out", 1), generator=g)
+    loss = gaussian_nll if kw.get("heteroscedastic") else mse_loss
+    gpu = CosmoCNN(**kw).to(cuda)
+    cpu = CosmoCNN(**kw).double()
+    pg, _ = gpu(x.to(cuda))
+    pc, _ = cpu(x.double())
+    assert pg.dtype == torch.float32 and pc.dtype == torch.float64
+    err = float((pg.cpu().double() - pc).norm() / pc.norm())
+    assert err <= EMU_F64_TOL
+    with deterministic_cudnn():
+        loss(pg, y.to(cuda)).backward()
+    loss(pc, y.double()).backward()
+    gg = torch.cat([p.grad.reshape(-1).cpu().double()
+                    for p in gpu.parameters()])
+    gc = torch.cat([p.grad.reshape(-1) for p in cpu.parameters()])
+    assert float((gg - gc).norm() / gc.norm()) <= EMU_F64_TOL
+
+
+def test_emulator_augment_on_gpu_equals_cpu(cuda):
+    from nbody_torch.emulator.data import augment_batch, augment_cases
+
+    X = torch.randn(96, 8, 8, 8)
+    combo = torch.arange(96)
+    flips = torch.stack([(combo >> 2) & 1, (combo >> 1) & 1, combo & 1],
+                        dim=1).bool()
+    got = augment_cases(X.to(cuda), flips.to(cuda), (combo // 8).to(cuda))
+    assert torch.equal(got.cpu(), augment_cases(X, flips, combo // 8))
+    a = augment_batch(X.to(cuda), torch.Generator(cuda).manual_seed(2))
+    b = augment_batch(X.to(cuda), torch.Generator(cuda).manual_seed(2))
+    assert torch.equal(a, b)
+
+
+def test_emulator_fit_on_gpu_repeats_its_bits(cuda):
+    """Two fits of one seed (augmentation and dropout on) on the card:
+    the same history and parameters, bit for bit."""
+    from nbody_torch.emulator.data import DeltaDataset
+    from nbody_torch.emulator.model import CosmoCNN
+    from nbody_torch.emulator.train import fit
+
+    rng = np.random.default_rng(0)
+    ds = DeltaDataset(rng.normal(size=(24, 16, 16, 16)).astype(np.float32),
+                      rng.uniform(0.9, 1.0, (24, 1)).astype(np.float32),
+                      np.ones(1))
+    va = DeltaDataset(ds.X[:5], ds.y[:5], ds.maxima)
+    a = fit(CosmoCNN(), ds, va, epochs=3, batch_size=8, seed=4)
+    b = fit(CosmoCNN(), ds, va, epochs=3, batch_size=8, seed=4)
+    assert a.history == b.history
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    assert all(v.is_cuda for v in a.params.values())
+
+
+def test_emulator_data_on_gpu_matches_cpu(cuda, tmp_path):
+    """create_linear_dataset and state_to_delta on the card against the
+    CPU: the same generators, float32 FFTs to 1e-5 of the largest
+    value."""
+    from nbody_torch.emulator.data import (
+        create_linear_dataset,
+        delta_path,
+        state_to_delta,
+    )
+
+    kw = dict(z=0.0, box=500.0, nmesh=16, A_s_min=1.5e-9, A_s_max=2.7e-9)
+    create_linear_dataset(str(tmp_path / "gpu"), 6, **kw)
+    create_linear_dataset(str(tmp_path / "cpu"), 6, device="cpu", **kw)
+    for i in range(1, 7):
+        a = np.load(delta_path(str(tmp_path / "gpu"), i))
+        b = np.load(delta_path(str(tmp_path / "cpu"), i))
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+    pos = torch.rand((2, 4096, 3), generator=torch.Generator().manual_seed(1),
+                     dtype=torch.float64).float() * 500.0
+    got = state_to_delta(pos.to(cuda), 500.0, 16).cpu()
+    ref = state_to_delta(pos, 500.0, 16)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
